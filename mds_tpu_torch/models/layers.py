@@ -1,0 +1,285 @@
+"""PyTorch building blocks of the port: per-dataset BN and conv blocks.
+
+Counterparts of mds_tpu/models/layers.py for the eval path. Multi-dataset
+activations flow as per-dataset lists where an absent dataset is None.
+Tensors are logically NCHW and stored channels_last; the compute dtype is
+explicit (`dtype`, bf16 for serving), params and BN math are f32.
+
+The module and buffer names follow the reference torch layout that
+mds_tpu/deploy/torch_import.py speaks (`<block>.conv.weight`,
+`<block>.affine_weight`, `<block>.bn.{i}.running_mean`, ...).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+MultiX = Sequence[Optional[torch.Tensor]]
+Coeffs = List[Optional[Tuple[torch.Tensor, torch.Tensor]]]
+
+
+def lmap(fn: Callable, xs: MultiX) -> List[Optional[torch.Tensor]]:
+    """Map over a per-dataset list, passing None through."""
+    return [None if x is None else fn(x) for x in xs]
+
+
+def lmap2(fn: Callable, xs: MultiX, ys: MultiX) -> List[Optional[torch.Tensor]]:
+    return [None if (x is None or y is None) else fn(x, y)
+            for x, y in zip(xs, ys)]
+
+
+def as_multi(x: torch.Tensor, dataset: int, n: int) -> List[Optional[torch.Tensor]]:
+    """Wrap a single-dataset tensor into the list form."""
+    return [x if i == dataset else None for i in range(n)]
+
+
+# Stem route for the stride-2 3×3 RGB convs in eval: "plain" (library conv)
+# or "kernel" (ops/stem.py stem_conv_bn_relu_s2 with the BN folded in).
+_STEM_IMPL = "plain"
+
+
+def set_stem_impl(impl: str) -> None:
+    if impl not in ("plain", "kernel"):
+        raise ValueError(f"stem impl must be 'plain' or 'kernel', got {impl!r}")
+    global _STEM_IMPL
+    _STEM_IMPL = impl
+
+
+def get_stem_impl() -> str:
+    return _STEM_IMPL
+
+
+# Deploy fusion of the DetailBranch S1_1+S1_2+S2_1 and of the whole StemBlock
+# into one kernel each (ops/stem.py detail_s1s2_fused, stemblock_fused).
+_DETAIL_FUSE = False
+
+
+def set_detail_fuse(enable: bool = True) -> None:
+    global _DETAIL_FUSE
+    _DETAIL_FUSE = enable
+
+
+def get_detail_fuse() -> bool:
+    return _DETAIL_FUSE
+
+
+def _c(v: torch.Tensor) -> torch.Tensor:
+    """A per-channel vector shaped to broadcast over NCHW."""
+    return v.reshape(1, -1, 1, 1)
+
+
+class DatasetNorm(nn.ModuleList):
+    """Per-dataset eval BatchNorm: entry i holds dataset i's running stats
+    (and its own affine when `affine`), as the reference's
+    `ModuleList([BatchNorm2d] * n_bn)`. Without `affine`, the parent block
+    owns a shared affine pair and passes it in as `shared=(weight, bias)`.
+
+    y = ((x − mean_i)·rsqrt(var_i + eps))·w + b in f32, cast to `dtype`
+    (mds_tpu/models/layers.py:139-143); `fold` returns the equivalent
+    per-dataset (scale, bias) (:96-115)."""
+
+    def __init__(self, features: int, n_bn: int = 1, eps: float = 1e-5,
+                 affine: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__(
+            nn.BatchNorm2d(features, eps=eps, affine=affine)
+            for _ in range(n_bn))
+        self.eps = eps
+        self.dtype = dtype
+
+    def _affine(self, i: int, shared) -> Tuple:
+        return shared if shared is not None else (self[i].weight, self[i].bias)
+
+    def fold(self, xs: MultiX, shared=None) -> Coeffs:
+        out: Coeffs = []
+        for i, x in enumerate(xs):
+            if x is None:
+                out.append(None)
+                continue
+            w, b = self._affine(i, shared)
+            s = torch.rsqrt(self[i].running_var.float() + self.eps) * w.float()
+            out.append((s, b.float() - self[i].running_mean.float() * s))
+        return out
+
+    def forward(self, xs: MultiX, shared=None) -> List[Optional[torch.Tensor]]:
+        if len(xs) != len(self):
+            raise ValueError(f"{len(xs)} inputs for {len(self)} datasets")
+        outs: List[Optional[torch.Tensor]] = []
+        for i, x in enumerate(xs):
+            if x is None:
+                outs.append(None)
+                continue
+            bn = self[i]
+            y = (x.float() - _c(bn.running_mean.float())) * _c(
+                torch.rsqrt(bn.running_var.float() + self.eps))
+            w, b = self._affine(i, shared)
+            outs.append((y * _c(w.float()) + _c(b.float())).to(self.dtype))
+        return outs
+
+
+def conv_init(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """He/kaiming normal, fan-out — the reference's init convention
+    (mds_tpu/models/layers.py:150)."""
+    nn.init.kaiming_normal_(weight, mode="fan_out", nonlinearity="relu",
+                            generator=generator)
+
+
+def lecun_init(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """Normal with std 1/sqrt(fan_in): flax nn.Conv's default, for the plain
+    convs that carry no BN."""
+    fan_in = weight[0].numel()
+    nn.init.normal_(weight, 0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Run a conv's geometry in the compute dtype on f32 params."""
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride,
+                    conv.padding, conv.dilation, conv.groups)
+
+
+class StemConv3x3S2(nn.Conv2d):
+    """Stride-2 3×3 conv on a few-channel (RGB) input whose eval path runs
+    conv → folded BN → [ReLU] in one pass: the stem kernel for a bf16
+    3-channel input with even H and W (ops/stem.py stem_conv_bn_relu_s2),
+    the same chain on library ops otherwise (mds_tpu/models/layers.py:319)."""
+
+    def __init__(self, in_chan: int, out_chan: int):
+        super().__init__(in_chan, out_chan, 3, stride=2, padding=1, bias=False)
+
+    def fused(self, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              relu: bool, dtype: torch.dtype) -> torch.Tensor:
+        x = x.to(dtype)
+        if (dtype == torch.bfloat16 and x.shape[1] == 3
+                and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0):
+            from mds_tpu_torch.ops.stem import stem_conv_bn_relu_s2
+
+            return stem_conv_bn_relu_s2(x, self.weight.to(dtype), scale, bias,
+                                        relu=relu)
+        y = conv2d(self, x, dtype).float() * _c(scale) + _c(bias)
+        return (F.relu(y) if relu else y).to(dtype)
+
+
+class ConvBNReLU(nn.Module):
+    """conv → per-dataset BN → shared (or per-dataset) affine → ReLU
+    (mds_tpu/models/layers.py:468). One conv, shared weights, applied to each
+    dataset's tensor. Grouped convs (groups == in_chan, with a channel
+    multiplier) are grouped F.conv2d calls."""
+
+    def __init__(self, in_chan: int, out_chan: int, ks: int = 3,
+                 stride: int = 1, groups: int = 1, n_bn: int = 1,
+                 relu: bool = True, shared_affine: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if groups == 1 and ks == 3 and stride == 2 and in_chan <= 4:
+            self.conv = StemConv3x3S2(in_chan, out_chan)
+        else:
+            self.conv = nn.Conv2d(in_chan, out_chan, ks, stride,
+                                  padding=ks // 2, groups=groups, bias=False)
+        self.bn = DatasetNorm(out_chan, n_bn, affine=not shared_affine,
+                              dtype=dtype)
+        if shared_affine:
+            self.affine_weight = nn.Parameter(torch.ones(out_chan))
+            self.affine_bias = nn.Parameter(torch.zeros(out_chan))
+        self.shared_affine = shared_affine
+        self.relu = relu
+        self.dtype = dtype
+
+    def _shared(self):
+        return (self.affine_weight, self.affine_bias) if self.shared_affine else None
+
+    def fold(self, xs: MultiX) -> Coeffs:
+        return self.bn.fold(xs, self._shared())
+
+    def folded(self, xs: MultiX) -> Tuple[torch.Tensor, Coeffs]:
+        """The `emit="folded"` counterpart: the raw conv weight and the
+        per-dataset folded (scale, bias), for the fused kernels."""
+        return self.conv.weight, self.fold(xs)
+
+    def forward(self, xs: MultiX) -> List[Optional[torch.Tensor]]:
+        if isinstance(self.conv, StemConv3x3S2) and _STEM_IMPL == "kernel":
+            return [
+                None if x is None
+                else self.conv.fused(x, cf[0], cf[1], self.relu, self.dtype)
+                for x, cf in zip(xs, self.fold(xs))
+            ]
+        xs = lmap(lambda x: conv2d(self.conv, x, self.dtype), xs)
+        xs = self.bn(xs, self._shared())
+        return lmap(F.relu, xs) if self.relu else xs
+
+
+def ConvBN(*args, **kw) -> ConvBNReLU:
+    """ConvBNReLU without the ReLU (mds_tpu/models/layers.py:567)."""
+    return ConvBNReLU(*args, relu=False, **kw)
+
+
+def upsample(x: torch.Tensor, factor: int, method: str = "nearest") -> torch.Tensor:
+    """Integer-factor spatial upsample: 'nearest', or 'bilinear' with
+    align_corners=False (half-pixel), computed in f32."""
+    h, w = x.shape[-2:]
+    if method == "nearest":
+        return F.interpolate(x, size=(h * factor, w * factor), mode="nearest")
+    out = F.interpolate(x.float(), size=(h * factor, w * factor),
+                        mode="bilinear", align_corners=False)
+    return out.to(x.dtype)
+
+
+def resize_bilinear(x: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize to a target size (align_corners=False), in f32; a
+    shrinking axis is antialiased as jax.image.resize does."""
+    h, w = x.shape[-2:]
+    out = F.interpolate(x.float(), size=tuple(size_hw), mode="bilinear",
+                        align_corners=False,
+                        antialias=size_hw[0] < h or size_hw[1] < w)
+    return out.to(x.dtype)
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    return F.max_pool2d(x, 3, 2, 1)
+
+
+def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool2d(3, stride=2, padding=1) with count_include_pad=True."""
+    return F.avg_pool2d(x, 3, 2, 1, count_include_pad=True)
+
+
+class SegmentHead(nn.Module):
+    """Per-dataset segmentation head in eval (mds_tpu/models/layers.py:770):
+    conv3×3-BN-ReLU(in→mid) → [dropout: identity in eval] → [aux: ×2 nearest
+    → conv3×3-BN-ReLU(mid→up²)] → 1×1 conv with bias → bilinear ×up in the
+    compute dtype."""
+
+    def __init__(self, in_chan: int, mid_chan: int, n_classes: int,
+                 up_factor: int = 8, aux: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = ConvBNReLU(in_chan, mid_chan, 3, dtype=dtype)
+        out_in = mid_chan
+        if aux:
+            out_in = up_factor * up_factor
+            self.conv1 = ConvBNReLU(mid_chan, out_in, 3, dtype=dtype)
+        self.conv2 = nn.Conv2d(out_in, n_classes, 1, bias=True)
+        self.up_factor = up_factor
+        self.aux = aux
+        self.dtype = dtype
+
+    @property
+    def residual_factor(self) -> int:
+        """Upsample factor still owed when called with up=False."""
+        return self.up_factor // 2 if self.aux else self.up_factor
+
+    def forward(self, x: torch.Tensor, up: bool = True) -> torch.Tensor:
+        (x,) = self.conv([x])
+        if self.aux:
+            (x,) = self.conv1([upsample(x, 2, "nearest")])
+        x = conv2d(self.conv2, x, self.dtype)
+        factor = self.residual_factor
+        if up and factor > 1:
+            h, w = x.shape[-2:]
+            x = F.interpolate(x, size=(h * factor, w * factor),
+                              mode="bilinear", align_corners=False)
+        return x

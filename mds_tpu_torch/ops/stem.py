@@ -1,0 +1,232 @@
+"""The BiSeNetV2 deploy stem kernels: wrappers, plain versions, counters.
+
+Counterparts of mds_tpu/ops/pallas/stem.py on the serving path:
+
+  stem_conv_bn_relu_s2  ← _stem_fwd (fused case)     — csrc/stem.cu kernel 1
+  detail_s1s2_fused     ← detail_s1s2_fused          — csrc/stem.cu kernel 2
+  stemblock_fused       ← stemblock_fused            — csrc/stem.cu kernel 3
+
+Each wrapper takes logically NCHW tensors stored channels_last (NHWC in
+memory), torch OIHW conv weights and the folded eval-BN (scale, bias) of each
+conv. On a CPU tensor it runs its `*_plain` version, which has the same
+folding and rounding points built from F.conv2d / F.max_pool2d in f32 with
+explicit bf16 casts. On a CUDA tensor it launches the CUDA kernel or raises.
+`<wrapper>.launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+_BF16 = torch.bfloat16
+_CL = torch.channels_last
+
+
+def _fold(k: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """k·scale per output channel, in f32 (OIHW)."""
+    return k.float() * scale.float().reshape(-1, 1, 1, 1)
+
+
+def _fold_bf16(k: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """bf16(k·scale) as f32 values — the fused kernels' weights after stage A."""
+    return _fold(k, scale).to(_BF16).float()
+
+
+def _conv(x, w, b, stride=1, pad=1):
+    return F.conv2d(x.float(), w, b.float(), stride=stride, padding=pad)
+
+
+def _out(y: torch.Tensor) -> torch.Tensor:
+    return y.to(_BF16).contiguous(memory_format=_CL)
+
+
+# ------------------------------------------------------------------ checks
+
+def _is_cpu(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"expected a CPU or CUDA tensor, got {x.device}")
+    return False
+
+
+def _check_image(x: torch.Tensor, mult: int, name: str) -> None:
+    if x.dtype != _BF16:
+        raise TypeError(f"{name}: x must be bfloat16, got {x.dtype}")
+    if x.dim() != 4 or x.shape[1] != 3:
+        raise ValueError(f"{name}: x must be (B, 3, H, W), got {tuple(x.shape)}")
+    b, _, h, w = x.shape
+    if b < 1 or h % mult or w % mult:
+        raise ValueError(f"{name}: need B >= 1 and H, W divisible by {mult}, "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous(memory_format=_CL):
+        raise ValueError(f"{name}: x must be channels_last contiguous")
+
+
+def _check_params(x: torch.Tensor, name: str, ts: Sequence[torch.Tensor]):
+    for t in ts:
+        if t.device != x.device:
+            raise ValueError(f"{name}: parameter on {t.device}, x on {x.device}")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def _stem_table(k: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """(28, O) f32: rows (dy·3+dx)·3+ci hold k·scale, row 27 the bias."""
+    o = k.shape[0]
+    w = _fold(k, scale).permute(2, 3, 1, 0).reshape(27, o)
+    return torch.cat([w, bias.float().reshape(1, o)]).contiguous()
+
+
+def _mma_b_pack(wb: torch.Tensor) -> torch.Tensor:
+    """bf16 3×3 64→64 weights (OIHW, values already bf16) → the B fragments
+    of mma.sync m16n8k16 in launch order: [tap][kc][n-tile][lane][4] with
+    lane = n·4 + t holding k = 2t, 2t+1, 2t+8, 2t+9 of its 16-deep chunk."""
+    wt = wb.permute(2, 3, 1, 0).reshape(9, 4, 2, 4, 2, 8, 8)
+    # dims: tap, kc, kh, t, kl, nt, n  →  tap, kc, nt, n, t, kh, kl
+    return wt.permute(0, 1, 5, 6, 3, 2, 4).contiguous().to(_BF16)
+
+
+# ------------------------------------------------- kernel 1: the RGB stem
+
+def stem_conv_bn_relu_s2_plain(x, k, scale, bias, relu=False):
+    """3×3 s2 p1 conv on RGB with folded BN, optional ReLU, bf16 out."""
+    y = _conv(x, _fold(k, scale), bias, stride=2)
+    return _out(F.relu(y) if relu else y)
+
+
+def stem_conv_bn_relu_s2(x, k, scale, bias, relu=False):
+    """x (B,3,H,W) bf16 channels_last, H and W even; k (O,3,3,3) with
+    O % 8 == 0 and O <= 128 → (B,O,H/2,W/2) bf16 channels_last."""
+    if _is_cpu(x):
+        return stem_conv_bn_relu_s2_plain(x, k, scale, bias, relu)
+    name = "stem_conv_bn_relu_s2"
+    _check_image(x, 2, name)
+    _check_params(x, name, (k, scale, bias))
+    o = k.shape[0]
+    if tuple(k.shape[1:]) != (3, 3, 3) or o % 8 or o > 128:
+        raise ValueError(f"{name}: k must be (O,3,3,3), O % 8 == 0, O <= 128")
+    from mds_tpu_torch.ops.build import load
+
+    b, _, h, w = x.shape
+    table = _stem_table(k, scale, bias)
+    out = torch.empty((b, o, h // 2, w // 2), dtype=_BF16, device=x.device,
+                      memory_format=_CL)
+    err = load().mds_stem_conv_bn_relu_s2(
+        _ptr(x), _ptr(table), _ptr(out), b, h, w, o, int(relu), _stream())
+    _raise_on(err, name)
+    stem_conv_bn_relu_s2.launches += 1
+    return out
+
+
+stem_conv_bn_relu_s2.launches = 0
+
+
+# ------------------------------------------- kernel 2: detail S1_1+S1_2+S2_1
+
+def detail_s1s2_fused_plain(x, k1, s1, b1, k2, s2, b2, k3, s3, b3):
+    y = F.relu(_conv(x, _fold(k1, s1), b1, stride=2)).to(_BF16)
+    y = F.relu(_conv(y, _fold_bf16(k2, s2), b2)).to(_BF16)
+    return _out(F.relu(_conv(y, _fold_bf16(k3, s3), b3, stride=2)))
+
+
+def detail_s1s2_fused(x, k1, s1, b1, k2, s2, b2, k3, s3, b3):
+    """DetailBranch S1_1 → S1_2 → S2_1 with folded BNs and ReLUs.
+    x (B,3,H,W) bf16 channels_last, H and W divisible by 4; k1 (64,3,3,3),
+    k2/k3 (64,64,3,3) → (B,64,H/4,W/4) bf16 channels_last."""
+    if _is_cpu(x):
+        return detail_s1s2_fused_plain(x, k1, s1, b1, k2, s2, b2, k3, s3, b3)
+    name = "detail_s1s2_fused"
+    _check_image(x, 4, name)
+    _check_params(x, name, (k1, s1, b1, k2, s2, b2, k3, s3, b3))
+    if (tuple(k1.shape) != (64, 3, 3, 3) or tuple(k2.shape) != (64, 64, 3, 3)
+            or tuple(k3.shape) != (64, 64, 3, 3)):
+        raise ValueError(f"{name}: bad kernel shapes {k1.shape} {k2.shape} "
+                         f"{k3.shape}")
+    from mds_tpu_torch.ops.build import load
+
+    b, _, h, w = x.shape
+    w1 = _stem_table(k1, s1, b1)
+    w2p, w3p = _mma_b_pack(_fold_bf16(k2, s2)), _mma_b_pack(_fold_bf16(k3, s3))
+    b2f, b3f = b2.float().contiguous(), b3.float().contiguous()
+    out = torch.empty((b, 64, h // 4, w // 4), dtype=_BF16, device=x.device,
+                      memory_format=_CL)
+    err = load().mds_detail_s1s2_fused(
+        _ptr(x), _ptr(w1), _ptr(w2p), _ptr(b2f), _ptr(w3p), _ptr(b3f),
+        _ptr(out), b, h, w, _stream())
+    _raise_on(err, name)
+    detail_s1s2_fused.launches += 1
+    return out
+
+
+detail_s1s2_fused.launches = 0
+
+
+# ------------------------------------------------- kernel 3: the StemBlock
+
+def stemblock_fused_plain(x, k_s, s_s, b_s, k_l1, s_l1, b_l1,
+                          k_l2, s_l2, b_l2, k_f, s_f, b_f):
+    s = F.relu(_conv(x, _fold(k_s, s_s), b_s, stride=2))  # f32
+    t = F.relu(_conv(s.to(_BF16), _fold_bf16(k_l1, s_l1), b_l1, pad=0))
+    left = F.relu(_conv(t.to(_BF16), _fold_bf16(k_l2, s_l2), b_l2, stride=2))
+    right = F.max_pool2d(s, 3, 2, 1)
+    cat = torch.cat([left.to(_BF16), right.to(_BF16)], dim=1)
+    return _out(F.relu(_conv(cat, _fold_bf16(k_f, s_f), b_f)))
+
+
+def stemblock_fused(x, k_s, s_s, b_s, k_l1, s_l1, b_l1,
+                    k_l2, s_l2, b_l2, k_f, s_f, b_f):
+    """BiSeNetV2 StemBlock with folded BNs and ReLUs. x (B,3,H,W) bf16
+    channels_last, H and W divisible by 4; k_s (16,3,3,3), k_l1 (8,16,1,1),
+    k_l2 (16,8,3,3), k_f (16,32,3,3) → (B,16,H/4,W/4) bf16 channels_last."""
+    args = (k_s, s_s, b_s, k_l1, s_l1, b_l1, k_l2, s_l2, b_l2, k_f, s_f, b_f)
+    if _is_cpu(x):
+        return stemblock_fused_plain(x, *args)
+    name = "stemblock_fused"
+    _check_image(x, 4, name)
+    _check_params(x, name, args)
+    shapes = [tuple(k.shape) for k in (k_s, k_l1, k_l2, k_f)]
+    if shapes != [(16, 3, 3, 3), (8, 16, 1, 1), (16, 8, 3, 3), (16, 32, 3, 3)]:
+        raise ValueError(f"{name}: bad kernel shapes {shapes}")
+    from mds_tpu_torch.ops.build import load
+
+    b, _, h, w = x.shape
+    # one f32 table, laid out as csrc/stem.cu's kSb* offsets say
+    table = torch.cat([
+        _stem_table(k_s, s_s, b_s).flatten(),
+        _fold_bf16(k_l1, s_l1)[:, :, 0, 0].t().flatten(),
+        b_l1.float().flatten(),
+        _fold_bf16(k_l2, s_l2).permute(2, 3, 1, 0).flatten(),
+        b_l2.float().flatten(),
+        _fold_bf16(k_f, s_f).permute(2, 3, 1, 0).flatten(),
+        b_f.float().flatten(),
+    ]).contiguous()
+    assert table.numel() == 6376, table.numel()
+    out = torch.empty((b, 16, h // 4, w // 4), dtype=_BF16, device=x.device,
+                      memory_format=_CL)
+    err = load().mds_stemblock_fused(_ptr(x), _ptr(table), _ptr(out), b, h, w,
+                                     _stream())
+    _raise_on(err, name)
+    stemblock_fused.launches += 1
+    return out
+
+
+stemblock_fused.launches = 0
+
+KERNELS = (stem_conv_bn_relu_s2, detail_s1s2_fused, stemblock_fused)

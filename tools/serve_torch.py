@@ -1,0 +1,80 @@
+#!/usr/bin/env python
+"""Serve a model of the PyTorch port over HTTP on the GPU (see
+mds_tpu_torch/deploy/server.py for the protocol).
+
+  python tools/serve_torch.py --config configs/bisenetv2_city.json \
+      [--weights W.npz|W.pt] [--seed 0] [--size 1024 2048] [--port 8000] \
+      [--name bisenetv2]
+
+--weights takes an .npz of reference-layout keys (mds_tpu/deploy/
+torch_import.py) or a torch.save'd state dict; without it the weights are a
+seeded random init. The model runs in bf16 with the deploy kernels on
+(set_stem_impl("kernel"), set_detail_fuse(True)), always on CUDA.
+"""
+
+import argparse
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+
+def build_e2e(config: str, weights=None, seed: int = 0, device: str = "cuda"):
+    """Config (+ weights) → E2EModel in bf16 on `device`."""
+    import numpy as np
+    import torch
+
+    from mds_tpu.config import Configer
+    from mds_tpu.data.labels import get_spec
+    from mds_tpu_torch import MODELS
+    from mds_tpu_torch.deploy.e2e import E2EModel
+    from mds_tpu_torch.deploy.weights import load_reference_weights
+
+    cfg = Configer(config_file=config)
+    n = cfg.n_datasets
+    model = MODELS[cfg.get("model_name", default="bisenetv2")](
+        n_classes=tuple(cfg.n_cats(i) for i in range(n)), n_bn=n, aux=False,
+        dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    if weights:
+        if weights.endswith(".npz"):
+            with np.load(weights) as z:
+                state = {k: z[k] for k in z.files}
+        else:
+            state = torch.load(weights, map_location="cpu", weights_only=True)
+        load_reference_weights(model, state)
+    spec_name = cfg.dataset_cfg(0).get("spec")
+    spec = get_spec(spec_name) if spec_name else None
+    mean = spec.mean if spec else np.zeros(3, np.float32)
+    std = spec.std if spec else np.ones(3, np.float32)
+    return E2EModel(model, mean, std, device=device)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--weights", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--size", type=int, nargs=2, default=[1024, 2048])
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--name", default="bisenetv2")
+    args = ap.parse_args()
+
+    import torch
+
+    from mds_tpu_torch.deploy.server import InferenceServer
+    from mds_tpu_torch.models.layers import set_detail_fuse, set_stem_impl
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("serve_torch needs a CUDA device")
+    set_stem_impl("kernel")
+    set_detail_fuse(True)
+    srv = InferenceServer(build_e2e(args.config, args.weights, args.seed),
+                          tuple(args.size), name=args.name)
+    print(f"serving {args.name} {srv.in_shape} on :{args.port} "
+          f"({torch.cuda.get_device_name(0)})")
+    srv.serve(args.port)
+
+
+if __name__ == "__main__":
+    main()
