@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving path and train step once on one CUDA card.
 
   python3 chip_smoke.py
 
@@ -7,11 +7,20 @@ Phases, one JSON line each; any failure raises, so the script exits non-zero
 before the last line:
 
 1. device   — needs torch.cuda; the card's name and power limit.
-2. build    — nvcc builds mds_tpu_torch/csrc/*.cu for sm_90a.
-3. kernels  — each CUDA kernel at the serving shapes (B=1, 1024×2048)
+2. build    — nvcc builds mds_tpu_torch/csrc/*.cu for sm_90a, one process
+              per source.
+3. kernels  — each stem kernel at the serving shapes (B=1, 1024×2048)
               against its plain PyTorch version on the card (TF32 off),
-              rel max-diff < 1e-2, times as the median of 20 CUDA-event runs.
-4. slice    — BiSeNetV2 (configs/bisenetv2_city.json: 19 classes, bf16,
+              rel max-diff < 1e-2, times as the median of 20 CUDA-event
+              runs; beside the single stem, one bf16 F.conv2d with the
+              folded weight and bias (no ReLU) as the library's time.
+4. dropout  — the dropout kernel at the main head's shape (16, 1024, 64,
+              128) bf16 channels_last, rate 0.1: bit-identical to its plain
+              version, keep fraction within 0.002 of 230/256, kept values
+              scaled by bf16(256/230), masks fixed by the seed, and the
+              backward's mask the forward's; torch.native_dropout at the
+              same rate as the library's time.
+5. slice    — BiSeNetV2 (configs/bisenetv2_city.json: 19 classes, bf16,
               seeded weights, random BN stats) behind the port's HTTP server
               on 127.0.0.1 answers 3 requests of 1024×2048 uint8 frames with
               the deploy fusions on; then one E2EModel call on the stem-kernel
@@ -19,11 +28,26 @@ before the last line:
               kernel launch counts of that run are read, and every label map
               is held against the same model on the plain path (library ops):
               argmax agreement > 0.995 and logits rel max-diff < 2e-2.
+6. train    — the train step (BiSeNetV2 with aux heads, bf16, the config's
+              SGD and warmup-poly LR) at batch 16 of 512×1024 uint8 images:
+              2 warm-up steps, 5 timed ones (CUDA events, median), finite
+              losses, parameters and BN stats moved, 10 dropout launches per
+              step and no stem-kernel launch (the fused routes are eval-only);
+              one more step under torch.profiler gives the idle share and
+              the dropout kernel's device time.
+7. parity   — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
+              on the card (dropout kernel) and on the CPU (its plain
+              version), same weights and generator seed: loss rel < 1e-4,
+              per-group gradient cosine > 0.9999, parameters after the step
+              rel < 1e-4; and PyTorch's avg_pool2d backward on a
+              channels_last input, card against CPU, raw and through the
+              port's pool (which must agree to 1e-5).
 
 Then a {"kernels": [...]} line, the nvidia-smi name/power-limit line, and as
 the last line {"ok": true, "device": {...}}.
 """
 
+import copy
 import json
 import os
 import subprocess
@@ -33,11 +57,11 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 H, W = 1024, 2048
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "bisenetv2_city.json")
-SPECS = os.path.join(ROOT, "mds_tpu", "data", "label_specs.json")
 KERNEL_GATE = 1e-2     # rel max-diff, kernel vs its plain version
 ARGMAX_GATE = 0.995    # bench.py:296-297
 LOGITS_GATE = 2e-2
@@ -48,12 +72,21 @@ LOGITS_GATE = 2e-2
 # other five on more than 0.9996; seed 0's logits still agreed to rel
 # 0.012. The smoke model uses seed 1.
 WEIGHT_SEED = 1
-SOURCE = "mds_tpu_torch/csrc/stem.cu"
-REPLACES = {
-    "stem_conv_bn_relu_s2": "mds_tpu/ops/pallas/stem.py:143",
-    "detail_s1s2_fused": "mds_tpu/ops/pallas/stem.py:582",
-    "stemblock_fused": "mds_tpu/ops/pallas/stem.py:775",
+SOURCES = {
+    "stem_conv_bn_relu_s2": ("mds_tpu_torch/csrc/stem.cu",
+                             "mds_tpu/ops/pallas/stem.py:143"),
+    "detail_s1s2_fused": ("mds_tpu_torch/csrc/stem.cu",
+                          "mds_tpu/ops/pallas/stem.py:582"),
+    "stemblock_fused": ("mds_tpu_torch/csrc/stem.cu",
+                        "mds_tpu/ops/pallas/stem.py:775"),
+    "dropout_u8": ("mds_tpu_torch/csrc/dropout.cu",
+                   "mds_tpu/ops/pallas/dropout.py:54"),
 }
+# one H100 SXM (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+# the main head's dropout input at the config's batch and crop (16, 512×1024)
+DROPOUT_SHAPE = (16, 1024, 64, 128)
 
 
 def emit(**kw):
@@ -79,6 +112,22 @@ def cuda_ms(fn, n=20):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound(n_bytes, flops):
+    """(least ms, what bounds it): bytes over HBM's rate, operations over the
+    bf16 tensor rate, whichever is larger."""
+    t_mem, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations"
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def conv_flops(out, k):
+    """2·MACs of a conv whose output is `out` (B, O, H, W) with kernel k."""
+    return 2 * out.numel() * k[0].numel()
 
 
 def folded_bn(rng, n, dev):
@@ -122,7 +171,7 @@ def phase_kernels(dev):
     for name, arg_sets in calls.items():
         kernel, plain = getattr(stem, name), getattr(stem, name + "_plain")
         res = {"max_abs_err": 0.0, "rel": 0.0, "ms": 0.0, "plain_ms": 0.0,
-               "shapes": []}
+               "bound_ms": 0.0, "library_ms": None, "shapes": []}
         for args in arg_sets:
             before = kernel.launches
             got = kernel(*args)
@@ -144,12 +193,304 @@ def phase_kernels(dev):
             plain_ms = cuda_ms(lambda: plain(*args))
             res["ms"] += ms
             res["plain_ms"] += plain_ms
-            res["shapes"].append({"out": list(got.shape), "ms": ms,
-                                  "plain_ms": plain_ms})
+            x_in, ks = args[0], [a for a in args[1:] if torch.is_tensor(a) and a.dim() == 4]
+            flops = {  # the convs each kernel computes, from this run's shapes
+                "stem_conv_bn_relu_s2": lambda: conv_flops(got, ks[0]),
+                "detail_s1s2_fused": lambda: 2 * x_in.numel() // 3 // 4 * 64 * (27 + 576)
+                + conv_flops(got, ks[2]),
+                "stemblock_fused": lambda: 2 * x_in.numel() // 3 // 4 * (16 * 27 + 8 * 16)
+                + 2 * got.numel() * (8 * 9 + 32 * 9),
+            }[name]()
+            b_ms, b_by = bound(nbytes(*[a for a in args if torch.is_tensor(a)], got),
+                               flops)
+            res["bound_ms"] += b_ms
+            res["bound_by"] = b_by
+            shape = {"out": list(got.shape), "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms}
+            if name == "stem_conv_bn_relu_s2":
+                # the library's one call for the same conv: bf16 F.conv2d with
+                # the folded weight and bias (the ReLU left out)
+                k, scale, bias = args[1], args[2], args[3]
+                wf = (k.float() * scale.reshape(-1, 1, 1, 1)).to(torch.bfloat16)
+                bf = bias.to(torch.bfloat16)
+                shape["library_ms"] = cuda_ms(
+                    lambda: F.conv2d(x, wf, bf, stride=2, padding=1))
+                res["library_ms"] = (res["library_ms"] or 0.0) + shape["library_ms"]
+            res["shapes"].append(shape)
         emit(phase="kernels", kernel=name, plain="library ops in f32, TF32 off",
              **res)
         results[name] = res
     return results
+
+
+def kernels():
+    """Every kernel wrapper of the port, each with its launch counter."""
+    from mds_tpu_torch.ops import dropout, stem
+
+    return stem.KERNELS + dropout.KERNELS
+
+
+def reset_counts():
+    for k in kernels():
+        k.launches = 0
+
+
+def read_counts():
+    return {k.__name__: k.launches for k in kernels()}
+
+
+def phase_dropout(dev):
+    """The dropout kernel at the main head's shape against its plain version,
+    bit for bit, and its rule: keep rate, scale, seeds, backward mask."""
+    from mds_tpu_torch.ops.dropout import (
+        DropoutU8,
+        dropout_u8,
+        dropout_u8_plain,
+        seed_words,
+    )
+
+    drop = 26  # round(0.1 · 256)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(DROPOUT_SHAPE, device=dev, generator=gen).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    k0, k1 = seed_words(torch.Generator().manual_seed(1))
+    before = dropout_u8.launches
+    got = dropout_u8(x, k0, k1, drop)
+    torch.cuda.synchronize()
+    if dropout_u8.launches != before + 1:
+        raise RuntimeError("dropout_u8: launch counter did not move")
+    want = dropout_u8_plain(x, k0, k1, drop)
+    if not (got.is_contiguous(memory_format=torch.channels_last)
+            and torch.equal(got.view(torch.int16), want.view(torch.int16))):
+        raise RuntimeError("dropout_u8: not bit-identical to its plain version")
+    # the mask itself: the kernel on ones (x holds exact zeros: randn draws
+    # some, so y == 0 does not mean dropped)
+    ones = torch.ones_like(x)
+    keep = dropout_u8(ones, k0, k1, drop) != 0
+    keep_frac = keep.float().mean().item()
+    scale = torch.tensor(256 / 230, dtype=torch.bfloat16).item()
+    nz = keep & (x != 0)
+    ratio = (got.float()[nz] / x.float()[nz]).mean().item()
+    same = torch.equal(keep, dropout_u8(ones, k0, k1, drop) != 0)
+    other = torch.equal(keep, dropout_u8(ones, k0 ^ 1, k1, drop) != 0)
+    xg = x.detach().requires_grad_(True)
+    r = torch.randn(DROPOUT_SHAPE, device=dev, generator=gen).to(torch.bfloat16)
+    (DropoutU8.apply(xg, k0, k1, drop) * r).sum().backward()  # r arrives NCHW
+    grad_ok = torch.equal(xg.grad.view(torch.int16), torch.where(
+        keep, (r.float() * scale).to(torch.bfloat16), 0.0).view(torch.int16))
+    del ones, nz, xg, r
+    ms = cuda_ms(lambda: dropout_u8(x, k0, k1, drop))
+    plain_ms = cuda_ms(lambda: dropout_u8_plain(x, k0, k1, drop), n=5)
+    # the library's one call for the same function: drop with probability
+    # 26/256, scale the kept by 256/230 (in f32, not rounded to bf16 first);
+    # its mask comes from its own generator and is also written out
+    library_ms = cuda_ms(lambda: torch.native_dropout(x, drop / 256, True))
+    b_ms, b_by = bound(nbytes(x, got), 0)
+    res = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": library_ms}
+    emit(phase="dropout", shape=list(DROPOUT_SHAPE), keep_fraction=keep_frac,
+         mean_kept_ratio=ratio, bf16_scale=scale, same_seed_same_mask=same,
+         other_seed_other_mask=not other, backward_mask_ok=grad_ok, **res)
+    if abs(keep_frac - 230 / 256) > 0.002:
+        raise RuntimeError(f"dropout_u8: keep fraction {keep_frac}")
+    if abs(ratio - scale) > 1e-3 * scale or not same or other or not grad_ok:
+        raise RuntimeError("dropout_u8: scale, seed or backward check failed")
+    return res
+
+
+def train_step_for(cfg, model, compute_dtype):
+    """The config's optimizer, schedule and normalization around `model`."""
+    from mds_tpu_torch.data.labels import get_spec
+    from mds_tpu_torch.engine.lr_schedule import warmup_poly_lr
+    from mds_tpu_torch.engine.optim import build_optimizer
+    from mds_tpu_torch.engine.train_step import make_seg_train_step
+
+    schedule = warmup_poly_lr(
+        float(cfg.get("lr", "lr_start")), float(cfg.get("lr", "lr_power")),
+        int(cfg.get("lr", "max_iter")),
+        warmup_iter=int(cfg.get("lr", "warmup_iters")),
+        warmup_ratio=float(cfg.get("lr", "warmup_ratio")),
+        warmup=cfg.get("lr", "warmup", default="exp"))
+    opt = build_optimizer(cfg, model, schedule)
+    spec = get_spec(cfg.dataset_cfg(0)["spec"])
+    step = make_seg_train_step(
+        model, opt, [spec.mean], [spec.std],
+        ohem_thresh=float(cfg.get("loss", "ohem_thresh")),
+        compute_dtype=compute_dtype)
+    return step, opt
+
+
+def seg_batch(rng, b, h, w, n_classes):
+    """uint8 images and labels as bench.py:186-189 (classes drawn at 1/8
+    resolution, repeated ×8)."""
+    im = rng.integers(0, 256, (b, h, w, 3)).astype(np.uint8)
+    lb8 = rng.integers(0, n_classes, (b, h // 8, w // 8))
+    return im, np.repeat(np.repeat(lb8, 8, 1), 8, 2).astype(np.uint8)
+
+
+def phase_train(dev):
+    """The train step at the config's batch and crop, bf16."""
+    from mds_tpu_torch import MODELS
+    from mds_tpu_torch.config import Configer
+
+    cfg = Configer(config_file=CONFIG)
+    n_classes = cfg.n_cats(0)
+    b = int(cfg.dataset_cfg(0)["ims_per_gpu"])
+    h, w = cfg.get("train", "cropsize")
+    model = MODELS[cfg.get("model_name")](n_classes=(n_classes,), n_bn=1, aux=True,
+                                          dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(WEIGHT_SEED)).to(dev)
+    step, opt = train_step_for(cfg, model, torch.bfloat16)
+    im, lb = seg_batch(np.random.default_rng(0), b, h, w, n_classes)
+    ims, lbs = [torch.from_numpy(im).to(dev)], [torch.from_numpy(lb).to(dev)]
+    gen = torch.Generator().manual_seed(0)
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    s0 = {k: v.clone() for k, v in model.named_buffers() if "running" in k}
+    metrics = [step(ims, lbs, gen) for _ in range(2)]  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics.append(step(ims, lbs, gen))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"].item() for m in metrics]
+    moved = sum(not torch.equal(p0[k], v) for k, v in model.named_parameters())
+    stats_moved = sum(not torch.equal(s0[k], v) for k, v in model.named_buffers()
+                      if "running" in k)
+    idle = profile_idle_share(lambda: step(ims, lbs, gen), ("dropout_bf16_kernel",))
+    step_ms = float(np.median(times))
+    emit(phase="train", batch=[b, h, w], losses=losses,
+         step_ms=times, median_step_ms=step_ms, images_per_s=b / step_ms * 1e3,
+         max_memory_allocated=peak, params_moved=f"{moved}/{len(p0)}",
+         bn_stats_moved=f"{stats_moved}/{len(s0)}", optimizer_steps=opt.count,
+         launches=launches, **idle)
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite train losses {losses}")
+    if stats_moved != len(s0) or moved < 0.9 * len(p0):
+        raise RuntimeError(f"train step moved {moved} params, {stats_moved} stats")
+    want = {"dropout_u8": 10 * 5, "stem_conv_bn_relu_s2": 0,
+            "detail_s1s2_fused": 0, "stemblock_fused": 0}
+    if launches != want:
+        raise RuntimeError(f"train launches {launches}, expected {want}")
+    return launches
+
+
+def profile_idle_share(fn, kernels_of_interest=()):
+    """Device busy time and idle share of one call under torch.profiler, or
+    "not measured" where the profiler sees no device time; beside the top
+    ten, the summed device time and launches of each kernel named in
+    `kernels_of_interest`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device activity, without the annotation ranges drawn over it
+    kernels_ = [e for e in prof.events()
+                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_ms = sum(e.device_time_total for e in kernels_) / 1e3  # µs → ms
+    if busy_ms <= 0:
+        return {"profiled_wall_ms": wall_ms, "idle_share": "not measured"}
+    by_name = {}
+    for e in kernels_:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    named = {k: {"device_ms": sum(e.device_time_total for e in kernels_ if k in e.name) / 1e3,
+                 "launches": sum(k in e.name for e in kernels_)}
+             for k in kernels_of_interest}
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_launches": len(kernels_), "idle_share": 1 - busy_ms / wall_ms,
+            "top_device_ms": [[n[:80], ms] for n, ms in top], "kernel_device_ms": named}
+
+
+def phase_parity(dev):
+    """One f32 train step with dropout on, on the card and on the CPU, from
+    the same weights and generator seed: the card's kernels and library ops
+    against the CPU path that tests/test_torch_train.py holds to JAX."""
+    from mds_tpu_torch import MODELS
+    from mds_tpu_torch.config import Configer
+
+    cfg = Configer(config_file=CONFIG)
+    n_classes = cfg.n_cats(0)
+    # batch 4: the CEBlock's BN over 2 images' global pools would make the
+    # gradients rounding-chaotic (tests/test_torch_train.py)
+    im, lb = seg_batch(np.random.default_rng(3), 4, 64, 128, n_classes)
+    gain = np.random.default_rng(4).uniform(0.2, 1.0, (4, 1, 1, 1))
+    im = (im * gain).astype(np.uint8)  # images of distinct global statistics
+    cpu = MODELS[cfg.get("model_name")](n_classes=(n_classes,), n_bn=1, aux=True)
+    cpu.init_weights(torch.Generator().manual_seed(WEIGHT_SEED))
+    runs = {}
+    for name, model, d in (("cuda", copy.deepcopy(cpu).to(dev), dev), ("cpu", cpu, "cpu")):
+        step, opt = train_step_for(cfg, model, torch.float32)
+        reset_counts()
+        loss = step([torch.from_numpy(im).to(d)], [torch.from_numpy(lb).to(d)],
+                    torch.Generator().manual_seed(5))["loss"].item()
+        groups = {id(p): g["name"] for g in opt.param_groups for p in g["params"]}
+        named = dict(model.named_parameters())  # .grad: the step's gradient
+        runs[name] = {"loss": loss, "launches": read_counts()["dropout_u8"],
+                      "grads": {k: p.grad.cpu().double() for k, p in named.items()},
+                      "group": {k: groups[id(p)] for k, p in named.items()},
+                      "params": {k: p.detach().cpu() for k, p in named.items()}}
+    a, b = runs["cuda"], runs["cpu"]
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    cos = {}
+    for g in ("wd", "nowd", "head_wd", "head_nowd"):
+        ks = [k for k in a["grads"] if a["group"][k] == g]
+        va = torch.cat([a["grads"][k].flatten() for k in ks])
+        vb = torch.cat([b["grads"][k].flatten() for k in ks])
+        cos[g] = (va @ vb / (va.norm() * vb.norm())).item()
+    # per group: a zero-initialized bias whose gradient a train-mode BN
+    # cancels moves by rounding noise alone, so no tensor stands alone
+    param_rel = max(
+        max((a["params"][k] - b["params"][k]).abs().max().item() for k in ks)
+        / max(b["params"][k].abs().max().item() for k in ks)
+        for ks in ([k for k in a["params"] if a["group"][k] == g]
+                   for g in ("wd", "nowd", "head_wd", "head_nowd")))
+    pool = avg_pool_backward_check(dev)
+    emit(phase="parity", loss_cuda=a["loss"], loss_cpu=b["loss"], loss_rel=loss_rel,
+         grad_cosine=cos, param_rel=param_rel,
+         dropout_launches={"cuda": a["launches"], "cpu": b["launches"]},
+         avg_pool2d_channels_last_grad_rel_l2=pool)
+    if pool["port"] > 1e-5:
+        raise RuntimeError(f"parity: the port's avg pool gradient disagrees {pool}")
+    if a["launches"] != 10 or b["launches"] != 0:
+        raise RuntimeError("parity: the card's step did not run the dropout kernel")
+    if loss_rel >= 1e-4 or min(cos.values()) <= 0.9999 or param_rel >= 1e-4:
+        raise RuntimeError("parity: the card's train step disagrees with the CPU's")
+
+
+def avg_pool_backward_check(dev):
+    """PyTorch's avg_pool2d backward on a channels_last input, the card
+    against the CPU (relative L2): layers.avg_pool_3x3_s2 pools an NCHW copy
+    under autograd while the card's is wrong; when `raw` reads ~1e-7, the
+    copy can go. `port` is the port's pool, which must agree."""
+    from mds_tpu_torch.models.layers import avg_pool_3x3_s2
+
+    x = torch.randn(4, 16, 32, 64, generator=torch.Generator().manual_seed(0))
+    r = torch.randn(4, 16, 16, 32, generator=torch.Generator().manual_seed(1))
+    out = {}
+    for name, fn in (("raw", lambda t: F.avg_pool2d(t, 3, 2, 1, count_include_pad=True)),
+                     ("port", avg_pool_3x3_s2)):
+        grads = []
+        for d in (dev, "cpu"):
+            t = x.to(d).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+            (fn(t) * r.to(d)).sum().backward()
+            grads.append(t.grad.cpu().double())
+        out[name] = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
+    return out
 
 
 def randomize_bn(model, seed):
@@ -164,21 +505,20 @@ def randomize_bn(model, seed):
 
 def phase_slice(dev):
     from mds_tpu_torch import MODELS
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.data.labels import get_spec
     from mds_tpu_torch.deploy.e2e import E2EModel
     from mds_tpu_torch.deploy.server import InferenceServer
     from mds_tpu_torch.models.layers import set_detail_fuse, set_stem_impl
-    from mds_tpu_torch.ops.stem import KERNELS
 
-    with open(CONFIG) as f:
-        cfg = json.load(f)
-    with open(SPECS) as f:
-        spec = json.load(f)[cfg["dataset1"]["spec"]]
-    n_classes = int(cfg["dataset1"]["n_cats"])
-    model = MODELS[cfg["model_name"]](n_classes=(n_classes,), n_bn=1, aux=False,
-                                      dtype=torch.bfloat16)
+    cfg = Configer(config_file=CONFIG)
+    spec = get_spec(cfg.dataset_cfg(0)["spec"])
+    n_classes = cfg.n_cats(0)
+    model = MODELS[cfg.get("model_name")](n_classes=(n_classes,), n_bn=1, aux=False,
+                                          dtype=torch.bfloat16)
     model.init_weights(torch.Generator().manual_seed(WEIGHT_SEED))
     randomize_bn(model, WEIGHT_SEED + 1)
-    e2e = E2EModel(model, spec["mean"], spec["std"], device=dev)
+    e2e = E2EModel(model, spec.mean, spec.std, device=dev)
     frames = np.random.default_rng(2).integers(0, 256, (3, 1, H, W, 3)).astype(np.uint8)
 
     srv = InferenceServer(e2e, (H, W), name="bisenetv2")
@@ -188,8 +528,7 @@ def phase_slice(dev):
         set_stem_impl("kernel")
         set_detail_fuse(True)
         e2e.infer(frames[0])  # warm up cuDNN's algorithm choice (not counted)
-        for k in KERNELS:
-            k.launches = 0
+        reset_counts()
         replies, latency_ms = [], []
         for fr in frames:
             t0 = time.perf_counter()
@@ -201,14 +540,15 @@ def phase_slice(dev):
         # the segment.py route: stem kernels, no detail/StemBlock fusion
         set_detail_fuse(False)
         stem_route = e2e.infer(frames[0])
-        launches = {k.__name__: k.launches for k in KERNELS}
+        launches = read_counts()
     finally:
         httpd.shutdown()
         httpd.server_close()
         set_stem_impl("plain")
         set_detail_fuse(False)
 
-    want = {"detail_s1s2_fused": 3, "stemblock_fused": 3, "stem_conv_bn_relu_s2": 2}
+    want = {"detail_s1s2_fused": 3, "stemblock_fused": 3, "stem_conv_bn_relu_s2": 2,
+            "dropout_u8": 0}
     if launches != want:
         raise RuntimeError(f"kernel launches {launches}, expected {want}")
     classes = []
@@ -294,13 +634,20 @@ def main():
     # the plain references run cuDNN convs in full f32 (TF32 off)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    kernels = phase_kernels(dev)
+    results = phase_kernels(dev)
+    results["dropout_u8"] = phase_dropout(dev)
+    torch.cuda.empty_cache()
     launches = phase_slice(dev)
+    launches["dropout_u8"] = phase_train(dev)["dropout_u8"]
+    torch.cuda.empty_cache()
+    phase_parity(dev)
     emit(kernels=[{
-        "name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
-        "launches": launches[k], "max_abs_err": kernels[k]["max_abs_err"],
-        "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"],
-    } for k in REPLACES])
+        "name": k, "route": "cuda", "source": src, "replaces": tpu,
+        "launches": launches[k], "max_abs_err": results[k]["max_abs_err"],
+        "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"],
+        "bound_ms": results[k]["bound_ms"], "bound_by": results[k]["bound_by"],
+        "library_ms": results[k]["library_ms"],
+    } for k, (src, tpu) in SOURCES.items()])
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -1,11 +1,13 @@
 """Weights for the port: JAX variables → state_dict, and reference files.
 
-The port's module names are the reference torch layout that
-mds_tpu/deploy/torch_import.py writes (`bisenetv2_to_torch`), so conversion
-reuses its numpy-only key tables; only the per-dataset affine of
-`bisenetv2_origin` differs. BatchNorm2d's `num_batches_tracked` (unused in
-eval) may be absent: a state_dict without torch's version metadata loads
-strictly without it.
+The port's module names are the reference torch layout. The key tables and
+the mapping below are this package's own numpy-only copy of
+mds_tpu/deploy/torch_import.py (`_CONVBN_BLOCKS`, `_PLAIN_CONVS`,
+`_head_blocks` :39-85, `bisenetv2_to_torch` :654-710); only the
+per-dataset affine of `bisenetv2_origin` is split further, into one
+BatchNorm2d(affine=True) per dataset. BatchNorm2d's `num_batches_tracked`
+may be absent: a state_dict without torch's version metadata loads strictly
+without it.
 """
 
 from __future__ import annotations
@@ -18,13 +20,103 @@ from torch import nn
 
 _AUX_HEADS = ("aux2.", "aux3.", "aux4.", "aux5_4.")
 
+# JAX module path → torch module path of each ConvBNReLU / ConvBN
+_CONVBN_BLOCKS = {
+    "detail/S1_1": "detail.S1_1", "detail/S1_2": "detail.S1_2",
+    "detail/S2_1": "detail.S2_1", "detail/S2_2": "detail.S2_2",
+    "detail/S2_3": "detail.S2_3", "detail/S3_1": "detail.S3_1",
+    "detail/S3_2": "detail.S3_2", "detail/S3_3": "detail.S3_3",
+    "segment/S1S2/conv": "segment.S1S2.conv",
+    "segment/S1S2/left_1": "segment.S1S2.left_1",
+    "segment/S1S2/left_2": "segment.S1S2.left_2",
+    "segment/S1S2/fuse": "segment.S1S2.fuse",
+    "segment/S5_5/conv_gap": "segment.S5_5.conv_gap",
+    "segment/S5_5/conv_last": "segment.S5_5.conv_last",
+    "bga/left1_convbn": "bga.left1_convbn",
+    "bga/left2_convbn": "bga.left2_convbn",
+    "bga/right1": "bga.right1",
+    "bga/right2_convbn": "bga.right2_convbn",
+    "bga/conv": "bga.conv",
+}
+for _stage, _n in (("S3", 2), ("S4", 2), ("S5_4", 4)):
+    for _i in range(1, _n + 1):
+        _tag = f"{_stage}_{_i}"
+        _parts = ["conv1", "conv2"] + (
+            ["dwconv1", "dwconv2", "shortcut_1", "shortcut_2"] if _i == 1
+            else ["dwconv"])
+        for _p in _parts:
+            _CONVBN_BLOCKS[f"segment/{_tag}/{_p}"] = f"segment.{_tag}.{_p}"
+
+_PLAIN_CONVS = {
+    "bga/left1_conv": "bga.left1_conv",
+    "bga/right2_conv": "bga.right2_conv",
+}
+
+
+def _head_blocks(n_heads: int, aux: bool) -> Dict:
+    """Per-dataset SegmentHead paths: (JAX path, kind) → torch path, kind
+    "convbn1" for a single-BN ConvBNReLU, "conv_b" for a conv with bias."""
+    out = {}
+    for hname in ["head"] + (["aux2", "aux3", "aux4", "aux5_4"] if aux else []):
+        for i in range(n_heads):
+            ours, theirs = f"{hname}_{i}", f"{hname}.{i}"
+            out[f"{ours}/conv", "convbn1"] = f"{theirs}.conv"
+            if hname != "head":
+                out[f"{ours}/conv1", "convbn1"] = f"{theirs}.conv1"
+            out[f"{ours}/conv_out", "conv_b"] = f"{theirs}.conv2"
+    return out
+
+
+def _oihw(k: np.ndarray) -> np.ndarray:
+    return np.asarray(k).transpose(3, 2, 0, 1)  # HWIO → OIHW
+
+
+def bisenetv2_to_torch(params: Mapping, stats: Mapping) -> Dict[str, np.ndarray]:
+    """JAX BiSeNetV2 (params, batch_stats) trees → reference-layout arrays."""
+    out: Dict[str, np.ndarray] = {}
+
+    def get(tree, path):
+        node = tree
+        for k in path.split("/"):
+            node = node[k]
+        return np.asarray(node)
+
+    def dump_convbn(ours, theirs):
+        out[f"{theirs}.conv.weight"] = _oihw(get(params, f"{ours}/conv/kernel"))
+        out[f"{theirs}.affine_weight"] = get(params, f"{ours}/bn/scale")
+        out[f"{theirs}.affine_bias"] = get(params, f"{ours}/bn/bias")
+        mean, var = get(stats, f"{ours}/bn/mean"), get(stats, f"{ours}/bn/var")
+        for i in range(mean.shape[0]):
+            out[f"{theirs}.bn.{i}.running_mean"] = mean[i]
+            out[f"{theirs}.bn.{i}.running_var"] = var[i]
+
+    for ours, theirs in _CONVBN_BLOCKS.items():
+        dump_convbn(ours, theirs)
+    for ours, theirs in _PLAIN_CONVS.items():
+        out[f"{theirs}.weight"] = _oihw(get(params, f"{ours}/kernel"))
+
+    mean, var = get(stats, "segment/S5_5/bn/mean"), get(stats, "segment/S5_5/bn/var")
+    scale, bias = get(params, "segment/S5_5/bn/scale"), get(params, "segment/S5_5/bn/bias")
+    for i in range(mean.shape[0]):
+        out[f"segment.S5_5.bn.{i}.running_mean"] = mean[i]
+        out[f"segment.S5_5.bn.{i}.running_var"] = var[i]
+        out[f"segment.S5_5.bn.{i}.weight"] = scale[i]
+        out[f"segment.S5_5.bn.{i}.bias"] = bias[i]
+
+    n_heads = sum(1 for k in params if k.startswith("head_"))
+    for (ours, kind), theirs in _head_blocks(n_heads, "aux2_0" in params).items():
+        if kind == "conv_b":
+            out[f"{theirs}.weight"] = _oihw(get(params, f"{ours}/kernel"))
+            out[f"{theirs}.bias"] = get(params, f"{ours}/bias")
+        else:
+            dump_convbn(ours, theirs)
+    return out
+
 
 def bisenetv2_state_dict_from_jax(params: Mapping,
                                   batch_stats: Mapping) -> Dict[str, torch.Tensor]:
     """JAX BiSeNetV2 variables (numpy arrays, nested dicts) → the port's
     state_dict, for load_state_dict(strict=True)."""
-    from mds_tpu.deploy.torch_import import bisenetv2_to_torch
-
     out: Dict[str, np.ndarray] = {}
     for key, v in bisenetv2_to_torch(params, batch_stats).items():
         block, _, leaf = key.rpartition(".")

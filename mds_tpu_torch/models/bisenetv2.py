@@ -1,16 +1,17 @@
-"""BiSeNetV2 in PyTorch, eval path — counterpart of mds_tpu/models/bisenetv2.py.
+"""BiSeNetV2 in PyTorch — counterpart of mds_tpu/models/bisenetv2.py.
 
 Multi-dataset: every ConvBNReLU holds per-dataset BN stats with a shared
 affine pair (or a per-dataset affine, `bisenetv2_origin`), and each dataset
-has its own heads. Activations are per-dataset lists; `eval_logits` and
-`pred` take one dataset's NCHW batch. With `set_detail_fuse(True)` and a bf16
+has its own heads. Activations are per-dataset lists; `forward` is the train
+call (main and aux logits per dataset), `eval_logits` and `pred` take one
+dataset's NCHW batch. In eval, with `set_detail_fuse(True)` and a bf16
 compute dtype, the DetailBranch's first three convs and the whole StemBlock
 run as one CUDA kernel each (ops/stem.py).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -36,9 +37,11 @@ from mds_tpu_torch.models.layers import (
 from mds_tpu_torch.registry import MODELS
 
 
-def _fusable(xs: MultiX, dtype: torch.dtype) -> bool:
-    """The deploy fusions take bf16 RGB with H and W divisible by 4."""
-    return get_detail_fuse() and dtype == torch.bfloat16 and all(
+def _fusable(module: nn.Module, xs: MultiX) -> bool:
+    """The deploy fusions run in eval only, on bf16 RGB with H and W
+    divisible by 4 (mds_tpu/models/bisenetv2.py:59-67)."""
+    return (not module.training and get_detail_fuse()
+            and module.dtype == torch.bfloat16) and all(
         x is None or (x.shape[1] == 3 and x.shape[2] % 4 == 0
                       and x.shape[3] % 4 == 0)
         for x in xs)
@@ -61,7 +64,7 @@ class DetailBranch(nn.Module):
         self.dtype = dtype
 
     def forward(self, xs: MultiX):
-        if _fusable(xs, self.dtype):
+        if _fusable(self, xs):
             from mds_tpu_torch.ops.stem import detail_s1s2_fused
 
             k1, cf1 = self.S1_1.folded(xs)
@@ -93,7 +96,7 @@ class StemBlock(nn.Module):
         self.dtype = dtype
 
     def forward(self, xs: MultiX):
-        if _fusable(xs, self.dtype):
+        if _fusable(self, xs):
             from mds_tpu_torch.ops.stem import stemblock_fused
 
             parts = [m.folded(xs)
@@ -227,7 +230,7 @@ class BGALayer(nn.Module):
 
 @MODELS.register("bisenetv2")
 class BiSeNetV2(nn.Module):
-    """Multi-dataset BiSeNetV2 (mds_tpu/models/bisenetv2.py:308), eval.
+    """Multi-dataset BiSeNetV2 (mds_tpu/models/bisenetv2.py:308).
 
     n_classes: per-dataset class counts (n_datasets = n_bn). Inputs are
     (B, 3, H, W), best stored channels_last; params stay f32 and the compute
@@ -250,6 +253,7 @@ class BiSeNetV2(nn.Module):
                     SegmentHead(c_in, 128, n, up_factor=up, dtype=dtype)
                     for n in n_classes))
         self.n_classes = tuple(n_classes)
+        self.aux = aux
         self.n_bn = n_bn
         self.dtype = dtype
 
@@ -259,6 +263,28 @@ class BiSeNetV2(nn.Module):
         feat_d = self.detail(xs)
         feat2, feat3, feat4, feat5_4, feat_s = self.segment(xs)
         return self.bga(feat_d, feat_s), (feat2, feat3, feat4, feat5_4)
+
+    def forward(self, xs: MultiX, up: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict:
+        """The train call (mds_tpu/models/bisenetv2.py:346-377): per-dataset
+        lists (None for an absent dataset) of main logits under "logits" and,
+        in train mode with aux heads, the 4 aux heads' under "aux". up=False
+        leaves every head at its own resolution and adds "up_factors" =
+        (main factor, [aux factors]). `generator` seeds the dropout masks."""
+        feat_head, feats_aux = self.backbone(xs)
+        out = {"logits": [
+            None if p is None else self.head[i](p, up, generator)
+            for i, p in enumerate(feat_head)]}
+        heads = [self.aux2, self.aux3, self.aux4, self.aux5_4] if self.aux else []
+        if not up:
+            out["up_factors"] = (self.head[0].residual_factor,
+                                 [h[0].residual_factor for h in heads])
+        if heads and self.training:
+            out["aux"] = [
+                [None if p is None else hs[i](p, up, generator)
+                 for i, p in enumerate(feat)]
+                for hs, feat in zip(heads, feats_aux)]
+        return out
 
     def eval_logits(self, x: torch.Tensor, dataset: int = 0) -> torch.Tensor:
         """Main logits for one dataset at input resolution (B, C, H, W)."""
@@ -271,8 +297,9 @@ class BiSeNetV2(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "BiSeNetV2":
-        """Seeded random init: kaiming fan-out for the BN'd convs, lecun
-        normal for the plain convs, zero biases, unit BN."""
+        """Seeded random init of every conv, the aux heads' included:
+        kaiming fan-out for the BN'd convs, lecun normal for the plain convs,
+        zero biases, unit BN."""
         for m in self.modules():
             if isinstance(m, ConvBNReLU):
                 conv_init(m.conv.weight, generator)

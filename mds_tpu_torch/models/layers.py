@@ -1,12 +1,16 @@
-"""PyTorch building blocks of the port: per-dataset BN and conv blocks.
+"""PyTorch building blocks of the port: per-dataset BN, conv blocks, heads.
 
-Counterparts of mds_tpu/models/layers.py for the eval path. Multi-dataset
-activations flow as per-dataset lists where an absent dataset is None.
-Tensors are logically NCHW and stored channels_last; the compute dtype is
-explicit (`dtype`, bf16 for serving), params and BN math are f32.
+Counterparts of mds_tpu/models/layers.py for the eval and the train path.
+Multi-dataset activations flow as per-dataset lists where an absent dataset
+is None. Tensors are logically NCHW and stored channels_last; the compute
+dtype is explicit (`dtype`, bf16 for serving and training), params and BN
+math are f32. `module.train()` / `.eval()` select the mode, as `train=` does
+in the JAX package: in train mode BN normalizes with batch moments and
+updates its running stats, the SegmentHead dropout is on, and the fused eval
+routes (stem kernel, detail/StemBlock fusion) are off.
 
 The module and buffer names follow the reference torch layout that
-mds_tpu/deploy/torch_import.py speaks (`<block>.conv.weight`,
+mds_tpu_torch/deploy/weights.py speaks (`<block>.conv.weight`,
 `<block>.affine_weight`, `<block>.bn.{i}.running_mean`, ...).
 """
 
@@ -18,6 +22,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mds_tpu_torch.ops.dropout import dropout
 
 MultiX = Sequence[Optional[torch.Tensor]]
 Coeffs = List[Optional[Tuple[torch.Tensor, torch.Tensor]]]
@@ -74,14 +80,22 @@ def _c(v: torch.Tensor) -> torch.Tensor:
 
 
 class DatasetNorm(nn.ModuleList):
-    """Per-dataset eval BatchNorm: entry i holds dataset i's running stats
-    (and its own affine when `affine`), as the reference's
+    """Per-dataset BatchNorm: entry i holds dataset i's running stats (and
+    its own affine when `affine`), as the reference's
     `ModuleList([BatchNorm2d] * n_bn)`. Without `affine`, the parent block
     owns a shared affine pair and passes it in as `shared=(weight, bias)`.
+    BatchNorm2d's own forward is not used: it rounds elsewhere and refuses
+    one value per channel, which the CEBlock's GAP BN meets in training.
 
-    y = ((x − mean_i)·rsqrt(var_i + eps))·w + b in f32, cast to `dtype`
-    (mds_tpu/models/layers.py:139-143); `fold` returns the equivalent
-    per-dataset (scale, bias) (:96-115)."""
+    Eval: y = ((x − mean_i)·rsqrt(var_i + eps))·w + b in f32, cast to
+    `dtype` (mds_tpu/models/layers.py:139-143); `fold` returns the
+    equivalent per-dataset (scale, bias) (:96-115).
+    Train (:126-138): the f32 batch moments over N, H, W normalize with the
+    biased variance, and the gradient flows through them; the running stats
+    move in place by momentum 0.1, the variance's with the unbiased factor
+    cnt / max(cnt − 1, 1)."""
+
+    momentum = 0.1
 
     def __init__(self, features: int, n_bn: int = 1, eps: float = 1e-5,
                  affine: bool = False, dtype: torch.dtype = torch.float32):
@@ -105,6 +119,21 @@ class DatasetNorm(nn.ModuleList):
             out.append((s, b.float() - self[i].running_mean.float() * s))
         return out
 
+    def _train_norm(self, bn: nn.BatchNorm2d, x: torch.Tensor, w, b):
+        xf = x.float()
+        m = xf.mean(dim=(0, 2, 3))
+        d = xf - _c(m)
+        v = d.square().mean(dim=(0, 2, 3))
+        cnt = x.numel() // x.shape[1]
+        mom = self.momentum
+        with torch.no_grad():
+            bn.running_mean.copy_((1 - mom) * bn.running_mean + mom * m)
+            bn.running_var.copy_((1 - mom) * bn.running_var
+                                 + mom * (v * (cnt / max(cnt - 1, 1))))
+        # the scale folds into one per-channel factor: autograd keeps one
+        # f32 activation (d) per BN instead of two
+        return d * _c(torch.rsqrt(v + self.eps) * w.float()) + _c(b.float())
+
     def forward(self, xs: MultiX, shared=None) -> List[Optional[torch.Tensor]]:
         if len(xs) != len(self):
             raise ValueError(f"{len(xs)} inputs for {len(self)} datasets")
@@ -114,10 +143,14 @@ class DatasetNorm(nn.ModuleList):
                 outs.append(None)
                 continue
             bn = self[i]
-            y = (x.float() - _c(bn.running_mean.float())) * _c(
-                torch.rsqrt(bn.running_var.float() + self.eps))
             w, b = self._affine(i, shared)
-            outs.append((y * _c(w.float()) + _c(b.float())).to(self.dtype))
+            if self.training:
+                y = self._train_norm(bn, x, w, b)
+            else:
+                y = (x.float() - _c(bn.running_mean.float())) * _c(
+                    torch.rsqrt(bn.running_var.float() + self.eps))
+                y = y * _c(w.float()) + _c(b.float())
+            outs.append(y.to(self.dtype))
         return outs
 
 
@@ -164,11 +197,18 @@ class StemConv3x3S2(nn.Conv2d):
         return (F.relu(y) if relu else y).to(dtype)
 
 
+def _repeat_channels(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """Channel c → channels c·mult … c·mult + mult − 1, channels_last out."""
+    return x.permute(0, 2, 3, 1).repeat_interleave(mult, dim=3).permute(0, 3, 1, 2)
+
+
 class ConvBNReLU(nn.Module):
     """conv → per-dataset BN → shared (or per-dataset) affine → ReLU
     (mds_tpu/models/layers.py:468). One conv, shared weights, applied to each
-    dataset's tensor. Grouped convs (groups == in_chan, with a channel
-    multiplier) are grouped F.conv2d calls."""
+    dataset's tensor. A grouped conv with a channel multiplier
+    (groups == in_chan < out_chan) runs as the input's channels repeated
+    `mult` times followed by a depthwise conv on the same (out, 1, k, k)
+    weight: PyTorch launches one kernel per group for the grouped form."""
 
     def __init__(self, in_chan: int, out_chan: int, ks: int = 3,
                  stride: int = 1, groups: int = 1, n_bn: int = 1,
@@ -200,14 +240,24 @@ class ConvBNReLU(nn.Module):
         per-dataset folded (scale, bias), for the fused kernels."""
         return self.conv.weight, self.fold(xs)
 
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.conv
+        if conv.groups == conv.in_channels < conv.out_channels:
+            x = _repeat_channels(x.to(self.dtype),
+                                 conv.out_channels // conv.in_channels)
+            return F.conv2d(x, conv.weight.to(self.dtype), None, conv.stride,
+                            conv.padding, conv.dilation, conv.out_channels)
+        return conv2d(conv, x, self.dtype)
+
     def forward(self, xs: MultiX) -> List[Optional[torch.Tensor]]:
-        if isinstance(self.conv, StemConv3x3S2) and _STEM_IMPL == "kernel":
+        if (not self.training and isinstance(self.conv, StemConv3x3S2)
+                and _STEM_IMPL == "kernel"):
             return [
                 None if x is None
                 else self.conv.fused(x, cf[0], cf[1], self.relu, self.dtype)
                 for x, cf in zip(xs, self.fold(xs))
             ]
-        xs = lmap(lambda x: conv2d(self.conv, x, self.dtype), xs)
+        xs = lmap(self._conv, xs)
         xs = self.bn(xs, self._shared())
         return lmap(F.relu, xs) if self.relu else xs
 
@@ -243,21 +293,53 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 
 
 def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """AvgPool2d(3, stride=2, padding=1) with count_include_pad=True."""
+    """AvgPool2d(3, stride=2, padding=1) with count_include_pad=True.
+
+    Under autograd the pool runs on an NCHW-contiguous copy: PyTorch's CUDA
+    backward of avg_pool2d on a channels_last input returns a wrong gradient
+    (relative L2 error 1.04 against the CPU's, torch 2.11.0+cu128 on an
+    NVIDIA H100; chip_smoke.py's parity phase measures it on every run and
+    says when this copy can go)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return F.avg_pool2d(x.contiguous(), 3, 2, 1, count_include_pad=True
+                            ).contiguous(memory_format=torch.channels_last)
     return F.avg_pool2d(x, 3, 2, 1, count_include_pad=True)
 
 
+class FastDropout(nn.Module):
+    """Dropout with a uint8 keep threshold (mds_tpu/models/layers.py:736):
+    keep ⇔ the top 8 bits of a random u32 ≥ round(rate·256), kept values
+    scaled by 256/(256 − drop). The mask comes from the dropout op
+    (ops/dropout.py: the CUDA kernel on the card), its seed from the
+    `generator` passed in; identity in eval or at rate 0. `rate` is a plain
+    attribute, so a test can set it to 0."""
+
+    def __init__(self, rate: float = 0.1):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        # the mask follows storage order: pin it to channels_last so the
+        # same seed drops the same elements on every device
+        return dropout(x.contiguous(memory_format=torch.channels_last),
+                       self.rate, generator)
+
+
 class SegmentHead(nn.Module):
-    """Per-dataset segmentation head in eval (mds_tpu/models/layers.py:770):
-    conv3×3-BN-ReLU(in→mid) → [dropout: identity in eval] → [aux: ×2 nearest
-    → conv3×3-BN-ReLU(mid→up²)] → 1×1 conv with bias → bilinear ×up in the
-    compute dtype."""
+    """Per-dataset segmentation head (mds_tpu/models/layers.py:770):
+    conv3×3-BN-ReLU(in→mid) → dropout(0.1) (train only) → [aux: ×2 nearest
+    → conv3×3-BN-ReLU(mid→up²)] → 1×1 conv with bias → bilinear ×factor in
+    the compute dtype, or left at head resolution with up=False."""
 
     def __init__(self, in_chan: int, mid_chan: int, n_classes: int,
                  up_factor: int = 8, aux: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = ConvBNReLU(in_chan, mid_chan, 3, dtype=dtype)
+        self.drop = FastDropout(0.1)
         out_in = mid_chan
         if aux:
             out_in = up_factor * up_factor
@@ -272,8 +354,10 @@ class SegmentHead(nn.Module):
         """Upsample factor still owed when called with up=False."""
         return self.up_factor // 2 if self.aux else self.up_factor
 
-    def forward(self, x: torch.Tensor, up: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, up: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         (x,) = self.conv([x])
+        x = self.drop(x, generator)
         if self.aux:
             (x,) = self.conv1([upsample(x, 2, "nearest")])
         x = conv2d(self.conv2, x, self.dtype)

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-`nvcc` compiles every source under `mds_tpu_torch/csrc/` for sm_90a into one
+`nvcc` compiles every source under `mds_tpu_torch/csrc/` for sm_90a, one
+process per source, all started together, and links the objects into one
 shared library with a plain C interface, which ctypes loads. The library goes
 into `mds_tpu_torch/build/` under a name that hashes the sources and flags,
 so an edited source rebuilds and an unchanged one is reused. A missing
@@ -21,14 +22,16 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of csrc/*.cu: pointers and the stream are void*, ints are int
+# or long long, floats float
 _SIGNATURES = {
     "mds_stem_conv_bn_relu_s2": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mds_detail_s1s2_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mds_stemblock_fused": [_P, _P, _P, _I, _I, _I, _P],
+    "mds_dropout_u8": [_P, _P, _L, _I, _L, _L, _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -59,13 +62,27 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [lib.with_name(f"{s.stem}.{tag}.o") for s in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(s.name, p.returncode) for s, p in zip(sources, procs) if p.returncode]
+    tmp = lib.with_suffix(f".{tag}")
+    if not failed:
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode:
+            failed.append(("link", res.returncode))
+    log = "\n".join(logs)
+    lib.with_suffix(".log").write_text(log)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed {failed}:\n{log}")
     os.replace(tmp, lib)
     return lib
 

@@ -1,9 +1,16 @@
 """The port's serving path on the CPU: E2EModel behind InferenceServer over
-loopback (the same raw-tensor protocol as mds_tpu/deploy/server.py), and the
-imports of the package and of the serve path leaving jax out."""
+loopback (the same raw-tensor protocol as mds_tpu/deploy/server.py); the
+port standing alone: neither the package, nor the serve path, nor
+chip_smoke.py imports jax or anything of mds_tpu or reads a file under
+mds_tpu/; and the port's own copies of the config, label-spec and weight
+tables equal the JAX package's."""
 
+import ast
+import glob
 import json
 import os
+import pickle
+import re
 import subprocess
 import sys
 import urllib.error
@@ -104,7 +111,7 @@ def test_package_and_serve_path_import_no_jax():
         "import serve_torch\n"
         "m = serve_torch.build_e2e('configs/bisenetv2_city.json', device='cpu')\n"
         "assert m.model.n_classes == (19,)\n"
-        "assert 'jax' not in sys.modules and 'flax' not in sys.modules\n"
+        "assert not {'jax', 'flax', 'mds_tpu'} & set(sys.modules)\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -124,3 +131,119 @@ def test_serve_torch_requires_cuda(monkeypatch):
                                       os.path.join(ROOT, "configs/bisenetv2_city.json")])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_torch.main()
+
+
+def test_every_module_and_converter_import_no_mds_tpu(tmp_path):
+    """Every module of mds_tpu_torch, build_e2e and the weight converter
+    (fed a JAX variables tree as plain numpy) run in a process where neither
+    jax nor mds_tpu gets imported."""
+    import jax
+
+    from mds_tpu.models.bisenetv2 import BiSeNetV2
+
+    jm = BiSeNetV2(n_classes=(5, 7), n_bn=2)
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    v = jax.jit(lambda k: jm.init({"params": k, "dropout": k}, [x, x], train=True))(
+        jax.random.PRNGKey(0))
+    tree = jax.tree_util.tree_map(np.asarray, dict(v))
+    with open(tmp_path / "v.pkl", "wb") as f:
+        pickle.dump({k: tree[k] for k in ("params", "batch_stats")}, f)
+    code = (
+        "import importlib, pickle, pkgutil, sys\n"
+        "import mds_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(mds_tpu_torch.__path__, 'mds_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "assert len(mods) >= 15, mods\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import serve_torch\n"
+        "serve_torch.build_e2e('configs/bisenetv2_city.json', device='cpu')\n"
+        "from mds_tpu_torch import MODELS\n"
+        "from mds_tpu_torch.deploy.weights import bisenetv2_state_dict_from_jax\n"
+        f"v = pickle.load(open({str(tmp_path / 'v.pkl')!r}, 'rb'))\n"
+        "sd = bisenetv2_state_dict_from_jax(v['params'], v['batch_stats'])\n"
+        "MODELS['bisenetv2']((5, 7), n_bn=2, aux=True).load_state_dict(sd, strict=True)\n"
+        "bad = {'jax', 'jaxlib', 'flax', 'mds_tpu'} & set(sys.modules)\n"
+        "assert not bad, bad\n"
+        "print('ok', len(mods))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().startswith("ok")
+
+
+_FILE_LINE = re.compile(r"^mds_tpu/\S+\.py:\d+(-\d+)?$")  # a citation
+
+
+def _offences(path):
+    """Imports of mds_tpu and string constants that name a path under
+    mds_tpu/ (docstrings and file:line citations aside)."""
+    tree = ast.parse(open(path).read(), path)
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    out = []
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Import):
+            out += [a.name for a in n.names if a.name.split(".")[0] in ("mds_tpu", "jax")]
+        elif isinstance(n, ast.ImportFrom) and n.module:
+            if n.module.split(".")[0] in ("mds_tpu", "jax"):
+                out.append(n.module)
+        elif (isinstance(n, ast.Constant) and isinstance(n.value, str)
+              and id(n) not in docs):
+            v = n.value
+            if v == "mds_tpu" or v.startswith("mds_tpu.") or (
+                    re.search(r"(^|[^\w])mds_tpu/", v) and not _FILE_LINE.match(v)):
+                out.append(v)
+    return out
+
+
+def test_static_scan_finds_no_mds_tpu():
+    files = sorted(glob.glob(os.path.join(ROOT, "mds_tpu_torch", "**", "*.py"),
+                             recursive=True))
+    files += [os.path.join(ROOT, "chip_smoke.py"),
+              os.path.join(ROOT, "tools", "serve_torch.py")]
+    assert len(files) >= 18
+    found = {os.path.relpath(f, ROOT): _offences(f) for f in files}
+    assert {k: v for k, v in found.items() if v} == {}
+    # the scan does catch each kind of offence
+    probe = os.path.join(ROOT, "tests", "torch_parity.py")
+    assert "mds_tpu.deploy.torch_import" in _offences(probe)
+
+
+def test_port_copies_equal_the_jax_tables():
+    """Configer, get_spec and bisenetv2_to_torch of the port give what the
+    JAX package's give."""
+    import jax
+
+    from mds_tpu.config import Configer as JConfiger
+    from mds_tpu.data.labels import get_spec as j_get_spec
+    from mds_tpu.deploy.torch_import import bisenetv2_to_torch as j_to_torch
+    from mds_tpu.models.bisenetv2 import bisenetv2_origin
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.data.labels import _raw_specs, get_spec
+    from mds_tpu_torch.deploy.weights import bisenetv2_to_torch
+
+    for path in glob.glob(os.path.join(ROOT, "configs", "*.json")):
+        a, b = Configer(config_file=path), JConfiger(config_file=path)
+        assert a.params_root == b.params_root and a.n_datasets == b.n_datasets
+        for i in range(a.n_datasets):
+            assert a.dataset_cfg(i) == b.dataset_cfg(i)
+            assert a.n_cats(i) == b.n_cats(i)
+        assert a.get("lr", "lr_start") == b.get("lr", "lr_start")
+    for name in _raw_specs():
+        a, b = get_spec(name), j_get_spec(name)
+        assert a.n_cats == b.n_cats
+        for f in ("mean", "std", "lut_eval", "lut_train"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    jm = bisenetv2_origin(n_classes=(5, 7), n_bn=2)
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    v = jax.jit(lambda k: jm.init({"params": k, "dropout": k}, [x, x], train=True))(
+        jax.random.PRNGKey(1))
+    p, s = (jax.tree_util.tree_map(np.asarray, v[c]) for c in ("params", "batch_stats"))
+    a, b = bisenetv2_to_torch(p, s), j_to_torch(p, s)
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])

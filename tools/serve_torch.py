@@ -6,8 +6,8 @@ mds_tpu_torch/deploy/server.py for the protocol).
       [--weights W.npz|W.pt] [--seed 0] [--size 1024 2048] [--port 8000] \
       [--name bisenetv2]
 
---weights takes an .npz of reference-layout keys (mds_tpu/deploy/
-torch_import.py) or a torch.save'd state dict; without it the weights are a
+--weights takes an .npz of reference-layout keys (mds_tpu_torch/deploy/
+weights.py) or a torch.save'd state dict; without it the weights are a
 seeded random init. The model runs in bf16 with the deploy kernels on
 (set_stem_impl("kernel"), set_detail_fuse(True)), always on CUDA.
 """
@@ -24,9 +24,9 @@ def build_e2e(config: str, weights=None, seed: int = 0, device: str = "cuda"):
     import numpy as np
     import torch
 
-    from mds_tpu.config import Configer
-    from mds_tpu.data.labels import get_spec
     from mds_tpu_torch import MODELS
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.data.labels import get_spec
     from mds_tpu_torch.deploy.e2e import E2EModel
     from mds_tpu_torch.deploy.weights import load_reference_weights
 
