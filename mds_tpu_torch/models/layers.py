@@ -44,8 +44,9 @@ def as_multi(x: torch.Tensor, dataset: int, n: int) -> List[Optional[torch.Tenso
     return [x if i == dataset else None for i in range(n)]
 
 
-# Stem route for the stride-2 3×3 RGB convs in eval: "plain" (library conv)
-# or "kernel" (ops/stem.py stem_conv_bn_relu_s2 with the BN folded in).
+# Stem route for the stride-2 RGB convs in eval: "plain" (library conv) or
+# "kernel" (ops/stem.py with the BN folded in: stem_conv_bn_relu_s2 for the
+# 3×3 stems, stem7_conv_bn_relu_s2 for the 7×7 ones).
 _STEM_IMPL = "plain"
 
 
@@ -195,6 +196,57 @@ class StemConv3x3S2(nn.Conv2d):
                                         relu=relu)
         y = conv2d(self, x, dtype).float() * _c(scale) + _c(bias)
         return (F.relu(y) if relu else y).to(dtype)
+
+
+def bn_fold(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A plain BatchNorm2d's eval affine as one (scale, bias) pair in f32:
+    s = γ·rsqrt(var + ε), b = β − mean·s (mds_tpu/models/layers.py:426-453
+    BNFold)."""
+    s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    return s, bn.bias.float() - bn.running_mean.float() * s
+
+
+def bn_eval(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.BatchNorm(use_running_average=True) in its order and rounding:
+    y = (x − mean)·(rsqrt(var + ε)·γ) + β in f32, cast to `dtype`.
+
+    Eval only. In train mode flax updates the running variance with the
+    biased batch variance at momentum 0.9, BatchNorm2d with the unbiased one
+    at 0.1; that train BN is not ported yet (ROADMAP queue 1, item 5), so a
+    module in train mode raises here instead of training with torch's
+    semantics."""
+    if bn.training:
+        raise NotImplementedError(
+            "single-BN train mode (flax BN semantics) is not ported yet: "
+            "ROADMAP queue 1, item 5 (BiSeNetV1 train step)")
+    mul = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
+    y = (x.float() - _c(bn.running_mean.float())) * _c(mul) + _c(bn.bias.float())
+    return y.to(dtype)
+
+
+def conv_bn_relu(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """conv → plain single BN (bn_eval) → ReLU in `dtype`. A 7×7 s2 p3 conv
+    (ResNet18's conv1, the SpatialPath's conv1) in eval with
+    set_stem_impl("kernel") on a bf16 3-channel input of even H and W runs
+    as the 7×7 stem kernel with the BN folded in (ops/stem.py
+    stem7_conv_bn_relu_s2; mds_tpu/models/resnet.py:58-79 and
+    bisenetv1.py:42-58, without JAX's W ≥ 512 Mosaic guard); any other
+    input takes the library ops."""
+    if (conv.kernel_size == (7, 7) and conv.stride == (2, 2)
+            and conv.padding == (3, 3) and not conv.training
+            and _STEM_IMPL == "kernel" and dtype == torch.bfloat16
+            and x.shape[1] == 3 and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0):
+        from mds_tpu_torch.ops.stem import stem7_conv_bn_relu_s2
+
+        return stem7_conv_bn_relu_s2(x.to(dtype), conv.weight, *bn_fold(bn))
+    return F.relu(bn_eval(bn, conv2d(conv, x, dtype), dtype))
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Mean over H and W accumulated in f32, out in x's dtype (jnp.mean of a
+    bf16 array)."""
+    return x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
 
 
 def _repeat_channels(x: torch.Tensor, mult: int) -> torch.Tensor:

@@ -1,10 +1,13 @@
-"""The BiSeNetV2 deploy stem kernels: wrappers, plain versions, counters.
+"""The deploy stem kernels: wrappers, plain versions, counters.
 
-Counterparts of mds_tpu/ops/pallas/stem.py on the serving path:
+Counterparts of mds_tpu/ops/pallas/stem.py on the serving paths:
 
   stem_conv_bn_relu_s2  ← _stem_fwd (fused case)     — csrc/stem.cu kernel 1
   detail_s1s2_fused     ← detail_s1s2_fused          — csrc/stem.cu kernel 2
   stemblock_fused       ← stemblock_fused            — csrc/stem.cu kernel 3
+  stem7_conv_bn_relu_s2 ← stem7_conv_bn_relu_s2      — csrc/stem7.cu
+
+The first three carry BiSeNetV2, the last BiSeNetV1 (its two 7×7 RGB stems).
 
 Each wrapper takes logically NCHW tensors stored channels_last (NHWC in
 memory), torch OIHW conv weights and the folded eval-BN (scale, bias) of each
@@ -229,4 +232,59 @@ def stemblock_fused(x, k_s, s_s, b_s, k_l1, s_l1, b_l1,
 
 stemblock_fused.launches = 0
 
-KERNELS = (stem_conv_bn_relu_s2, detail_s1s2_fused, stemblock_fused)
+
+# ------------------------------------------- the 7×7 RGB stem of BiSeNetV1
+
+def _stem7_b_frags(k: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """bf16(k·scale), k (O,3,7,7) → csrc/stem7.cu's (160, O) GEMM matrix as
+    mma.sync m16n8k16 B fragments [kc][n-tile][lane][4]. Row dy·22 + dx·3 + ci
+    holds tap (dy, dx, ci); row dy·22 + 21 and rows 154-159 are zero. Lane
+    n·4 + t of chunk kc holds rows 2t, 2t+1, 2t+8, 2t+9 of output channel n."""
+    o = k.shape[0]
+    w = _fold(k, scale).permute(2, 3, 1, 0).reshape(7, 21, o)
+    w = F.pad(F.pad(w, (0, 0, 0, 1)).reshape(154, o), (0, 0, 0, 6))
+    wt = w.reshape(10, 2, 4, 2, o // 8, 8)
+    # dims: kc, kh, t, kl, nt, n  →  kc, nt, n, t, kh, kl
+    return wt.permute(0, 4, 5, 2, 1, 3).reshape(10, o // 8, 32, 4).to(_BF16)
+
+
+def stem7_conv_bn_relu_s2_plain(x, k, scale, bias, relu=True):
+    """7×7 s2 p3 conv on RGB with the BN folded as the kernel rounds it:
+    f32 conv on bf16(k·scale), + bf16(bias), optional ReLU, bf16 out."""
+    y = _conv(x, _fold_bf16(k, scale), bias.to(_BF16), stride=2, pad=3)
+    return _out(F.relu(y) if relu else y)
+
+
+def stem7_conv_bn_relu_s2(x, k, scale, bias, relu=True):
+    """x (B,3,H,W) bf16 channels_last, H and W even; k (O,3,7,7) with
+    O % 8 == 0 and O <= 128; the folded eval BN (scale, bias) →
+    (B,O,H/2,W/2) bf16 channels_last."""
+    if _is_cpu(x):
+        return stem7_conv_bn_relu_s2_plain(x, k, scale, bias, relu)
+    name = "stem7_conv_bn_relu_s2"
+    _check_image(x, 2, name)
+    _check_params(x, name, (k, scale, bias))
+    o = k.shape[0]
+    if tuple(k.shape[1:]) != (3, 7, 7) or o % 8 or not 0 < o <= 128:
+        raise ValueError(f"{name}: k must be (O,3,7,7), O % 8 == 0, O <= 128")
+    b, _, h, w = x.shape
+    if h < 2 or w < 2:
+        raise ValueError(f"{name}: need H, W >= 2, got {tuple(x.shape)}")
+    from mds_tpu_torch.ops.build import load
+
+    frags = _stem7_b_frags(k, scale)
+    b16 = bias.to(_BF16).float().contiguous()
+    out = torch.empty((b, o, h // 2, w // 2), dtype=_BF16, device=x.device,
+                      memory_format=_CL)
+    err = load().mds_stem7_conv_bn_relu_s2(
+        _ptr(x), _ptr(frags), _ptr(b16), _ptr(out), b, h, w, o, int(relu),
+        _stream())
+    _raise_on(err, name)
+    stem7_conv_bn_relu_s2.launches += 1
+    return out
+
+
+stem7_conv_bn_relu_s2.launches = 0
+
+KERNELS = (stem_conv_bn_relu_s2, detail_s1s2_fused, stemblock_fused,
+           stem7_conv_bn_relu_s2)

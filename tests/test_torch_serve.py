@@ -204,7 +204,8 @@ def test_static_scan_finds_no_mds_tpu():
     files = sorted(glob.glob(os.path.join(ROOT, "mds_tpu_torch", "**", "*.py"),
                              recursive=True))
     files += [os.path.join(ROOT, "chip_smoke.py"),
-              os.path.join(ROOT, "tools", "serve_torch.py")]
+              os.path.join(ROOT, "tools", "serve_torch.py"),
+              os.path.join(ROOT, "tools", "v1_seed_scan_torch.py")]
     assert len(files) >= 18
     found = {os.path.relpath(f, ROOT): _offences(f) for f in files}
     assert {k: v for k, v in found.items() if v} == {}

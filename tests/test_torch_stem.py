@@ -20,7 +20,16 @@ from mds_tpu_torch.models import bisenetv2 as tb
 from mds_tpu_torch.models import layers as tl
 from mds_tpu_torch.ops import build
 from mds_tpu_torch.ops import stem as tstem
-from torch_parity import convbn_state, load, nchw, nhwc, oihw, randomize_variables, rel_err
+from torch_parity import (
+    convbn_state,
+    folded_bn,
+    load,
+    nchw,
+    nhwc,
+    oihw,
+    randomize_variables,
+    rel_err,
+)
 
 SHAPES = [(2, 32, 48), (1, 64, 64)]
 
@@ -30,14 +39,6 @@ def _close(got, want):
     assert got.shape == want.shape
     assert np.abs(got - want).max() < 0.1
     assert rel_err(got, want) < 2e-2
-
-
-def _bn(rng, n):
-    """Folded eval-BN (scale, bias) from non-trivial stats."""
-    g, b = rng.normal(1, 0.1, n), rng.normal(0, 0.1, n)
-    m, v = rng.normal(0, 0.1, n), rng.uniform(0.5, 1.5, n)
-    s = g / np.sqrt(v + 1e-5)
-    return s.astype(np.float32), (b - m * s).astype(np.float32)
 
 
 def _conv(rng, shape):
@@ -64,7 +65,7 @@ def _both(args):
 def test_stem_conv_bn_relu_s2(shape, o, relu):
     rng = np.random.default_rng(0)
     xj, xt = _image(rng, *shape)
-    ja, ta = _both([(_conv(rng, (3, 3, 3, o)), *_bn(rng, o))])
+    ja, ta = _both([(_conv(rng, (3, 3, 3, o)), *folded_bn(rng, o))])
     want = jstem.stem_conv_bn_relu_s2(xj, *ja, relu=relu)
     got = tstem.stem_conv_bn_relu_s2(xt, *ta, relu=relu)
     assert got.dtype == torch.bfloat16
@@ -76,9 +77,9 @@ def test_stem_conv_bn_relu_s2(shape, o, relu):
 def test_detail_s1s2_fused(shape):
     rng = np.random.default_rng(1)
     xj, xt = _image(rng, *shape)
-    ja, ta = _both([(_conv(rng, (3, 3, 3, 64)), *_bn(rng, 64)),
-                    (_conv(rng, (3, 3, 64, 64)), *_bn(rng, 64)),
-                    (_conv(rng, (3, 3, 64, 64)), *_bn(rng, 64))])
+    ja, ta = _both([(_conv(rng, (3, 3, 3, 64)), *folded_bn(rng, 64)),
+                    (_conv(rng, (3, 3, 64, 64)), *folded_bn(rng, 64)),
+                    (_conv(rng, (3, 3, 64, 64)), *folded_bn(rng, 64))])
     want = jstem.detail_s1s2_fused(xj, *ja, interpret=True)
     got = tstem.detail_s1s2_fused(xt, *ta)
     assert got.is_contiguous(memory_format=torch.channels_last)
@@ -89,10 +90,10 @@ def test_detail_s1s2_fused(shape):
 def test_stemblock_fused(shape):
     rng = np.random.default_rng(2)
     xj, xt = _image(rng, *shape)
-    ja, ta = _both([(_conv(rng, (3, 3, 3, 16)), *_bn(rng, 16)),
-                    (_conv(rng, (1, 1, 16, 8)), *_bn(rng, 8)),
-                    (_conv(rng, (3, 3, 8, 16)), *_bn(rng, 16)),
-                    (_conv(rng, (3, 3, 32, 16)), *_bn(rng, 16))])
+    ja, ta = _both([(_conv(rng, (3, 3, 3, 16)), *folded_bn(rng, 16)),
+                    (_conv(rng, (1, 1, 16, 8)), *folded_bn(rng, 8)),
+                    (_conv(rng, (3, 3, 8, 16)), *folded_bn(rng, 16)),
+                    (_conv(rng, (3, 3, 32, 16)), *folded_bn(rng, 16))])
     want = jstem.stemblock_fused(xj, *ja, interpret=True)
     got = tstem.stemblock_fused(xt, *ta)
     assert got.is_contiguous(memory_format=torch.channels_last)

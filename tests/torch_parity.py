@@ -31,6 +31,48 @@ from mds_tpu_torch.engine.optim import sgd_param_groups
 from mds_tpu_torch.engine.train_step import make_seg_loss_fn
 
 
+# the bf16 gates of bench.py:296-297, a kernel route against the plain path
+ARGMAX_GATE, LOGITS_GATE = 0.995, 2e-2
+
+
+def init_variables(jm, seed, *args, **kw):
+    """A JAX model's variables, initialized at `args` (jit, PRNGKey(0)),
+    as numpy, with non-trivial BN from numpy seed `seed`
+    (randomize_variables). The BiSeNetV2 tests need JAX's own init: under
+    seeded_variables' kaiming fill of every kernel their bf16 E2E frame
+    maps to a single class, and a constant label map agrees with anything."""
+    v = jax.jit(lambda k: jm.init(k, *args, **kw))(jax.random.PRNGKey(0))
+    return randomize_variables(jax.tree_util.tree_map(np.asarray, dict(v)),
+                               np.random.default_rng(seed))
+
+
+def seeded_variables(jm, seed, *args, **kw):
+    """A JAX model's variables with the tree and shapes of its own init at
+    `args` (jax.eval_shape, no compile) and values from numpy seed `seed`:
+    every conv kernel kaiming normal, fan-out (mds_tpu/models/layers.py
+    conv_init), then non-trivial BN and biases (randomize_variables)."""
+    shapes = jax.eval_shape(lambda k: jm.init(k, *args, **kw), jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        if path[-1].key == "kernel":
+            kh, kw_, _, co = leaf.shape
+            return rng.normal(0, np.sqrt(2.0 / (kh * kw_ * co)), leaf.shape).astype(np.float32)
+        return np.zeros(leaf.shape, np.float32)
+
+    v = jax.tree_util.tree_map_with_path(fill, dict(shapes))
+    return randomize_variables(v, rng)
+
+
+def folded_bn(rng, n):
+    """Folded eval-BN (scale, bias), f32 numpy, from non-trivial stats:
+    gamma ~N(1, .1), beta ~N(0, .1), mean ~N(0, .1), var ~U(.5, 1.5)."""
+    g, b = rng.normal(1, 0.1, n), rng.normal(0, 0.1, n)
+    m, v = rng.normal(0, 0.1, n), rng.uniform(0.5, 1.5, n)
+    s = g / np.sqrt(v + 1e-5)
+    return s.astype(np.float32), (b - m * s).astype(np.float32)
+
+
 def randomize_variables(v, rng):
     """Copy of a JAX variables tree (as numpy) with non-trivial BN: running
     mean ~N(0, 0.1), var ~U(0.5, 1.5), BN scale ~N(1, 0.1), every bias

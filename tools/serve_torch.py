@@ -4,12 +4,16 @@ mds_tpu_torch/deploy/server.py for the protocol).
 
   python tools/serve_torch.py --config configs/bisenetv2_city.json \
       [--weights W.npz|W.pt] [--seed 0] [--size 1024 2048] [--port 8000] \
-      [--name bisenetv2]
+      [--name NAME]
+  python tools/serve_torch.py --config configs/bisenetv1_city.json
 
---weights takes an .npz of reference-layout keys (mds_tpu_torch/deploy/
-weights.py) or a torch.save'd state dict; without it the weights are a
-seeded random init. The model runs in bf16 with the deploy kernels on
-(set_stem_impl("kernel"), set_detail_fuse(True)), always on CUDA.
+The config's `model_name` picks the model (bisenetv2, bisenetv2_origin,
+bisenetv1); --name, the name in the URL, defaults to it. --weights takes an
+.npz of reference-layout keys (mds_tpu_torch/deploy/weights.py) or a
+torch.save'd state dict; without it the weights are a seeded random init.
+The model runs in bf16 with the deploy kernels on (set_stem_impl("kernel"):
+the RGB stems of either model; set_detail_fuse(True): BiSeNetV2's fused
+DetailBranch head and StemBlock), always on CUDA.
 """
 
 import argparse
@@ -57,21 +61,25 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--size", type=int, nargs=2, default=[1024, 2048])
     ap.add_argument("--port", type=int, default=8000)
-    ap.add_argument("--name", default="bisenetv2")
+    ap.add_argument("--name", default=None,
+                    help="model name in the URL (default: the config's model_name)")
     args = ap.parse_args()
 
     import torch
 
+    from mds_tpu_torch.config import Configer
     from mds_tpu_torch.deploy.server import InferenceServer
     from mds_tpu_torch.models.layers import set_detail_fuse, set_stem_impl
 
     if not torch.cuda.is_available():
         raise RuntimeError("serve_torch needs a CUDA device")
+    name = args.name or Configer(config_file=args.config).get(
+        "model_name", default="bisenetv2")
     set_stem_impl("kernel")
     set_detail_fuse(True)
     srv = InferenceServer(build_e2e(args.config, args.weights, args.seed),
-                          tuple(args.size), name=args.name)
-    print(f"serving {args.name} {srv.in_shape} on :{args.port} "
+                          tuple(args.size), name=name)
+    print(f"serving {name} {srv.in_shape} on :{args.port} "
           f"({torch.cuda.get_device_name(0)})")
     srv.serve(args.port)
 
