@@ -15,7 +15,16 @@ before the last line:
               the median of 20 CUDA-event runs; beside the single 3×3 and
               the 7×7 stems, one bf16 F.conv2d with the folded weight and
               bias (no ReLU) as the library's time; the 7×7 stem also on
-              ragged tiles, B > 1 and O from 8 to 128.
+              ragged tiles, B > 1 and O from 8 to 128. Then the kernels of
+              BiSeNetV2's depthwise and fused-pred routes at the inputs one
+              served frame gives them (captured from the model): the 16
+              depthwise convs through depthwise3x3 (bit-equal share
+              >= 0.999 and rel < 1e-2 against the plain version), the 10
+              stride-1 ones through depthwise3x3_dma (also bit-equal to
+              depthwise3x3), the head logits (1, 19, 128, 256) through
+              upsample_argmax (label agreement >= 0.9999); beside each, the
+              library's bf16 grouped F.conv2d and the port's library route,
+              or the interpolate + argmax chain; then both on ragged shapes.
 4. dropout  — the dropout kernel at the main head's shape (16, 1024, 64,
               128) bf16 channels_last, rate 0.1: bit-identical to its plain
               version, keep fraction within 0.002 of 230/256, kept values
@@ -25,11 +34,17 @@ before the last line:
 5. slice    — BiSeNetV2 (configs/bisenetv2_city.json: 19 classes, bf16,
               seeded weights, random BN stats) behind the port's HTTP server
               on 127.0.0.1 answers 3 requests of 1024×2048 uint8 frames with
-              the deploy fusions on; then one E2EModel call on the stem-kernel
-              route (set_detail_fuse(False), set_stem_impl("kernel")). The
-              kernel launch counts of that run are read, and every label map
-              is held against the same model on the plain path (library ops):
-              argmax agreement > 0.995 and logits rel max-diff < 2e-2.
+              every deploy route on (stem kernel, detail fusion, depthwise
+              kernel, fused pred); then one E2EModel call on the stem-kernel
+              route alone. The kernel launch counts of that run are read
+              (16 depthwise3x3 and 1 upsample_argmax per request), and the
+              label maps are held against the same model on the plain path
+              (library ops): the served ones against its head logits put
+              through the fused tail's plain version, the stem route's
+              against its labels, agreement > 0.995; logits rel max-diff
+              < 2e-2 on every route. E2EModel time per frame on all routes,
+              the fused stem routes alone (stem kernel, detail fusion) and
+              the plain path in turns; one profiled frame on each.
 6. v1_slice — BiSeNetV1 (configs/bisenetv1_city.json: 19 classes, no aux
               heads, bf16, seeded weights, random BN stats), built by
               tools/serve_torch.py's build_e2e, behind the port's HTTP
@@ -106,10 +121,21 @@ SOURCES = {
                    "mds_tpu/ops/pallas/dropout.py:54"),
     "stem7_conv_bn_relu_s2": ("mds_tpu_torch/csrc/stem7.cu",
                               "mds_tpu/ops/pallas/stem.py:911"),
+    "depthwise3x3": ("mds_tpu_torch/csrc/depthwise.cu",
+                     "mds_tpu/ops/pallas/depthwise.py:112"),
+    "depthwise3x3_dma": ("mds_tpu_torch/csrc/depthwise.cu",
+                         "mds_tpu/ops/pallas/depthwise_dma.py:44"),
+    "upsample_argmax": ("mds_tpu_torch/csrc/upsample_argmax.cu",
+                        "mds_tpu/ops/pallas/upsample_argmax.py:76"),
 }
 # one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12  # CUDA cores, outside the tensor cores
+# the share of a depthwise kernel's outputs that must equal its plain
+# version's bit for bit (both sum the same f32 products in the same order)
+BIT_EQUAL_GATE = 0.999
+UPSAMPLE_ARGMAX_GATE = 0.9999  # label agreement with the plain version
 # the main head's dropout input at the config's batch and crop (16, 512×1024)
 DROPOUT_SHAPE = (16, 1024, 64, 128)
 
@@ -139,10 +165,11 @@ def cuda_ms(fn, n=20):
     return float(np.median(times))
 
 
-def bound(n_bytes, flops):
-    """(least ms, what bounds it): bytes over HBM's rate, operations over the
-    bf16 tensor rate, whichever is larger."""
-    t_mem, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound(n_bytes, flops, flop_rate=BF16_FLOP_PER_S):
+    """(least ms, what bounds it): bytes over HBM's rate, operations over
+    `flop_rate` (the bf16 tensor rate unless the work is f32 on the CUDA
+    cores), whichever is larger."""
+    t_mem, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations"
 
 
@@ -278,11 +305,225 @@ def stem7_ragged(dev):
     return out
 
 
+def bits(t):
+    """A bf16 or f32 tensor's bit patterns in NHWC order (-0 != +0)."""
+    it = torch.int16 if t.dtype == torch.bfloat16 else torch.int32
+    return t.permute(0, 2, 3, 1).contiguous().view(it)
+
+
+def share_equal(a, b):
+    """The exact share of equal elements (a count over the size)."""
+    return (a == b).sum().item() / a.numel()
+
+
+class _Spy:
+    """Stands in for a kernel wrapper in its module: records each call's
+    arguments (cloned) and calls the wrapper. The wrapper counts its launch
+    through its module's name, so `launches` reads and writes the wrapper's."""
+
+    def __init__(self, real):
+        self.real, self.seen = real, []
+
+    @property
+    def launches(self):
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.real.launches = n
+
+    def __call__(self, *args):
+        self.seen.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return self.real(*args)
+
+
+@contextlib.contextmanager
+def captured(module, name):
+    """The arguments of every call of module.<name> in the block, cloned
+    (the call itself goes through)."""
+    spy = _Spy(getattr(module, name))
+    setattr(module, name, spy)
+    try:
+        yield spy.seen
+    finally:
+        setattr(module, name, spy.real)
+
+
+def main_path_inputs(e2e, frame):
+    """The depthwise kernel's 16 (x, w, stride) and the fused tail's
+    (logits, scale) of one served BiSeNetV2 frame: real activations at the
+    shapes the main path gives the kernels."""
+    from mds_tpu_torch.ops import depthwise, upsample_argmax
+
+    with torch.no_grad(), route(**ALL_ROUTES):
+        with captured(depthwise, "depthwise3x3") as dw, \
+                captured(upsample_argmax, "upsample_argmax") as ua:
+            e2e.model.pred(normalized(e2e, frame))
+    torch.cuda.synchronize()
+    return dw, ua
+
+
+def depthwise_rows(dw_calls):
+    """depthwise3x3 at the frame's 16 shapes and depthwise3x3_dma at its
+    stride-1 ones against their plain version (rel max-diff, bit-equal
+    share; the DMA kernel bit-equal to kernel 9), each timed beside its
+    plain version, one bf16 F.conv2d with groups = C (the library call) and
+    the port's library route (repeat_interleave + depthwise conv)."""
+    from mds_tpu_torch.models.layers import _repeat_channels
+    from mds_tpu_torch.ops import depthwise
+
+    def library(x, w, s):
+        return F.conv2d(x, w, None, s, 1, 1, x.shape[1])
+
+    def port_route(x, w, s):
+        c, co = x.shape[1], w.shape[0]
+        x = _repeat_channels(x, co // c) if co != c else x
+        return F.conv2d(x, w, None, s, 1, 1, co)
+
+    rows = {}
+    for name in ("depthwise3x3", "depthwise3x3_dma"):
+        kernel = getattr(depthwise, name)
+        res = {"max_abs_err": 0.0, "rel": 0.0, "bit_equal": 1.0, "ms": 0.0,
+               "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+               "port_route_ms": 0.0, "shapes": []}
+        for x, w, s in dw_calls:
+            if name == "depthwise3x3_dma" and s != 1:
+                continue
+            args = (x, w, s) if name == "depthwise3x3" else (x, w)
+            before = kernel.launches
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 1:
+                raise RuntimeError(f"{name}: launch counter did not move")
+            want = depthwise.depthwise3x3_plain(x, w, s)
+            if not (got.shape == want.shape and got.dtype == x.dtype
+                    and got.is_contiguous(memory_format=torch.channels_last)):
+                raise RuntimeError(f"{name}: bad output {got.shape} {got.dtype}")
+            r, eq = rel(got, want), share_equal(bits(got), bits(want))
+            shape = {"x": list(x.shape), "stride": s, "m": w.shape[0] // x.shape[1],
+                     "rel": r, "bit_equal": eq}
+            if name == "depthwise3x3_dma":
+                k9 = depthwise.depthwise3x3(x, w, 1)
+                shape["equal_to_depthwise3x3"] = torch.equal(bits(got), bits(k9))
+                if not shape["equal_to_depthwise3x3"]:
+                    raise RuntimeError(f"{name}: differs from depthwise3x3 at {shape}")
+            if not torch.isfinite(got.float()).all() or r >= KERNEL_GATE or eq < BIT_EQUAL_GATE:
+                raise RuntimeError(f"{name}: {shape}")
+            # kernel, plain version, library call and library route in turns
+            shape["ms"] = cuda_ms(lambda: kernel(*args))
+            shape["plain_ms"] = cuda_ms(lambda: depthwise.depthwise3x3_plain(x, w, s))
+            shape["library_ms"] = cuda_ms(lambda: library(x, w, s))
+            shape["port_route_ms"] = cuda_ms(lambda: port_route(x, w, s))
+            # each input read once, each output written once; 9 f32
+            # multiply-adds per output on the CUDA cores
+            shape["bound_ms"], res["bound_by"] = bound(nbytes(x, w, got),
+                                                       2 * 9 * got.numel(),
+                                                       F32_FLOP_PER_S)
+            res["max_abs_err"] = max(res["max_abs_err"],
+                                     (got.float() - want.float()).abs().max().item())
+            res["rel"] = max(res["rel"], r)
+            res["bit_equal"] = min(res["bit_equal"], eq)
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "port_route_ms"):
+                res[k] += shape[k]
+            res["shapes"].append(shape)
+        emit(phase="kernels", kernel=name, plain="f32 slices of the padded input, "
+             "multiply, add in tap order", library="bf16 F.conv2d, groups = C_in",
+             port_route="repeat_interleave + depthwise F.conv2d", **res)
+        rows[name] = res
+    return rows
+
+
+def upsample_argmax_row(ua_call):
+    """upsample_argmax at the frame's head logits against its plain version
+    (label agreement, differing pixels), timed beside the plain version and
+    the library chain the plain route runs (bf16 F.interpolate, argmax, int32
+    cast); no single PyTorch call computes the function (library_ms null)."""
+    from mds_tpu_torch.ops import upsample_argmax as ua
+
+    logits, s = ua_call
+    before = ua.upsample_argmax.launches
+    got = ua.upsample_argmax(logits, s)
+    torch.cuda.synchronize()
+    if ua.upsample_argmax.launches != before + 1:
+        raise RuntimeError("upsample_argmax: launch counter did not move")
+    want = ua.upsample_argmax_plain(logits, s)
+    b, c, h, w = logits.shape
+    if got.shape != (b, h * s, w * s) or got.dtype != torch.int32:
+        raise RuntimeError(f"upsample_argmax: bad output {got.shape} {got.dtype}")
+    agree = share_equal(got, want)
+
+    def chain():
+        up = F.interpolate(logits, size=(h * s, w * s), mode="bilinear",
+                           align_corners=False)
+        return up.argmax(dim=1).to(torch.int32)
+
+    ms = cuda_ms(lambda: ua.upsample_argmax(logits, s))
+    plain_ms = cuda_ms(lambda: ua.upsample_argmax_plain(logits, s))
+    chain_ms = cuda_ms(chain)
+    # the separable passes: 3 f32 operations per vertical and per horizontal
+    # value, one comparison per class after the first
+    flops = 3 * b * c * h * s * (w + w * s) + b * h * s * w * s * (c - 1)
+    b_ms, b_by = bound(nbytes(logits, got), flops, F32_FLOP_PER_S)
+    # labels: the largest class-index difference, 0 where the maps agree
+    res = {"max_abs_err": float((got - want).abs().max().item()), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None}
+    emit(phase="kernels", kernel="upsample_argmax", shape=list(logits.shape),
+         scale=s, dtype=str(logits.dtype), agreement=agree,
+         differing_pixels=int((got != want).sum()),
+         chain_ms=chain_ms, chain="bf16 F.interpolate + argmax + int32 cast",
+         plain="two f32 passes, bf16 rounding between, argmax", **res)
+    if agree < UPSAMPLE_ARGMAX_GATE:
+        raise RuntimeError(f"upsample_argmax: agreement {agree}")
+    return res
+
+
+def new_kernels_ragged(dev):
+    """The depthwise kernels at odd H and W, B > 1, C = 3, 5, 12, m = 1, 2,
+    6, both strides (and f32), against their plain version; upsample_argmax
+    at odd h and w, C = 1, 5, 150, s = 2, 3, 4, 8, against its plain
+    version. Not counted as main-path launches."""
+    from mds_tpu_torch.ops import depthwise, upsample_argmax as ua
+
+    rng = np.random.default_rng(6)
+    out = {"depthwise": [], "upsample_argmax": []}
+    for b, h, w, c, m, s, dt in (
+            (2, 17, 33, 3, 1, 1, torch.bfloat16), (2, 17, 33, 3, 2, 2, torch.bfloat16),
+            (1, 31, 15, 5, 6, 1, torch.bfloat16), (3, 9, 9, 5, 1, 2, torch.bfloat16),
+            (2, 21, 19, 12, 2, 1, torch.bfloat16), (1, 13, 27, 12, 6, 2, torch.bfloat16),
+            (2, 7, 11, 12, 1, 1, torch.bfloat16), (1, 11, 13, 16, 6, 1, torch.float32),
+            (2, 9, 10, 8, 1, 2, torch.float32)):
+        x = torch.tensor(rng.normal(0, 1, (b, h, w, c)), device=dev).relu().to(dt)
+        x = x.permute(0, 3, 1, 2)
+        wt = torch.tensor(rng.normal(0, 0.3, (c * m, 1, 3, 3)), device=dev).to(dt)
+        want = depthwise.depthwise3x3_plain(x, wt, s)
+        got = depthwise.depthwise3x3(x, wt, s)
+        rec = {"shape": [b, h, w, c], "m": m, "stride": s, "dtype": str(dt),
+               "rel": rel(got, want), "bit_equal": share_equal(bits(got), bits(want))}
+        if s == 1:
+            rec["dma_equal"] = torch.equal(bits(depthwise.depthwise3x3_dma(x, wt)), bits(got))
+        out["depthwise"].append(rec)
+        if (got.shape != want.shape or rec["rel"] >= KERNEL_GATE
+                or rec["bit_equal"] < BIT_EQUAL_GATE or rec.get("dma_equal") is False):
+            raise RuntimeError(f"depthwise ragged: {rec}")
+    for b, h, w, c, s, dt in ((1, 9, 13, 1, 2, torch.bfloat16), (2, 7, 11, 5, 4, torch.bfloat16),
+                              (1, 15, 9, 150, 8, torch.bfloat16), (1, 5, 7, 19, 3, torch.bfloat16),
+                              (1, 11, 5, 5, 8, torch.float32)):
+        lg = torch.tensor(rng.normal(0, 1, (b, h, w, c)), device=dev).to(dt).permute(0, 3, 1, 2)
+        got, want = ua.upsample_argmax(lg, s), ua.upsample_argmax_plain(lg, s)
+        rec = {"shape": [b, c, h, w], "scale": s, "dtype": str(dt),
+               "agreement": share_equal(got, want)}
+        out["upsample_argmax"].append(rec)
+        if got.shape != want.shape or rec["agreement"] < UPSAMPLE_ARGMAX_GATE:
+            raise RuntimeError(f"upsample_argmax ragged: {rec}")
+    return out
+
+
 def kernels():
     """Every kernel wrapper of the port, each with its launch counter."""
-    from mds_tpu_torch.ops import dropout, stem
+    from mds_tpu_torch.ops import depthwise, dropout, stem, upsample_argmax
 
-    return stem.KERNELS + dropout.KERNELS
+    return stem.KERNELS + dropout.KERNELS + depthwise.KERNELS + upsample_argmax.KERNELS
 
 
 def reset_counts():
@@ -432,9 +673,8 @@ def phase_train(dev):
         raise RuntimeError(f"non-finite train losses {losses}")
     if stats_moved != len(s0) or moved < 0.9 * len(p0):
         raise RuntimeError(f"train step moved {moved} params, {stats_moved} stats")
-    want = {"dropout_u8": 10 * 5, "stem_conv_bn_relu_s2": 0,
-            "detail_s1s2_fused": 0, "stemblock_fused": 0,
-            "stem7_conv_bn_relu_s2": 0}
+    want = {k: 0 for k in launches}
+    want["dropout_u8"] = 10 * 5
     if launches != want:
         raise RuntimeError(f"train launches {launches}, expected {want}")
     return launches
@@ -560,17 +800,32 @@ def randomize_bn(model, seed):
 
 
 @contextlib.contextmanager
-def route(stem_impl="plain", fuse=False):
-    """The layers' stem switches set for the block; the plain path after."""
-    from mds_tpu_torch.models.layers import set_detail_fuse, set_stem_impl
+def route(stem_impl="plain", fuse=False, depthwise="plain", pred="plain"):
+    """The layers' route switches set for the block; the plain path after."""
+    from mds_tpu_torch.models.layers import (
+        set_depthwise_impl,
+        set_detail_fuse,
+        set_pred_impl,
+        set_stem_impl,
+    )
 
     set_stem_impl(stem_impl)
     set_detail_fuse(fuse)
+    set_depthwise_impl(depthwise)
+    set_pred_impl(pred)
     try:
         yield
     finally:
         set_stem_impl("plain")
         set_detail_fuse(False)
+        set_depthwise_impl("plain")
+        set_pred_impl("plain")
+
+
+# BiSeNetV2's served route: every deploy kernel on (tools/serve_torch.py)
+ALL_ROUTES = {"stem_impl": "kernel", "fuse": True, "depthwise": "kernel",
+              "pred": "fused"}
+STEM_FUSED_ROUTES = {"stem_impl": "kernel", "fuse": True}
 
 
 def normalized(e2e, frame):
@@ -618,7 +873,7 @@ def serve_and_check(e2e, name, frames, n_classes, **route_kw):
         raise RuntimeError(f"{name}: degenerate label maps: {classes} classes")
     plain = [e2e.infer(fr) for fr in frames]
     return {"launches": launches, "latency_ms": latency_ms, "classes": classes,
-            "plain_labels": plain,
+            "replies": replies, "plain_labels": plain,
             "agree": [float((rep == ref).mean()) for rep, ref in zip(replies, plain)]}
 
 
@@ -644,7 +899,10 @@ def e2e_ms(e2e, frame, **route_kw):
         return cuda_ms(lambda: e2e(torch.from_numpy(frame)), n=10)
 
 
-def phase_slice(dev):
+def v2_model(dev):
+    """BiSeNetV2 as configs/bisenetv2_city.json serves it (19 classes, bf16,
+    no aux heads), seeded weights with random BN statistics, in an E2EModel
+    on the card; and the phase's three 1024×2048 uint8 frames."""
     from mds_tpu_torch import MODELS
     from mds_tpu_torch.config import Configer
     from mds_tpu_torch.data.labels import get_spec
@@ -652,44 +910,78 @@ def phase_slice(dev):
 
     cfg = Configer(config_file=CONFIG)
     spec = get_spec(cfg.dataset_cfg(0)["spec"])
-    n_classes = cfg.n_cats(0)
-    model = MODELS[cfg.get("model_name")](n_classes=(n_classes,), n_bn=1, aux=False,
-                                          dtype=torch.bfloat16)
+    model = MODELS[cfg.get("model_name")](n_classes=(cfg.n_cats(0),), n_bn=1,
+                                          aux=False, dtype=torch.bfloat16)
     model.init_weights(torch.Generator().manual_seed(WEIGHT_SEED))
     randomize_bn(model, WEIGHT_SEED + 1)
-    e2e = E2EModel(model, spec.mean, spec.std, device=dev)
     frames = np.random.default_rng(2).integers(0, 256, (3, 1, H, W, 3)).astype(np.uint8)
+    return E2EModel(model, spec.mean, spec.std, device=dev), frames
 
-    served = serve_and_check(e2e, "bisenetv2", frames, n_classes,
-                             stem_impl="kernel", fuse=True)
+
+def fused_tail_reference(model, x):
+    """The plain route's head logits (library ops, head resolution) through
+    the fused tail's plain version, which rounds where the kernel does."""
+    from mds_tpu_torch.models.layers import as_multi
+    from mds_tpu_torch.ops.upsample_argmax import upsample_argmax_plain
+
+    with torch.inference_mode():
+        feat, _ = model.backbone(as_multi(x, 0, model.n_bn))
+        head = model.head[0]
+        logits = head(feat[0], up=False)
+        return upsample_argmax_plain(logits, head.residual_factor).cpu().numpy()
+
+
+def phase_slice(dev, e2e, frames):
+    """BiSeNetV2 served with every deploy route on (stem kernel, detail
+    fusion, depthwise kernel, fused pred), then one frame on the stem-kernel
+    route alone, against the same model on the plain path."""
+    model = e2e.model
+    n_classes = model.n_classes[0]
+    served = serve_and_check(e2e, "bisenetv2", frames, n_classes, **ALL_ROUTES)
     # the segment.py route: stem kernels, no detail/StemBlock fusion
     with route("kernel"):
         reset_counts()
         stem_route = e2e.infer(frames[0])
         stem_launches = read_counts()
     launches = {k: served["launches"][k] + n for k, n in stem_launches.items()}
-    want = {"detail_s1s2_fused": 3, "stemblock_fused": 3, "stem_conv_bn_relu_s2": 2,
-            "dropout_u8": 0, "stem7_conv_bn_relu_s2": 0}
+    want = {k: 0 for k in launches}
+    want.update(detail_s1s2_fused=3, stemblock_fused=3, stem_conv_bn_relu_s2=2,
+                depthwise3x3=16 * len(frames), upsample_argmax=len(frames))
     if launches != want:
         raise RuntimeError(f"kernel launches {launches}, expected {want}")
-    agree = served["agree"]
+    # the fused tail rounds the vertical pass to bf16 by design, as JAX's
+    # does: the served labels are held to the plain route's head logits put
+    # through the tail's plain version, and their agreement with the plain
+    # route's F.interpolate + argmax labels is reported without a gate
+    agree = [float((rep == fused_tail_reference(model, normalized(e2e, fr))).mean())
+             for rep, fr in zip(served["replies"], frames)]
+    agree_interp = served["agree"]
     agree_stem = float((stem_route == served["plain_labels"][0]).mean())
-    rel_fused, rel_stem = logits_rels(model, normalized(e2e, frames[0]), n_classes,
-                                      ({"stem_impl": "kernel", "fuse": True},
-                                       {"stem_impl": "kernel"}))
-    # in turns: kernel route, then plain
-    e2e_fused_ms = e2e_ms(e2e, frames[1], stem_impl="kernel", fuse=True)
-    e2e_plain_ms = e2e_ms(e2e, frames[1])
+    rel_all, rel_dw, rel_stem = logits_rels(
+        model, normalized(e2e, frames[0]), n_classes,
+        ({**ALL_ROUTES, "pred": "plain"}, {"depthwise": "kernel"}, {"stem_impl": "kernel"}))
+    # in turns: all routes, stem fusion, plain, plain, stem fusion, all
+    order = (("all", ALL_ROUTES), ("stem_fused", STEM_FUSED_ROUTES), ("plain", {}))
+    e2e_times = {k: [] for k, _ in order}
+    for k, kw in order + order[::-1]:
+        e2e_times[k].append(e2e_ms(e2e, frames[1], **kw))
+    of_interest = ("dw3x3_kernel", "upsample_argmax_kernel", "stem_kernel",
+                   "detail_kernel", "stemblock_kernel")
+    profiles = {}
+    for k, kw in order:
+        with route(**kw):
+            profiles[k] = profile_idle_share(
+                lambda: e2e(torch.from_numpy(frames[1])), of_interest)
     emit(phase="slice", requests=len(frames), latency_ms=served["latency_ms"],
          classes_per_reply=served["classes"],
-         argmax_agreement=agree, logits_rel=rel_fused,
+         argmax_agreement=agree, argmax_agreement_interpolate=agree_interp,
+         logits_rel=rel_all, depthwise_route_logits_rel=rel_dw,
          stem_route_agreement=agree_stem, stem_route_logits_rel=rel_stem,
-         e2e_fused_ms=e2e_fused_ms, e2e_plain_ms=e2e_plain_ms,
-         launches=launches)
+         e2e_ms=e2e_times, launches=launches, profile=profiles)
     if min(agree + [agree_stem]) <= ARGMAX_GATE:
         raise RuntimeError(f"argmax agreement {agree} / {agree_stem}")
-    if max(rel_fused, rel_stem) >= LOGITS_GATE:
-        raise RuntimeError(f"logits rel {rel_fused} / {rel_stem}")
+    if max(rel_all, rel_dw, rel_stem) >= LOGITS_GATE:
+        raise RuntimeError(f"logits rel {rel_all} / {rel_dw} / {rel_stem}")
     return launches
 
 
@@ -761,9 +1053,19 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     results = phase_kernels(dev)
+    e2e, frames = v2_model(dev)
+    dw_calls, ua_calls = main_path_inputs(e2e, frames[0])
+    if len(dw_calls) != 16 or len(ua_calls) != 1:
+        raise RuntimeError(f"a V2 frame made {len(dw_calls)} depthwise and "
+                           f"{len(ua_calls)} fused-tail calls, expected 16 and 1")
+    results.update(depthwise_rows(dw_calls))
+    results["upsample_argmax"] = upsample_argmax_row(ua_calls[0])
+    del dw_calls, ua_calls
+    emit(phase="kernels", ragged=new_kernels_ragged(dev))
     results["dropout_u8"] = phase_dropout(dev)
     torch.cuda.empty_cache()
-    launches = phase_slice(dev)
+    launches = phase_slice(dev, e2e, frames)
+    del e2e
     launches["stem7_conv_bn_relu_s2"] = phase_v1_slice(dev)["stem7_conv_bn_relu_s2"]
     torch.cuda.empty_cache()
     launches["dropout_u8"] = phase_train(dev)["dropout_u8"]

@@ -1,0 +1,383 @@
+// Hopper (sm_90a) depthwise / channel-multiplier 3x3 convolutions, bound
+// with ctypes.
+//
+// Replaces two TPU kernels:
+//   mds_dw3x3         <- mds_tpu/ops/pallas/depthwise.py depthwise3x3_pallas
+//                        (stride 1 or 2, any multiplier m)
+//   mds_dw3x3_window  <- mds_tpu/ops/pallas/depthwise_dma.py depthwise3x3_dma
+//                        (stride 1, the input window staged by the kernel)
+//
+//   out[b, y, x, c*m + j] = sum over (dy, dx) of
+//                           x[b, s*y + dy - 1, s*x + dx - 1, c] * w[c*m + j][dy*3 + dx]
+//
+// with zero padding 1. x is (B, H, W, C) in memory (a channels_last NCHW
+// tensor), w the torch OIHW weight (C*m, 1, 3, 3) in x's type, read as it is,
+// out (B, ceil(H/s), ceil(W/s), C*m). T is bf16 or f32. Arithmetic: each
+// product in f32, the sum in (dy, dx) row-major order starting from the
+// first product, no FMA contraction (__fmul_rn / __fadd_rn), one rounding to
+// T at the end: the sum of mds_tpu/ops/depthwise.py:40-46 and of the plain
+// version in mds_tpu_torch/ops/depthwise.py, bit for bit; a padding tap adds
+// its +-0 product as the plain version's zero padding does. The two kernels
+// are therefore bit-identical at stride 1.
+//
+// Bound: memory. Each output takes 9 multiply-adds for its 2 bytes (bf16):
+// 4.5 flop/byte in, 9 per byte out, against the ~20 flop/byte at which an
+// H100's 67 TFLOP/s of f32 CUDA-core work would overtake its 3.35 TB/s. The
+// 16 depthwise convs of a 1024x2048 BiSeNetV2 frame move ~100 MB (~30 us at
+// 3.35 TB/s).
+//
+// mds_dw3x3 (the model's kernel): a thread computes P = 4 neighbouring
+// output pixels of one row for a run of 8 consecutive output channels. Its
+// 72 weights are one contiguous 144-byte run of the OIHW weight, loaded once
+// into registers; each of the (P-1)*s + 3 input columns of the three rows is
+// loaded once and fed to every pixel whose tap it is, so the input is read
+// 2.25x (s1) or ~1.6x (s2) from L1/L2 instead of 9x. Lanes run over the
+// channel groups: a warp's loads and 16-byte stores are contiguous along C.
+// Inputs come through the read-only path (ld.global.nc). With m = 1 and
+// C % 8 == 0 a column is one 16-byte load; otherwise each output channel
+// loads its own input channel (m > 1 hits the same bytes in L1). Ragged
+// widths and channel counts are masked.
+//
+// mds_dw3x3_window (on no model path, as in JAX): a block owns an 8x16
+// output tile and 8 input channels (8*m output channels). It copies its
+// (8+2)x(16+2)x8 input window into shared memory with cp.async -- 16-byte
+// chunks, the halo zero-filled through src-size 0, the counterpart of the
+// TPU kernel's DMA into VMEM -- then each thread reads its 9 taps from
+// shared memory for each group of 8 output channels. C % 8 != 0 stages with
+// plain loads instead.
+//
+// JAX's XLA-side halo restack, stride-2 parity planes, _BLOCK_BYTES tiling
+// and (..., m, C) output with an outside transpose are Mosaic workarounds and
+// have no counterpart here. Each launcher returns the cudaError_t of its
+// launch (0 on success).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kVec = 8;  // output channels per thread
+constexpr int kPix = 4;  // output pixels per thread (mds_dw3x3)
+constexpr int kThreads = 128;
+constexpr int kTH = 8, kTW = 16, kCT = 8;  // mds_dw3x3_window's tile
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  return __uint_as_float(u & 0xFFFF0000u);
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
+  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
+  return l | (h << 16);
+}
+
+// 8 consecutive values (16-byte aligned) as f32, through the read-only path.
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[kVec]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  v[0] = bf16_lo(u.x); v[1] = bf16_hi(u.x);
+  v[2] = bf16_lo(u.y); v[3] = bf16_hi(u.y);
+  v[4] = bf16_lo(u.z); v[5] = bf16_hi(u.z);
+  v[6] = bf16_lo(u.w); v[7] = bf16_hi(u.w);
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[kVec]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// 8 f32 values rounded to T, one or two 16-byte stores (16-byte aligned).
+__device__ __forceinline__ void store8(bf16* p, const float (&v)[kVec]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                 pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[kVec]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// The 72 weights of output channels o0 .. o0+7 (OIHW rows of 9), as
+// wr[k][tap]; with `vec` one contiguous, 16-byte aligned run of 72 values,
+// else masked at Co.
+template <typename T>
+__device__ __forceinline__ void load_weights(const T* __restrict__ w, int o0,
+                                             int Co, bool vec,
+                                             float (&wr)[kVec][9]) {
+  if (vec) {
+    const T* p = w + (long long)o0 * 9;
+#pragma unroll
+    for (int q = 0; q < 9; ++q) {  // 9 runs of 8 values
+      float v[kVec];
+      load8(p + q * kVec, v);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const int f = q * kVec + e;  // flat index k*9 + tap
+        wr[f / 9][f % 9] = v[e];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        wr[k][t] = o0 + k < Co ? to_f(__ldg(w + (long long)(o0 + k) * 9 + t))
+                               : 0.f;
+  }
+}
+
+// acc = first product, then acc + product, in tap order; no FMA.
+__device__ __forceinline__ float madd(float acc, float v, float w, int tap) {
+  const float p = __fmul_rn(v, w);
+  return tap == 0 ? p : __fadd_rn(acc, p);
+}
+
+// ----------------------------------------------------- kernel 9: mds_dw3x3
+
+// XVEC: m == 1, C % 8 == 0 and x 16-byte aligned (a column is one vector).
+// OVEC: C*m % 8 == 0 and w, out 16-byte aligned.
+template <typename T, int S, bool XVEC, bool OVEC>
+__global__ void __launch_bounds__(kThreads)
+dw3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
+             T* __restrict__ out, int B, int H, int W, int C, int M, int Ho,
+             int Wo, int G, int strips) {
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (long long)B * Ho * strips * G) return;
+  const int g = (int)(idx % G);
+  long long r = idx / G;
+  const int strip = (int)(r % strips);
+  r /= strips;
+  const int oy = (int)(r % Ho);
+  const int b = (int)(r / Ho);
+  const int Co = C * M;
+  const int o0 = g * kVec;
+  const int ox0 = strip * kPix;
+
+  float wr[kVec][9];
+  load_weights(w, o0, Co, OVEC, wr);
+  int ci[kVec];  // input channel of each output channel, -1 past Co
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) ci[k] = o0 + k < Co ? (o0 + k) / M : -1;
+
+  float acc[kPix][kVec] = {};
+  constexpr int kCols = (kPix - 1) * S + 3;
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy) {
+    const int iy = oy * S + dy - 1;
+    const bool row_ok = iy >= 0 && iy < H;
+    const T* xrow = x + ((long long)b * H + (row_ok ? iy : 0)) * W * C;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int ix = ox0 * S - 1 + j;
+      const bool ok = row_ok && ix >= 0 && ix < W;
+      float v[kVec];
+      if (XVEC) {
+        if (ok) {
+          load8(xrow + (long long)ix * C + o0, v);
+        } else {
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) v[k] = 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kVec; ++k)
+          v[k] = ok && ci[k] >= 0 ? to_f(__ldg(xrow + (long long)ix * C + ci[k]))
+                                  : 0.f;
+      }
+#pragma unroll
+      for (int p = 0; p < kPix; ++p) {
+        const int dx = j - S * p;  // this column's tap for pixel p
+        if (dx < 0 || dx > 2) continue;
+        const int tap = dy * 3 + dx;
+#pragma unroll
+        for (int k = 0; k < kVec; ++k)
+          acc[p][k] = madd(acc[p][k], v[k], wr[k][tap], tap);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    const int ox = ox0 + p;
+    if (ox >= Wo) break;
+    T* dst = out + (((long long)b * Ho + oy) * Wo + ox) * Co + o0;
+    if (OVEC) {
+      store8(dst, acc[p]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        if (o0 + k < Co) dst[k] = from_f<T>(acc[p][k]);
+    }
+  }
+}
+
+// ----------------------------------------- kernel 10: mds_dw3x3_window
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+// ASYNC: C % 8 == 0 and x 16-byte aligned (each window pixel is whole
+// 16-byte chunks). OVEC as above.
+template <typename T, bool ASYNC, bool OVEC>
+__global__ void __launch_bounds__(kTH * kTW)
+dw3x3_window_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    T* __restrict__ out, int B, int H, int W, int C, int M) {
+  __shared__ __align__(16) T win[kTH + 2][kTW + 2][kCT];
+  const int nct = (C + kCT - 1) / kCT;
+  const int b = blockIdx.z / nct, c0 = (blockIdx.z % nct) * kCT;
+  const int ty0 = blockIdx.y * kTH, tx0 = blockIdx.x * kTW;
+  const int tid = threadIdx.x;
+  constexpr int kPixels = (kTH + 2) * (kTW + 2);
+
+  if (ASYNC) {
+    constexpr int kChunk = 16 / sizeof(T);  // values per 16-byte chunk
+    constexpr int kChunks = kCT / kChunk;   // chunks per window pixel
+    for (int i = tid; i < kPixels * kChunks; i += kTH * kTW) {
+      const int q = i % kChunks, pix = i / kChunks;
+      const int wy = pix / (kTW + 2), wx = pix % (kTW + 2);
+      const int iy = ty0 + wy - 1, ix = tx0 + wx - 1;
+      const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W;
+      const T* src =
+          ok ? x + (((long long)b * H + iy) * W + ix) * C + c0 + q * kChunk : x;
+      cp_async16(&win[wy][wx][q * kChunk], src, ok ? 16 : 0);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  } else {
+    for (int i = tid; i < kPixels * kCT; i += kTH * kTW) {
+      const int k = i % kCT, pix = i / kCT;
+      const int wy = pix / (kTW + 2), wx = pix % (kTW + 2);
+      const int iy = ty0 + wy - 1, ix = tx0 + wx - 1;
+      const bool ok =
+          iy >= 0 && iy < H && ix >= 0 && ix < W && c0 + k < C;
+      win[wy][wx][k] =
+          ok ? x[(((long long)b * H + iy) * W + ix) * C + c0 + k] : from_f<T>(0.f);
+    }
+  }
+  __syncthreads();
+
+  const int ty = tid / kTW, tx = tid % kTW;
+  const int oy = ty0 + ty, ox = tx0 + tx;
+  if (oy >= H || ox >= W) return;
+  const int Co = C * M;
+  T* dst_px = out + (((long long)b * H + oy) * W + ox) * Co;
+  // the tile's 8*m output channels c0*m ... as m groups of 8
+  for (int q = 0; q < M; ++q) {
+    const int o0 = c0 * M + q * kVec;
+    if (o0 >= Co) break;
+    float wr[kVec][9];
+    load_weights(w, o0, Co, OVEC, wr);
+    int lc[kVec];  // window channel of each output channel
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) lc[k] = min((q * kVec + k) / M, kCT - 1);
+    float acc[kVec] = {};
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const T* px = win[ty + tap / 3][tx + tap % 3];
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        acc[k] = madd(acc[k], to_f(px[lc[k]]), wr[k][tap], tap);
+    }
+    T* dst = dst_px + o0;
+    if (OVEC) {
+      store8(dst, acc);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        if (o0 + k < Co) dst[k] = from_f<T>(acc[k]);
+    }
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T, int S>
+cudaError_t launch_dw3x3(const void* x, const void* w, void* out, int B, int H,
+                         int W, int C, int M, cudaStream_t stream) {
+  const int Ho = (H + S - 1) / S, Wo = (W + S - 1) / S;
+  const int G = (C * M + kVec - 1) / kVec, strips = (Wo + kPix - 1) / kPix;
+  const long long threads = (long long)B * Ho * strips * G;
+  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+  const bool xvec = M == 1 && C % kVec == 0 && aligned16(x);
+  const bool ovec = (C * M) % kVec == 0 && aligned16(w) && aligned16(out);
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  T* op = static_cast<T*>(out);
+#define MDS_DW3X3(XV, OV)                                                  \
+  dw3x3_kernel<T, S, XV, OV><<<blocks, kThreads, 0, stream>>>(             \
+      xp, wp, op, B, H, W, C, M, Ho, Wo, G, strips)
+  if (xvec && ovec) MDS_DW3X3(true, true);
+  else if (ovec) MDS_DW3X3(false, true);
+  else MDS_DW3X3(false, false);  // a misaligned w or out: all scalar
+#undef MDS_DW3X3
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_window(const void* x, const void* w, void* out, int B, int H,
+                          int W, int C, int M, cudaStream_t stream) {
+  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH,
+                  B * ((C + kCT - 1) / kCT));
+  const bool async = C % kCT == 0 && aligned16(x);
+  const bool ovec = (C * M) % kVec == 0 && aligned16(w) && aligned16(out);
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  T* op = static_cast<T*>(out);
+#define MDS_WINDOW(AS, OV)                                                 \
+  dw3x3_window_kernel<T, AS, OV><<<grid, kTH * kTW, 0, stream>>>(          \
+      xp, wp, op, B, H, W, C, M)
+  if (async && ovec) MDS_WINDOW(true, true);
+  else if (async) MDS_WINDOW(true, false);
+  else if (ovec) MDS_WINDOW(false, true);
+  else MDS_WINDOW(false, false);
+#undef MDS_WINDOW
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x (B, H, W, C), w (C*m, 9), out (B, ceil(H/s), ceil(W/s), C*m); f32 != 0
+// selects float, else bf16; stride 1 or 2.
+extern "C" int mds_dw3x3(const void* x, const void* w, void* out, int B, int H,
+                         int W, int C, int M, int stride, int f32,
+                         void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
+  if (f32)
+    return (int)(stride == 1 ? launch_dw3x3<float, 1>(x, w, out, B, H, W, C, M, s)
+                             : launch_dw3x3<float, 2>(x, w, out, B, H, W, C, M, s));
+  return (int)(stride == 1 ? launch_dw3x3<bf16, 1>(x, w, out, B, H, W, C, M, s)
+                           : launch_dw3x3<bf16, 2>(x, w, out, B, H, W, C, M, s));
+}
+
+// stride 1 only; shapes as mds_dw3x3.
+extern "C" int mds_dw3x3_window(const void* x, const void* w, void* out, int B,
+                                int H, int W, int C, int M, int f32,
+                                void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(f32 ? launch_window<float>(x, w, out, B, H, W, C, M, s)
+                   : launch_window<bf16>(x, w, out, B, H, W, C, M, s));
+}

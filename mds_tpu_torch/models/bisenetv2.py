@@ -6,7 +6,9 @@ has its own heads. Activations are per-dataset lists; `forward` is the train
 call (main and aux logits per dataset), `eval_logits` and `pred` take one
 dataset's NCHW batch. In eval, with `set_detail_fuse(True)` and a bf16
 compute dtype, the DetailBranch's first three convs and the whole StemBlock
-run as one CUDA kernel each (ops/stem.py).
+run as one CUDA kernel each (ops/stem.py); `set_depthwise_impl("kernel")`
+runs the 16 depthwise convs as ops/depthwise.py's kernel and
+`set_pred_impl("fused")` the pred tail as ops/upsample_argmax.py's.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from mds_tpu_torch.models.layers import (
     conv2d,
     conv_init,
     get_detail_fuse,
+    get_pred_impl,
     global_avg_pool,
     lecun_init,
     lmap,
@@ -291,7 +294,19 @@ class BiSeNetV2(nn.Module):
         return self.head[dataset](feat_head[dataset])
 
     def pred(self, x: torch.Tensor, dataset: int = 0) -> torch.Tensor:
-        """Argmax label map (B, H, W)."""
+        """Argmax label map (B, H, W). With set_pred_impl("fused") the head
+        stays at its resolution and the ×8 bilinear upsample and the argmax
+        run as one pass that writes only the int32 labels
+        (ops/upsample_argmax.py; mds_tpu/models/bisenetv2.py:385-400)."""
+        if get_pred_impl() == "fused":
+            from mds_tpu_torch.ops.upsample_argmax import upsample_argmax
+
+            feat_head, _ = self.backbone(as_multi(x, dataset, self.n_bn))
+            head = self.head[dataset]
+            logits = head(feat_head[dataset], up=False)
+            return upsample_argmax(
+                logits.contiguous(memory_format=torch.channels_last),
+                head.residual_factor)
         return self.eval_logits(x, dataset).argmax(dim=1)
 
     @torch.no_grad()

@@ -75,6 +75,37 @@ def get_detail_fuse() -> bool:
     return _DETAIL_FUSE
 
 
+# Depthwise route for the grouped 3×3 convs with groups == in_chan (stride 1
+# or 2, any channel multiplier): "plain" (library conv) or "kernel"
+# (ops/depthwise.py depthwise3x3; mds_tpu/models/layers.py:162-172's
+# "pallas"). The kernel computes the conv only and has no backward.
+_DEPTHWISE_IMPL = "plain"
+
+
+def set_depthwise_impl(impl: str) -> None:
+    if impl not in ("plain", "kernel"):
+        raise ValueError(f"depthwise impl must be 'plain' or 'kernel', got {impl!r}")
+    global _DEPTHWISE_IMPL
+    _DEPTHWISE_IMPL = impl
+
+
+# Pred tail of BiSeNetV2: "plain" (head at full resolution, then argmax) or
+# "fused" (head left at its resolution, then ops/upsample_argmax.py's fused
+# ×s bilinear + argmax; mds_tpu/models/layers.py:215-229).
+_PRED_IMPL = "plain"
+
+
+def set_pred_impl(impl: str) -> None:
+    if impl not in ("plain", "fused"):
+        raise ValueError(f"pred impl must be 'plain' or 'fused', got {impl!r}")
+    global _PRED_IMPL
+    _PRED_IMPL = impl
+
+
+def get_pred_impl() -> str:
+    return _PRED_IMPL
+
+
 def _c(v: torch.Tensor) -> torch.Tensor:
     """A per-channel vector shaped to broadcast over NCHW."""
     return v.reshape(1, -1, 1, 1)
@@ -257,7 +288,10 @@ def _repeat_channels(x: torch.Tensor, mult: int) -> torch.Tensor:
 class ConvBNReLU(nn.Module):
     """conv → per-dataset BN → shared (or per-dataset) affine → ReLU
     (mds_tpu/models/layers.py:468). One conv, shared weights, applied to each
-    dataset's tensor. A grouped conv with a channel multiplier
+    dataset's tensor. With set_depthwise_impl("kernel") a 3×3 conv with
+    groups == in_chan at stride 1 or 2 runs as the depthwise kernel
+    (ops/depthwise.py; layers.py:506-512's condition), which refuses inputs
+    that require grad. Otherwise a grouped conv with a channel multiplier
     (groups == in_chan < out_chan) runs as the input's channels repeated
     `mult` times followed by a depthwise conv on the same (out, 1, k, k)
     weight: PyTorch launches one kernel per group for the grouped form."""
@@ -294,6 +328,12 @@ class ConvBNReLU(nn.Module):
 
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv
+        if (_DEPTHWISE_IMPL == "kernel" and conv.groups == conv.in_channels
+                and conv.kernel_size == (3, 3) and conv.stride in ((1, 1), (2, 2))):
+            from mds_tpu_torch.ops.depthwise import depthwise3x3
+
+            x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+            return depthwise3x3(x, conv.weight.to(self.dtype), conv.stride[0])
         if conv.groups == conv.in_channels < conv.out_channels:
             x = _repeat_channels(x.to(self.dtype),
                                  conv.out_channels // conv.in_channels)

@@ -14,17 +14,12 @@ import pytest
 import torch
 
 from mds_tpu.deploy.export import make_e2e_fn
-from mds_tpu.models import bisenetv2 as jb
 from mds_tpu.models import layers as jl
-from mds_tpu_torch import MODELS
 from mds_tpu_torch.deploy.e2e import E2EModel
-from mds_tpu_torch.deploy.weights import (
-    bisenetv2_state_dict_from_jax,
-    load_reference_weights,
-)
+from mds_tpu_torch.deploy.weights import bisenetv2_state_dict_from_jax
 from mds_tpu_torch.models import layers as tl
 from mds_tpu_torch.ops import stem as tstem
-from torch_parity import ARGMAX_GATE, LOGITS_GATE, init_variables, nchw, rel_err
+from torch_parity import ARGMAX_GATE, LOGITS_GATE, bisenetv2_pair, nchw, rel_err
 
 H, W = 64, 128
 MEAN = np.asarray([0.3038, 0.3383, 0.3034], np.float32)
@@ -32,17 +27,7 @@ STD = np.asarray([0.2071, 0.2088, 0.209], np.float32)
 
 
 def _pair(n_classes, n_bn, origin, jdtype, tdtype, seed):
-    """A JAX BiSeNetV2 with randomized variables and the port model holding
-    the same weights."""
-    jm = (jb.bisenetv2_origin if origin else jb.BiSeNetV2)(
-        n_classes=n_classes, n_bn=n_bn, aux=False, dtype=jdtype)
-    v = init_variables(jm, seed, [jnp.zeros((1, H, W, 3), jnp.float32)] * n_bn,
-                       train=False)
-    name = "bisenetv2_origin" if origin else "bisenetv2"
-    tm = MODELS[name](n_classes=n_classes, n_bn=n_bn, aux=False, dtype=tdtype)
-    load_reference_weights(tm, bisenetv2_state_dict_from_jax(v["params"],
-                                                             v["batch_stats"]))
-    return jm, v, tm.eval()
+    return bisenetv2_pair(n_classes, n_bn, origin, jdtype, tdtype, seed, (H, W))
 
 
 @pytest.mark.parametrize("n_bn,origin,dataset", [(1, False, 0), (2, False, 1),

@@ -46,6 +46,37 @@ def init_variables(jm, seed, *args, **kw):
                                np.random.default_rng(seed))
 
 
+def bisenetv2_pair(n_classes, n_bn, origin, jdtype, tdtype, seed, hw):
+    """A JAX BiSeNetV2 without aux heads, its variables (JAX's init at a
+    (1, *hw, 3) input, randomized BN from `seed`) and the port model holding
+    the same weights (strict load), in eval mode."""
+    from mds_tpu.models import bisenetv2 as jb
+
+    jm = (jb.bisenetv2_origin if origin else jb.BiSeNetV2)(
+        n_classes=n_classes, n_bn=n_bn, aux=False, dtype=jdtype)
+    v = init_variables(jm, seed, [jnp.zeros((1, *hw, 3), jnp.float32)] * n_bn,
+                       train=False)
+    name = "bisenetv2_origin" if origin else "bisenetv2"
+    tm = MODELS[name](n_classes=n_classes, n_bn=n_bn, aux=False, dtype=tdtype)
+    load_reference_weights(tm, bisenetv2_state_dict_from_jax(v["params"],
+                                                             v["batch_stats"]))
+    return jm, v, tm.eval()
+
+
+def interpret_pallas(monkeypatch):
+    """Run every Pallas kernel that JAX traces from here on in interpret
+    mode (the CPU has no Mosaic), as tests/test_pallas_depthwise.py does."""
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+
+    def patched(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    monkeypatch.setattr(pl, "pallas_call", patched)
+
+
 def seeded_variables(jm, seed, *args, **kw):
     """A JAX model's variables with the tree and shapes of its own init at
     `args` (jax.eval_shape, no compile) and values from numpy seed `seed`:

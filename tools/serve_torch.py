@@ -11,9 +11,13 @@ The config's `model_name` picks the model (bisenetv2, bisenetv2_origin,
 bisenetv1); --name, the name in the URL, defaults to it. --weights takes an
 .npz of reference-layout keys (mds_tpu_torch/deploy/weights.py) or a
 torch.save'd state dict; without it the weights are a seeded random init.
-The model runs in bf16 with the deploy kernels on (set_stem_impl("kernel"):
-the RGB stems of either model; set_detail_fuse(True): BiSeNetV2's fused
-DetailBranch head and StemBlock), always on CUDA.
+The model runs in bf16 with the deploy kernels on, always on CUDA:
+set_stem_impl("kernel") (the RGB stems of either model),
+set_detail_fuse(True) (BiSeNetV2's fused DetailBranch head and StemBlock),
+set_depthwise_impl("kernel") (BiSeNetV2's 16 depthwise 3×3 convs) and
+set_pred_impl("fused") (BiSeNetV2's ×8 upsample + argmax as one pass).
+BiSeNetV1 has no depthwise conv and no fused tail, so the last two leave it
+as it is.
 """
 
 import argparse
@@ -69,7 +73,12 @@ def main():
 
     from mds_tpu_torch.config import Configer
     from mds_tpu_torch.deploy.server import InferenceServer
-    from mds_tpu_torch.models.layers import set_detail_fuse, set_stem_impl
+    from mds_tpu_torch.models.layers import (
+        set_depthwise_impl,
+        set_detail_fuse,
+        set_pred_impl,
+        set_stem_impl,
+    )
 
     if not torch.cuda.is_available():
         raise RuntimeError("serve_torch needs a CUDA device")
@@ -77,6 +86,8 @@ def main():
         "model_name", default="bisenetv2")
     set_stem_impl("kernel")
     set_detail_fuse(True)
+    set_depthwise_impl("kernel")
+    set_pred_impl("fused")
     srv = InferenceServer(build_e2e(args.config, args.weights, args.seed),
                           tuple(args.size), name=name)
     print(f"serving {name} {srv.in_shape} on :{args.port} "
