@@ -10,21 +10,30 @@ before the last line:
 2. build    — nvcc builds mds_tpu_torch/csrc/*.cu for sm_90a, one process
               per source.
 3. kernels  — each stem kernel at the serving shapes (B=1, 1024×2048; the
-              7×7 stem of BiSeNetV1 at O=64) against its plain PyTorch
-              version on the card (TF32 off), rel max-diff < 1e-2, times as
-              the median of 20 CUDA-event runs; beside the single 3×3 and
-              the 7×7 stems, one bf16 F.conv2d with the folded weight and
-              bias (no ReLU) as the library's time; the 7×7 stem also on
+              7×7 stem of BiSeNetV1 at O=64; the single 3×3 stem and its
+              window variant at O=64 and 16, the window variant bit-equal
+              to the single stem) against its plain PyTorch version on the
+              card (TF32 off), rel max-diff < 1e-2, times as the median of
+              20 CUDA-event runs; beside the single 3×3, its window variant
+              and the 7×7 stems, one bf16 F.conv2d with the folded weight
+              and bias (no ReLU) as the library's time; the 7×7 stem also on
               ragged tiles, B > 1 and O from 8 to 128. Then the kernels of
-              BiSeNetV2's depthwise and fused-pred routes at the inputs one
-              served frame gives them (captured from the model): the 16
-              depthwise convs through depthwise3x3 (bit-equal share
-              >= 0.999 and rel < 1e-2 against the plain version), the 10
-              stride-1 ones through depthwise3x3_dma (also bit-equal to
-              depthwise3x3), the head logits (1, 19, 128, 256) through
-              upsample_argmax (label agreement >= 0.9999); beside each, the
-              library's bf16 grouped F.conv2d and the port's library route,
-              or the interpolate + argmax chain; then both on ragged shapes.
+              BiSeNetV2's routes at the inputs one served frame gives them
+              (captured from the model): the 16 depthwise convs through
+              depthwise3x3 (bit-equal share >= 0.999 and rel < 1e-2 against
+              the plain version), the 10 stride-1 ones through
+              depthwise3x3_dma (also bit-equal to depthwise3x3), the head
+              logits (1, 19, 128, 256) through upsample_argmax (label
+              agreement >= 0.9999), the /4 detail feature (1, 64, 256, 512)
+              through detail_tail_fused, and DetailBranch S1_2's input
+              (1, 64, 512, 1024) of a frame on the window-stem + conv3 route
+              through conv3x3_bn_relu (both rel < 1e-2, bit-equal share
+              printed); beside each, the library's bf16 grouped F.conv2d
+              and the port's library route, the interpolate + argmax chain,
+              the plain route's five ConvBNReLU modules, or one bf16
+              F.conv2d with the folded weight and bias; then all of them on
+              ragged shapes (odd tiles, B > 1, conv3 at C_in 3-64 and C_out
+              8-136).
 4. dropout  — the dropout kernel at the main head's shape (16, 1024, 64,
               128) bf16 channels_last, rate 0.1: bit-identical to its plain
               version, keep fraction within 0.002 of 230/256, kept values
@@ -34,17 +43,23 @@ before the last line:
 5. slice    — BiSeNetV2 (configs/bisenetv2_city.json: 19 classes, bf16,
               seeded weights, random BN stats) behind the port's HTTP server
               on 127.0.0.1 answers 3 requests of 1024×2048 uint8 frames with
-              every deploy route on (stem kernel, detail fusion, depthwise
-              kernel, fused pred); then one E2EModel call on the stem-kernel
-              route alone. The kernel launch counts of that run are read
-              (16 depthwise3x3 and 1 upsample_argmax per request), and the
-              label maps are held against the same model on the plain path
-              (library ops): the served ones against its head logits put
-              through the fused tail's plain version, the stem route's
-              against its labels, agreement > 0.995; logits rel max-diff
-              < 2e-2 on every route. E2EModel time per frame on all routes,
-              the fused stem routes alone (stem kernel, detail fusion) and
-              the plain path in turns; one profiled frame on each.
+              every deploy route on (stem kernel, detail fusion and tail,
+              depthwise kernel, fused pred); then one E2EModel call on the
+              stem-kernel route alone and one on it with the window stem and
+              the conv3 kernel. The kernel launch counts of that run are
+              read (per request 16 depthwise3x3 and 1 each of
+              detail_s1s2_fused, stemblock_fused, detail_tail_fused and
+              upsample_argmax; 2 stem_conv_bn_relu_s2 on the stem route; 2
+              stem_conv_bn_relu_s2_window and 1 conv3x3_bn_relu on the
+              window-stem + conv3 route), and the label maps are held
+              against the same model on the plain path (library ops): the
+              served ones against its head logits put through the fused
+              tail's plain version, the stem routes' against its labels,
+              agreement > 0.995; logits rel max-diff < 2e-2 on every route.
+              E2EModel time per frame on all routes, all routes but the
+              tail, the fused stem routes alone (stem kernel, detail
+              fusion), the stem route, the window-stem + conv3 route and the
+              plain path in turns; one profiled frame on each.
 6. v1_slice — BiSeNetV1 (configs/bisenetv1_city.json: 19 classes, no aux
               heads, bf16, seeded weights, random BN stats), built by
               tools/serve_torch.py's build_e2e, behind the port's HTTP
@@ -113,6 +128,10 @@ V1_WEIGHT_SEED = 2
 SOURCES = {
     "stem_conv_bn_relu_s2": ("mds_tpu_torch/csrc/stem.cu",
                              "mds_tpu/ops/pallas/stem.py:143"),
+    "stem_conv_bn_relu_s2_window": ("mds_tpu_torch/csrc/stem.cu",
+                                    "mds_tpu/ops/pallas/stem.py:265"),
+    "stem_s1_pair_fused": ("mds_tpu_torch/csrc/stem.cu",
+                           "mds_tpu/ops/pallas/stem.py:408"),
     "detail_s1s2_fused": ("mds_tpu_torch/csrc/stem.cu",
                           "mds_tpu/ops/pallas/stem.py:582"),
     "stemblock_fused": ("mds_tpu_torch/csrc/stem.cu",
@@ -127,7 +146,13 @@ SOURCES = {
                          "mds_tpu/ops/pallas/depthwise_dma.py:44"),
     "upsample_argmax": ("mds_tpu_torch/csrc/upsample_argmax.cu",
                         "mds_tpu/ops/pallas/upsample_argmax.py:76"),
+    "detail_tail_fused": ("mds_tpu_torch/csrc/detail_tail.cu",
+                          "mds_tpu/ops/pallas/stem.py:1148"),
+    "conv3x3_bn_relu": ("mds_tpu_torch/csrc/conv3x3.cu",
+                        "mds_tpu/ops/pallas/conv3x3.py:69"),
 }
+# the window stem computes kernel 1's function: one plain version for both
+PLAIN_OF = {"stem_conv_bn_relu_s2_window": "stem_conv_bn_relu_s2_plain"}
 # one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -204,11 +229,16 @@ def phase_kernels(dev):
     rng = np.random.default_rng(0)
     x = torch.tensor(rng.normal(0, 1, (1, H, W, 3)), dtype=torch.float32,
                      device=dev).to(torch.bfloat16).permute(0, 3, 1, 2)
+    stems = [(x, conv_w(rng, o, 3, 3, dev), *folded_bn(rng, o, dev), True)
+             for o in (64, 16)]
     calls = {
-        # the two RGB stems of the segment.py route: detail S1_1, StemBlock conv
-        "stem_conv_bn_relu_s2": [
-            (x, conv_w(rng, o, 3, 3, dev), *folded_bn(rng, o, dev), True)
-            for o in (64, 16)],
+        # the two RGB stems of the segment.py route: detail S1_1, StemBlock
+        # conv; on kernel 2 under set_stem_variant("dma")
+        "stem_conv_bn_relu_s2": stems,
+        "stem_conv_bn_relu_s2_window": stems,
+        "stem_s1_pair_fused": [(
+            x, conv_w(rng, 64, 3, 3, dev), *folded_bn(rng, 64, dev),
+            conv_w(rng, 64, 64, 3, dev), *folded_bn(rng, 64, dev), True)],
         "detail_s1s2_fused": [(
             x, conv_w(rng, 64, 3, 3, dev), *folded_bn(rng, 64, dev),
             conv_w(rng, 64, 64, 3, dev), *folded_bn(rng, 64, dev),
@@ -224,9 +254,10 @@ def phase_kernels(dev):
     }
     results = {}
     for name, arg_sets in calls.items():
-        kernel, plain = getattr(stem, name), getattr(stem, name + "_plain")
-        res = {"max_abs_err": 0.0, "rel": 0.0, "ms": 0.0, "plain_ms": 0.0,
-               "bound_ms": 0.0, "library_ms": None, "shapes": []}
+        kernel = getattr(stem, name)
+        plain = getattr(stem, PLAIN_OF.get(name, name + "_plain"))
+        res = {"max_abs_err": 0.0, "rel": 0.0, "bit_equal": 1.0, "ms": 0.0,
+               "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None, "shapes": []}
         for args in arg_sets:
             before = kernel.launches
             got = kernel(*args)
@@ -240,9 +271,13 @@ def phase_kernels(dev):
             r = rel(got, want)
             if not (torch.isfinite(got.float()).all() and r < KERNEL_GATE):
                 raise RuntimeError(f"{name}: rel max-diff {r} >= {KERNEL_GATE}")
+            if name == "stem_conv_bn_relu_s2_window" and not torch.equal(
+                    bits(got), bits(stem.stem_conv_bn_relu_s2(*args))):
+                raise RuntimeError(f"{name}: differs from stem_conv_bn_relu_s2")
             res["max_abs_err"] = max(res["max_abs_err"],
                                      (got.float() - want.float()).abs().max().item())
             res["rel"] = max(res["rel"], r)
+            res["bit_equal"] = min(res["bit_equal"], share_equal(bits(got), bits(want)))
             # kernel and plain timed in turns on the same inputs
             ms = cuda_ms(lambda: kernel(*args))
             plain_ms = cuda_ms(lambda: plain(*args))
@@ -251,6 +286,8 @@ def phase_kernels(dev):
             x_in, ks = args[0], [a for a in args[1:] if torch.is_tensor(a) and a.dim() == 4]
             flops = {  # the convs each kernel computes, from this run's shapes
                 "stem_conv_bn_relu_s2": lambda: conv_flops(got, ks[0]),
+                "stem_conv_bn_relu_s2_window": lambda: conv_flops(got, ks[0]),
+                "stem_s1_pair_fused": lambda: 2 * x_in.numel() // 3 // 4 * 64 * (27 + 576),
                 "stem7_conv_bn_relu_s2": lambda: conv_flops(got, ks[0]),
                 "detail_s1s2_fused": lambda: 2 * x_in.numel() // 3 // 4 * 64 * (27 + 576)
                 + conv_flops(got, ks[2]),
@@ -263,7 +300,8 @@ def phase_kernels(dev):
             res["bound_by"] = b_by
             shape = {"out": list(got.shape), "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms}
-            if name in ("stem_conv_bn_relu_s2", "stem7_conv_bn_relu_s2"):
+            if name in ("stem_conv_bn_relu_s2", "stem_conv_bn_relu_s2_window",
+                        "stem7_conv_bn_relu_s2"):
                 # the library's one call for the same conv: bf16 F.conv2d with
                 # the folded weight and bias (the ReLU left out)
                 k, scale, bias = args[1], args[2], args[3]
@@ -274,6 +312,8 @@ def phase_kernels(dev):
                     lambda: F.conv2d(x, wf, bf, stride=2, padding=pad))
                 res["library_ms"] = (res["library_ms"] or 0.0) + shape["library_ms"]
             res["shapes"].append(shape)
+        if name == "stem_conv_bn_relu_s2_window":
+            res["equal_to_stem_conv_bn_relu_s2"] = True  # checked above
         emit(phase="kernels", kernel=name, plain="library ops in f32, TF32 off",
              **res)
         results[name] = res
@@ -350,17 +390,165 @@ def captured(module, name):
 
 
 def main_path_inputs(e2e, frame):
-    """The depthwise kernel's 16 (x, w, stride) and the fused tail's
-    (logits, scale) of one served BiSeNetV2 frame: real activations at the
-    shapes the main path gives the kernels."""
-    from mds_tpu_torch.ops import depthwise, upsample_argmax
+    """The depthwise kernel's 16 (x, w, stride), the fused tail's (logits,
+    scale) and the detail tail's arguments of one served BiSeNetV2 frame, and
+    the conv3 kernel's of one frame on the window-stem + conv3 route: real
+    activations at the shapes the main path gives the kernels."""
+    from mds_tpu_torch.ops import conv3x3, depthwise, stem, upsample_argmax
 
     with torch.no_grad(), route(**ALL_ROUTES):
         with captured(depthwise, "depthwise3x3") as dw, \
-                captured(upsample_argmax, "upsample_argmax") as ua:
+                captured(upsample_argmax, "upsample_argmax") as ua, \
+                captured(stem, "detail_tail_fused") as tail:
+            e2e.model.pred(normalized(e2e, frame))
+    with torch.no_grad(), route(**STEM_DMA_CONV3_ROUTES):
+        with captured(conv3x3, "conv3x3_bn_relu") as c3:
             e2e.model.pred(normalized(e2e, frame))
     torch.cuda.synchronize()
-    return dw, ua
+    return dw, ua, tail, c3
+
+
+def check_kernel_output(name, kernel, plain, args, dtype=torch.bfloat16):
+    """One launch of `kernel` (its counter must move by one) against its
+    plain version on the same arguments: (output, plain output, rel)."""
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    if kernel.launches != before + 1:
+        raise RuntimeError(f"{name}: launch counter did not move")
+    want = plain(*args)
+    if not (got.shape == want.shape and got.dtype == dtype
+            and got.is_contiguous(memory_format=torch.channels_last)):
+        raise RuntimeError(f"{name}: bad output {got.shape} {got.dtype}")
+    r = rel(got, want)
+    if not torch.isfinite(got.float()).all() or r >= KERNEL_GATE:
+        raise RuntimeError(f"{name}: rel max-diff {r} >= {KERNEL_GATE}")
+    return got, want, r
+
+
+def detail_tail_row(call, detail, x):
+    """detail_tail_fused at the served frame's /4 detail feature against its
+    plain version, timed beside it and beside the chain the plain route runs
+    (the DetailBranch's five ConvBNReLU modules: cuDNN conv, unfolded BN,
+    ReLU); no single PyTorch call computes the function (library_ms null).
+    Also the chain that kernel 4 replaces (S1_1, S1_2, S2_1) on the frame x,
+    the yardstick of kernel 4's row, which has no single call either."""
+    from mds_tpu_torch.ops import stem
+
+    name = "detail_tail_fused"
+    got, want, r = check_kernel_output(name, stem.detail_tail_fused,
+                                       stem.detail_tail_fused_plain, call)
+    y = call[0]
+
+    def chain():
+        xs = [y]
+        with torch.inference_mode():
+            for layer in detail._tail():
+                xs = layer(xs)
+        return xs[0]
+
+    def head_chain():
+        with torch.inference_mode():
+            return detail.S2_1(detail.S1_2(detail.S1_1([x])))[0]
+
+    ms = cuda_ms(lambda: stem.detail_tail_fused(*call))
+    plain_ms = cuda_ms(lambda: stem.detail_tail_fused_plain(*call))
+    chain_ms = cuda_ms(chain)
+    emit(phase="kernels", kernel="detail_s1s2_fused", shape=list(x.shape),
+         chain_ms=cuda_ms(head_chain), chain="the plain route's S1_1, S1_2, "
+         "S2_1 ConvBNReLU modules (bf16 cuDNN conv, f32 BN, ReLU)")
+    b, _, h4, w4 = y.shape
+    p4, p8 = b * h4 * w4, b * (h4 // 2) * (w4 // 2)
+    flops = 2 * (2 * p4 * 64 * 576 + p8 * 128 * 576 + 2 * p8 * 128 * 1152)
+    b_ms, b_by = bound(nbytes(*[a for a in call if torch.is_tensor(a)], got), flops)
+    res = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None}
+    emit(phase="kernels", kernel=name, shape=list(y.shape), rel=r,
+         bit_equal=share_equal(bits(got), bits(want)), chain_ms=chain_ms,
+         chain="the plain route's five ConvBNReLU modules (bf16 cuDNN conv, "
+         "f32 BN, ReLU)", plain="library ops in f32, TF32 off", **res)
+    return res
+
+
+def conv3x3_row(call):
+    """conv3x3_bn_relu at DetailBranch S1_2's input of a frame on the
+    window-stem + conv3 route against its plain version, timed beside it and
+    beside one bf16 F.conv2d with the folded weight and bias (no ReLU)."""
+    from mds_tpu_torch.ops import conv3x3 as c3
+
+    name = "conv3x3_bn_relu"
+    got, want, r = check_kernel_output(name, c3.conv3x3_bn_relu,
+                                       c3.conv3x3_bn_relu_plain, call)
+    x, k, scale, bias = call[:4]
+    wf = (k.float() * scale.reshape(-1, 1, 1, 1)).to(torch.bfloat16)
+    bf = bias.to(torch.bfloat16)
+    ms = cuda_ms(lambda: c3.conv3x3_bn_relu(*call))
+    plain_ms = cuda_ms(lambda: c3.conv3x3_bn_relu_plain(*call))
+    library_ms = cuda_ms(lambda: F.conv2d(x, wf, bf, padding=1))
+    b_ms, b_by = bound(nbytes(x, k, scale, bias, got), conv_flops(got, k))
+    res = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": library_ms}
+    emit(phase="kernels", kernel=name, shape=list(x.shape), out=list(got.shape),
+         rel=r, bit_equal=share_equal(bits(got), bits(want)),
+         plain="f32 conv on bf16(k), then ·scale + bias, ReLU; TF32 off",
+         library="bf16 F.conv2d, folded weight and bias, no ReLU", **res)
+    return res
+
+
+def conv_kernels_ragged(dev):
+    """The window stem (bit-equal to kernel 1), the S1 pair, the detail tail
+    and the conv3 kernel on ragged tiles, B > 1 and, for conv3, C_in from 3
+    to 64 and C_out from 8 to 136, against their plain versions. Not counted
+    as main-path launches."""
+    from mds_tpu_torch.ops import conv3x3 as c3, stem
+
+    rng = np.random.default_rng(7)
+
+    def image(b, h, w, c=3):  # RGB as normalized, features after a ReLU
+        x = torch.tensor(rng.normal(0, 1, (b, h, w, c)), dtype=torch.float32,
+                         device=dev)
+        return (x if c == 3 else x.relu()).to(torch.bfloat16).permute(0, 3, 1, 2)
+
+    out = {"stem_conv_bn_relu_s2_window": [], "stem_s1_pair_fused": [],
+           "detail_tail_fused": [], "conv3x3_bn_relu": []}
+
+    def record(name, rec, got, want):
+        rec.update(rel=rel(got, want), bit_equal=share_equal(bits(got), bits(want)))
+        out[name].append(rec)
+        if (got.shape != want.shape or not torch.isfinite(got.float()).all()
+                or rec["rel"] >= KERNEL_GATE or rec.get("equal_to_kernel_1") is False):
+            raise RuntimeError(f"{name} ragged: {rec}")
+
+    for b, h, w, o, relu in ((1, 36, 44, 64, True), (2, 18, 262, 16, False),
+                             (3, 2, 2, 8, True), (1, 100, 66, 24, False)):
+        args = (image(b, h, w), conv_w(rng, o, 3, 3, dev), *folded_bn(rng, o, dev), relu)
+        got = stem.stem_conv_bn_relu_s2_window(*args)
+        rec = {"shape": [b, h, w, o], "relu": relu, "equal_to_kernel_1": torch.equal(
+            bits(got), bits(stem.stem_conv_bn_relu_s2(*args)))}
+        record("stem_conv_bn_relu_s2_window", rec, got,
+               stem.stem_conv_bn_relu_s2_plain(*args))
+    for b, h, w, relu2 in ((1, 36, 70, True), (2, 18, 10, False), (1, 2, 2, True)):
+        args = (image(b, h, w), conv_w(rng, 64, 3, 3, dev), *folded_bn(rng, 64, dev),
+                conv_w(rng, 64, 64, 3, dev), *folded_bn(rng, 64, dev), relu2)
+        record("stem_s1_pair_fused", {"shape": [b, h, w], "relu2": relu2},
+               stem.stem_s1_pair_fused(*args), stem.stem_s1_pair_fused_plain(*args))
+    for b, h4, w4 in ((2, 22, 38), (1, 2, 2), (1, 34, 130)):
+        params = []
+        for o, i in stem._TAIL_SHAPES:
+            params += [conv_w(rng, o, i, 3, dev), *folded_bn(rng, o, dev)]
+        args = (image(b, h4, w4, 64), *params)
+        record("detail_tail_fused", {"shape": [b, 64, h4, w4]},
+               stem.detail_tail_fused(*args), stem.detail_tail_fused_plain(*args))
+    for b, h, w, ci, co, relu in ((2, 17, 33, 64, 64, True), (1, 9, 40, 3, 8, True),
+                                  (2, 31, 15, 16, 16, False), (1, 13, 27, 24, 136, True),
+                                  (1, 8, 8, 40, 72, False), (1, 5, 70, 48, 32, True)):
+        args = (image(b, h, w, ci), conv_w(rng, co, ci, 3, dev), *folded_bn(rng, co, dev),
+                relu)
+        record("conv3x3_bn_relu", {"shape": [b, h, w, ci], "c_out": co, "relu": relu},
+               c3.conv3x3_bn_relu(*args), c3.conv3x3_bn_relu_plain(*args))
+    return out
 
 
 def depthwise_rows(dw_calls):
@@ -521,9 +709,10 @@ def new_kernels_ragged(dev):
 
 def kernels():
     """Every kernel wrapper of the port, each with its launch counter."""
-    from mds_tpu_torch.ops import depthwise, dropout, stem, upsample_argmax
+    from mds_tpu_torch.ops import conv3x3, depthwise, dropout, stem, upsample_argmax
 
-    return stem.KERNELS + dropout.KERNELS + depthwise.KERNELS + upsample_argmax.KERNELS
+    return (stem.KERNELS + dropout.KERNELS + depthwise.KERNELS
+            + upsample_argmax.KERNELS + conv3x3.KERNELS)
 
 
 def reset_counts():
@@ -800,19 +989,26 @@ def randomize_bn(model, seed):
 
 
 @contextlib.contextmanager
-def route(stem_impl="plain", fuse=False, depthwise="plain", pred="plain"):
+def route(stem_impl="plain", fuse=False, depthwise="plain", pred="plain",
+          tail=False, conv3="plain", stem_variant="tiles"):
     """The layers' route switches set for the block; the plain path after."""
     from mds_tpu_torch.models.layers import (
+        set_conv3_eval_impl,
         set_depthwise_impl,
         set_detail_fuse,
+        set_detail_tail,
         set_pred_impl,
         set_stem_impl,
     )
+    from mds_tpu_torch.ops.stem import set_stem_variant
 
     set_stem_impl(stem_impl)
     set_detail_fuse(fuse)
     set_depthwise_impl(depthwise)
     set_pred_impl(pred)
+    set_detail_tail(tail)
+    set_conv3_eval_impl(conv3)
+    set_stem_variant(stem_variant)
     try:
         yield
     finally:
@@ -820,12 +1016,20 @@ def route(stem_impl="plain", fuse=False, depthwise="plain", pred="plain"):
         set_detail_fuse(False)
         set_depthwise_impl("plain")
         set_pred_impl("plain")
+        set_detail_tail(False)
+        set_conv3_eval_impl("plain")
+        set_stem_variant("tiles")
 
 
 # BiSeNetV2's served route: every deploy kernel on (tools/serve_torch.py)
 ALL_ROUTES = {"stem_impl": "kernel", "fuse": True, "depthwise": "kernel",
-              "pred": "fused"}
+              "pred": "fused", "tail": True}
+NO_TAIL_ROUTES = {**ALL_ROUTES, "tail": False}  # every deploy route but the tail
 STEM_FUSED_ROUTES = {"stem_impl": "kernel", "fuse": True}
+# the segment.py route with the window stem and the conv3 kernel: the two
+# RGB stems on kernel 2, DetailBranch S1_2 on kernel 8
+STEM_DMA_CONV3_ROUTES = {"stem_impl": "kernel", "stem_variant": "dma",
+                         "conv3": "kernel"}
 
 
 def normalized(e2e, frame):
@@ -933,20 +1137,28 @@ def fused_tail_reference(model, x):
 
 def phase_slice(dev, e2e, frames):
     """BiSeNetV2 served with every deploy route on (stem kernel, detail
-    fusion, depthwise kernel, fused pred), then one frame on the stem-kernel
-    route alone, against the same model on the plain path."""
+    fusion and tail, depthwise kernel, fused pred), then one frame on the
+    stem-kernel route alone and one on it with the window stem and the conv3
+    kernel, against the same model on the plain path."""
     model = e2e.model
     n_classes = model.n_classes[0]
     served = serve_and_check(e2e, "bisenetv2", frames, n_classes, **ALL_ROUTES)
-    # the segment.py route: stem kernels, no detail/StemBlock fusion
-    with route("kernel"):
-        reset_counts()
-        stem_route = e2e.infer(frames[0])
-        stem_launches = read_counts()
-    launches = {k: served["launches"][k] + n for k, n in stem_launches.items()}
+    launches = dict(served["launches"])
+    # the segment.py route: stem kernels, no detail/StemBlock fusion; then
+    # the same with the window stem (kernel 2) and the conv3 kernel (8)
+    stem_labels = {}
+    for key, kw in (("stem", {"stem_impl": "kernel"}),
+                    ("stem_dma_conv3", STEM_DMA_CONV3_ROUTES)):
+        with route(**kw):
+            reset_counts()
+            stem_labels[key] = e2e.infer(frames[0])
+            got = read_counts()
+        launches = {k: launches[k] + n for k, n in got.items()}
     want = {k: 0 for k in launches}
-    want.update(detail_s1s2_fused=3, stemblock_fused=3, stem_conv_bn_relu_s2=2,
-                depthwise3x3=16 * len(frames), upsample_argmax=len(frames))
+    want.update(detail_s1s2_fused=3, stemblock_fused=3, detail_tail_fused=3,
+                stem_conv_bn_relu_s2=2, stem_conv_bn_relu_s2_window=2,
+                conv3x3_bn_relu=1, depthwise3x3=16 * len(frames),
+                upsample_argmax=len(frames))
     if launches != want:
         raise RuntimeError(f"kernel launches {launches}, expected {want}")
     # the fused tail rounds the vertical pass to bf16 by design, as JAX's
@@ -956,17 +1168,23 @@ def phase_slice(dev, e2e, frames):
     agree = [float((rep == fused_tail_reference(model, normalized(e2e, fr))).mean())
              for rep, fr in zip(served["replies"], frames)]
     agree_interp = served["agree"]
-    agree_stem = float((stem_route == served["plain_labels"][0]).mean())
-    rel_all, rel_dw, rel_stem = logits_rels(
+    agree_stem = {k: float((v == served["plain_labels"][0]).mean())
+                  for k, v in stem_labels.items()}
+    rel_all, rel_dw, rel_stem, rel_dma = logits_rels(
         model, normalized(e2e, frames[0]), n_classes,
-        ({**ALL_ROUTES, "pred": "plain"}, {"depthwise": "kernel"}, {"stem_impl": "kernel"}))
-    # in turns: all routes, stem fusion, plain, plain, stem fusion, all
-    order = (("all", ALL_ROUTES), ("stem_fused", STEM_FUSED_ROUTES), ("plain", {}))
+        ({**ALL_ROUTES, "pred": "plain"}, {"depthwise": "kernel"},
+         {"stem_impl": "kernel"}, STEM_DMA_CONV3_ROUTES))
+    # in turns: all routes, all but the tail, stem fusion, the stem route,
+    # the stem route with the window stem and conv3, plain; then backwards
+    order = (("all", ALL_ROUTES), ("no_tail", NO_TAIL_ROUTES),
+             ("stem_fused", STEM_FUSED_ROUTES), ("stem", {"stem_impl": "kernel"}),
+             ("stem_dma_conv3", STEM_DMA_CONV3_ROUTES), ("plain", {}))
     e2e_times = {k: [] for k, _ in order}
     for k, kw in order + order[::-1]:
         e2e_times[k].append(e2e_ms(e2e, frames[1], **kw))
     of_interest = ("dw3x3_kernel", "upsample_argmax_kernel", "stem_kernel",
-                   "detail_kernel", "stemblock_kernel")
+                   "detail_kernel", "stemblock_kernel", "detail_tail_kernel",
+                   "stem_window_kernel", "conv3x3_kernel")
     profiles = {}
     for k, kw in order:
         with route(**kw):
@@ -977,11 +1195,12 @@ def phase_slice(dev, e2e, frames):
          argmax_agreement=agree, argmax_agreement_interpolate=agree_interp,
          logits_rel=rel_all, depthwise_route_logits_rel=rel_dw,
          stem_route_agreement=agree_stem, stem_route_logits_rel=rel_stem,
+         stem_dma_conv3_route_logits_rel=rel_dma,
          e2e_ms=e2e_times, launches=launches, profile=profiles)
-    if min(agree + [agree_stem]) <= ARGMAX_GATE:
+    if min(agree + list(agree_stem.values())) <= ARGMAX_GATE:
         raise RuntimeError(f"argmax agreement {agree} / {agree_stem}")
-    if max(rel_all, rel_dw, rel_stem) >= LOGITS_GATE:
-        raise RuntimeError(f"logits rel {rel_all} / {rel_dw} / {rel_stem}")
+    if max(rel_all, rel_dw, rel_stem, rel_dma) >= LOGITS_GATE:
+        raise RuntimeError(f"logits rel {rel_all} / {rel_dw} / {rel_stem} / {rel_dma}")
     return launches
 
 
@@ -1054,14 +1273,19 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     results = phase_kernels(dev)
     e2e, frames = v2_model(dev)
-    dw_calls, ua_calls = main_path_inputs(e2e, frames[0])
-    if len(dw_calls) != 16 or len(ua_calls) != 1:
-        raise RuntimeError(f"a V2 frame made {len(dw_calls)} depthwise and "
-                           f"{len(ua_calls)} fused-tail calls, expected 16 and 1")
+    dw_calls, ua_calls, tail_calls, c3_calls = main_path_inputs(e2e, frames[0])
+    counts = [len(c) for c in (dw_calls, ua_calls, tail_calls, c3_calls)]
+    if counts != [16, 1, 1, 1]:
+        raise RuntimeError(f"a V2 frame made {counts} depthwise, fused-tail, "
+                           "detail-tail and conv3 calls, expected 16, 1, 1, 1")
     results.update(depthwise_rows(dw_calls))
     results["upsample_argmax"] = upsample_argmax_row(ua_calls[0])
-    del dw_calls, ua_calls
+    results["detail_tail_fused"] = detail_tail_row(
+        tail_calls[0], e2e.model.detail, normalized(e2e, frames[0]))
+    results["conv3x3_bn_relu"] = conv3x3_row(c3_calls[0])
+    del dw_calls, ua_calls, tail_calls, c3_calls
     emit(phase="kernels", ragged=new_kernels_ragged(dev))
+    emit(phase="kernels", ragged=conv_kernels_ragged(dev))
     results["dropout_u8"] = phase_dropout(dev)
     torch.cuda.empty_cache()
     launches = phase_slice(dev, e2e, frames)

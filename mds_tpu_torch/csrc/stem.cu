@@ -1,66 +1,25 @@
 // Hopper (sm_90a) kernels for the BiSeNetV2 deploy stems, bound with ctypes.
 //
-// Three kernels, one per TPU kernel of mds_tpu/ops/pallas/stem.py on the
-// serving path. All take the memory of a channels_last bf16 tensor, i.e. an
-// NHWC image (B, H, W, 3), and write NHWC bf16. They share stage A, a 3x3
-// stride-2 pad-1 conv on RGB with the BN folded into f32 weights:
+// Five kernels, one per TPU kernel of mds_tpu/ops/pallas/stem.py (numbered
+// as PERF.md's table numbers them: 1, 2, 3, 4, 5). All take the memory of a
+// channels_last bf16 tensor, i.e. an NHWC image (B, H, W, 3), and write NHWC
+// bf16. They share stage A, a 3x3 stride-2 pad-1 conv on RGB with the BN
+// folded into f32 weights:
 //
 //   w[28][O]: rows (dy*3 + dx)*3 + ci are k * scale, row 27 is the bias.
 //
 // Out-of-image positions of every intermediate are ZERO (the next conv's
 // padding), never ReLU(folded bias); ragged tiles are masked, so any H and W
-// divisible by 4 (by 2 for the single stem) and any B >= 1 work.
+// divisible by 4 (by 2 for the single stems and the S1 pair) and any B >= 1
+// work.
 //
 // Each launcher returns the cudaError_t of its launch (0 on success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "mma.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------- helpers
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint4 pack8(const float* v) {
-  return make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
-                    pack2(v[6], v[7]));
-}
-
-__device__ __forceinline__ void unpack8(uint4 u, float* f) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    f[2 * k] = __uint_as_float(w[k] << 16);
-    f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ uint32_t ld_b32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D += A(16x16, row) * B(16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16_16816(float* d, uint32_t a0,
-                                               uint32_t a1, uint32_t a2,
-                                               uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 // Stage A: the folded 3x3 s2 p1 RGB conv at half-resolution position (r, c).
 // stem_taps gathers its 27 inputs (dy, dx, ci order; zero outside the
@@ -108,7 +67,7 @@ __device__ __forceinline__ void stem_dot(const float* v, const float* w, int O,
   }
 }
 
-// ------------------------------------------- kernel 1: stem_conv_bn_relu_s2
+// --------------------------------- TPU kernel 1: stem_conv_bn_relu_s2
 //
 // Replaces mds_tpu/ops/pallas/stem.py::_stem_fwd (fused case, :143-183).
 // Bound: memory. At 1024x2048 with O=64 it reads 12 MB and writes 64 MB for
@@ -151,7 +110,107 @@ __global__ void __launch_bounds__(kStemThreads)
   }
 }
 
-// ---------------------------------------------- kernel 2: detail_s1s2_fused
+// ------------------- TPU kernel 2: stem_conv_bn_relu_s2, its window variant
+//
+// Replaces mds_tpu/ops/pallas/stem.py::_stem_fwd_dma (:265-361, body
+// _kernel_dma :186-262): kernel 1 with each tile's input window staged into
+// shared memory by the kernel itself, double-buffered: while a block
+// computes one tile from one buffer, cp.async fills the other with its next
+// tile's window (the TPU kernel's make_async_copy into VMEM and semaphores).
+// Bound: memory, as kernel 1. The arithmetic is kernel 1's, stem_dot on the
+// same 27 taps, so the two agree bit for bit. Blocks are persistent; a tile
+// is 4 x 64 output pixels, one per thread. Its window is 9 input rows of 130
+// pixels starting at an even column, i.e. 65 pixel pairs of 3 four-byte
+// words each: copied word by word, every word lies in one pair, and a pair
+// is wholly inside or outside the image (W is even), so the zero-fill of
+// cp.async is the conv's zero padding.
+
+constexpr int kWinTR = 4;                      // output rows per tile
+constexpr int kWinTC = 64;                     // output cols per tile
+constexpr int kWinRows = 2 * kWinTR + 1;       // input rows of a window (9)
+constexpr int kWinWords = 3 * (kWinTC + 1);    // words of a window row (195)
+constexpr int kWinBuf = kWinRows * kWinWords;  // words of one buffer (1755)
+static_assert(kWinTR * kWinTC == kStemThreads, "one output pixel per thread");
+
+struct WinTile {
+  int b, ty, tx;
+};
+
+__device__ __forceinline__ WinTile win_tile(int tile, int tiles_x,
+                                            int tiles_y) {
+  const int t = tile / tiles_x;
+  return {t / tiles_y, t % tiles_y, tile % tiles_x};
+}
+
+// Start the cp.async copies of tile `tile`'s window into buf.
+__device__ __forceinline__ void win_load(const bf16* __restrict__ x,
+                                         uint32_t* buf, WinTile t, int H,
+                                         int W) {
+  const int pairs = W / 2;
+  const int y0 = 2 * kWinTR * t.ty - 1;  // first input row
+  const int p0 = kWinTC * t.tx - 1;      // first pixel pair (cols 2p, 2p+1)
+  const uint32_t* xb =
+      reinterpret_cast<const uint32_t*>(x + (size_t)t.b * H * W * 3);
+  for (int i = threadIdx.x; i < kWinBuf; i += blockDim.x) {
+    const int y = y0 + i / kWinWords, q = i % kWinWords, p = p0 + q / 3;
+    const bool in = y >= 0 && y < H && p >= 0 && p < pairs;
+    cp_async4(buf + i, in ? xb + ((size_t)y * pairs + p) * 3 + q % 3 : xb,
+              in ? 4 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(kStemThreads)
+    stem_window_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+                       bf16* __restrict__ out, int B, int H, int W, int O,
+                       int relu, int tiles_x, int tiles_y) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ws = reinterpret_cast<float*>(smem);
+  uint32_t* bufs = reinterpret_cast<uint32_t*>(smem + 28 * O * sizeof(float));
+  for (int i = threadIdx.x; i < 28 * O; i += blockDim.x) ws[i] = w[i];
+  const int H2 = H / 2, W2 = W / 2, tiles = tiles_x * tiles_y * B;
+  const int r = threadIdx.x / kWinTC, c = threadIdx.x % kWinTC;
+  int tile = blockIdx.x;
+  if (tile < tiles) win_load(x, bufs, win_tile(tile, tiles_x, tiles_y), H, W);
+  cp_async_commit();
+  for (int slot = 0; tile < tiles; tile += gridDim.x, slot ^= 1) {
+    const int next = tile + gridDim.x;
+    if (next < tiles)
+      win_load(x, bufs + (slot ^ 1) * kWinBuf,
+               win_tile(next, tiles_x, tiles_y), H, W);
+    cp_async_commit();  // possibly empty: the wait below stays uniform
+    cp_async_wait<1>();
+    __syncthreads();
+    const WinTile t = win_tile(tile, tiles_x, tiles_y);
+    const int orow = kWinTR * t.ty + r, ocol = kWinTC * t.tx + c;
+    if (orow < H2 && ocol < W2) {
+      // window row 2r + dy, column 2c + 1 + dx hold input (2*orow - 1 + dy,
+      // 2*ocol - 1 + dx): the taps of kernel 1's stem_taps
+      const bf16* win = reinterpret_cast<const bf16*>(bufs + slot * kWinBuf);
+      float v[27];
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+          for (int ci = 0; ci < 3; ++ci)
+            v[(dy * 3 + dx) * 3 + ci] = __bfloat162float(
+                win[(2 * r + dy) * 2 * kWinWords + (2 * c + 1 + dx) * 3 + ci]);
+      bf16* o = out + (((size_t)t.b * H2 + orow) * W2 + ocol) * O;
+      for (int o0 = 0; o0 < O; o0 += 8) {
+        float acc[8];
+        stem_dot<8>(v, ws, O, o0, acc);
+        if (relu) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[j] = fmaxf(acc[j], 0.f);
+        }
+        *reinterpret_cast<uint4*>(o + o0) = pack8(acc);
+      }
+    }
+    __syncthreads();  // the next iteration's copies overwrite this buffer
+  }
+}
+
+// ------------------------------------ TPU kernel 4: detail_s1s2_fused
 //
 // Replaces mds_tpu/ops/pallas/stem.py::detail_s1s2_fused (:458-643).
 // DetailBranch S1_1 (3x3 s2, 3->64) -> S1_2 (3x3, 64->64) -> S2_1 (3x3 s2,
@@ -185,45 +244,28 @@ constexpr size_t kDetSmem = 28 * 64 * sizeof(float) +
                             (size_t)kDetAR * kDetAC * kDetACh * sizeof(bf16) +
                             (size_t)kDetBM * kDetBCh * sizeof(bf16);
 
-// MT of one warp's 16-pixel M tiles against all 64 output channels:
-// acc[t][nt][4] for the eight n8 tiles of tile t. base[2t], base[2t+1] are
-// the element offsets of the lane's two A rows of tile t (tap (0,0),
-// channel 2*tq); kRowStep/kChStride describe the source. Each B fragment,
-// one 8-byte load per lane, feeds MT mma.
-template <int kRowStep, int kChStride, int MT>
-__device__ __forceinline__ void conv64_mtiles(const bf16* src, const int* base,
-                                              const uint2* __restrict__ wp,
-                                              int lane, float (*acc)[8][4]) {
+// Stage A of the detail kernels: S1_1 over a (rows, cols) region of the /2
+// grid with origin (R, C), ReLU, as bf16 pixels of kDetACh elements in s1;
+// one pixel (all 64 channels) per thread, so every weight read is a
+// warp-wide broadcast; zero outside the image.
+__device__ __forceinline__ void s1_1_region(const bf16* __restrict__ xb,
+                                            int H, int W, const float* w1s,
+                                            bf16* s1, int R, int C, int rows,
+                                            int cols) {
+  for (int p = threadIdx.x; p < rows * cols; p += blockDim.x) {
+    const int r = R + p / cols, c = C + p % cols;
+    uint4* dst = reinterpret_cast<uint4*>(s1 + p * kDetACh);
+    if (r >= 0 && r < H / 2 && c >= 0 && c < W / 2) {
+      float v[27], acc[64];
+      stem_taps(xb, H, W, r, c, v);
+      stem_dot<64>(v, w1s, 64, 0, acc);
 #pragma unroll
-  for (int t = 0; t < MT; ++t)
+      for (int j = 0; j < 64; ++j) acc[j] = fmaxf(acc[j], 0.f);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+      for (int g = 0; g < 8; ++g) dst[g] = pack8(acc + 8 * g);
+    } else {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc[t][nt][k] = 0.f;
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const int off = ((tap / 3) * kRowStep + (tap % 3)) * kChStride;
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int t = 0; t < MT; ++t) {
-        const bf16* p0 = src + base[2 * t] + off + kc * 16;
-        const bf16* p1 = src + base[2 * t + 1] + off + kc * 16;
-        a[t][0] = ld_b32(p0);
-        a[t][1] = ld_b32(p1);
-        a[t][2] = ld_b32(p0 + 8);
-        a[t][3] = ld_b32(p1 + 8);
-      }
-      const uint2* wk = wp + (size_t)((tap * 4 + kc) * 8) * 32 + lane;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const uint2 bv = __ldg(wk + nt * 32);
-#pragma unroll
-        for (int t = 0; t < MT; ++t)
-          mma_bf16_16816(acc[t][nt], a[t][0], a[t][1], a[t][2], a[t][3], bv.x,
-                         bv.y);
-      }
+      for (int g = 0; g < 8; ++g) dst[g] = make_uint4(0, 0, 0, 0);
     }
   }
 }
@@ -249,24 +291,8 @@ __global__ void __launch_bounds__(kDetThreads)
   for (int i = tid; i < 28 * 64; i += kDetThreads) w1s[i] = w1[i];
   __syncthreads();
 
-  // stage A: S1_1 over the (11, 67) halo region, one pixel (all 64
-  // channels) per thread, so every weight read is a warp-wide broadcast
-  for (int p = tid; p < kDetAR * kDetAC; p += kDetThreads) {
-    const int r = R1 + p / kDetAC, c = C1 + p % kDetAC;
-    uint4* dst = reinterpret_cast<uint4*>(s1 + p * kDetACh);
-    if (r >= 0 && r < H2 && c >= 0 && c < W2) {
-      float v[27], acc[64];
-      stem_taps(xb, H, W, r, c, v);
-      stem_dot<64>(v, w1s, 64, 0, acc);
-#pragma unroll
-      for (int j = 0; j < 64; ++j) acc[j] = fmaxf(acc[j], 0.f);
-#pragma unroll
-      for (int g = 0; g < 8; ++g) dst[g] = pack8(acc + 8 * g);
-    } else {
-#pragma unroll
-      for (int g = 0; g < 8; ++g) dst[g] = make_uint4(0, 0, 0, 0);
-    }
-  }
+  // stage A: S1_1 over the (11, 67) halo region
+  s1_1_region(xb, H, W, w1s, s1, R1, C1, kDetAR, kDetAC);
   __syncthreads();
 
   const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
@@ -285,7 +311,7 @@ __global__ void __launch_bounds__(kDetThreads)
         const int mc = min(ms[k], kDetBM - 1);
         base[k] = ((mc / kDetBC) * kDetAC + mc % kDetBC) * kDetACh + tq * 2;
       }
-      conv64_mtiles<kDetAC, kDetACh, 2>(s1, base, w2p, lane, acc);
+      conv3x3_mma<kDetAC, kDetACh, 4, 8, 2>(s1, base, w2p, 8, 8, lane, acc);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int m = ms[k], t = k / 2, h = k % 2;
@@ -318,7 +344,7 @@ __global__ void __launch_bounds__(kDetThreads)
         base[h] = ((2 * (ms[h] / kDetTP)) * kDetBC + 2 * (ms[h] % kDetTP)) *
                       kDetBCh + tq * 2;
       }
-      conv64_mtiles<kDetBC, kDetBCh, 1>(s2, base, w3p, lane, acc);
+      conv3x3_mma<kDetBC, kDetBCh, 4, 8, 1>(s2, base, w3p, 8, 8, lane, acc);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int q = q0 + ms[h] / kDetTP, p = p0 + ms[h] % kDetTP;
@@ -336,7 +362,68 @@ __global__ void __launch_bounds__(kDetThreads)
   }
 }
 
-// ------------------------------------------------- kernel 3: stemblock_fused
+// ------------------------------------ TPU kernel 3: stem_s1_pair_fused
+//
+// Replaces mds_tpu/ops/pallas/stem.py::stem_s1_pair_fused (:408-455, body
+// _pair_kernel :365-405): DetailBranch S1_1 (3x3 s2, 3->64) -> S1_2 (3x3,
+// 64->64), BNs folded, the second ReLU optional: kernel 4 without its stage
+// C, with its rounding points. Bound: arithmetic, 40.5 GFLOP at 1024x2048
+// (38.7 of them in S1_2) against 80 MB moved. Design: one block per 8x32
+// tile of the /2 output; S1_1 over the tile and its one-pixel halo (10 x 34)
+// in shared memory on the CUDA cores (s1_1_region); each warp computes one
+// output row as two M tiles on the tensor cores and stores it.
+
+constexpr int kPairTQ = 8;                // /2 output rows per block
+constexpr int kPairTP = 32;               // /2 output cols per block
+constexpr int kPairAR = kPairTQ + 2;      // S1_1 rows held (10)
+constexpr int kPairAC = kPairTP + 2;      // S1_1 cols held (34)
+constexpr size_t kPairSmem = 28 * 64 * sizeof(float) +
+                             (size_t)kPairAR * kPairAC * kDetACh * sizeof(bf16);
+static_assert(kPairTQ * 32 == kDetThreads, "one output row per warp");
+
+__global__ void __launch_bounds__(kDetThreads)
+    pair_kernel(const bf16* __restrict__ x, const float* __restrict__ w1,
+                const uint2* __restrict__ w2p, const float* __restrict__ b2,
+                bf16* __restrict__ out, int H, int W, int relu2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* w1s = reinterpret_cast<float*>(smem);
+  bf16* s1 = reinterpret_cast<bf16*>(smem + 28 * 64 * sizeof(float));
+  const int H2 = H / 2, W2 = W / 2;
+  const int r0 = blockIdx.y * kPairTQ, c0 = blockIdx.x * kPairTP;
+  const int b = blockIdx.z;
+  for (int i = threadIdx.x; i < 28 * 64; i += kDetThreads) w1s[i] = w1[i];
+  __syncthreads();
+  s1_1_region(x + (size_t)b * H * W * 3, H, W, w1s, s1, r0 - 1, c0 - 1,
+              kPairAR, kPairAC);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  int base[4];  // the lane's A rows: cols gq, gq + 8, gq + 16, gq + 24
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    base[k] = (warp * kPairAC + 8 * k + gq) * kDetACh + tq * 2;
+  float acc[2][8][4];
+  conv3x3_mma<kPairAC, kDetACh, 4, 8, 2>(s1, base, w2p, 8, 8, lane, acc);
+  const int r = r0 + warp;
+  if (r >= H2) return;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int c = c0 + 8 * k + gq, t = k / 2, h = k % 2;
+    if (c >= W2) continue;
+    bf16* o = out + (((size_t)b * H2 + r) * W2 + c) * 64;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = nt * 8 + tq * 2;
+      float v0 = acc[t][nt][2 * h] + __ldg(b2 + col);
+      float v1 = acc[t][nt][2 * h + 1] + __ldg(b2 + col + 1);
+      if (relu2) v0 = fmaxf(v0, 0.f), v1 = fmaxf(v1, 0.f);
+      *reinterpret_cast<uint32_t*>(o + col) = pack2(v0, v1);
+    }
+  }
+}
+
+// --------------------------------------- TPU kernel 5: stemblock_fused
 //
 // Replaces mds_tpu/ops/pallas/stem.py::stemblock_fused (:646-852). The whole
 // StemBlock: stem 3x3 s2 3->16 -> {left_1 1x1 16->8 -> left_2 3x3 s2 8->16 ||
@@ -520,6 +607,44 @@ extern "C" int mds_stem_conv_bn_relu_s2(const void* x, const void* w,
                 (cudaStream_t)stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(w),
       static_cast<bf16*>(out), B, H, W, O, relu);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mds_stem_conv_bn_relu_s2_window(const void* x, const void* w,
+                                               void* out, int B, int H, int W,
+                                               int O, int relu, void* stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (W / 2 + kWinTC - 1) / kWinTC;
+  const int tiles_y = (H / 2 + kWinTR - 1) / kWinTR;
+  const long long tiles = (long long)tiles_x * tiles_y * B;
+  // persistent: about four tiles a block, so the double buffer has work
+  const long long blocks = tiles < 4LL * sms ? tiles : 4LL * sms;
+  const size_t smem = 28 * O * sizeof(float) + 2 * kWinBuf * sizeof(uint32_t);
+  stem_window_kernel<<<(unsigned)blocks, kStemThreads, smem,
+                       (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(w),
+      static_cast<bf16*>(out), B, H, W, O, relu, tiles_x, tiles_y);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mds_stem_s1_pair_fused(const void* x, const void* w1,
+                                      const void* w2p, const void* b2,
+                                      void* out, int B, int H, int W,
+                                      int relu2, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kPairSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W / 2 + kPairTP - 1) / kPairTP,
+                  (H / 2 + kPairTQ - 1) / kPairTQ, B);
+  pair_kernel<<<grid, kDetThreads, kPairSmem, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(w1),
+      static_cast<const uint2*>(w2p), static_cast<const float*>(b2),
+      static_cast<bf16*>(out), H, W, relu2);
   return (int)cudaGetLastError();
 }
 

@@ -6,8 +6,9 @@ has its own heads. Activations are per-dataset lists; `forward` is the train
 call (main and aux logits per dataset), `eval_logits` and `pred` take one
 dataset's NCHW batch. In eval, with `set_detail_fuse(True)` and a bf16
 compute dtype, the DetailBranch's first three convs and the whole StemBlock
-run as one CUDA kernel each (ops/stem.py); `set_depthwise_impl("kernel")`
-runs the 16 depthwise convs as ops/depthwise.py's kernel and
+run as one CUDA kernel each (ops/stem.py), and with `set_detail_tail(True)`
+too the DetailBranch's last five convs as one more; `set_depthwise_impl(
+"kernel")` runs the 16 depthwise convs as ops/depthwise.py's kernel and
 `set_pred_impl("fused")` the pred tail as ops/upsample_argmax.py's.
 """
 
@@ -30,6 +31,7 @@ from mds_tpu_torch.models.layers import (
     conv2d,
     conv_init,
     get_detail_fuse,
+    get_detail_tail,
     get_pred_impl,
     global_avg_pool,
     lecun_init,
@@ -79,11 +81,28 @@ class DetailBranch(nn.Module):
                     x.to(self.dtype), k1, *cf1[i], k2, *cf2[i], k3, *cf3[i])
                 for i, x in enumerate(xs)
             ]
+            # the tail: S2_2 … S3_3 as one kernel on the /4 output, whose H4
+            # and W4 must be even (H, W divisible by 8; JAX asks H4 % 16 == 0
+            # for its tile, mds_tpu/models/bisenetv2.py:98-119)
+            if get_detail_tail() and all(
+                    x is None or (x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
+                    for x in xs):
+                from mds_tpu_torch.ops.stem import detail_tail_fused
+
+                parts = [m.folded(xs) for m in self._tail()]
+                return [
+                    None if x is None else detail_tail_fused(
+                        x, *(t for k, cf in parts for t in (k, *cf[i])))
+                    for i, x in enumerate(xs)
+                ]
         else:
             xs = self.S2_1(self.S1_2(self.S1_1(xs)))
-        for layer in (self.S2_2, self.S2_3, self.S3_1, self.S3_2, self.S3_3):
+        for layer in self._tail():
             xs = layer(xs)
         return xs
+
+    def _tail(self):
+        return (self.S2_2, self.S2_3, self.S3_1, self.S3_2, self.S3_3)
 
 
 class StemBlock(nn.Module):

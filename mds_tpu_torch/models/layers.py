@@ -7,7 +7,7 @@ dtype is explicit (`dtype`, bf16 for serving and training), params and BN
 math are f32. `module.train()` / `.eval()` select the mode, as `train=` does
 in the JAX package: in train mode BN normalizes with batch moments and
 updates its running stats, the SegmentHead dropout is on, and the fused eval
-routes (stem kernel, detail/StemBlock fusion) are off.
+routes (stem kernel, detail/StemBlock fusion and tail, conv3 kernel) are off.
 
 The module and buffer names follow the reference torch layout that
 mds_tpu_torch/deploy/weights.py speaks (`<block>.conv.weight`,
@@ -73,6 +73,39 @@ def set_detail_fuse(enable: bool = True) -> None:
 
 def get_detail_fuse() -> bool:
     return _DETAIL_FUSE
+
+
+# With the detail fusion on, the rest of the DetailBranch (S2_2 … S3_3) as one
+# more kernel (ops/stem.py detail_tail_fused; mds_tpu/models/layers.py:258-267).
+_DETAIL_TAIL = False
+
+
+def set_detail_tail(enable: bool = True) -> None:
+    global _DETAIL_TAIL
+    _DETAIL_TAIL = enable
+
+
+def get_detail_tail() -> bool:
+    return _DETAIL_TAIL
+
+
+# Eval route of the 3×3 stride-1 convs with C_in <= 64 at H >= 512 in bf16:
+# "plain" (library conv, then the BN) or "kernel" (ops/conv3x3.py
+# conv3x3_bn_relu with the BN folded in; mds_tpu/models/layers.py:205-211's
+# "pallas"). On a 1024×2048 frame only the DetailBranch's S1_2 qualifies, on
+# the stem route without the detail fusion.
+_CONV3_EVAL_IMPL = "plain"
+
+
+def set_conv3_eval_impl(impl: str) -> None:
+    if impl not in ("plain", "kernel"):
+        raise ValueError(f"conv3 eval impl must be 'plain' or 'kernel', got {impl!r}")
+    global _CONV3_EVAL_IMPL
+    _CONV3_EVAL_IMPL = impl
+
+
+def get_conv3_eval_impl() -> str:
+    return _CONV3_EVAL_IMPL
 
 
 # Depthwise route for the grouped 3×3 convs with groups == in_chan (stride 1
@@ -294,7 +327,12 @@ class ConvBNReLU(nn.Module):
     that require grad. Otherwise a grouped conv with a channel multiplier
     (groups == in_chan < out_chan) runs as the input's channels repeated
     `mult` times followed by a depthwise conv on the same (out, 1, k, k)
-    weight: PyTorch launches one kernel per group for the grouped form."""
+    weight: PyTorch launches one kernel per group for the grouped form.
+    With set_conv3_eval_impl("kernel"), in eval and bf16, a plain 3×3
+    stride-1 conv with C_in <= 64 and C_out % 8 == 0 runs, when every
+    dataset's input has H >= 512, as ops/conv3x3.py's kernel with the BN
+    folded in (layers.py:519-524 and :554-559's condition, without JAX's
+    TPU-backend test)."""
 
     def __init__(self, in_chan: int, out_chan: int, ks: int = 3,
                  stride: int = 1, groups: int = 1, n_bn: int = 1,
@@ -341,12 +379,31 @@ class ConvBNReLU(nn.Module):
                             conv.padding, conv.dilation, conv.out_channels)
         return conv2d(conv, x, self.dtype)
 
+    def _conv3_route(self, x: torch.Tensor) -> bool:
+        conv = self.conv
+        return (_CONV3_EVAL_IMPL == "kernel" and not self.training
+                and self.dtype == torch.bfloat16 and type(conv) is nn.Conv2d
+                and conv.groups == 1 and conv.kernel_size == (3, 3)
+                and conv.stride == (1, 1) and conv.dilation == (1, 1)
+                and conv.bias is None and conv.in_channels <= 64
+                and conv.out_channels % 8 == 0 and x.shape[2] >= 512)
+
     def forward(self, xs: MultiX) -> List[Optional[torch.Tensor]]:
         if (not self.training and isinstance(self.conv, StemConv3x3S2)
                 and _STEM_IMPL == "kernel"):
             return [
                 None if x is None
                 else self.conv.fused(x, cf[0], cf[1], self.relu, self.dtype)
+                for x, cf in zip(xs, self.fold(xs))
+            ]
+        live = [x for x in xs if x is not None]
+        if live and all(self._conv3_route(x) for x in live):
+            from mds_tpu_torch.ops.conv3x3 import conv3x3_bn_relu
+
+            return [
+                None if x is None else conv3x3_bn_relu(
+                    x.to(self.dtype).contiguous(memory_format=torch.channels_last),
+                    self.conv.weight, cf[0], cf[1], self.relu)
                 for x, cf in zip(xs, self.fold(xs))
             ]
         xs = lmap(self._conv, xs)

@@ -3,8 +3,9 @@
 `nvcc` compiles every source under `mds_tpu_torch/csrc/` for sm_90a, one
 process per source, all started together, and links the objects into one
 shared library with a plain C interface, which ctypes loads. The library goes
-into `mds_tpu_torch/build/` under a name that hashes the sources and flags,
-so an edited source rebuilds and an unchanged one is reused. A missing
+into `mds_tpu_torch/build/` under a name that hashes the sources, the headers
+they share (`*.cuh`) and the flags, so an edited source or header rebuilds
+and an unchanged tree is reused. A missing
 `nvcc` or a failed build raises; nothing falls back.
 """
 
@@ -29,7 +30,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # or long long, floats float
 _SIGNATURES = {
     "mds_stem_conv_bn_relu_s2": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mds_stem_conv_bn_relu_s2_window": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mds_stem_s1_pair_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mds_detail_s1s2_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mds_detail_tail_fused": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "mds_conv3x3_bn_relu": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mds_stemblock_fused": [_P, _P, _P, _I, _I, _I, _P],
     "mds_stem7_conv_bn_relu_s2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mds_dropout_u8": [_P, _P, _L, _I, _L, _L, _I, _F, _P],
@@ -59,7 +64,7 @@ def build() -> Path:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sources + sorted(SRC_DIR.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     lib = BUILD_DIR / f"libmds_kernels_{h.hexdigest()[:16]}.so"

@@ -1,13 +1,21 @@
 """The deploy stem kernels: wrappers, plain versions, counters.
 
-Counterparts of mds_tpu/ops/pallas/stem.py on the serving paths:
+Counterparts of mds_tpu/ops/pallas/stem.py (TPU kernel numbers as in
+PERF.md's table):
 
-  stem_conv_bn_relu_s2  ← _stem_fwd (fused case)     — csrc/stem.cu kernel 1
-  detail_s1s2_fused     ← detail_s1s2_fused          — csrc/stem.cu kernel 2
-  stemblock_fused       ← stemblock_fused            — csrc/stem.cu kernel 3
-  stem7_conv_bn_relu_s2 ← stem7_conv_bn_relu_s2      — csrc/stem7.cu
+  stem_conv_bn_relu_s2        ← _stem_fwd (fused case), 1  — csrc/stem.cu
+  stem_conv_bn_relu_s2_window ← _stem_fwd_dma, 2           — csrc/stem.cu
+  stem_s1_pair_fused          ← stem_s1_pair_fused, 3      — csrc/stem.cu
+  detail_s1s2_fused           ← detail_s1s2_fused, 4       — csrc/stem.cu
+  stemblock_fused             ← stemblock_fused, 5         — csrc/stem.cu
+  stem7_conv_bn_relu_s2       ← stem7_conv_bn_relu_s2, 6   — csrc/stem7.cu
+  detail_tail_fused           ← detail_tail_fused, 7       — csrc/detail_tail.cu
 
-The first three carry BiSeNetV2, the last BiSeNetV1 (its two 7×7 RGB stems).
+All but the 7×7 stem carry BiSeNetV2, the 7×7 stem BiSeNetV1 (its two RGB
+stems). `set_stem_variant("dma")` makes stem_conv_bn_relu_s2 launch the
+window kernel (2) instead of kernel 1 on a CUDA tensor, as JAX's
+set_stem_variant does (stem.py:1248-1284); the two share one plain version
+and agree bit for bit. stem_s1_pair_fused is on no model path, as in JAX.
 
 Each wrapper takes logically NCHW tensors stored channels_last (NHWC in
 memory), torch OIHW conv weights and the folded eval-BN (scale, bias) of each
@@ -39,8 +47,17 @@ def _fold_bf16(k: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return _fold(k, scale).to(_BF16).float()
 
 
-def _conv(x, w, b, stride=1, pad=1):
-    return F.conv2d(x.float(), w, b.float(), stride=stride, padding=pad)
+def _conv(x, w, b=None, stride=1, pad=1):
+    """The plain versions' f32 conv. On the CPU it sums in f64 and rounds once
+    to f32: the CPU library's f32 3×3 conv lands small outputs far enough
+    from their exact sums that a chain of five convs kept only 95% of its
+    bf16 outputs equal to JAX's interpret-mode kernel (99.9% in f64)."""
+    if x.device.type == "cpu":
+        y = F.conv2d(x.double(), w.double(), None if b is None else b.double(),
+                     stride=stride, padding=pad)
+        return y.float()
+    return F.conv2d(x.float(), w.float(), None if b is None else b.float(),
+                    stride=stride, padding=pad)
 
 
 def _out(y: torch.Tensor) -> torch.Tensor:
@@ -98,12 +115,20 @@ def _stem_table(k: torch.Tensor, scale: torch.Tensor,
 
 
 def _mma_b_pack(wb: torch.Tensor) -> torch.Tensor:
-    """bf16 3×3 64→64 weights (OIHW, values already bf16) → the B fragments
-    of mma.sync m16n8k16 in launch order: [tap][kc][n-tile][lane][4] with
-    lane = n·4 + t holding k = 2t, 2t+1, 2t+8, 2t+9 of its 16-deep chunk."""
-    wt = wb.permute(2, 3, 1, 0).reshape(9, 4, 2, 4, 2, 8, 8)
+    """3×3 weights (O, I, 3, 3), values already bf16, I % 16 == 0 and
+    O % 8 == 0 → the B fragments of mma.sync m16n8k16 in launch order
+    (csrc/mma.cuh conv3x3_mma): [tap][kc][n-tile][lane][4] with lane = n·4 + t
+    holding k = 2t, 2t+1, 2t+8, 2t+9 of its 16-deep chunk."""
+    o, i = wb.shape[:2]
+    wt = wb.permute(2, 3, 1, 0).reshape(9, i // 16, 2, 4, 2, o // 8, 8)
     # dims: tap, kc, kh, t, kl, nt, n  →  tap, kc, nt, n, t, kh, kl
     return wt.permute(0, 1, 5, 6, 3, 2, 4).contiguous().to(_BF16)
+
+
+def _check_aligned(t: torch.Tensor, n: int, name: str) -> None:
+    if t.data_ptr() % n:
+        raise ValueError(f"{name}: the kernel's copies need a {n}-byte "
+                         "aligned input")
 
 
 # ------------------------------------------------- kernel 1: the RGB stem
@@ -114,12 +139,23 @@ def stem_conv_bn_relu_s2_plain(x, k, scale, bias, relu=False):
     return _out(F.relu(y) if relu else y)
 
 
-def stem_conv_bn_relu_s2(x, k, scale, bias, relu=False):
-    """x (B,3,H,W) bf16 channels_last, H and W even; k (O,3,3,3) with
-    O % 8 == 0 and O <= 128 → (B,O,H/2,W/2) bf16 channels_last."""
-    if _is_cpu(x):
-        return stem_conv_bn_relu_s2_plain(x, k, scale, bias, relu)
-    name = "stem_conv_bn_relu_s2"
+_STEM_VARIANT = "tiles"
+
+
+def set_stem_variant(variant: str) -> None:
+    """"tiles" (kernel 1, the default) or "dma" (the window kernel 2) for
+    stem_conv_bn_relu_s2 on a CUDA tensor."""
+    if variant not in ("tiles", "dma"):
+        raise ValueError(f"stem variant must be 'tiles' or 'dma', got {variant!r}")
+    global _STEM_VARIANT
+    _STEM_VARIANT = variant
+
+
+def get_stem_variant() -> str:
+    return _STEM_VARIANT
+
+
+def _stem_launch(fn_name, x, k, scale, bias, relu, name):
     _check_image(x, 2, name)
     _check_params(x, name, (k, scale, bias))
     o = k.shape[0]
@@ -131,9 +167,23 @@ def stem_conv_bn_relu_s2(x, k, scale, bias, relu=False):
     table = _stem_table(k, scale, bias)
     out = torch.empty((b, o, h // 2, w // 2), dtype=_BF16, device=x.device,
                       memory_format=_CL)
-    err = load().mds_stem_conv_bn_relu_s2(
+    err = getattr(load(), fn_name)(
         _ptr(x), _ptr(table), _ptr(out), b, h, w, o, int(relu), _stream())
     _raise_on(err, name)
+    return out
+
+
+def stem_conv_bn_relu_s2(x, k, scale, bias, relu=False):
+    """x (B,3,H,W) bf16 channels_last, H and W even; k (O,3,3,3) with
+    O % 8 == 0 and O <= 128 → (B,O,H/2,W/2) bf16 channels_last. Under
+    set_stem_variant("dma") a CUDA tensor goes to the window kernel
+    (stem_conv_bn_relu_s2_window), which counts its own launches."""
+    if _is_cpu(x):
+        return stem_conv_bn_relu_s2_plain(x, k, scale, bias, relu)
+    if _STEM_VARIANT == "dma":
+        return stem_conv_bn_relu_s2_window(x, k, scale, bias, relu)
+    out = _stem_launch("mds_stem_conv_bn_relu_s2", x, k, scale, bias, relu,
+                       "stem_conv_bn_relu_s2")
     stem_conv_bn_relu_s2.launches += 1
     return out
 
@@ -141,7 +191,63 @@ def stem_conv_bn_relu_s2(x, k, scale, bias, relu=False):
 stem_conv_bn_relu_s2.launches = 0
 
 
-# ------------------------------------------- kernel 2: detail S1_1+S1_2+S2_1
+# ------------------------------------ kernel 2: the stem, window variant
+
+def stem_conv_bn_relu_s2_window(x, k, scale, bias, relu=False):
+    """Kernel 1's function (stem_conv_bn_relu_s2_plain) with each tile's
+    input window copied into shared memory by the kernel, double-buffered;
+    bit-equal to kernel 1. Same arguments and limits."""
+    if _is_cpu(x):
+        return stem_conv_bn_relu_s2_plain(x, k, scale, bias, relu)
+    name = "stem_conv_bn_relu_s2_window"
+    _check_aligned(x, 4, name)
+    out = _stem_launch("mds_stem_conv_bn_relu_s2_window", x, k, scale, bias,
+                       relu, name)
+    stem_conv_bn_relu_s2_window.launches += 1
+    return out
+
+
+stem_conv_bn_relu_s2_window.launches = 0
+
+
+# ------------------------------------------------- kernel 3: the S1 pair
+
+def stem_s1_pair_fused_plain(x, k1, s1, b1, k2, s2, b2, relu2=True):
+    y = F.relu(_conv(x, _fold(k1, s1), b1, stride=2)).to(_BF16)
+    y = _conv(y, _fold_bf16(k2, s2), b2)
+    return _out(F.relu(y) if relu2 else y)
+
+
+def stem_s1_pair_fused(x, k1, s1, b1, k2, s2, b2, relu2=True):
+    """DetailBranch S1_1 → S1_2 with folded BNs, the first ReLU always, the
+    second if relu2. x (B,3,H,W) bf16 channels_last, H and W even;
+    k1 (64,3,3,3), k2 (64,64,3,3) → (B,64,H/2,W/2) bf16 channels_last."""
+    if _is_cpu(x):
+        return stem_s1_pair_fused_plain(x, k1, s1, b1, k2, s2, b2, relu2)
+    name = "stem_s1_pair_fused"
+    _check_image(x, 2, name)
+    _check_params(x, name, (k1, s1, b1, k2, s2, b2))
+    if tuple(k1.shape) != (64, 3, 3, 3) or tuple(k2.shape) != (64, 64, 3, 3):
+        raise ValueError(f"{name}: bad kernel shapes {k1.shape} {k2.shape}")
+    from mds_tpu_torch.ops.build import load
+
+    b, _, h, w = x.shape
+    w1 = _stem_table(k1, s1, b1)
+    w2p, b2f = _mma_b_pack(_fold_bf16(k2, s2)), b2.float().contiguous()
+    out = torch.empty((b, 64, h // 2, w // 2), dtype=_BF16, device=x.device,
+                      memory_format=_CL)
+    err = load().mds_stem_s1_pair_fused(
+        _ptr(x), _ptr(w1), _ptr(w2p), _ptr(b2f), _ptr(out), b, h, w,
+        int(relu2), _stream())
+    _raise_on(err, name)
+    stem_s1_pair_fused.launches += 1
+    return out
+
+
+stem_s1_pair_fused.launches = 0
+
+
+# ------------------------------------------- kernel 4: detail S1_1+S1_2+S2_1
 
 def detail_s1s2_fused_plain(x, k1, s1, b1, k2, s2, b2, k3, s3, b3):
     y = F.relu(_conv(x, _fold(k1, s1), b1, stride=2)).to(_BF16)
@@ -181,7 +287,7 @@ def detail_s1s2_fused(x, k1, s1, b1, k2, s2, b2, k3, s3, b3):
 detail_s1s2_fused.launches = 0
 
 
-# ------------------------------------------------- kernel 3: the StemBlock
+# ------------------------------------------------- kernel 5: the StemBlock
 
 def stemblock_fused_plain(x, k_s, s_s, b_s, k_l1, s_l1, b_l1,
                           k_l2, s_l2, b_l2, k_f, s_f, b_f):
@@ -233,7 +339,7 @@ def stemblock_fused(x, k_s, s_s, b_s, k_l1, s_l1, b_l1,
 stemblock_fused.launches = 0
 
 
-# ------------------------------------------- the 7×7 RGB stem of BiSeNetV1
+# ------------------------------- kernel 6: the 7×7 RGB stem of BiSeNetV1
 
 def _stem7_b_frags(k: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """bf16(k·scale), k (O,3,7,7) → csrc/stem7.cu's (160, O) GEMM matrix as
@@ -286,5 +392,59 @@ def stem7_conv_bn_relu_s2(x, k, scale, bias, relu=True):
 
 stem7_conv_bn_relu_s2.launches = 0
 
-KERNELS = (stem_conv_bn_relu_s2, detail_s1s2_fused, stemblock_fused,
-           stem7_conv_bn_relu_s2)
+# ------------------------------------------- kernel 7: the DetailBranch tail
+
+_TAIL_SHAPES = [(64, 64), (64, 64), (128, 64), (128, 128), (128, 128)]
+_TAIL_STRIDES = (1, 1, 2, 1, 1)
+
+
+def detail_tail_fused_plain(y, *params):
+    """S2_2 → S2_3 → S3_1 (s2) → S3_2 → S3_3: each conv on bf16(k·scale) in
+    f32, + f32 bias, ReLU, rounded to bf16. params: (k, scale, bias) × 5."""
+    for i, st in enumerate(_TAIL_STRIDES):
+        k, s, b = params[3 * i:3 * i + 3]
+        y = F.relu(_conv(y, _fold_bf16(k, s), b, stride=st)).to(_BF16)
+    return _out(y)
+
+
+def detail_tail_fused(y, k4, s4, b4, k5, s5, b5, k6, s6, b6, k7, s7, b7,
+                      k8, s8, b8):
+    """DetailBranch S2_2 → S2_3 → S3_1 → S3_2 → S3_3 with folded BNs and
+    ReLUs. y (B,64,H4,W4) bf16 channels_last (detail_s1s2_fused's output),
+    H4 and W4 even; k4, k5 (64,64,3,3), k6 (128,64,3,3) stride 2, k7, k8
+    (128,128,3,3) → (B,128,H4/2,W4/2) bf16 channels_last."""
+    params = (k4, s4, b4, k5, s5, b5, k6, s6, b6, k7, s7, b7, k8, s8, b8)
+    if _is_cpu(y):
+        return detail_tail_fused_plain(y, *params)
+    name = "detail_tail_fused"
+    if y.dtype != _BF16 or y.dim() != 4 or y.shape[1] != 64:
+        raise ValueError(f"{name}: y must be (B,64,H4,W4) bfloat16, got "
+                         f"{tuple(y.shape)} {y.dtype}")
+    b, _, h4, w4 = y.shape
+    if h4 % 2 or w4 % 2 or not y.is_contiguous(memory_format=_CL):
+        raise ValueError(f"{name}: need even H4, W4 and channels_last, got "
+                         f"{tuple(y.shape)}")
+    _check_aligned(y, 16, name)
+    _check_params(y, name, params)
+    ks = params[0::3]
+    if [tuple(k.shape) for k in ks] != [(o, i, 3, 3) for o, i in _TAIL_SHAPES]:
+        raise ValueError(f"{name}: bad kernel shapes {[k.shape for k in ks]}")
+    from mds_tpu_torch.ops.build import load
+
+    wp = torch.cat([_mma_b_pack(_fold_bf16(k, s)).flatten()
+                    for k, s in zip(ks, params[1::3])])
+    bp = torch.cat([t.float().flatten() for t in params[2::3]])
+    out = torch.empty((b, 128, h4 // 2, w4 // 2), dtype=_BF16, device=y.device,
+                      memory_format=_CL)
+    err = load().mds_detail_tail_fused(_ptr(y), _ptr(wp), _ptr(bp), _ptr(out),
+                                       b, h4, w4, _stream())
+    _raise_on(err, name)
+    detail_tail_fused.launches += 1
+    return out
+
+
+detail_tail_fused.launches = 0
+
+KERNELS = (stem_conv_bn_relu_s2, stem_conv_bn_relu_s2_window,
+           stem_s1_pair_fused, detail_s1s2_fused, stemblock_fused,
+           stem7_conv_bn_relu_s2, detail_tail_fused)

@@ -105,7 +105,7 @@ def test_package_and_serve_path_import_no_jax():
         "import sys\n"
         "import mds_tpu_torch\n"
         "from mds_tpu_torch.deploy import e2e, server\n"
-        "from mds_tpu_torch.ops import build, stem\n"
+        "from mds_tpu_torch.ops import build, conv3x3, stem\n"
         "assert 'jax' not in sys.modules and 'mds_tpu' not in sys.modules\n"
         "sys.path.insert(0, 'tools')\n"
         "import serve_torch\n"
@@ -154,6 +154,7 @@ def test_every_module_and_converter_import_no_mds_tpu(tmp_path):
         "mods = [m.name for m in pkgutil.walk_packages(mds_tpu_torch.__path__, 'mds_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 15, mods\n"
+        "assert 'mds_tpu_torch.ops.conv3x3' in mods, mods\n"
         "sys.path.insert(0, 'tools')\n"
         "import serve_torch\n"
         "serve_torch.build_e2e('configs/bisenetv2_city.json', device='cpu')\n"
@@ -205,8 +206,13 @@ def test_static_scan_finds_no_mds_tpu():
                              recursive=True))
     files += [os.path.join(ROOT, "chip_smoke.py"),
               os.path.join(ROOT, "tools", "serve_torch.py"),
-              os.path.join(ROOT, "tools", "v1_seed_scan_torch.py")]
+              os.path.join(ROOT, "tools", "v1_seed_scan_torch.py"),
+              os.path.join(ROOT, "tools", "cuda_shim", "rehearse.py")]
     assert len(files) >= 18
+    # the kernels' loaders: every module that launches a csrc/*.cu kernel
+    loaders = {os.path.join("mds_tpu_torch", "ops", f"{m}.py") for m in (
+        "build", "conv3x3", "depthwise", "dropout", "stem", "upsample_argmax")}
+    assert loaders <= {os.path.relpath(f, ROOT) for f in files}
     found = {os.path.relpath(f, ROOT): _offences(f) for f in files}
     assert {k: v for k, v in found.items() if v} == {}
     # the scan does catch each kind of offence

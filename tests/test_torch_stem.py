@@ -5,7 +5,13 @@ On a CPU tensor each wrapper runs its plain PyTorch version, so these tests
 hold the plain versions, which define what the CUDA kernels compute (the
 card-side comparison lives in chip_smoke.py), to the JAX kernels. Bounds as
 in tests/test_space_to_depth.py: abs < 0.1 (one bf16 rounding apart) and
-rel < 2e-2."""
+rel < 2e-2.
+
+The window variant of the stem (set_stem_variant("dma"), TPU kernel 2) is
+held to JAX's `_stem_fwd_dma(interpret=True)` itself: interpret mode runs
+its manual window copies and semaphores on the CPU. The S1 pair (TPU kernel
+3) is held to JAX's `stem_s1_pair_fused(interpret=True)`, with and without
+its second ReLU."""
 
 import jax
 import jax.numpy as jnp
@@ -98,6 +104,48 @@ def test_stemblock_fused(shape):
     got = tstem.stemblock_fused(xt, *ta)
     assert got.is_contiguous(memory_format=torch.channels_last)
     _close(nhwc(got), want)
+
+
+@pytest.mark.parametrize("shape,o,relu", [(SHAPES[0], 64, True),
+                                          (SHAPES[1], 16, False)])
+def test_stem_window_variant_matches_jax_dma(shape, o, relu):
+    rng = np.random.default_rng(5)
+    xj, xt = _image(rng, *shape)
+    ja, ta = _both([(_conv(rng, (3, 3, 3, o)), *folded_bn(rng, o))])
+    want = jstem._stem_fwd_dma(xj, ja[0], th=jstem.get_stem_th(),
+                               interpret=True, scale=ja[1], bias=ja[2],
+                               relu=relu)
+    tstem.set_stem_variant("dma")
+    try:
+        assert tstem.get_stem_variant() == "dma"
+        got = tstem.stem_conv_bn_relu_s2(xt, *ta, relu=relu)
+    finally:
+        tstem.set_stem_variant("tiles")
+    window = tstem.stem_conv_bn_relu_s2_window(xt, *ta, relu=relu)
+    assert torch.equal(got, window)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    _close(nhwc(got), want)
+    assert tstem.stem_conv_bn_relu_s2_window.launches == 0
+
+
+def test_stem_variant_names():
+    with pytest.raises(ValueError):
+        tstem.set_stem_variant("tma")
+    assert tstem.get_stem_variant() == "tiles"
+
+
+@pytest.mark.parametrize("relu2", [True, False])
+def test_stem_s1_pair_fused(relu2):
+    rng = np.random.default_rng(6)
+    xj, xt = _image(rng, 2, 32, 48)
+    ja, ta = _both([(_conv(rng, (3, 3, 3, 64)), *folded_bn(rng, 64)),
+                    (_conv(rng, (3, 3, 64, 64)), *folded_bn(rng, 64))])
+    want = jstem.stem_s1_pair_fused(xj, *ja, interpret=True, relu2=relu2)
+    got = tstem.stem_s1_pair_fused(xt, *ta, relu2=relu2)
+    assert got.shape == (2, 64, 16, 24)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    _close(nhwc(got), want)
+    assert tstem.stem_s1_pair_fused.launches == 0
 
 
 def _fused_module(jcls, tcls, names, rng):

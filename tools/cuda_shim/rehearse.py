@@ -1,0 +1,157 @@
+#!/usr/bin/env python
+"""Run the port's tensor-core kernels on the CPU, without a card or nvcc.
+
+  python tools/cuda_shim/rehearse.py [stem window pair detail stem7 conv3 tail]
+
+Compiles csrc/stem.cu, stem7.cu, conv3x3.cu and detail_tail.cu with g++
+against the stand-in CUDA runtime beside this script (one std::thread per
+CUDA thread, std::barrier for __syncthreads and __syncwarp, mma.sync
+m16n8k16 computed lane by lane from the exchanged fragments, cp.async as a
+copy with zero-fill), into the git-ignored mds_tpu_torch/build/shim/. Then it
+calls each kernel's wrapper on CPU tensors at small, ragged shapes, with the
+wrappers made to launch (through ctypes, as on the card), and holds every
+output to the kernel's plain version: rel max-diff < 1e-2, and the window
+stem bit-equal to the single stem. It finds indexing, masking and tiling
+faults before a chip call; it says nothing of speed, of races between
+threads or of what nvcc accepts. Exits 1 on any mismatch.
+"""
+
+import ctypes
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parent.parent
+SRC = ROOT / "mds_tpu_torch" / "csrc"
+OUT = ROOT / "mds_tpu_torch" / "build" / "shim"
+SOURCES = ("stem.cu", "stem7.cu", "conv3x3.cu", "detail_tail.cu")
+
+sys.path.insert(0, str(ROOT))
+
+
+def build() -> Path:
+    """The sources as C++ for the stand-in runtime: the asm helpers swapped
+    for mma_impl.h, dynamic shared memory and <<<...>>> launches rewritten."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    m = (SRC / "mma.cuh").read_text()
+    a, b = m.index("// D += A(16x16"), m.index("// The implicit GEMM of a 3x3 conv")
+    (OUT / "mma.cuh").write_text(m[:a] + '#include "mma_impl.h"\n\n' + m[b:])
+    cpps = []
+    for f in SOURCES:
+        s = (SRC / f).read_text()
+        s = re.sub(r"__device__ __forceinline__ void (mma_bf16_16816|cp_async16)"
+                   r"\(.*?\n}\n", "", s, flags=re.S)
+        if '#include "mma.cuh"' not in s:
+            s = s.replace("namespace {", '#include "mma_impl.h"\nnamespace {', 1)
+        s = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) (\w+)\[\];",
+                   r"\1* \2 = reinterpret_cast<\1*>(shim_smem());", s)
+        s = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\(", r"shim_launch(\1, \2)(", s,
+                   flags=re.S)
+        cpp = OUT / (f[:-3] + ".cpp")
+        cpp.write_text(s)
+        cpps.append(str(cpp))
+    lib = OUT / "libshim.so"
+    res = subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-fPIC", "-shared", "-ffp-contract=off",
+         "-fno-strict-aliasing", "-pthread", f"-I{HERE}", f"-I{OUT}", "-o",
+         str(lib), str(HERE / "shim_rt.cpp"), *cpps],
+        capture_output=True, text=True)
+    if res.returncode:
+        sys.exit(f"g++ failed:\n{res.stderr[-8000:]}")
+    return lib
+
+
+def main(which):
+    import numpy as np
+    import torch
+
+    from mds_tpu_torch.ops import build as kbuild
+    from mds_tpu_torch.ops import conv3x3, stem
+
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in kbuild._SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+    # the wrappers launch through the stand-in library on CPU tensors
+    kbuild.load = lambda: lib
+    stem._is_cpu = conv3x3._is_cpu = lambda x: False
+    stem._stream = conv3x3._stream = lambda: ctypes.c_void_p(0)
+
+    rng = np.random.default_rng(0)
+
+    def image(b, h, w, c=3):  # RGB as normalized, features after a ReLU
+        x = torch.tensor(rng.normal(0, 1, (b, h, w, c)), dtype=torch.float32)
+        return (x if c == 3 else x.relu()).to(torch.bfloat16).permute(0, 3, 1, 2)
+
+    def conv_w(o, i, k=3):
+        return torch.tensor(rng.normal(0, np.sqrt(2 / (o * k * k)), (o, i, k, k)),
+                            dtype=torch.float32)
+
+    def bn(n):
+        return (torch.tensor(rng.normal(1, .1, n), dtype=torch.float32),
+                torch.tensor(rng.normal(0, .1, n), dtype=torch.float32))
+
+    failures = []
+
+    def check(name, got, want, equal_to=None):
+        r = ((got.float() - want.float()).abs().max()
+             / want.float().abs().max().clamp_min(1e-12)).item()
+        eq = (got == want).float().mean().item()
+        ok = (got.shape == want.shape and r < 1e-2
+              and got.is_contiguous(memory_format=torch.channels_last)
+              and (equal_to is None or torch.equal(got, equal_to)))
+        print(f"{'ok ' if ok else 'BAD'} {name}: {tuple(got.shape)} rel {r:.3g} "
+              f"equal {eq:.4f}", flush=True)
+        if not ok:
+            failures.append(name)
+
+    t0 = time.time()
+    if {"stem", "window"} & which:
+        for b, h, w, o, relu in ((1, 18, 22, 64, True), (2, 10, 134, 16, False),
+                                 (1, 2, 2, 8, True)):
+            args = (image(b, h, w), conv_w(o, 3), *bn(o), relu)
+            want = stem.stem_conv_bn_relu_s2_plain(*args)
+            k1 = stem.stem_conv_bn_relu_s2(*args)
+            check(f"stem {b, h, w, o}", k1, want)
+            check(f"window {b, h, w, o}", stem.stem_conv_bn_relu_s2_window(*args),
+                  want, equal_to=k1)
+    if "pair" in which:
+        for b, h, w, relu2 in ((1, 20, 70, True), (2, 6, 10, False)):
+            args = (image(b, h, w), conv_w(64, 3), *bn(64), conv_w(64, 64), *bn(64),
+                    relu2)
+            check(f"pair {b, h, w}", stem.stem_s1_pair_fused(*args),
+                  stem.stem_s1_pair_fused_plain(*args))
+    if "detail" in which:
+        args = (image(1, 16, 72), conv_w(64, 3), *bn(64), conv_w(64, 64), *bn(64),
+                conv_w(64, 64), *bn(64))
+        check("detail", stem.detail_s1s2_fused(*args),
+              stem.detail_s1s2_fused_plain(*args))
+    if "stem7" in which:
+        args = (image(2, 18, 70), conv_w(32, 3, 7), *bn(32), True)
+        check("stem7", stem.stem7_conv_bn_relu_s2(*args),
+              stem.stem7_conv_bn_relu_s2_plain(*args))
+    if "conv3" in which:
+        for b, h, w, ci, co, relu in ((1, 9, 40, 64, 64, True), (2, 5, 7, 32, 16, False),
+                                      (1, 11, 33, 3, 8, True), (1, 6, 20, 24, 136, True)):
+            args = (image(b, h, w, ci), conv_w(co, ci), *bn(co), relu)
+            check(f"conv3 {b, h, w, ci, co}", conv3x3.conv3x3_bn_relu(*args),
+                  conv3x3.conv3x3_bn_relu_plain(*args))
+    if "tail" in which:
+        for b, h4, w4 in ((1, 16, 16), (2, 22, 38)):
+            params = []
+            for o, i in stem._TAIL_SHAPES:
+                params += [conv_w(o, i), *bn(o)]
+            args = (image(b, h4, w4, 64), *params)
+            check(f"tail {b, h4, w4}", stem.detail_tail_fused(*args),
+                  stem.detail_tail_fused_plain(*args))
+    print(f"{time.time() - t0:.0f} s; " + (f"FAILED: {failures}" if failures else "all ok"))
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    names = {"stem", "window", "pair", "detail", "stem7", "conv3", "tail"}
+    sys.exit(main(set(sys.argv[1:]) or names))

@@ -14,10 +14,11 @@ torch.save'd state dict; without it the weights are a seeded random init.
 The model runs in bf16 with the deploy kernels on, always on CUDA:
 set_stem_impl("kernel") (the RGB stems of either model),
 set_detail_fuse(True) (BiSeNetV2's fused DetailBranch head and StemBlock),
-set_depthwise_impl("kernel") (BiSeNetV2's 16 depthwise 3×3 convs) and
-set_pred_impl("fused") (BiSeNetV2's ×8 upsample + argmax as one pass).
-BiSeNetV1 has no depthwise conv and no fused tail, so the last two leave it
-as it is.
+set_detail_tail(True) (the DetailBranch's last five convs as one more
+kernel), set_depthwise_impl("kernel") (BiSeNetV2's 16 depthwise 3×3 convs)
+and set_pred_impl("fused") (BiSeNetV2's ×8 upsample + argmax as one pass).
+BiSeNetV1 has no DetailBranch, no depthwise conv and no fused tail, so the
+last four leave it as it is.
 """
 
 import argparse
@@ -76,6 +77,7 @@ def main():
     from mds_tpu_torch.models.layers import (
         set_depthwise_impl,
         set_detail_fuse,
+        set_detail_tail,
         set_pred_impl,
         set_stem_impl,
     )
@@ -86,6 +88,7 @@ def main():
         "model_name", default="bisenetv2")
     set_stem_impl("kernel")
     set_detail_fuse(True)
+    set_detail_tail(True)
     set_depthwise_impl("kernel")
     set_pred_impl("fused")
     srv = InferenceServer(build_e2e(args.config, args.weights, args.seed),
