@@ -8,7 +8,9 @@ before the last line:
 
 1. device   — needs torch.cuda; the card's name and power limit.
 2. build    — nvcc builds mds_tpu_torch/csrc/*.cu for sm_90a, one process
-              per source.
+              per source; cuobjdump's SASS of the library must show HGMMA
+              (warpgroup MMA) and no HMMA (mma.sync) in the conv3 and
+              detail-tail kernels.
 3. kernels  — each stem kernel at the serving shapes (B=1, 1024×2048; the
               7×7 stem of BiSeNetV1 at O=64; the single 3×3 stem and its
               window variant at O=64 and 16, the window variant bit-equal
@@ -28,7 +30,9 @@ before the last line:
               through detail_tail_fused, and DetailBranch S1_2's input
               (1, 64, 512, 1024) of a frame on the window-stem + conv3 route
               through conv3x3_bn_relu (both rel < 1e-2, bit-equal share
-              printed); beside each, the library's bf16 grouped F.conv2d
+              printed; each timed cold, packing its weights, and warm, on
+              the model's packed weights, and its own device time read by
+              torch.profiler); beside each, the library's bf16 grouped F.conv2d
               and the port's library route, the interpolate + argmax chain,
               the plain route's five ConvBNReLU modules, or one bf16
               F.conv2d with the folded weight and bias; then all of them on
@@ -78,7 +82,17 @@ before the last line:
               step and no stem-kernel launch (the fused routes are eval-only);
               one more step under torch.profiler gives the idle share and
               the dropout kernel's device time.
-8. parity   — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
+8. train_stem — the same train step with set_stem_impl("kernel"): the two
+              RGB stems' convs (DetailBranch S1_1, StemBlock conv) run
+              stem_conv3x3_s2 (kernel 1 forward, the library conv's
+              gradients backward). From one set of weights and one batch, a
+              step on the plain route and 2 on the kernel route: exactly 2
+              stem_conv3x3_s2 launches a step, the first step's loss within
+              1e-2 (relative) of the plain route's; the Function's output,
+              dx and dk at the steps' inputs against the library conv on the
+              card (rel < 1e-2), timed beside its plain version and bf16
+              F.conv2d.
+9. parity   — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
               on the card (dropout kernel) and on the CPU (its plain
               version), same weights and generator seed: loss rel < 1e-4,
               per-group gradient cosine > 0.9999, parameters after the step
@@ -94,6 +108,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -150,7 +165,13 @@ SOURCES = {
                           "mds_tpu/ops/pallas/stem.py:1148"),
     "conv3x3_bn_relu": ("mds_tpu_torch/csrc/conv3x3.cu",
                         "mds_tpu/ops/pallas/conv3x3.py:69"),
+    # kernel 1's training form (a custom_vjp over _stem_fwd)
+    "stem_conv3x3_s2": ("mds_tpu_torch/csrc/stem.cu",
+                        "mds_tpu/ops/pallas/stem.py:1235"),
 }
+# the kernels that run warpgroup MMA (csrc/wgmma.cuh): their SASS must show
+# HGMMA and no HMMA
+WGMMA_KERNELS = ("conv3x3_kernel", "detail_tail_kernel")
 # the window stem computes kernel 1's function: one plain version for both
 PLAIN_OF = {"stem_conv_bn_relu_s2_window": "stem_conv_bn_relu_s2_plain"}
 # one H100 SXM (NVIDIA's data sheet)
@@ -188,6 +209,48 @@ def cuda_ms(fn, n=20):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, kernel, n=10):
+    """The mean device time of `kernel` (a substring of its name) per launch
+    over n calls of fn under torch.profiler, or "not measured"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    total = sum(e.device_time_total for e in ev) / 1e3
+    return total / len(ev) if ev and total > 0 else "not measured"
+
+
+def sass_check(lib):
+    """HGMMA and HMMA instruction counts in the SASS of each kernel named in
+    WGMMA_KERNELS (cuobjdump of the built library); raises unless every
+    instantiation has HGMMA and none has HMMA."""
+    import shutil
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for body in sass.split("Function : ")[1:]:
+        fn = body.split("\n", 1)[0].strip()
+        for k in WGMMA_KERNELS:
+            if k in fn:
+                counts[fn] = {"kernel": k, "HGMMA": body.count("HGMMA"),
+                              "HMMA": len(re.findall(r"\bHMMA\b", body))}
+    emit(phase="sass", functions=counts)
+    for k in WGMMA_KERNELS:
+        fns = [c for c in counts.values() if c["kernel"] == k]
+        if not fns or any(c["HGMMA"] == 0 or c["HMMA"] for c in fns):
+            raise RuntimeError(f"{k}: its SASS lacks HGMMA or has HMMA: {fns}")
+    return counts
 
 
 def bound(n_bytes, flops, flop_rate=BF16_FLOP_PER_S):
@@ -428,17 +491,22 @@ def check_kernel_output(name, kernel, plain, args, dtype=torch.bfloat16):
 
 def detail_tail_row(call, detail, x):
     """detail_tail_fused at the served frame's /4 detail feature against its
-    plain version, timed beside it and beside the chain the plain route runs
-    (the DetailBranch's five ConvBNReLU modules: cuDNN conv, unfolded BN,
-    ReLU); no single PyTorch call computes the function (library_ms null).
-    Also the chain that kernel 4 replaces (S1_1, S1_2, S2_1) on the frame x,
-    the yardstick of kernel 4's row, which has no single call either."""
+    plain version, timed cold (weights folded and packed in the call) and
+    warm (on the packed weights, as the served route calls it: `ms`), its
+    device time read by the profiler, beside its plain version and the chain
+    the plain route runs (the DetailBranch's five ConvBNReLU modules: cuDNN
+    conv, unfolded BN, ReLU); no single PyTorch call computes the function
+    (library_ms null). Also the chain that kernel 4 replaces (S1_1, S1_2,
+    S2_1) on the frame x, the yardstick of kernel 4's row, which has no
+    single call either."""
     from mds_tpu_torch.ops import stem
 
     name = "detail_tail_fused"
+    call = call[:16]  # the captured call's last argument: the model's pack
     got, want, r = check_kernel_output(name, stem.detail_tail_fused,
                                        stem.detail_tail_fused_plain, call)
     y = call[0]
+    packed = stem.pack_detail_tail(*call[1:])
 
     def chain():
         xs = [y]
@@ -451,7 +519,10 @@ def detail_tail_row(call, detail, x):
         with torch.inference_mode():
             return detail.S2_1(detail.S1_2(detail.S1_1([x])))[0]
 
-    ms = cuda_ms(lambda: stem.detail_tail_fused(*call))
+    cold_ms = cuda_ms(lambda: stem.detail_tail_fused(*call))
+    ms = cuda_ms(lambda: stem.detail_tail_fused(*call, packed))
+    dev_ms = device_ms(lambda: stem.detail_tail_fused(*call, packed),
+                       "detail_tail_kernel")
     plain_ms = cuda_ms(lambda: stem.detail_tail_fused_plain(*call))
     chain_ms = cuda_ms(chain)
     emit(phase="kernels", kernel="detail_s1s2_fused", shape=list(x.shape),
@@ -465,7 +536,8 @@ def detail_tail_row(call, detail, x):
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": None}
     emit(phase="kernels", kernel=name, shape=list(y.shape), rel=r,
-         bit_equal=share_equal(bits(got), bits(want)), chain_ms=chain_ms,
+         bit_equal=share_equal(bits(got), bits(want)), cold_ms=cold_ms,
+         device_ms=dev_ms, chain_ms=chain_ms,
          chain="the plain route's five ConvBNReLU modules (bf16 cuDNN conv, "
          "f32 BN, ReLU)", plain="library ops in f32, TF32 off", **res)
     return res
@@ -473,17 +545,23 @@ def detail_tail_row(call, detail, x):
 
 def conv3x3_row(call):
     """conv3x3_bn_relu at DetailBranch S1_2's input of a frame on the
-    window-stem + conv3 route against its plain version, timed beside it and
-    beside one bf16 F.conv2d with the folded weight and bias (no ReLU)."""
+    window-stem + conv3 route against its plain version, timed cold (k packed
+    in the call) and warm (on the packed k, as the route calls it: `ms`),
+    its device time read by the profiler, beside its plain version and one
+    bf16 F.conv2d with the folded weight and bias (no ReLU)."""
     from mds_tpu_torch.ops import conv3x3 as c3
 
     name = "conv3x3_bn_relu"
+    call = call[:5]  # the captured call's last argument: the model's pack
     got, want, r = check_kernel_output(name, c3.conv3x3_bn_relu,
                                        c3.conv3x3_bn_relu_plain, call)
     x, k, scale, bias = call[:4]
+    wp = c3.pack_conv3x3(k)
     wf = (k.float() * scale.reshape(-1, 1, 1, 1)).to(torch.bfloat16)
     bf = bias.to(torch.bfloat16)
-    ms = cuda_ms(lambda: c3.conv3x3_bn_relu(*call))
+    cold_ms = cuda_ms(lambda: c3.conv3x3_bn_relu(*call))
+    ms = cuda_ms(lambda: c3.conv3x3_bn_relu(*call, wp))
+    dev_ms = device_ms(lambda: c3.conv3x3_bn_relu(*call, wp), "conv3x3_kernel")
     plain_ms = cuda_ms(lambda: c3.conv3x3_bn_relu_plain(*call))
     library_ms = cuda_ms(lambda: F.conv2d(x, wf, bf, padding=1))
     b_ms, b_by = bound(nbytes(x, k, scale, bias, got), conv_flops(got, k))
@@ -491,7 +569,8 @@ def conv3x3_row(call):
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": library_ms}
     emit(phase="kernels", kernel=name, shape=list(x.shape), out=list(got.shape),
-         rel=r, bit_equal=share_equal(bits(got), bits(want)),
+         rel=r, bit_equal=share_equal(bits(got), bits(want)), cold_ms=cold_ms,
+         device_ms=dev_ms,
          plain="f32 conv on bf16(k), then ·scale + bias, ReLU; TF32 off",
          library="bf16 F.conv2d, folded weight and bias, no ReLU", **res)
     return res
@@ -867,6 +946,88 @@ def phase_train(dev):
     if launches != want:
         raise RuntimeError(f"train launches {launches}, expected {want}")
     return launches
+
+
+def phase_train_stem(dev):
+    """The train step with set_stem_impl("kernel") against the plain route
+    from one set of weights and one batch; then stem_conv3x3_s2 at the inputs
+    the steps gave it against its plain version and the library conv."""
+    from mds_tpu_torch import MODELS
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.ops import stem
+
+    cfg = Configer(config_file=CONFIG)
+    n_classes = cfg.n_cats(0)
+    b = int(cfg.dataset_cfg(0)["ims_per_gpu"])
+    h, w = cfg.get("train", "cropsize")
+    im, lb = seg_batch(np.random.default_rng(6), b, h, w, n_classes)
+    ims, lbs = [torch.from_numpy(im).to(dev)], [torch.from_numpy(lb).to(dev)]
+    init = MODELS[cfg.get("model_name")](n_classes=(n_classes,), n_bn=1, aux=True,
+                                         dtype=torch.bfloat16)
+    init.init_weights(torch.Generator().manual_seed(WEIGHT_SEED))
+
+    def steps(stem_impl, n):
+        model = copy.deepcopy(init).to(dev)
+        step, _ = train_step_for(cfg, model, torch.bfloat16)
+        with route(stem_impl), captured(stem, "stem_conv3x3_s2") as calls:
+            reset_counts()
+            out = []
+            for i in range(n):
+                out.append(step(ims, lbs, torch.Generator().manual_seed(i))["loss"].item())
+                out.append(read_counts())
+        return out, calls
+
+    (plain_loss, plain_counts), _ = steps("plain", 1)
+    torch.cuda.empty_cache()
+    (loss1, counts1, loss2, launches), calls = steps("kernel", 2)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in launches}
+    want.update(dropout_u8=20, stem_conv3x3_s2=4)
+    loss_rel = abs(loss1 - plain_loss) / abs(plain_loss)
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "library_ms": 0.0, "launches": launches["stem_conv3x3_s2"]}
+    convs = []
+    for x, k in calls[:2]:  # the first step's two stems
+        x, k = x.detach(), k.detach()
+        got = stem.stem_conv3x3_s2(x, k)
+        want_y = stem.stem_conv3x3_s2_plain(x, k)
+        lib_y = F.conv2d(x, k, stride=2, padding=1)
+        g = torch.randn(got.shape, device=dev, generator=torch.Generator(dev).manual_seed(3)
+                        ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        grads = []
+        for fn in (stem.stem_conv3x3_s2, lambda a, c: F.conv2d(a, c, stride=2, padding=1)):
+            xg = x.clone().requires_grad_(True)
+            kf = k.float().requires_grad_(True)  # as the model's f32 weight
+            (fn(xg, kf.to(torch.bfloat16)) * g).sum().backward()
+            grads.append((xg.grad, kf.grad))
+        rec = {"x": list(x.shape), "k": list(k.shape), "rel": rel(got, want_y),
+               "bit_equal": share_equal(bits(got), bits(want_y)),
+               "rel_vs_library": rel(got, lib_y),
+               "dx_rel": rel(grads[0][0], grads[1][0]),
+               "dk_rel": rel(grads[0][1], grads[1][1])}
+        rec["ms"] = cuda_ms(lambda: stem.stem_conv3x3_s2(x, k))
+        rec["plain_ms"] = cuda_ms(lambda: stem.stem_conv3x3_s2_plain(x, k), n=5)
+        rec["library_ms"] = cuda_ms(lambda: F.conv2d(x, k, stride=2, padding=1))
+        b_ms, res["bound_by"] = bound(nbytes(x, k, got), conv_flops(got, k))
+        rec["bound_ms"] = b_ms
+        convs.append(rec)
+        res["max_abs_err"] = max(res["max_abs_err"],
+                                 (got.float() - want_y.float()).abs().max().item())
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            res[key] += rec[key]
+        if not (torch.isfinite(got.float()).all() and max(
+                rec["rel"], rec["rel_vs_library"], rec["dx_rel"], rec["dk_rel"]) < KERNEL_GATE):
+            raise RuntimeError(f"stem_conv3x3_s2: {rec}")
+    emit(phase="train_stem", batch=[b, h, w], plain_loss=plain_loss,
+         kernel_losses=[loss1, loss2], loss_rel=loss_rel,
+         plain_launches=plain_counts, first_step_launches=counts1,
+         launches=launches, convs=convs,
+         library="bf16 F.conv2d (cuDNN) and its autograd")
+    if not np.isfinite([plain_loss, loss1, loss2]).all() or loss_rel >= 1e-2:
+        raise RuntimeError(f"train_stem: losses {plain_loss} vs {loss1}, {loss2}")
+    if launches != want or counts1["stem_conv3x3_s2"] != 2:
+        raise RuntimeError(f"train_stem launches {launches}, expected {want}")
+    return res
 
 
 def profile_idle_share(fn, kernels_of_interest=()):
@@ -1267,6 +1428,7 @@ def main():
     lib = build.build()
     build.load()
     emit(phase="build", seconds=time.perf_counter() - t0, library=lib.name)
+    sass_check(lib)
 
     # the plain references run cuDNN convs in full f32 (TF32 off)
     torch.backends.cudnn.allow_tf32 = False
@@ -1293,6 +1455,9 @@ def main():
     launches["stem7_conv_bn_relu_s2"] = phase_v1_slice(dev)["stem7_conv_bn_relu_s2"]
     torch.cuda.empty_cache()
     launches["dropout_u8"] = phase_train(dev)["dropout_u8"]
+    torch.cuda.empty_cache()
+    results["stem_conv3x3_s2"] = phase_train_stem(dev)
+    launches["stem_conv3x3_s2"] = results["stem_conv3x3_s2"]["launches"]
     torch.cuda.empty_cache()
     phase_parity(dev)
     emit(kernels=[{

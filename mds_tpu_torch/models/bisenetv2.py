@@ -25,6 +25,7 @@ from mds_tpu_torch.models.layers import (
     ConvBNReLU,
     DatasetNorm,
     MultiX,
+    PackCache,
     SegmentHead,
     as_multi,
     avg_pool_3x3_s2,
@@ -68,6 +69,7 @@ class DetailBranch(nn.Module):
         self.S3_2 = ConvBNReLU(128, 128, 3, **cfg)
         self.S3_3 = ConvBNReLU(128, 128, 3, **cfg)
         self.dtype = dtype
+        self._packs = PackCache()
 
     def forward(self, xs: MultiX):
         if _fusable(self, xs):
@@ -87,14 +89,8 @@ class DetailBranch(nn.Module):
             if get_detail_tail() and all(
                     x is None or (x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
                     for x in xs):
-                from mds_tpu_torch.ops.stem import detail_tail_fused
-
-                parts = [m.folded(xs) for m in self._tail()]
-                return [
-                    None if x is None else detail_tail_fused(
-                        x, *(t for k, cf in parts for t in (k, *cf[i])))
-                    for i, x in enumerate(xs)
-                ]
+                return [None if x is None else self._tail_fused(x, i)
+                        for i, x in enumerate(xs)]
         else:
             xs = self.S2_1(self.S1_2(self.S1_1(xs)))
         for layer in self._tail():
@@ -103,6 +99,22 @@ class DetailBranch(nn.Module):
 
     def _tail(self):
         return (self.S2_2, self.S2_3, self.S3_1, self.S3_2, self.S3_3)
+
+    def _tail_fused(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """Dataset i's /4 feature through the tail kernel, its weights folded
+        and packed once per parameter version (PackCache, keyed on every
+        conv weight and BN tensor of the five modules and on i)."""
+        from mds_tpu_torch.ops.stem import detail_tail_fused, pack_detail_tail
+
+        params = [t for m in self._tail()
+                  for t in (m.conv.weight, *m.fold_cached(i))]
+        packed = None
+        if x.device.type != "cpu":
+            srcs = [t for m in self._tail() for t in
+                    (m.conv.weight, *m.bn.tensors_at(i, m._shared()))]
+            packed = self._packs.get(("tail", i), srcs,
+                                     lambda: pack_detail_tail(*params))
+        return detail_tail_fused(x, *params, packed)
 
 
 class StemBlock(nn.Module):

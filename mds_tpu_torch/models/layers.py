@@ -173,16 +173,20 @@ class DatasetNorm(nn.ModuleList):
     def _affine(self, i: int, shared) -> Tuple:
         return shared if shared is not None else (self[i].weight, self[i].bias)
 
+    def fold_at(self, i: int, shared=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Dataset i's folded eval (scale, bias), f32."""
+        w, b = self._affine(i, shared)
+        s = torch.rsqrt(self[i].running_var.float() + self.eps) * w.float()
+        return s, b.float() - self[i].running_mean.float() * s
+
     def fold(self, xs: MultiX, shared=None) -> Coeffs:
-        out: Coeffs = []
-        for i, x in enumerate(xs):
-            if x is None:
-                out.append(None)
-                continue
-            w, b = self._affine(i, shared)
-            s = torch.rsqrt(self[i].running_var.float() + self.eps) * w.float()
-            out.append((s, b.float() - self[i].running_mean.float() * s))
-        return out
+        return [None if x is None else self.fold_at(i, shared)
+                for i, x in enumerate(xs)]
+
+    def tensors_at(self, i: int, shared=None) -> Tuple[torch.Tensor, ...]:
+        """The tensors dataset i's fold reads: affine weight and bias,
+        running mean and variance."""
+        return (*self._affine(i, shared), self[i].running_mean, self[i].running_var)
 
     def _train_norm(self, bn: nn.BatchNorm2d, x: torch.Tensor, w, b):
         xf = x.float()
@@ -219,6 +223,29 @@ class DatasetNorm(nn.ModuleList):
         return outs
 
 
+class PackCache:
+    """Values derived from parameters (folded BN coefficients, weights packed
+    for a kernel), kept until a tensor they came from changes. An entry is
+    keyed on each source tensor's (device, data_ptr, _version): an optimizer
+    step, a BN running-stat update and load_state_dict change tensors in
+    place (their _version moves), .to() makes new storage; any of them
+    rebuilds the entry at its next use. `builds` counts builds. A plain
+    attribute of its module: not in the state dict."""
+
+    def __init__(self):
+        self._entries = {}
+        self.builds = 0
+
+    def get(self, name, tensors: Sequence[torch.Tensor], build: Callable):
+        key = tuple((t.device, t.data_ptr(), t._version) for t in tensors)
+        hit = self._entries.get(name)
+        if hit is None or hit[0] != key:
+            hit = (key, build())
+            self._entries[name] = hit
+            self.builds += 1
+        return hit[1]
+
+
 def conv_init(weight: torch.Tensor, generator: torch.Generator) -> None:
     """He/kaiming normal, fan-out — the reference's init convention
     (mds_tpu/models/layers.py:150)."""
@@ -244,10 +271,24 @@ class StemConv3x3S2(nn.Conv2d):
     """Stride-2 3×3 conv on a few-channel (RGB) input whose eval path runs
     conv → folded BN → [ReLU] in one pass: the stem kernel for a bf16
     3-channel input with even H and W (ops/stem.py stem_conv_bn_relu_s2),
-    the same chain on library ops otherwise (mds_tpu/models/layers.py:319)."""
+    the same chain on library ops otherwise (mds_tpu/models/layers.py:319).
+    Its plain conv (`conv`, the train path) under set_stem_impl("kernel")
+    runs such an input through ops/stem.py stem_conv3x3_s2, kernel 1 with
+    the library conv's gradients (mds_tpu/models/layers.py:363-366)."""
 
     def __init__(self, in_chan: int, out_chan: int):
         super().__init__(in_chan, out_chan, 3, stride=2, padding=1, bias=False)
+
+    def conv(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        x = x.to(dtype)
+        if (_STEM_IMPL == "kernel" and dtype == torch.bfloat16
+                and x.shape[1] == 3 and x.shape[2] % 2 == 0
+                and x.shape[3] % 2 == 0):
+            from mds_tpu_torch.ops.stem import stem_conv3x3_s2
+
+            return stem_conv3x3_s2(x.contiguous(memory_format=torch.channels_last),
+                                   self.weight.to(dtype))
+        return conv2d(self, x, dtype)
 
     def fused(self, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               relu: bool, dtype: torch.dtype) -> torch.Tensor:
@@ -328,11 +369,16 @@ class ConvBNReLU(nn.Module):
     (groups == in_chan < out_chan) runs as the input's channels repeated
     `mult` times followed by a depthwise conv on the same (out, 1, k, k)
     weight: PyTorch launches one kernel per group for the grouped form.
-    With set_conv3_eval_impl("kernel"), in eval and bf16, a plain 3×3
-    stride-1 conv with C_in <= 64 and C_out % 8 == 0 runs, when every
-    dataset's input has H >= 512, as ops/conv3x3.py's kernel with the BN
-    folded in (layers.py:519-524 and :554-559's condition, without JAX's
-    TPU-backend test)."""
+    With set_conv3_eval_impl("kernel"), in eval, a plain 3×3 stride-1 conv
+    with C_in <= 64 folds its BN per dataset, as JAX's Conv3x3S1Fusable
+    does (layers.py:519-524, :554-559, :384-423): a dataset's input in bf16
+    with H >= 512 runs ops/conv3x3.py's kernel (without JAX's TPU-backend
+    test), any other input the library conv in the compute dtype then
+    ·scale + bias in f32. The kernel also needs C_out % 8 == 0 (wgmma's N),
+    where JAX's takes any C_out. The folded coefficients and the kernel's
+    packed weight are cached (PackCache) until a parameter they came from
+    changes; one pack serves every dataset (the kernel's weight is
+    unscaled)."""
 
     def __init__(self, in_chan: int, out_chan: int, ks: int = 3,
                  stride: int = 1, groups: int = 1, n_bn: int = 1,
@@ -352,6 +398,7 @@ class ConvBNReLU(nn.Module):
         self.shared_affine = shared_affine
         self.relu = relu
         self.dtype = dtype
+        self._packs = PackCache()
 
     def _shared(self):
         return (self.affine_weight, self.affine_bias) if self.shared_affine else None
@@ -363,6 +410,13 @@ class ConvBNReLU(nn.Module):
         """The `emit="folded"` counterpart: the raw conv weight and the
         per-dataset folded (scale, bias), for the fused kernels."""
         return self.conv.weight, self.fold(xs)
+
+    def fold_cached(self, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Dataset i's folded (scale, bias), computed once per parameter
+        version."""
+        shared = self._shared()
+        return self._packs.get(("fold", i), self.bn.tensors_at(i, shared),
+                               lambda: self.bn.fold_at(i, shared))
 
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv
@@ -377,16 +431,39 @@ class ConvBNReLU(nn.Module):
                                  conv.out_channels // conv.in_channels)
             return F.conv2d(x, conv.weight.to(self.dtype), None, conv.stride,
                             conv.padding, conv.dilation, conv.out_channels)
+        if isinstance(conv, StemConv3x3S2):
+            return conv.conv(x, self.dtype)
         return conv2d(conv, x, self.dtype)
 
-    def _conv3_route(self, x: torch.Tensor) -> bool:
+    def _conv3_fusable(self) -> bool:
+        """The conv3 route's module condition: eval, a plain 3×3 s1 conv,
+        C_in <= 64."""
         conv = self.conv
         return (_CONV3_EVAL_IMPL == "kernel" and not self.training
-                and self.dtype == torch.bfloat16 and type(conv) is nn.Conv2d
-                and conv.groups == 1 and conv.kernel_size == (3, 3)
-                and conv.stride == (1, 1) and conv.dilation == (1, 1)
-                and conv.bias is None and conv.in_channels <= 64
-                and conv.out_channels % 8 == 0 and x.shape[2] >= 512)
+                and type(conv) is nn.Conv2d and conv.groups == 1
+                and conv.kernel_size == (3, 3) and conv.stride == (1, 1)
+                and conv.dilation == (1, 1) and conv.bias is None
+                and conv.in_channels <= 64)
+
+    def _conv3_route(self, x: torch.Tensor) -> bool:
+        """Whether this dataset's input runs the conv3 kernel: bf16 and
+        H >= 512 (JAX's test), C_out % 8 == 0 (the port's own)."""
+        return (self.dtype == torch.bfloat16 and x.shape[2] >= 512
+                and self.conv.out_channels % 8 == 0)
+
+    def _conv3(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        scale, bias = self.fold_cached(i)
+        if self._conv3_route(x):
+            from mds_tpu_torch.ops.conv3x3 import conv3x3_bn_relu, pack_conv3x3
+
+            k = self.conv.weight
+            wp = None if x.device.type == "cpu" else self._packs.get(
+                "conv3x3", (k,), lambda: pack_conv3x3(k))
+            return conv3x3_bn_relu(
+                x.to(self.dtype).contiguous(memory_format=torch.channels_last),
+                k, scale, bias, self.relu, wp)
+        y = conv2d(self.conv, x, self.dtype).float() * _c(scale) + _c(bias)
+        return (F.relu(y) if self.relu else y).to(self.dtype)
 
     def forward(self, xs: MultiX) -> List[Optional[torch.Tensor]]:
         if (not self.training and isinstance(self.conv, StemConv3x3S2)
@@ -396,16 +473,9 @@ class ConvBNReLU(nn.Module):
                 else self.conv.fused(x, cf[0], cf[1], self.relu, self.dtype)
                 for x, cf in zip(xs, self.fold(xs))
             ]
-        live = [x for x in xs if x is not None]
-        if live and all(self._conv3_route(x) for x in live):
-            from mds_tpu_torch.ops.conv3x3 import conv3x3_bn_relu
-
-            return [
-                None if x is None else conv3x3_bn_relu(
-                    x.to(self.dtype).contiguous(memory_format=torch.channels_last),
-                    self.conv.weight, cf[0], cf[1], self.relu)
-                for x, cf in zip(xs, self.fold(xs))
-            ]
+        if self._conv3_fusable():
+            return [None if x is None else self._conv3(x, i)
+                    for i, x in enumerate(xs)]
         xs = lmap(self._conv, xs)
         xs = self.bn(xs, self._shared())
         return lmap(F.relu, xs) if self.relu else xs

@@ -13,9 +13,12 @@ the TPU kernel's (conv3x3.py:36-65, :106-110), not the stem kernels': the
 conv multiplies by k in x's dtype, *unscaled*, accumulates in f32, and only
 then applies ·scale + bias, the ReLU and one rounding to x's dtype.
 `conv3x3_bn_relu_plain` does that in f32 with library ops. The kernel takes
-bf16 with Cin <= 64 and Cout % 8 == 0, any B, H and W. On a CPU tensor the
-wrapper runs the plain version; on a CUDA tensor it launches the kernel or
-raises. `conv3x3_bn_relu.launches` counts kernel launches.
+bf16 with Cin <= 64 and Cout % 8 == 0 (wgmma's N; JAX's kernel takes any
+Cout), any B, H and W. On a CPU tensor the wrapper runs the plain version;
+on a CUDA tensor it launches the kernel or raises. The kernel reads k as
+`pack_conv3x3` lays it out; a caller that holds the weights (the conv3 route,
+models/layers.py) packs once and passes the result as `wp`.
+`conv3x3_bn_relu.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -28,10 +31,10 @@ from mds_tpu_torch.ops.stem import (
     _check_params,
     _conv,
     _is_cpu,
-    _mma_b_pack,
     _ptr,
     _raise_on,
     _stream,
+    pack_sw128,
 )
 
 MAX_CIN = 64
@@ -46,9 +49,16 @@ def conv3x3_bn_relu_plain(x, k, scale, bias, relu=True):
     return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
-def conv3x3_bn_relu(x, k, scale, bias, relu=True):
+def pack_conv3x3(k):
+    """bf16(k), unscaled, as csrc/conv3x3.cu reads it: pack_sw128's slices,
+    [Cout/64][tap] each 64 output × 64 input channels, zero-padded."""
+    return pack_sw128(k.to(torch.bfloat16))
+
+
+def conv3x3_bn_relu(x, k, scale, bias, relu=True, wp=None):
     """x (B,Cin,H,W) bf16 channels_last, Cin <= 64; k (Cout,Cin,3,3) with
-    Cout % 8 == 0 → (B,Cout,H,W) bf16 channels_last."""
+    Cout % 8 == 0 → (B,Cout,H,W) bf16 channels_last. `wp`: pack_conv3x3(k),
+    made once; a CUDA launch packs k itself when it is None."""
     if _is_cpu(x):
         return conv3x3_bn_relu_plain(x, k, scale, bias, relu)
     name = "conv3x3_bn_relu"
@@ -67,9 +77,11 @@ def conv3x3_bn_relu(x, k, scale, bias, relu=True):
     _check_params(x, name, (k, scale, bias))
     from mds_tpu_torch.ops.build import load
 
-    kc = -(-cin // 16)
-    wb = F.pad(k.to(torch.bfloat16).float(), (0, 0, 0, 0, 0, 16 * kc - cin))
-    wp = _mma_b_pack(wb)
+    if wp is None:
+        wp = pack_conv3x3(k)
+    if wp.dtype != torch.bfloat16 or wp.numel() != -(-cout // 64) * 9 * 4096:
+        raise ValueError(f"{name}: wp is not pack_conv3x3's layout of k")
+    _check_params(x, name, (wp,))
     s, c = scale.float().contiguous(), bias.float().contiguous()
     out = torch.empty((b, cout, h, w), dtype=torch.bfloat16, device=x.device,
                       memory_format=torch.channels_last)

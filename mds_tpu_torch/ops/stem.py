@@ -4,6 +4,8 @@ Counterparts of mds_tpu/ops/pallas/stem.py (TPU kernel numbers as in
 PERF.md's table):
 
   stem_conv_bn_relu_s2        ← _stem_fwd (fused case), 1  — csrc/stem.cu
+  stem_conv3x3_s2             ← stem_conv3x3_s2 (kernel 1's training form,
+                                a custom_vjp), 1            — csrc/stem.cu
   stem_conv_bn_relu_s2_window ← _stem_fwd_dma, 2           — csrc/stem.cu
   stem_s1_pair_fused          ← stem_s1_pair_fused, 3      — csrc/stem.cu
   detail_s1s2_fused           ← detail_s1s2_fused, 4       — csrc/stem.cu
@@ -12,7 +14,9 @@ PERF.md's table):
   detail_tail_fused           ← detail_tail_fused, 7       — csrc/detail_tail.cu
 
 All but the 7×7 stem carry BiSeNetV2, the 7×7 stem BiSeNetV1 (its two RGB
-stems). `set_stem_variant("dma")` makes stem_conv_bn_relu_s2 launch the
+stems). stem_conv3x3_s2 is an autograd Function: kernel 1 forward (unit
+scale, zero bias, no ReLU), the library conv's gradients backward, as JAX's
+custom_vjp; the train-mode RGB stems take it under set_stem_impl("kernel"). `set_stem_variant("dma")` makes stem_conv_bn_relu_s2 launch the
 window kernel (2) instead of kernel 1 on a CUDA tensor, as JAX's
 set_stem_variant does (stem.py:1248-1284); the two share one plain version
 and agree bit for bit. stem_s1_pair_fused is on no model path, as in JAX.
@@ -125,6 +129,22 @@ def _mma_b_pack(wb: torch.Tensor) -> torch.Tensor:
     return wt.permute(0, 1, 5, 6, 3, 2, 4).contiguous().to(_BF16)
 
 
+def pack_sw128(w: torch.Tensor) -> torch.Tensor:
+    """3×3 weights (O, I, 3, 3), values already those the kernel multiplies
+    by → the B operand slices of csrc/wgmma.cuh, flat bf16: [O/64][tap][I/64]
+    slices of 64 rows (output channel n) × 8 chunks × 8 values (input
+    channels), O and I zero-padded to multiples of 64, logical chunk c of row
+    n stored at chunk c ^ (n % 8) (wgmma's K-major layout, 128-byte swizzle)."""
+    o, i = w.shape[:2]
+    op, ip = -(-o // 64) * 64, -(-i // 64) * 64
+    w = F.pad(w.float(), (0, 0, 0, 0, 0, ip - i, 0, op - o))
+    # dims: nh, n, kc, chunk, e, tap  →  nh, tap, kc, n, chunk, e
+    w = w.reshape(op // 64, 64, ip // 64, 8, 8, 9).permute(0, 5, 2, 1, 3, 4)
+    n = torch.arange(64, device=w.device).reshape(64, 1)
+    c = torch.arange(8, device=w.device).reshape(1, 8)
+    return w[:, :, :, n, c ^ (n % 8)].to(_BF16).contiguous().flatten()
+
+
 def _check_aligned(t: torch.Tensor, n: int, name: str) -> None:
     if t.data_ptr() % n:
         raise ValueError(f"{name}: the kernel's copies need a {n}-byte "
@@ -189,6 +209,54 @@ def stem_conv_bn_relu_s2(x, k, scale, bias, relu=False):
 
 
 stem_conv_bn_relu_s2.launches = 0
+
+
+# ------------------------- kernel 1's training form: an autograd Function
+
+def stem_conv3x3_s2_plain(x, k):
+    """3×3 s2 p1 conv of x on k in f32, rounded to bf16 (kernel 1 with unit
+    scale, zero bias and no ReLU)."""
+    return _out(_conv(x, k.float(), stride=2))
+
+
+class _StemConv3x3S2(torch.autograd.Function):
+    """Forward: kernel 1 on a CUDA tensor (its plain version on a CPU one).
+    Backward: the library conv's gradients, the incoming gradient cast to x's
+    dtype first (mds_tpu/ops/pallas/stem.py:1291-1299, `_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.save_for_backward(x, k)
+        if _is_cpu(x):
+            return stem_conv3x3_s2_plain(x, k)
+        o = k.shape[0]
+        out = _stem_launch("mds_stem_conv_bn_relu_s2", x, k,
+                           torch.ones(o, device=x.device),
+                           torch.zeros(o, device=x.device), False,
+                           "stem_conv3x3_s2")
+        stem_conv3x3_s2.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            xx, kk = x.detach().requires_grad_(need[0]), k.detach().requires_grad_(need[1])
+            y = F.conv2d(xx, kk.to(x.dtype), stride=2, padding=1)
+            wrt = [t for t, n in zip((xx, kk), need) if n]
+            grads = iter(torch.autograd.grad(y, wrt, g.to(x.dtype)))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def stem_conv3x3_s2(x, k):
+    """x (B,3,H,W) bf16 channels_last, H and W even; k (O,3,3,3) in x's dtype
+    with O % 8 == 0 and O <= 128 → (B,O,H/2,W/2) bf16 channels_last, with
+    gradients for x and k."""
+    return _StemConv3x3S2.apply(x, k)
+
+
+stem_conv3x3_s2.launches = 0
 
 
 # ------------------------------------ kernel 2: the stem, window variant
@@ -396,6 +464,7 @@ stem7_conv_bn_relu_s2.launches = 0
 
 _TAIL_SHAPES = [(64, 64), (64, 64), (128, 64), (128, 128), (128, 128)]
 _TAIL_STRIDES = (1, 1, 2, 1, 1)
+_TAIL_SLICES = sum(-(-o // 64) * 9 * -(-i // 64) for o, i in _TAIL_SHAPES)  # 108
 
 
 def detail_tail_fused_plain(y, *params):
@@ -407,12 +476,28 @@ def detail_tail_fused_plain(y, *params):
     return _out(y)
 
 
+def pack_detail_tail(k4, s4, b4, k5, s5, b5, k6, s6, b6, k7, s7, b7, k8, s8,
+                     b8):
+    """The tail's weights as csrc/detail_tail.cu reads them: (bf16(k·scale)
+    of the five convs as pack_sw128 slices, one flat bf16 tensor; their f32
+    biases, 64 + 64 + 128 + 128 + 128). Once per model: the route caches it
+    (models/bisenetv2.py DetailBranch)."""
+    params = (k4, s4, b4, k5, s5, b5, k6, s6, b6, k7, s7, b7, k8, s8, b8)
+    ks = params[0::3]
+    if [tuple(k.shape) for k in ks] != [(o, i, 3, 3) for o, i in _TAIL_SHAPES]:
+        raise ValueError(f"pack_detail_tail: bad kernel shapes {[k.shape for k in ks]}")
+    wp = torch.cat([pack_sw128(_fold_bf16(k, s)) for k, s in zip(ks, params[1::3])])
+    return wp, torch.cat([t.float().flatten() for t in params[2::3]])
+
+
 def detail_tail_fused(y, k4, s4, b4, k5, s5, b5, k6, s6, b6, k7, s7, b7,
-                      k8, s8, b8):
+                      k8, s8, b8, packed=None):
     """DetailBranch S2_2 → S2_3 → S3_1 → S3_2 → S3_3 with folded BNs and
     ReLUs. y (B,64,H4,W4) bf16 channels_last (detail_s1s2_fused's output),
     H4 and W4 even; k4, k5 (64,64,3,3), k6 (128,64,3,3) stride 2, k7, k8
-    (128,128,3,3) → (B,128,H4/2,W4/2) bf16 channels_last."""
+    (128,128,3,3) → (B,128,H4/2,W4/2) bf16 channels_last. `packed`: the
+    same parameters through pack_detail_tail, made once; a CUDA launch
+    packs them itself when it is None."""
     params = (k4, s4, b4, k5, s5, b5, k6, s6, b6, k7, s7, b7, k8, s8, b8)
     if _is_cpu(y):
         return detail_tail_fused_plain(y, *params)
@@ -426,14 +511,13 @@ def detail_tail_fused(y, k4, s4, b4, k5, s5, b5, k6, s6, b6, k7, s7, b7,
                          f"{tuple(y.shape)}")
     _check_aligned(y, 16, name)
     _check_params(y, name, params)
-    ks = params[0::3]
-    if [tuple(k.shape) for k in ks] != [(o, i, 3, 3) for o, i in _TAIL_SHAPES]:
-        raise ValueError(f"{name}: bad kernel shapes {[k.shape for k in ks]}")
+    wp, bp = pack_detail_tail(*params) if packed is None else packed
+    if (wp.dtype != _BF16 or wp.numel() != _TAIL_SLICES * 4096
+            or bp.dtype != torch.float32 or bp.numel() != 512):
+        raise ValueError(f"{name}: packed weights are not pack_detail_tail's")
+    _check_params(y, name, (wp, bp))
     from mds_tpu_torch.ops.build import load
 
-    wp = torch.cat([_mma_b_pack(_fold_bf16(k, s)).flatten()
-                    for k, s in zip(ks, params[1::3])])
-    bp = torch.cat([t.float().flatten() for t in params[2::3]])
     out = torch.empty((b, 128, h4 // 2, w4 // 2), dtype=_BF16, device=y.device,
                       memory_format=_CL)
     err = load().mds_detail_tail_fused(_ptr(y), _ptr(wp), _ptr(bp), _ptr(out),
@@ -445,6 +529,6 @@ def detail_tail_fused(y, k4, s4, b4, k5, s5, b5, k6, s6, b6, k7, s7, b7,
 
 detail_tail_fused.launches = 0
 
-KERNELS = (stem_conv_bn_relu_s2, stem_conv_bn_relu_s2_window,
+KERNELS = (stem_conv_bn_relu_s2, stem_conv3x3_s2, stem_conv_bn_relu_s2_window,
            stem_s1_pair_fused, detail_s1s2_fused, stemblock_fused,
            stem7_conv_bn_relu_s2, detail_tail_fused)

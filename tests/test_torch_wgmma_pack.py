@@ -1,0 +1,191 @@
+"""The weights that kernels 8 and 7 read through wgmma descriptors, and the
+cache that packs them once per model, on the CPU.
+
+`pack_conv3x3` (bf16(k), unscaled) and `pack_detail_tail` (bf16(k·scale) of
+five convs) lay the weights out as csrc/wgmma.cuh's B operand. Here each
+packed element is read back as the card addresses it: a k16 step's
+descriptor starts 32 bytes per step into its 8 KB slice, 8-row groups lie
+1024 bytes apart (the stride byte offset), rows 128 bytes, and the 128-byte
+swizzle XORs address bits [4, 7) with bits [7, 10). The read-back must give
+the weights exactly, zero where C_in or C_out is padded, at 64 → 64, 3 → 64
+and 128 → 128.
+
+`PackCache` (models/layers.py) keeps a value until a source tensor changes:
+reused across two eval calls, rebuilt after an in-place weight update, a BN
+running-stat update and load_state_dict.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mds_tpu_torch.models import bisenetv2 as tb
+from mds_tpu_torch.models import layers as tl
+from mds_tpu_torch.ops import conv3x3 as tc3
+from mds_tpu_torch.ops import stem as tstem
+
+SLICE = 8192  # bytes: 64 output × 64 input channels of one tap
+
+
+def read_b(packed, slice_index, ks):
+    """B(k, n) of k16 step ks of a slice, k < 16 and n < 64, as int16 bit
+    patterns: the descriptor's start address, the stride byte offset, the
+    128-byte rows, then the swizzle on the address bits."""
+    k = np.arange(16).reshape(16, 1)
+    n = np.arange(64).reshape(1, 64)
+    a = slice_index * SLICE + ks * 32 + (n // 8) * 1024 + (n % 8) * 128 + k * 2
+    a = a ^ (((a >> 7) & 7) << 4)
+    return packed.view(torch.int16).numpy()[a // 2]
+
+
+def expected_b(w, nh, tap, kc, ks):
+    """The same B(k, n) from the OIHW weights (already bf16), zero-padded."""
+    o, i = w.shape[:2]
+    bits = w.to(torch.bfloat16).view(torch.int16).numpy()
+    out = np.zeros((16, 64), np.int16)
+    for n in range(64):
+        for k in range(16):
+            oc, ic = nh * 64 + n, kc * 64 + ks * 16 + k
+            if oc < o and ic < i:
+                out[k, n] = bits[oc, ic, tap // 3, tap % 3]
+    return out
+
+
+def weights(o, i, seed):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.normal(0, np.sqrt(2 / (9 * o)), (o, i, 3, 3)),
+                        dtype=torch.float32)
+
+
+@pytest.mark.parametrize("o,i", [(64, 64), (64, 3), (136, 24)])
+def test_conv3x3_pack_reads_back(o, i):
+    k = weights(o, i, o + i)
+    packed = tc3.pack_conv3x3(k)
+    nhs = -(-o // 64)
+    assert packed.dtype == torch.bfloat16 and packed.numel() == nhs * 9 * 4096
+    wb = k.to(torch.bfloat16)
+    for nh in range(nhs):
+        for tap in range(9):
+            for ks in range(4):
+                np.testing.assert_array_equal(
+                    read_b(packed, nh * 9 + tap, ks), expected_b(wb, nh, tap, 0, ks))
+
+
+def test_detail_tail_pack_reads_back():
+    """Every conv of the tail, the 128 → 128 ones with two K chunks per tap,
+    at slices [conv][nh][tap][kc] from the offsets csrc/detail_tail.cu
+    names (kSl4..kSl8)."""
+    rng = np.random.default_rng(1)
+    params = []
+    for o, i in tstem._TAIL_SHAPES:
+        params += [weights(o, i, o * i),
+                   torch.tensor(rng.normal(1, .1, o), dtype=torch.float32),
+                   torch.tensor(rng.normal(0, .1, o), dtype=torch.float32)]
+    wp, bp = tstem.pack_detail_tail(*params)
+    assert wp.numel() * 2 == 108 * SLICE
+    np.testing.assert_array_equal(bp.numpy(), torch.cat(params[2::3]).numpy())
+    first = 0
+    for c, (o, i) in enumerate(tstem._TAIL_SHAPES):
+        wb = tstem._fold_bf16(params[3 * c], params[3 * c + 1])
+        kcs = i // 64
+        for nh in range(o // 64):
+            for tap in (0, 4, 8):
+                for kc in range(kcs):
+                    for ks in (0, 3):
+                        sl = first + (nh * 9 + tap) * kcs + kc
+                        np.testing.assert_array_equal(
+                            read_b(wp, sl, ks), expected_b(wb, nh, tap, kc, ks))
+        first += (o // 64) * 9 * kcs
+    assert first == 108
+
+
+def test_pack_cache_keys_on_versions():
+    k = weights(64, 64, 0)
+    cache = tl.PackCache()
+    build = lambda: tc3.pack_conv3x3(k)  # noqa: E731
+    a = cache.get("w", (k,), build)
+    assert cache.get("w", (k,), build) is a and cache.builds == 1
+    with torch.no_grad():
+        k.mul_(2)  # an optimizer step: in place, the version moves
+    b = cache.get("w", (k,), build)
+    assert cache.builds == 2 and torch.equal(b, tc3.pack_conv3x3(k))
+    k2 = k.clone()  # the same values in new storage (.to(), a copy)
+    cache.get("w", (k2,), lambda: tc3.pack_conv3x3(k2))
+    assert cache.builds == 3
+
+
+def _conv3_module():
+    tm = tl.ConvBNReLU(16, 16, 3, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for t in (tm.conv.weight, tm.affine_weight, tm.affine_bias,
+                  tm.bn[0].running_mean):
+            t.copy_(torch.randn(t.shape, generator=g) * 0.1 + (t is tm.affine_weight))
+        tm.bn[0].running_var.copy_(torch.rand(16, generator=g) + 0.5)
+    return tm.eval()
+
+
+def _run(tm, x):
+    tl.set_conv3_eval_impl("kernel")
+    try:
+        with torch.no_grad():
+            return tm([x])[0]
+    finally:
+        tl.set_conv3_eval_impl("plain")
+
+
+def test_conv3_route_reuses_and_rebuilds_its_fold():
+    """The conv3 route's folded (scale, bias) on CPU tensors: one build over
+    two eval calls; a rebuild after each of an in-place weight update, a BN
+    running-stat update (a train-mode forward) and load_state_dict, each
+    with the output of a fresh module."""
+    tm = _conv3_module()
+    x = torch.randn((1, 16, 512, 8), generator=torch.Generator().manual_seed(1)
+                    ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    first = _run(tm, x)
+    assert torch.equal(_run(tm, x), first) and tm._packs.builds == 1
+
+    def fresh():
+        m = _conv3_module()
+        m.load_state_dict(tm.state_dict())
+        return _run(m.eval(), x)
+
+    with torch.no_grad():
+        tm.affine_weight.mul_(1.5)
+    got = _run(tm, x)
+    assert tm._packs.builds == 2 and not torch.equal(got, first)
+    assert torch.equal(got, fresh())
+
+    tm.train()
+    with torch.no_grad():
+        tm([x.float()])  # train BN: the running stats move in place
+    tm.eval()
+    got = _run(tm, x)
+    assert tm._packs.builds == 3 and torch.equal(got, fresh())
+
+    state = {k: v.clone() for k, v in _conv3_module().state_dict().items()}
+    tm.load_state_dict(state)
+    got = _run(tm, x)
+    assert tm._packs.builds == 4 and torch.equal(got, _run(_conv3_module(), x))
+
+
+def test_detail_tail_route_folds_once_per_version(monkeypatch):
+    """The DetailBranch tail's five folds: built once over two eval calls,
+    rebuilt for the module whose BN stats moved."""
+    tm = tb.DetailBranch(n_bn=1, dtype=torch.bfloat16).eval()
+    x = torch.randn((1, 3, 32, 32), generator=torch.Generator().manual_seed(2)
+                    ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    tl.set_detail_fuse(True)
+    tl.set_detail_tail(True)
+    try:
+        with torch.no_grad():
+            a = tm([x])[0]
+            b = tm([x])[0]
+            assert torch.equal(a, b)
+            assert [m._packs.builds for m in tm._tail()] == [1] * 5
+            tm.S3_2.bn[0].running_mean.add_(0.5)
+            tm([x])
+    finally:
+        tl.set_detail_fuse(False)
+        tl.set_detail_tail(False)
+    assert [m._packs.builds for m in tm._tail()] == [1, 1, 1, 2, 1]

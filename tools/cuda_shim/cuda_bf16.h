@@ -1,12 +1,18 @@
 // CPU stand-in for the CUDA runtime: one std::thread per CUDA thread,
-// std::barrier for __syncthreads/__syncwarp, mma.sync emulated per warp.
+// std::barrier for __syncthreads/__syncwarp and the named and warpgroup
+// barriers, mma.sync emulated per warp and wgmma per warpgroup.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -43,6 +49,7 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
+[[noreturn]] inline void __trap() { abort(); }
 using std::min;
 using std::max;
 
@@ -62,6 +69,10 @@ struct ShimBlock {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<std::barrier<>>> wbar;
   std::vector<uint32_t> frag;  // [warp][lane][6]
+  std::vector<std::unique_ptr<std::barrier<>>> wgbar;  // per warpgroup
+  std::vector<uint32_t> wgfrag;  // [warpgroup][thread][4]: wgmma's A
+  std::mutex mu;                 // guards `named`
+  std::map<int, std::unique_ptr<std::barrier<>>> named;  // bar.sync ids
   dim3 idx;
 };
 extern thread_local ShimBlock* shim_blk;
@@ -86,6 +97,9 @@ struct ShimLaunch {
         for (int w = 0; w < (nt + 31) / 32; ++w)
           blk->wbar.push_back(std::make_unique<std::barrier<>>(32));
         blk->frag.assign((nt + 31) / 32 * 32 * 6, 0);
+        for (int w = 0; w < nt / 128; ++w)
+          blk->wgbar.push_back(std::make_unique<std::barrier<>>(128));
+        blk->wgfrag.assign(std::max(nt / 128, 1) * 128 * 4, 0);
         blk->idx = dim3(bi % g.x, (bi / g.x) % g.y, bi / (g.x * g.y));
         ShimBlock* bp = blk.get();
         for (int t = 0; t < nt; ++t)

@@ -5,9 +5,13 @@
 
 Compiles csrc/stem.cu, stem7.cu, conv3x3.cu and detail_tail.cu with g++
 against the stand-in CUDA runtime beside this script (one std::thread per
-CUDA thread, std::barrier for __syncthreads and __syncwarp, mma.sync
-m16n8k16 computed lane by lane from the exchanged fragments, cp.async as a
-copy with zero-fill), into the git-ignored mds_tpu_torch/build/shim/. Then it
+CUDA thread, std::barrier for __syncthreads, __syncwarp, named barriers and
+wgmma's fence/commit/wait; mma.sync m16n8k16 computed lane by lane from the
+exchanged fragments; wgmma m64n64k16 computed per warpgroup, its B read
+through the descriptor's start and stride byte offsets and the 128-byte
+swizzle on the address bits; ldmatrix from the exchanged row addresses;
+mbarriers with arrival and transfer counts; cp.async and cp.async.bulk as
+copies), into the git-ignored mds_tpu_torch/build/shim/. Then it
 calls each kernel's wrapper on CPU tensors at small, ragged shapes, with the
 wrappers made to launch (through ctypes, as on the card), and holds every
 output to the kernel's plain version: rel max-diff < 1e-2, and the window
@@ -39,12 +43,15 @@ def build() -> Path:
     m = (SRC / "mma.cuh").read_text()
     a, b = m.index("// D += A(16x16"), m.index("// The implicit GEMM of a 3x3 conv")
     (OUT / "mma.cuh").write_text(m[:a] + '#include "mma_impl.h"\n\n' + m[b:])
+    g = (SRC / "wgmma.cuh").read_text()
+    a, b = g.index("// -- PTX begin"), g.index("// -- PTX end")
+    (OUT / "wgmma.cuh").write_text(g[:a] + '#include "wgmma_impl.h"\n' + g[b:])
     cpps = []
     for f in SOURCES:
         s = (SRC / f).read_text()
         s = re.sub(r"__device__ __forceinline__ void (mma_bf16_16816|cp_async16)"
                    r"\(.*?\n}\n", "", s, flags=re.S)
-        if '#include "mma.cuh"' not in s:
+        if '#include "mma.cuh"' not in s and '#include "wgmma.cuh"' not in s:
             s = s.replace("namespace {", '#include "mma_impl.h"\nnamespace {', 1)
         s = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) (\w+)\[\];",
                    r"\1* \2 = reinterpret_cast<\1*>(shim_smem());", s)
@@ -141,7 +148,7 @@ def main(which):
             check(f"conv3 {b, h, w, ci, co}", conv3x3.conv3x3_bn_relu(*args),
                   conv3x3.conv3x3_bn_relu_plain(*args))
     if "tail" in which:
-        for b, h4, w4 in ((1, 16, 16), (2, 22, 38)):
+        for b, h4, w4 in ((1, 16, 16), (2, 22, 38), (1, 34, 46)):
             params = []
             for o, i in stem._TAIL_SHAPES:
                 params += [conv_w(o, i), *bn(o)]
