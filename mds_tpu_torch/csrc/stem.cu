@@ -1,10 +1,12 @@
-// Hopper (sm_90a) kernels for the BiSeNetV2 deploy stems, bound with ctypes.
+// Hopper (sm_90a) kernels for the BiSeNetV2 stems, bound with ctypes.
 //
 // Five kernels, one per TPU kernel of mds_tpu/ops/pallas/stem.py (numbered
 // as PERF.md's table numbers them: 1, 2, 3, 4, 5). All take the memory of a
 // channels_last bf16 tensor, i.e. an NHWC image (B, H, W, 3), and write NHWC
-// bf16. They share stage A, a 3x3 stride-2 pad-1 conv on RGB with the BN
-// folded into f32 weights:
+// bf16 (kernel 1's training form: f32). Their first stage is a 3x3 stride-2
+// pad-1 conv on RGB with the BN folded into f32 weights. Kernels 1 and 2
+// run it on the tensor cores from that table split into bf16 parts (see
+// their section), kernels 3, 4 and 5 on the CUDA cores from
 //
 //   w[28][O]: rows (dy*3 + dx)*3 + ci are k * scale, row 27 is the bias.
 //
@@ -15,13 +17,14 @@
 //
 // Each launcher returns the cudaError_t of its launch (0 on success).
 
-#include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------- helpers
 
-// Stage A: the folded 3x3 s2 p1 RGB conv at half-resolution position (r, c).
+// Stage A of kernels 3, 4 and 5: the folded 3x3 s2 p1 RGB conv at
+// half-resolution position (r, c).
 // stem_taps gathers its 27 inputs (dy, dx, ci order; zero outside the
 // image); stem_dot applies output channels [o0, o0 + NC) of the (28, O)
 // folded table w (shared memory, 16-byte aligned, read as float4; NC, O
@@ -67,147 +70,373 @@ __device__ __forceinline__ void stem_dot(const float* v, const float* w, int O,
   }
 }
 
-// --------------------------------- TPU kernel 1: stem_conv_bn_relu_s2
+// --------------- TPU kernels 1 and 2: stem_conv_bn_relu_s2, its training
+// --------------- form and its window variant, on warpgroup MMA
 //
-// Replaces mds_tpu/ops/pallas/stem.py::_stem_fwd (fused case, :143-183).
-// Bound: memory. At 1024x2048 with O=64 it reads 12 MB and writes 64 MB for
-// 0.9 GFLOP. Design: one thread per output pixel gathers its 27 taps once
-// and emits all O channels as 16-byte stores; the folded weights sit in
-// shared memory, read as broadcasts, loaded once per block of a grid capped
-// at 8 blocks per SM. (One thread per (pixel, 8 channels) stored coalesced
-// but re-read every tap 8 times and ran 1.9x slower at O=64 on an H100.)
+// Kernel 1 replaces mds_tpu/ops/pallas/stem.py::_stem_fwd (:143-183), both
+// its fused deploy case (folded BN, [ReLU], bf16 out) and its unfused case,
+// the training form stem_conv3x3_s2 (:1235: unit scale, zero bias, no ReLU,
+// f32 out, as _stem_fwd writes f32 when no BN is folded). Kernel 2 replaces
+// _stem_fwd_dma (:265-361, body _kernel_dma :186-262): the same function,
+// each tile's input window copied by the kernel itself into one of two
+// buffers while the other tile computes (the TPU kernel's make_async_copy
+// and semaphores; here cp.async.bulk under an mbarrier). Both run the same
+// instructions on the same window bytes and agree bit for bit.
+//
+// Bound: memory. At (1, 1024, 2048) -> 64 the conv reads 12.6 MB and writes
+// 67 MB (bf16) for 0.9 GFLOP; at the training shape (16, 512, 1024) -> 64 it
+// writes 537 MB (f32). On the CUDA cores the 27 x O FMAs per pixel alone
+// take longer than those bytes; on the tensor cores about 1% of the time.
+//
+// - The GEMM: M = 64 output pixels of one output row (a tile, one
+//   warpgroup), N = the output channels padded to 16, 32, 64 or 128, K = 32:
+//   for each input row dy the 10 bf16 values that start one element before
+//   the pixel's 9 taps (elements 6c - 4 .. 6c + 5 of row 2r - 1 + dy), so
+//   every (k, k + 1) pair of an A fragment is one aligned 32-bit word of the
+//   window and none straddles two rows. K row dy * 10 (the element before
+//   the taps) has weight zero and is masked to zero in A, row 30 is the
+//   bias (A = 1), row 31 zero.
+// - The f32 folded table keeps its precision as three bf16 parts, hi =
+//   bf16(w), mid = bf16(w - hi), lo = bf16(w - hi - mid), whose sum is w
+//   exactly (24 bits in 3 x 8). B is two slices of N rows x 128 bytes,
+//   [hi | mid] and [lo | 0] (wgmma's K-major layout with the 128-byte
+//   swizzle; ops/stem.py pack_stem): the same A registers go against hi
+//   (k16 steps 0, 1), mid (2, 3) and lo (4, 5). Products of bf16 values are
+//   exact in the f32 accumulator, so the conv is the f32 sum of the exact
+//   products of x and the f32 table. (With hi and lo alone the weights err
+//   by up to 2^-18, which moved 0.1-0.25% of the bf16 outputs off the plain
+//   version's in a CPU trial, against the 0.999 bit-equal gate.) The
+//   training form's weight is bf16 already: mid = lo = 0, and its f32 output
+//   is the f32 sum of the exact products.
+// - wgmma m64nNk16 with A from registers (wgmma.cuh), not mma.sync: A costs
+//   the same to build for both (each lane loads its four words per k16 step
+//   pair for each of its two pixels straight from the window: eight 32-bit
+//   shared loads a tile, no im2col, no ldmatrix), but B stays in shared
+//   memory, read by the tensor cores through a descriptor, where mma.sync
+//   would hold the table's B fragments in 96-192 registers or reload them
+//   for every 16 pixels; and a tile is 6 instructions, not 6 x N / 2.
+// - The window: a tile's 3 input rows, each a 16-byte aligned run of global
+//   memory that covers elements 6c0 - 4 .. 6c0 + 6 * 64 + 5 (the NHWC row
+//   stride is 6W bytes, so the run starts up to 12 bytes before the first
+//   wanted element; each lane adds that shift). Kernel 1 copies it in
+//   16-byte chunks with cp.async (the next tile's while this one computes),
+//   kernel 2 by one cp.async.bulk per row. Only chunks that overlap the
+//   image row are copied; the pad row above the image and the pad column
+//   left of it are zeroed where A is built. The tensor's size is a multiple
+//   of 8 bytes, not always of 16: cp.async reads its last 8 bytes with zero
+//   fill, kernel 2's producer with one 8-byte load.
+// - The output: a tile's p pixels x O channels are one contiguous range of
+//   NHWC memory. The epilogue ([ReLU], then bf16 rounding or f32) writes the
+//   accumulators into one of two stage buffers (pixels O + 8 elements apart:
+//   no bank conflicts at O = 16, 64, 128), and the warpgroup streams the
+//   stage out in coalesced 16-byte stores, which overlap the next tile's
+//   window wait and MMAs. Blocks are persistent, as many as fit the SMs.
+// Any B >= 1 and even H, W: a ragged tile computes garbage in the A rows of
+// its missing pixels and stores none of them.
 
-constexpr int kStemThreads = 256;
+constexpr int kStemTC = 64;        // output pixels per tile: wgmma's M
+constexpr int kStemThreads = 128;  // one warpgroup
+// a window row: the wanted 12 * kStemTC + 8 bytes from up to 15 bytes
+// before them, in whole 16-byte chunks (800 bytes)
+constexpr int kStemRowBytes = (12 * kStemTC + 8 + 15 + 15) / 16 * 16;
+constexpr int kStemRowChunks = kStemRowBytes / 16;
+constexpr int kStemWinBytes = 3 * kStemRowBytes;
 
-__global__ void __launch_bounds__(kStemThreads)
-    stem_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
-                bf16* __restrict__ out, int B, int H, int W, int O, int relu) {
-  extern __shared__ float ws[];
-  for (int i = threadIdx.x; i < 28 * O; i += blockDim.x) ws[i] = w[i];
-  __syncthreads();
-  const int H2 = H / 2, W2 = W / 2;
-  const long long total = (long long)B * H2 * W2;
-  // grid-stride over pixels: a capped grid loads the weight table once per
-  // block; each thread gathers a pixel's 27 taps once and walks the output
-  // channels in groups of 8, the weight reads being warp-wide broadcasts
-  for (long long pix = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       pix < total; pix += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(pix % W2);
-    const long long t = pix / W2;
-    const int r = (int)(t % H2);
-    const int b = (int)(t / H2);
-    float v[27];
-    stem_taps(x + (size_t)b * H * W * 3, H, W, r, c, v);
-    for (int o0 = 0; o0 < O; o0 += 8) {
-      float acc[8];
-      stem_dot<8>(v, ws, O, o0, acc);
-      if (relu) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[j] = fmaxf(acc[j], 0.f);
-      }
-      *reinterpret_cast<uint4*>(out + pix * O + o0) = pack8(acc);
-    }
-  }
+__host__ __device__ constexpr int stem_stage_bytes(int n, bool f32) {
+  return kStemTC * (n + 8) * (f32 ? 4 : 2);
 }
 
-// ------------------- TPU kernel 2: stem_conv_bn_relu_s2, its window variant
-//
-// Replaces mds_tpu/ops/pallas/stem.py::_stem_fwd_dma (:265-361, body
-// _kernel_dma :186-262): kernel 1 with each tile's input window staged into
-// shared memory by the kernel itself, double-buffered: while a block
-// computes one tile from one buffer, cp.async fills the other with its next
-// tile's window (the TPU kernel's make_async_copy into VMEM and semaphores).
-// Bound: memory, as kernel 1. The arithmetic is kernel 1's, stem_dot on the
-// same 27 taps, so the two agree bit for bit. Blocks are persistent; a tile
-// is 4 x 64 output pixels, one per thread. Its window is 9 input rows of 130
-// pixels starting at an even column, i.e. 65 pixel pairs of 3 four-byte
-// words each: copied word by word, every word lies in one pair, and a pair
-// is wholly inside or outside the image (W is even), so the zero-fill of
-// cp.async is the conv's zero padding.
+// 1024 bytes of slack to align the table to the swizzle's 1024-byte
+// pattern, the table (two slices), two windows, two stages, three mbarriers
+// (the table's and one per window)
+__host__ __device__ constexpr size_t stem_smem(int n, bool f32) {
+  return 1024 + 2 * n * 128 + 2 * kStemWinBytes + 2 * stem_stage_bytes(n, f32) +
+         3 * sizeof(uint64_t);
+}
 
-constexpr int kWinTR = 4;                      // output rows per tile
-constexpr int kWinTC = 64;                     // output cols per tile
-constexpr int kWinRows = 2 * kWinTR + 1;       // input rows of a window (9)
-constexpr int kWinWords = 3 * (kWinTC + 1);    // words of a window row (195)
-constexpr int kWinBuf = kWinRows * kWinWords;  // words of one buffer (1755)
-static_assert(kWinTR * kWinTC == kStemThreads, "one output pixel per thread");
-
-struct WinTile {
-  int b, ty, tx;
+struct StemTile {
+  int b, r, c0;  // image, output row, first output column
 };
 
-__device__ __forceinline__ WinTile win_tile(int tile, int tiles_x,
-                                            int tiles_y) {
+__device__ __forceinline__ StemTile stem_tile(int tile, int tiles_x, int H2) {
   const int t = tile / tiles_x;
-  return {t / tiles_y, t % tiles_y, tile % tiles_x};
+  return {t / H2, t % H2, (tile - t * tiles_x) * kStemTC};
 }
 
-// Start the cp.async copies of tile `tile`'s window into buf.
-__device__ __forceinline__ void win_load(const bf16* __restrict__ x,
-                                         uint32_t* buf, WinTile t, int H,
-                                         int W) {
-  const int pairs = W / 2;
-  const int y0 = 2 * kWinTR * t.ty - 1;  // first input row
-  const int p0 = kWinTC * t.tx - 1;      // first pixel pair (cols 2p, 2p+1)
-  const uint32_t* xb =
-      reinterpret_cast<const uint32_t*>(x + (size_t)t.b * H * W * 3);
-  for (int i = threadIdx.x; i < kWinBuf; i += blockDim.x) {
-    const int y = y0 + i / kWinWords, q = i % kWinWords, p = p0 + q / 3;
-    const bool in = y >= 0 && y < H && p >= 0 && p < pairs;
-    cp_async4(buf + i, in ? xb + ((size_t)y * pairs + p) * 3 + q % 3 : xb,
-              in ? 4 : 0);
+// Byte offset in x of element 6 * c0 - 4 of input row 2r - 1 + dy: the
+// first wanted byte of window row dy (before the image row at its left edge).
+__device__ __forceinline__ long long stem_row_start(StemTile t, int dy, int H,
+                                                    int W) {
+  return (((long long)t.b * H + 2 * t.r - 1 + dy) * W + 2LL * t.c0) * 6 - 8;
+}
+
+// Kernel 1: tile t's window into win by cp.async, 16-byte chunks spread over
+// the threads; the chunks that hold no byte of the image row are skipped.
+__device__ __forceinline__ void stem_window_async(
+    unsigned char* win, const unsigned char* __restrict__ xb, long long total,
+    StemTile t, int H, int W) {
+  const long long s0 = stem_row_start(t, 0, H, W), row0 = s0 + 8 - 12LL * t.c0;
+  for (int i = threadIdx.x; i < 3 * kStemRowChunks; i += kStemThreads) {
+    const int dy = i / kStemRowChunks, q = i - dy * kStemRowChunks;
+    if (2 * t.r - 1 + dy < 0) continue;  // the pad row, zeroed in A
+    const long long s = s0 + 6LL * W * dy, row = row0 + 6LL * W * dy;
+    const long long lo = max(s, row);
+    const long long hi = min(s + 12 * kStemTC + 8, row + 6LL * W);
+    const long long g = (s & ~15LL) + 16 * q;
+    if (g + 16 > lo && g < hi)
+      cp_async16(win + dy * kStemRowBytes + 16 * q, xb + g,
+                 (int)min(16LL, total - g));
   }
 }
 
-__global__ void __launch_bounds__(kStemThreads)
-    stem_window_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
-                       bf16* __restrict__ out, int B, int H, int W, int O,
-                       int relu, int tiles_x, int tiles_y) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* ws = reinterpret_cast<float*>(smem);
-  uint32_t* bufs = reinterpret_cast<uint32_t*>(smem + 28 * O * sizeof(float));
-  for (int i = threadIdx.x; i < 28 * O; i += blockDim.x) ws[i] = w[i];
-  const int H2 = H / 2, W2 = W / 2, tiles = tiles_x * tiles_y * B;
-  const int r = threadIdx.x / kWinTC, c = threadIdx.x % kWinTC;
-  int tile = blockIdx.x;
-  if (tile < tiles) win_load(x, bufs, win_tile(tile, tiles_x, tiles_y), H, W);
-  cp_async_commit();
-  for (int slot = 0; tile < tiles; tile += gridDim.x, slot ^= 1) {
-    const int next = tile + gridDim.x;
-    if (next < tiles)
-      win_load(x, bufs + (slot ^ 1) * kWinBuf,
-               win_tile(next, tiles_x, tiles_y), H, W);
-    cp_async_commit();  // possibly empty: the wait below stays uniform
-    cp_async_wait<1>();
-    __syncthreads();
-    const WinTile t = win_tile(tile, tiles_x, tiles_y);
-    const int orow = kWinTR * t.ty + r, ocol = kWinTC * t.tx + c;
-    if (orow < H2 && ocol < W2) {
-      // window row 2r + dy, column 2c + 1 + dx hold input (2*orow - 1 + dy,
-      // 2*ocol - 1 + dx): the taps of kernel 1's stem_taps
-      const bf16* win = reinterpret_cast<const bf16*>(bufs + slot * kWinBuf);
-      float v[27];
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-          for (int ci = 0; ci < 3; ++ci)
-            v[(dy * 3 + dx) * 3 + ci] = __bfloat162float(
-                win[(2 * r + dy) * 2 * kWinWords + (2 * c + 1 + dx) * 3 + ci]);
-      bf16* o = out + (((size_t)t.b * H2 + orow) * W2 + ocol) * O;
-      for (int o0 = 0; o0 < O; o0 += 8) {
-        float acc[8];
-        stem_dot<8>(v, ws, O, o0, acc);
-        if (relu) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[j] = fmaxf(acc[j], 0.f);
-        }
-        *reinterpret_cast<uint4*>(o + o0) = pack8(acc);
-      }
+// Kernel 2: the same window by the copy engine, one cp.async.bulk per image
+// row completing on bar; called by one thread.
+__device__ __forceinline__ void stem_window_bulk(
+    unsigned char* win, const unsigned char* __restrict__ xb, long long total,
+    StemTile t, int H, int W, uint64_t* bar) {
+  const long long end16 = total & ~15LL;
+  long long src[3];
+  uint32_t dst[3], len[3], bytes = 0;
+  for (int dy = 0; dy < 3; ++dy) {
+    len[dy] = 0;
+    if (2 * t.r - 1 + dy < 0) continue;
+    const long long s = stem_row_start(t, dy, H, W), row = s + 8 - 12LL * t.c0;
+    const long long lo = max(s, row);
+    const long long hi = min(s + 12 * kStemTC + 8, row + 6LL * W);
+    const long long a = lo & ~15LL, e = min((hi + 15) & ~15LL, end16);
+    if (e > a) {
+      src[dy] = a;
+      dst[dy] = dy * kStemRowBytes + (uint32_t)(a - (s & ~15LL));
+      len[dy] = (uint32_t)(e - a);
+      bytes += len[dy];
     }
-    __syncthreads();  // the next iteration's copies overwrite this buffer
+    if (hi > end16)  // the tensor's last 8 bytes: no 16-byte copy may read them
+      *reinterpret_cast<uint2*>(win + dy * kStemRowBytes + (end16 - (s & ~15LL))) =
+          *reinterpret_cast<const uint2*>(xb + end16);
   }
+  mbar_arrive_expect_tx(bar, bytes);
+  for (int dy = 0; dy < 3; ++dy)
+    if (len[dy]) bulk_g2s(win + dst[dy], xb + src[dy], len[dy], bar);
+}
+
+// A's per-lane constants, the same for every tile. The lane holds A
+// columns k, k + 1 with k = 2 tq + 8 j (j < 4) for its pixels gq and gq + 8
+// of its warp's 16: registers 0 and 1 of k16 step j / 2 for even j, 2 and 3
+// for odd j. For each j: the pair's byte offset in the window at the lane's
+// first pixel (row dy = k / 10, element e = k % 10; before the row's 16-byte
+// shift), the shift's step to row dy in x (6W dy mod 16), and the word's
+// mask: element 6c - 4 (e = 0) is no tap; k = 30 is the bias pair (1, 0),
+// masked whole and set to bf16 1 in its low half.
+struct StemLane {
+  int off[4], rsh[4];
+  uint32_t keep[4];
+};
+
+__device__ __forceinline__ StemLane stem_lane(int W) {
+  const int lane = threadIdx.x & 31, tq = lane & 3;
+  const int p = 16 * (threadIdx.x >> 5) + (lane >> 2);
+  StemLane l;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = 2 * tq + 8 * j, dy = min(k / 10, 2), e = k - 10 * (k / 10);
+    l.off[j] = dy * kStemRowBytes + 2 * e + 12 * p;
+    l.rsh[j] = (6 * W * dy) & 15;
+    l.keep[j] = k == 30 ? 0u : e == 0 ? 0xffff0000u : 0xffffffffu;
+  }
+  return l;
+}
+
+// Tile t's GEMM from window win against the table at shared address tbl_s,
+// then [ReLU] and the rounding, into stage: pixels of O + 8 elements, f32 or
+// bf16.
+template <int N, bool F32>
+__device__ __forceinline__ void stem_tile_mma(const unsigned char* win,
+                                              uint32_t tbl_s,
+                                              unsigned char* stage, StemTile t,
+                                              const StemLane& l, int H, int W,
+                                              int O, int relu) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  uint32_t a[2][4];
+  const int sh0 = (int)(stem_row_start(t, 0, H, W) & 15);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned char* w = win + l.off[j] + ((sh0 + l.rsh[j]) & 15);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // pixel gq + 8h: 96 bytes on
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(w + 96 * h);
+      a[j >> 1][h + 2 * (j & 1)] = (v & l.keep[j]) | (l.keep[j] ? 0u : 0x3F80u);
+    }
+  }
+  if (t.r == 0 || t.c0 == 0) {  // the conv's padding: the row above the
+#pragma unroll                  // image and the column left of it
+    for (int j = 0; j < 4; ++j) {
+      const int k = 2 * tq + 8 * j, dy = k / 10, e = k - 10 * dy;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (k != 30 && ((t.r == 0 && dy == 0) ||
+                        (t.c0 + 16 * warp + gq + 8 * h == 0 && e <= 2)))
+          a[j >> 1][h + 2 * (j & 1)] = 0;
+    }
+  }
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    acc[i] = 0.f;
+    reg_fence(acc[i]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int step = 0; step < 6; ++step)  // hi: steps 0, 1; mid: 2, 3; lo: 4, 5
+    wgmma_m64nk16<N>(acc, a[step & 1],
+                     sw128_desc(tbl_s + step / 4 * N * 128 + 32 * (step % 4)));
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) reg_fence(acc[i]);
+
+  constexpr int kEs = F32 ? 4 : 2;
+  const int ps = (O + 8) * kEs;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    if (8 * j >= O) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (relu) v0 = fmaxf(v0, 0.f), v1 = fmaxf(v1, 0.f);
+      unsigned char* d =
+          stage + (16 * warp + gq + 8 * h) * ps + (8 * j + 2 * tq) * kEs;
+      if constexpr (F32)
+        *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+      else
+        *reinterpret_cast<uint32_t*>(d) = pack2(v0, v1);
+    }
+  }
+}
+
+// Tile t's stage to out: its min(64, W2 - c0) pixels x O channels are one
+// contiguous range, written in coalesced 16-byte stores.
+template <bool F32>
+__device__ __forceinline__ void stem_tile_store(const unsigned char* stage,
+                                                unsigned char* __restrict__ out,
+                                                StemTile t, int H2, int W2,
+                                                int O) {
+  constexpr int kEs = F32 ? 4 : 2;
+  const int cpp = O * kEs / 16, ps = (O + 8) * kEs;
+  const int lg = (cpp & (cpp - 1)) ? -1 : __ffs(cpp) - 1;  // cpp = 2^lg
+  const int n = min(kStemTC, W2 - t.c0) * cpp;
+  unsigned char* dst =
+      out + (((long long)t.b * H2 + t.r) * W2 + t.c0) * O * kEs;
+  for (int i = threadIdx.x; i < n; i += kStemThreads) {
+    const int p = lg >= 0 ? i >> lg : i / cpp;
+    *reinterpret_cast<uint4*>(dst + 16LL * i) =
+        *reinterpret_cast<const uint4*>(stage + p * ps + 16 * (i - p * cpp));
+  }
+}
+
+// BULK: kernel 2 (window by cp.async.bulk), else kernel 1 (by cp.async).
+template <int N, bool F32, bool BULK>
+__global__ void __launch_bounds__(kStemThreads)
+    stem_kernel(const bf16* __restrict__ x, const bf16* __restrict__ table,
+                void* __restrict__ out, int B, int H, int W, int O, int relu,
+                int tiles_x) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* tbl =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* win = tbl + 2 * N * 128;
+  unsigned char* stage = win + 2 * kStemWinBytes;
+  constexpr int kStage = stem_stage_bytes(N, F32);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(stage + 2 * kStage);
+  const int H2 = H / 2, W2 = W / 2, tiles = B * H2 * tiles_x;
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+  const long long total = 6LL * B * H * W;  // bytes of x
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar + i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  int tile = blockIdx.x;
+  if (threadIdx.x == 0) {  // the table, once per block, by the copy engine
+    mbar_arrive_expect_tx(bar, 2 * N * 128);
+    bulk_g2s(tbl, table, 2 * N * 128, bar);
+    if (BULK && tile < tiles)
+      stem_window_bulk(win, xb, total, stem_tile(tile, tiles_x, H2), H, W,
+                       bar + 1);
+  }
+  if (!BULK) {
+    if (tile < tiles)
+      stem_window_async(win, xb, total, stem_tile(tile, tiles_x, H2), H, W);
+    cp_async_commit();
+  }
+  mbar_wait(bar, 0);
+  const uint32_t tbl_s = smem_u32(tbl);
+  const StemLane lane = stem_lane(W);
+
+  StemTile t = stem_tile(tile, tiles_x, H2);
+  for (int it = 0; tile < tiles; tile += gridDim.x, ++it) {
+    const int buf = it & 1, next = tile + gridDim.x;
+    const StemTile tn = stem_tile(next, tiles_x, H2);
+    unsigned char* w_next = win + (buf ^ 1) * kStemWinBytes;
+    // the next tile's window into the other buffer, which every thread has
+    // read (before the last iteration's barrier); then wait for this one's
+    if constexpr (BULK) {
+      if (threadIdx.x == 0 && next < tiles)
+        stem_window_bulk(w_next, xb, total, tn, H, W, bar + 1 + (buf ^ 1));
+      mbar_wait(bar + 1 + buf, (it >> 1) & 1);
+    } else {
+      if (next < tiles) stem_window_async(w_next, xb, total, tn, H, W);
+      cp_async_commit();  // possibly empty: the wait below stays uniform
+      cp_async_wait<1>();
+      __syncthreads();
+    }
+    unsigned char* st = stage + buf * kStage;
+    stem_tile_mma<N, F32>(win + buf * kStemWinBytes, tbl_s, st, t, lane, H, W,
+                          O, relu);
+    __syncthreads();  // the stage is whole, and this window is read
+    stem_tile_store<F32>(st, static_cast<unsigned char*>(out), t, H2, W2, O);
+    t = tn;
+  }
+}
+
+template <int N, bool F32, bool BULK>
+int stem_launch(const void* x, const void* table, void* out, int B, int H,
+                int W, int O, int relu, cudaStream_t stream) {
+  auto kern = stem_kernel<N, F32, BULK>;
+  constexpr size_t smem = stem_smem(N, F32);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        kStemThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (W / 2 + kStemTC - 1) / kStemTC;
+  const long long tiles = (long long)B * (H / 2) * tiles_x;
+  if (tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  long long blocks = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  if (blocks > tiles) blocks = tiles;
+  kern<<<(unsigned)blocks, kStemThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(table), out, B, H,
+      W, O, relu, tiles_x);
+  return (int)cudaGetLastError();
+}
+
+// N: O padded to 16, 32, 64 or 128 (ops/stem.py _stem_n)
+template <bool F32, bool BULK>
+int stem_dispatch(const void* x, const void* table, void* out, int B, int H,
+                  int W, int O, int relu, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (O <= 0 || O % 8 || O > 128 || B < 1 || H < 2 || W < 2 || H % 2 || W % 2)
+    return (int)cudaErrorInvalidValue;
+  if (O <= 16) return stem_launch<16, F32, BULK>(x, table, out, B, H, W, O, relu, s);
+  if (O <= 32) return stem_launch<32, F32, BULK>(x, table, out, B, H, W, O, relu, s);
+  if (O <= 64) return stem_launch<64, F32, BULK>(x, table, out, B, H, W, O, relu, s);
+  return stem_launch<128, F32, BULK>(x, table, out, B, H, W, O, relu, s);
 }
 
 // ------------------------------------ TPU kernel 4: detail_s1s2_fused
@@ -592,43 +821,20 @@ __global__ void __launch_bounds__(kSbThreads)
 
 // ------------------------------------------------------------ C interface
 
-extern "C" int mds_stem_conv_bn_relu_s2(const void* x, const void* w,
+// table: ops/stem.py pack_stem's two slices of N rows x 128 bytes, N = O
+// padded to 16, 32, 64 or 128. f32: the training form's f32 output (else
+// bf16).
+extern "C" int mds_stem_conv_bn_relu_s2(const void* x, const void* table,
                                         void* out, int B, int H, int W, int O,
-                                        int relu, void* stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)B * (H / 2) * (W / 2);
-  const long long need = (total + kStemThreads - 1) / kStemThreads;
-  const long long blocks = need < 8LL * sms ? need : 8LL * sms;
-  stem_kernel<<<(unsigned)blocks, kStemThreads, 28 * O * sizeof(float),
-                (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(w),
-      static_cast<bf16*>(out), B, H, W, O, relu);
-  return (int)cudaGetLastError();
+                                        int relu, int f32, void* stream) {
+  return f32 ? stem_dispatch<true, false>(x, table, out, B, H, W, O, relu, stream)
+             : stem_dispatch<false, false>(x, table, out, B, H, W, O, relu, stream);
 }
 
-extern "C" int mds_stem_conv_bn_relu_s2_window(const void* x, const void* w,
+extern "C" int mds_stem_conv_bn_relu_s2_window(const void* x, const void* table,
                                                void* out, int B, int H, int W,
                                                int O, int relu, void* stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_x = (W / 2 + kWinTC - 1) / kWinTC;
-  const int tiles_y = (H / 2 + kWinTR - 1) / kWinTR;
-  const long long tiles = (long long)tiles_x * tiles_y * B;
-  // persistent: about four tiles a block, so the double buffer has work
-  const long long blocks = tiles < 4LL * sms ? tiles : 4LL * sms;
-  const size_t smem = 28 * O * sizeof(float) + 2 * kWinBuf * sizeof(uint32_t);
-  stem_window_kernel<<<(unsigned)blocks, kStemThreads, smem,
-                       (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(w),
-      static_cast<bf16*>(out), B, H, W, O, relu, tiles_x, tiles_y);
-  return (int)cudaGetLastError();
+  return stem_dispatch<false, true>(x, table, out, B, H, W, O, relu, stream);
 }
 
 extern "C" int mds_stem_s1_pair_fused(const void* x, const void* w1,

@@ -82,6 +82,33 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// The same with N = 16 and N = 32 (B 16 or 32 rows, d[4j + e] for j < 2, 4).
+__device__ __forceinline__ void wgmma_m64n16k16(float* d, const uint32_t* a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k16(float* d, const uint32_t* a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // The same with N = 128: B is 128 rows (two 64-row slices back to back),
 // d[4j + e] is column 8j + 2 (lane % 4) + e % 2, j < 16.
 __device__ __forceinline__ void wgmma_m64n128k16(float* d, const uint32_t* a,
@@ -184,6 +211,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(16 >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// wgmma m64nNk16 for N in {16, 32, 64, 128}, chosen at compile time.
+template <int N>
+__device__ __forceinline__ void wgmma_m64nk16(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma N");
+  if constexpr (N == 16) wgmma_m64n16k16(d, a, b);
+  else if constexpr (N == 32) wgmma_m64n32k16(d, a, b);
+  else if constexpr (N == 64) wgmma_m64n64k16(d, a, b);
+  else wgmma_m64n128k16(d, a, b);
 }
 
 // Byte offset of 16-byte chunk q of pixel p in an activation buffer of

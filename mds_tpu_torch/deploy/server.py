@@ -7,8 +7,11 @@ mds_tpu/deploy/server.py, with the same raw-tensor protocol:
   GET /v2/health/ready → 200
   GET /v2/models/<name> → JSON metadata
 
-It wraps an E2EModel instead of an exported graph. One lock serializes
-device access, so concurrent requests run one at a time on the card.
+It wraps an E2EModel instead of an exported graph. A semaphore of
+`instances` (default 2, the reference's Triton instance group) bounds how
+many requests run the model at once, as JAX's server does
+(mds_tpu/deploy/server.py:29-39); any exception from `infer` answers 400
+with its message (:83-88).
 """
 
 from __future__ import annotations
@@ -25,18 +28,20 @@ from mds_tpu_torch.deploy.e2e import E2EModel
 
 class InferenceServer:
     def __init__(self, model: E2EModel, input_hw: Tuple[int, int],
-                 name: str = "bisenetv2"):
+                 name: str = "bisenetv2", instances: int = 2):
+        if instances < 1:
+            raise ValueError(f"instances must be >= 1, got {instances}")
         self.model = model
         self.in_shape = (1, int(input_hw[0]), int(input_hw[1]), 3)
         self.name = name
-        self.lock = threading.Lock()
+        self.sem = threading.Semaphore(instances)
 
     def infer(self, raw: bytes) -> np.ndarray:
         n = int(np.prod(self.in_shape))
         if len(raw) != n:
             raise ValueError(f"expected {n} bytes for {self.in_shape}, got {len(raw)}")
         im = np.frombuffer(raw, np.uint8).reshape(self.in_shape)
-        with self.lock:
+        with self.sem:
             return self.model.infer(im)
 
     def make_handler(server_self):
@@ -75,7 +80,7 @@ class InferenceServer:
                 raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
                 try:
                     out = server_self.infer(raw)
-                except ValueError as e:  # wrong size
+                except Exception as e:  # wrong size, or the model failed
                     self._reply(400, str(e).encode())
                     return
                 self._reply(200, out.tobytes(),

@@ -274,31 +274,43 @@ class StemConv3x3S2(nn.Conv2d):
     the same chain on library ops otherwise (mds_tpu/models/layers.py:319).
     Its plain conv (`conv`, the train path) under set_stem_impl("kernel")
     runs such an input through ops/stem.py stem_conv3x3_s2, kernel 1 with
-    the library conv's gradients (mds_tpu/models/layers.py:363-366)."""
+    the library conv's gradients, and hands on its f32 sum as JAX's layer
+    does (mds_tpu/models/layers.py:363-366); the plain switch keeps the
+    library conv's bf16. The kernel's packed weight is cached (PackCache)
+    until the weight changes."""
 
     def __init__(self, in_chan: int, out_chan: int):
         super().__init__(in_chan, out_chan, 3, stride=2, padding=1, bias=False)
+        self._packs = PackCache()
+
+    @staticmethod
+    def kernel_ok(x: torch.Tensor, dtype: torch.dtype) -> bool:
+        """Whether the stem kernels take x in `dtype`: bf16, 3 channels,
+        even H and W."""
+        return (dtype == torch.bfloat16 and x.shape[1] == 3
+                and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
 
     def conv(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         x = x.to(dtype)
-        if (_STEM_IMPL == "kernel" and dtype == torch.bfloat16
-                and x.shape[1] == 3 and x.shape[2] % 2 == 0
-                and x.shape[3] % 2 == 0):
-            from mds_tpu_torch.ops.stem import stem_conv3x3_s2
+        if _STEM_IMPL == "kernel" and self.kernel_ok(x, dtype):
+            from mds_tpu_torch.ops.stem import pack_stem, stem_conv3x3_s2
 
+            k = self.weight.to(dtype)
+            packed = self._packs.get("train", (self.weight,), lambda: pack_stem(k))
             return stem_conv3x3_s2(x.contiguous(memory_format=torch.channels_last),
-                                   self.weight.to(dtype))
+                                   k, packed)
         return conv2d(self, x, dtype)
 
     def fused(self, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-              relu: bool, dtype: torch.dtype) -> torch.Tensor:
+              relu: bool, dtype: torch.dtype, packed=None) -> torch.Tensor:
+        """`packed`: ops/stem.py pack_stem(weight in dtype, scale, bias) for
+        the kernel, made once by the caller; packed in the call when None."""
         x = x.to(dtype)
-        if (dtype == torch.bfloat16 and x.shape[1] == 3
-                and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0):
+        if self.kernel_ok(x, dtype):
             from mds_tpu_torch.ops.stem import stem_conv_bn_relu_s2
 
             return stem_conv_bn_relu_s2(x, self.weight.to(dtype), scale, bias,
-                                        relu=relu)
+                                        relu=relu, packed=packed)
         y = conv2d(self, x, dtype).float() * _c(scale) + _c(bias)
         return (F.relu(y) if relu else y).to(dtype)
 
@@ -435,6 +447,22 @@ class ConvBNReLU(nn.Module):
             return conv.conv(x, self.dtype)
         return conv2d(conv, x, self.dtype)
 
+    def _stem(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """The eval stem route for dataset i: the fused stem, its folded BN
+        and (for an input the kernel takes) its packed table cached per
+        parameter version. A CPU tensor runs the plain version, which reads
+        no table; it is packed all the same, once per version."""
+        scale, bias = self.fold_cached(i)
+        packed = None
+        if self.conv.kernel_ok(x, self.dtype):
+            from mds_tpu_torch.ops.stem import pack_stem
+
+            k = self.conv.weight
+            srcs = (k, *self.bn.tensors_at(i, self._shared()))
+            packed = self._packs.get(("stem", i), srcs,
+                                     lambda: pack_stem(k.to(self.dtype), scale, bias))
+        return self.conv.fused(x, scale, bias, self.relu, self.dtype, packed)
+
     def _conv3_fusable(self) -> bool:
         """The conv3 route's module condition: eval, a plain 3×3 s1 conv,
         C_in <= 64."""
@@ -468,11 +496,8 @@ class ConvBNReLU(nn.Module):
     def forward(self, xs: MultiX) -> List[Optional[torch.Tensor]]:
         if (not self.training and isinstance(self.conv, StemConv3x3S2)
                 and _STEM_IMPL == "kernel"):
-            return [
-                None if x is None
-                else self.conv.fused(x, cf[0], cf[1], self.relu, self.dtype)
-                for x, cf in zip(xs, self.fold(xs))
-            ]
+            return [None if x is None else self._stem(x, i)
+                    for i, x in enumerate(xs)]
         if self._conv3_fusable():
             return [None if x is None else self._conv3(x, i)
                     for i, x in enumerate(xs)]

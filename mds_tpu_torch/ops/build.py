@@ -29,7 +29,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C signatures of csrc/*.cu: pointers and the stream are void*, ints are int
 # or long long, floats float
 _SIGNATURES = {
-    "mds_stem_conv_bn_relu_s2": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mds_stem_conv_bn_relu_s2": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mds_stem_conv_bn_relu_s2_window": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mds_stem_s1_pair_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mds_detail_s1s2_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -15,11 +15,16 @@ PERF.md's table):
 
 All but the 7×7 stem carry BiSeNetV2, the 7×7 stem BiSeNetV1 (its two RGB
 stems). stem_conv3x3_s2 is an autograd Function: kernel 1 forward (unit
-scale, zero bias, no ReLU), the library conv's gradients backward, as JAX's
-custom_vjp; the train-mode RGB stems take it under set_stem_impl("kernel"). `set_stem_variant("dma")` makes stem_conv_bn_relu_s2 launch the
-window kernel (2) instead of kernel 1 on a CUDA tensor, as JAX's
-set_stem_variant does (stem.py:1248-1284); the two share one plain version
-and agree bit for bit. stem_s1_pair_fused is on no model path, as in JAX.
+scale, zero bias, no ReLU, f32 out as JAX's `_stem_fwd` writes it without a
+BN), the library conv's gradients backward, as JAX's custom_vjp; the
+train-mode RGB stems take it under set_stem_impl("kernel").
+`set_stem_variant("dma")` makes stem_conv_bn_relu_s2 launch the window
+kernel (2) instead of kernel 1 on a CUDA tensor, as JAX's set_stem_variant
+does (stem.py:1248-1284); the two share one plain version and agree bit for
+bit. Kernels 1 and 2 read their weights as `pack_stem` lays them out (the
+f32 table as three bf16 parts); a caller that holds the weights packs once and passes
+`packed`, else the wrapper packs in the call. stem_s1_pair_fused is on no
+model path, as in JAX.
 
 Each wrapper takes logically NCHW tensors stored channels_last (NHWC in
 memory), torch OIHW conv weights and the folded eval-BN (scale, bias) of each
@@ -118,6 +123,39 @@ def _stem_table(k: torch.Tensor, scale: torch.Tensor,
     return torch.cat([w, bias.float().reshape(1, o)]).contiguous()
 
 
+def _stem_n(o: int) -> int:
+    """Kernels 1 and 2's GEMM width N for O output channels: 16, 32, 64, 128."""
+    return next(n for n in (16, 32, 64, 128) if o <= n)
+
+
+@torch.no_grad()
+def pack_stem(k, scale=None, bias=None):
+    """Kernels 1 and 2's weights (csrc/stem.cu): the f32 folded table in
+    their K order, split into three bf16 parts hi = bf16(w), mid = bf16(w −
+    hi), lo = bf16(w − hi − mid), which sum to w exactly. Column j of the
+    (O, 32) table: dy·10 + 1 + dx·3 + ci holds k·scale at (dy, dx, ci);
+    dy·10 is zero (the element before a pixel's taps); 30 holds the bias; 31
+    is zero. Two slices of N = _stem_n(O) rows (zero past O) × 64 bf16
+    (128 bytes): rows [hi | mid], then rows [lo | 0], logical 16-byte chunk
+    c of row n stored at chunk c ^ (n % 8) (wgmma's K-major layout, 128-byte
+    swizzle); flat bf16. scale=None, bias=None: unit scale, zero bias (the
+    training form; for a bf16 k, mid and lo are zero)."""
+    o = k.shape[0]
+    w = k.float() if scale is None else _fold(k, scale)
+    w = F.pad(w.permute(0, 2, 3, 1).reshape(o, 3, 9), (1, 0)).reshape(o, 30)
+    b = torch.zeros(o, 1, device=k.device) if bias is None else bias.float().reshape(o, 1)
+    w = torch.cat([w, b, torch.zeros_like(b)], 1)
+    hi = w.to(_BF16)
+    mid = (w - hi.float()).to(_BF16)
+    lo = (w - hi.float() - mid.float()).to(_BF16)
+    n = _stem_n(o)
+    t = torch.stack([torch.cat([hi, mid], 1), torch.cat([lo, torch.zeros_like(lo)], 1)])
+    t = F.pad(t, (0, 0, 0, n - o)).reshape(2, n, 8, 8)
+    r = torch.arange(n, device=k.device).reshape(n, 1)
+    c = torch.arange(8, device=k.device).reshape(1, 8)
+    return t[:, r, c ^ (r % 8)].contiguous().flatten()
+
+
 def _mma_b_pack(wb: torch.Tensor) -> torch.Tensor:
     """3×3 weights (O, I, 3, 3), values already bf16, I % 16 == 0 and
     O % 8 == 0 → the B fragments of mma.sync m16n8k16 in launch order
@@ -175,35 +213,43 @@ def get_stem_variant() -> str:
     return _STEM_VARIANT
 
 
-def _stem_launch(fn_name, x, k, scale, bias, relu, name):
+def _stem_launch(fn_name, x, k, scale, bias, relu, name, packed, f32=False):
+    """Launch kernel 1 or 2 (`fn_name`) on x with the table `packed`
+    (pack_stem of k, scale, bias; packed here when None)."""
     _check_image(x, 2, name)
-    _check_params(x, name, (k, scale, bias))
+    _check_aligned(x, 16, name)
     o = k.shape[0]
     if tuple(k.shape[1:]) != (3, 3, 3) or o % 8 or o > 128:
         raise ValueError(f"{name}: k must be (O,3,3,3), O % 8 == 0, O <= 128")
+    if packed is None:
+        packed = pack_stem(k, scale, bias)
+    if packed.dtype != _BF16 or packed.numel() != _stem_n(o) * 128:
+        raise ValueError(f"{name}: packed is not pack_stem's table for O={o}")
+    _check_params(x, name, (k, packed) if scale is None else (k, scale, bias, packed))
     from mds_tpu_torch.ops.build import load
 
     b, _, h, w = x.shape
-    table = _stem_table(k, scale, bias)
-    out = torch.empty((b, o, h // 2, w // 2), dtype=_BF16, device=x.device,
-                      memory_format=_CL)
+    out = torch.empty((b, o, h // 2, w // 2), dtype=torch.float32 if f32 else _BF16,
+                      device=x.device, memory_format=_CL)
+    extra = (int(f32),) if fn_name == "mds_stem_conv_bn_relu_s2" else ()
     err = getattr(load(), fn_name)(
-        _ptr(x), _ptr(table), _ptr(out), b, h, w, o, int(relu), _stream())
+        _ptr(x), _ptr(packed), _ptr(out), b, h, w, o, int(relu), *extra, _stream())
     _raise_on(err, name)
     return out
 
 
-def stem_conv_bn_relu_s2(x, k, scale, bias, relu=False):
+def stem_conv_bn_relu_s2(x, k, scale, bias, relu=False, packed=None):
     """x (B,3,H,W) bf16 channels_last, H and W even; k (O,3,3,3) with
-    O % 8 == 0 and O <= 128 → (B,O,H/2,W/2) bf16 channels_last. Under
-    set_stem_variant("dma") a CUDA tensor goes to the window kernel
-    (stem_conv_bn_relu_s2_window), which counts its own launches."""
+    O % 8 == 0 and O <= 128 → (B,O,H/2,W/2) bf16 channels_last. `packed`:
+    pack_stem(k, scale, bias), made once; a CUDA launch packs itself when it
+    is None. Under set_stem_variant("dma") a CUDA tensor goes to the window
+    kernel (stem_conv_bn_relu_s2_window), which counts its own launches."""
     if _is_cpu(x):
         return stem_conv_bn_relu_s2_plain(x, k, scale, bias, relu)
     if _STEM_VARIANT == "dma":
-        return stem_conv_bn_relu_s2_window(x, k, scale, bias, relu)
+        return stem_conv_bn_relu_s2_window(x, k, scale, bias, relu, packed)
     out = _stem_launch("mds_stem_conv_bn_relu_s2", x, k, scale, bias, relu,
-                       "stem_conv_bn_relu_s2")
+                       "stem_conv_bn_relu_s2", packed)
     stem_conv_bn_relu_s2.launches += 1
     return out
 
@@ -214,26 +260,24 @@ stem_conv_bn_relu_s2.launches = 0
 # ------------------------- kernel 1's training form: an autograd Function
 
 def stem_conv3x3_s2_plain(x, k):
-    """3×3 s2 p1 conv of x on k in f32, rounded to bf16 (kernel 1 with unit
-    scale, zero bias and no ReLU)."""
-    return _out(_conv(x, k.float(), stride=2))
+    """3×3 s2 p1 conv of x on k, the f32 sum (kernel 1 with unit scale, zero
+    bias, no ReLU and f32 out), channels_last."""
+    return _conv(x, k.float(), stride=2).contiguous(memory_format=_CL)
 
 
 class _StemConv3x3S2(torch.autograd.Function):
-    """Forward: kernel 1 on a CUDA tensor (its plain version on a CPU one).
-    Backward: the library conv's gradients, the incoming gradient cast to x's
-    dtype first (mds_tpu/ops/pallas/stem.py:1291-1299, `_bwd`)."""
+    """Forward: kernel 1 in its f32-output mode on a CUDA tensor (its plain
+    version on a CPU one). Backward: the library conv's gradients, the
+    incoming gradient cast to x's dtype first
+    (mds_tpu/ops/pallas/stem.py:1291-1299, `_bwd`)."""
 
     @staticmethod
-    def forward(ctx, x, k):
+    def forward(ctx, x, k, packed):
         ctx.save_for_backward(x, k)
         if _is_cpu(x):
             return stem_conv3x3_s2_plain(x, k)
-        o = k.shape[0]
-        out = _stem_launch("mds_stem_conv_bn_relu_s2", x, k,
-                           torch.ones(o, device=x.device),
-                           torch.zeros(o, device=x.device), False,
-                           "stem_conv3x3_s2")
+        out = _stem_launch("mds_stem_conv_bn_relu_s2", x, k, None, None, False,
+                           "stem_conv3x3_s2", packed, f32=True)
         stem_conv3x3_s2.launches += 1
         return out
 
@@ -246,14 +290,15 @@ class _StemConv3x3S2(torch.autograd.Function):
             y = F.conv2d(xx, kk.to(x.dtype), stride=2, padding=1)
             wrt = [t for t, n in zip((xx, kk), need) if n]
             grads = iter(torch.autograd.grad(y, wrt, g.to(x.dtype)))
-        return tuple(next(grads) if n else None for n in need)
+        return (*(next(grads) if n else None for n in need), None)
 
 
-def stem_conv3x3_s2(x, k):
+def stem_conv3x3_s2(x, k, packed=None):
     """x (B,3,H,W) bf16 channels_last, H and W even; k (O,3,3,3) in x's dtype
-    with O % 8 == 0 and O <= 128 → (B,O,H/2,W/2) bf16 channels_last, with
-    gradients for x and k."""
-    return _StemConv3x3S2.apply(x, k)
+    with O % 8 == 0 and O <= 128 → (B,O,H/2,W/2) f32 channels_last, with
+    gradients for x and k. `packed`: pack_stem(k), made once; a CUDA launch
+    packs itself when it is None."""
+    return _StemConv3x3S2.apply(x, k, packed)
 
 
 stem_conv3x3_s2.launches = 0
@@ -261,16 +306,14 @@ stem_conv3x3_s2.launches = 0
 
 # ------------------------------------ kernel 2: the stem, window variant
 
-def stem_conv_bn_relu_s2_window(x, k, scale, bias, relu=False):
+def stem_conv_bn_relu_s2_window(x, k, scale, bias, relu=False, packed=None):
     """Kernel 1's function (stem_conv_bn_relu_s2_plain) with each tile's
-    input window copied into shared memory by the kernel, double-buffered;
-    bit-equal to kernel 1. Same arguments and limits."""
+    input window copied into shared memory by the copy engine,
+    double-buffered; bit-equal to kernel 1. Same arguments and limits."""
     if _is_cpu(x):
         return stem_conv_bn_relu_s2_plain(x, k, scale, bias, relu)
-    name = "stem_conv_bn_relu_s2_window"
-    _check_aligned(x, 4, name)
     out = _stem_launch("mds_stem_conv_bn_relu_s2_window", x, k, scale, bias,
-                       relu, name)
+                       relu, "stem_conv_bn_relu_s2_window", packed)
     stem_conv_bn_relu_s2_window.launches += 1
     return out
 

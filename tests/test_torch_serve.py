@@ -1,6 +1,8 @@
 """The port's serving path on the CPU: E2EModel behind InferenceServer over
-loopback (the same raw-tensor protocol as mds_tpu/deploy/server.py); the
-port standing alone: neither the package, nor the serve path, nor
+loopback (the same raw-tensor protocol as mds_tpu/deploy/server.py), its
+`instances` bounding how many requests run the model at once and any
+exception from the model answered 400, as JAX's server does; the port
+standing alone: neither the package, nor the serve path, nor
 chip_smoke.py imports jax or anything of mds_tpu or reads a file under
 mds_tpu/; and the port's own copies of the config, label-spec and weight
 tables equal the JAX package's."""
@@ -13,6 +15,8 @@ import pickle
 import re
 import subprocess
 import sys
+import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -73,6 +77,63 @@ def test_wrong_size_and_path(served):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(f"{url}/v2/models/other/infer", b"\0" * 10)
     assert e.value.code == 404
+
+
+class _Model:
+    """Stands in for an E2EModel: each call holds for 0.2 s, counting the
+    calls inside at once; with `fail`, it raises that exception."""
+
+    def __init__(self, fail=None):
+        self.now = self.most = 0
+        self.fail = fail
+        self.lock = threading.Lock()
+
+    def infer(self, im):
+        with self.lock:
+            self.now += 1
+            self.most = max(self.most, self.now)
+        try:
+            time.sleep(0.2)
+            if self.fail is not None:
+                raise self.fail
+            return np.zeros(im.shape[:3], np.int32)
+        finally:
+            with self.lock:
+                self.now -= 1
+
+
+@pytest.mark.parametrize("instances", [None, 1, 3])
+def test_server_instances_bound_concurrency(instances):
+    """8 requests at once run the model at most `instances` at a time (2 by
+    default, mds_tpu/deploy/server.py:29-39)."""
+    model = _Model()
+    kw = {} if instances is None else {"instances": instances}
+    srv = InferenceServer(model, HW, name="test", **kw)
+    raw = bytes(int(np.prod((1, *HW, 3))))
+    threads = [threading.Thread(target=srv.infer, args=(raw,)) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert model.most == (2 if instances is None else instances)
+    with pytest.raises(ValueError):
+        InferenceServer(model, HW, instances=0)
+
+
+def test_server_answers_400_on_any_exception():
+    """An exception from the model other than the wrong size's ValueError
+    answers 400 with its message (mds_tpu/deploy/server.py:83-88)."""
+    srv = InferenceServer(_Model(fail=RuntimeError("the model failed")), HW,
+                          name="test")
+    httpd = srv.serve_background(0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/v2/models/test/infer"
+    try:
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(url, bytes(int(np.prod((1, *HW, 3)))))
+        assert e.value.code == 400 and e.value.read() == b"the model failed"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
 
 
 def test_e2e_normalizes_like_jax_graph():

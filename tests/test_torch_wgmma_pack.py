@@ -1,5 +1,5 @@
-"""The weights that kernels 8 and 7 read through wgmma descriptors, and the
-cache that packs them once per model, on the CPU.
+"""The weights that kernels 8, 7, 1 and 2 read through wgmma descriptors,
+and the caches that pack them once per parameter version, on the CPU.
 
 `pack_conv3x3` (bf16(k), unscaled) and `pack_detail_tail` (bf16(k·scale) of
 five convs) lay the weights out as csrc/wgmma.cuh's B operand. Here each
@@ -10,9 +10,17 @@ swizzle XORs address bits [4, 7) with bits [7, 10). The read-back must give
 the weights exactly, zero where C_in or C_out is padded, at 64 → 64, 3 → 64
 and 128 → 128.
 
+`pack_stem` (kernels 1 and 2, csrc/stem.cu) splits the f32 folded table
+(k·scale in the kernels' K order, the bias, zeros) into bf16 parts hi, mid,
+lo in two slices of N rows, [hi | mid] and [lo | 0]. Read back the same way
+at O = 8, 16, 24, 64, 128: hi + mid + lo is the f32 table exactly, hi + mid
+within 2^-16 of it relative; for a bf16 weight with unit scale and no bias
+(the training form) hi is the weight and mid, lo are zero.
+
 `PackCache` (models/layers.py) keeps a value until a source tensor changes:
 reused across two eval calls, rebuilt after an in-place weight update, a BN
-running-stat update and load_state_dict.
+running-stat update and load_state_dict; the stems' tables likewise, on the
+eval route and the training form.
 """
 
 import numpy as np
@@ -189,3 +197,121 @@ def test_detail_tail_route_folds_once_per_version(monkeypatch):
         tl.set_detail_fuse(False)
         tl.set_detail_tail(False)
     assert [m._packs.builds for m in tm._tail()] == [1, 1, 1, 2, 1]
+
+
+def read_stem(packed, n_rows, part):
+    """Table column j < 32 of part 0 (hi), 1 (mid) or 2 (lo) for every row
+    n < n_rows, as kernels 1 and 2 address it: part p in slice p // 2 at
+    n_rows · 128 bytes per slice, k16 step (p % 2) · 2 + j // 16 at 32 bytes
+    a step, 8-row groups 1024 bytes apart, rows 128 bytes, the swizzle."""
+    j = np.arange(32).reshape(1, 32)
+    n = np.arange(n_rows).reshape(n_rows, 1)
+    step = (part % 2) * 2 + j // 16
+    a = ((part // 2) * n_rows * 128 + step * 32 + (n // 8) * 1024 + (n % 8) * 128
+         + (j % 16) * 2)
+    a = a ^ (((a >> 7) & 7) << 4)
+    bits = packed.view(torch.int16).numpy()[a // 2].astype(np.int32) << 16
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def stem_table(k, scale, bias):
+    """The (O, 32) f32 table in csrc/stem.cu's K order, written out tap by
+    tap: column dy·10 + 1 + dx·3 + ci holds k·scale, 30 the bias."""
+    o = k.shape[0]
+    w = (k.double() * scale.double().reshape(-1, 1, 1, 1)).float().numpy()
+    t = np.zeros((o, 32), np.float32)
+    for dy in range(3):
+        for dx in range(3):
+            for ci in range(3):
+                t[:, dy * 10 + 1 + dx * 3 + ci] = w[:, ci, dy, dx]
+    t[:, 30] = bias.numpy()
+    return t
+
+
+@pytest.mark.parametrize("o", [8, 16, 24, 64, 128])
+def test_stem_pack_reads_back(o):
+    rng = np.random.default_rng(o)
+    k = torch.tensor(rng.normal(0, np.sqrt(2 / (9 * o)), (o, 3, 3, 3)), dtype=torch.float32)
+    scale = torch.tensor(rng.normal(1, 0.1, o), dtype=torch.float32)
+    bias = torch.tensor(rng.normal(0, 0.1, o), dtype=torch.float32)
+    n = tstem._stem_n(o)
+    assert n >= o and n in (16, 32, 64, 128)
+    packed = tstem.pack_stem(k, scale, bias)
+    assert packed.dtype == torch.bfloat16 and packed.numel() == 2 * n * 64
+    hi, mid, lo = (read_stem(packed, n, p) for p in range(3))
+    assert not hi[o:].any() and not mid[o:].any() and not lo[o:].any()
+    want = stem_table(k, scale, bias)
+    np.testing.assert_array_equal(hi[:o] + mid[:o] + lo[:o], want)
+    assert np.abs(hi[:o] + mid[:o] - want).max() <= 2.0 ** -16 * np.abs(want).max()
+    np.testing.assert_array_equal(
+        hi[:o], torch.from_numpy(want).to(torch.bfloat16).float().numpy())
+    # the fourth part of slice 1 is zero
+    tail = read_stem(packed, n, 3)
+    assert not tail.any()
+
+
+@pytest.mark.parametrize("o", [16, 64])
+def test_stem_pack_of_the_training_form(o):
+    """A bf16 weight, unit scale, no bias: hi is the weight, mid = lo = 0."""
+    rng = np.random.default_rng(o + 1)
+    kb = torch.tensor(rng.normal(0, 0.3, (o, 3, 3, 3)), dtype=torch.float32).to(torch.bfloat16)
+    packed = tstem.pack_stem(kb)
+    n = tstem._stem_n(o)
+    hi, mid, lo = (read_stem(packed, n, p) for p in range(3))
+    np.testing.assert_array_equal(hi[:o], stem_table(kb.float(), torch.ones(o), torch.zeros(o)))
+    assert not mid.any() and not lo.any()
+
+
+def _stem_module():
+    tm = tl.ConvBNReLU(3, 16, 3, stride=2, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for t in (tm.conv.weight, tm.affine_weight, tm.affine_bias, tm.bn[0].running_mean):
+            t.copy_(torch.randn(t.shape, generator=g) * 0.1 + (t is tm.affine_weight))
+        tm.bn[0].running_var.copy_(torch.rand(16, generator=g) + 0.5)
+    return tm.eval()
+
+
+def test_stem_routes_pack_once_per_version(monkeypatch):
+    """The eval stem route's table (with its fold) and the training form's:
+    one build over two calls; rebuilt after an in-place weight update (both)
+    and a BN running-stat update (the eval table); the table handed to the
+    wrapper is pack_stem of the current values."""
+    seen = []
+    real = tstem.stem_conv_bn_relu_s2
+
+    def spy(x, k, scale, bias, relu=False, packed=None):
+        seen.append(packed)
+        return real(x, k, scale, bias, relu, packed)
+
+    monkeypatch.setattr(tstem, "stem_conv_bn_relu_s2", spy)
+    tm = _stem_module()
+    x = torch.randn((1, 3, 16, 24), generator=torch.Generator().manual_seed(4)
+                    ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    tl.set_stem_impl("kernel")
+    try:
+        with torch.no_grad():
+            tm([x])
+            tm([x])
+            assert tm._packs.builds == 2 and seen[0] is seen[1]  # fold + table
+            tm.conv.weight.mul_(1.5)
+            tm([x])
+            assert tm._packs.builds == 3  # the table; the fold keys on the BN
+            tm.bn[0].running_var.add_(0.25)
+            tm([x])
+            assert tm._packs.builds == 5
+            scale, bias = tm.fold_cached(0)
+            assert torch.equal(seen[-1], tstem.pack_stem(
+                tm.conv.weight.to(torch.bfloat16), scale, bias))
+
+            conv = tm.conv.train()
+            for _ in range(2):
+                y = conv.conv(x, torch.bfloat16)
+            assert conv._packs.builds == 1 and y.dtype == torch.float32
+            conv.weight.add_(0.01)
+            conv.conv(x, torch.bfloat16)
+            assert conv._packs.builds == 2
+            assert torch.equal(conv._packs._entries["train"][1],
+                               tstem.pack_stem(conv.weight.to(torch.bfloat16)))
+    finally:
+        tl.set_stem_impl("plain")

@@ -29,7 +29,9 @@ struct dim3 {
 };
 struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
 
 struct __nv_bfloat16 { uint16_t b; };
@@ -47,6 +49,7 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
   return {__float2bfloat16_rn(lo), __float2bfloat16_rn(hi)};
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 [[noreturn]] inline void __trap() { abort(); }

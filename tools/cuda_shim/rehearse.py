@@ -10,12 +10,13 @@ wgmma's fence/commit/wait; mma.sync m16n8k16 computed lane by lane from the
 exchanged fragments; wgmma m64n64k16 computed per warpgroup, its B read
 through the descriptor's start and stride byte offsets and the 128-byte
 swizzle on the address bits; ldmatrix from the exchanged row addresses;
-mbarriers with arrival and transfer counts; cp.async and cp.async.bulk as
-copies), into the git-ignored mds_tpu_torch/build/shim/. Then it
+mbarriers with arrival and transfer counts; cp.async (with zero fill) and
+cp.async.bulk as copies), into the git-ignored mds_tpu_torch/build/shim/. Then it
 calls each kernel's wrapper on CPU tensors at small, ragged shapes, with the
 wrappers made to launch (through ctypes, as on the card), and holds every
-output to the kernel's plain version: rel max-diff < 1e-2, and the window
-stem bit-equal to the single stem. It finds indexing, masking and tiling
+output to the kernel's plain version: rel max-diff < 1e-2 (1e-4 for the
+stem's f32 training form), and the window stem bit-equal to the single
+stem. It finds indexing, masking and tiling
 faults before a chip call; it says nothing of speed, of races between
 threads or of what nvcc accepts. Exits 1 on any mismatch.
 """
@@ -104,11 +105,11 @@ def main(which):
 
     failures = []
 
-    def check(name, got, want, equal_to=None):
+    def check(name, got, want, equal_to=None, tol=1e-2):
         r = ((got.float() - want.float()).abs().max()
              / want.float().abs().max().clamp_min(1e-12)).item()
         eq = (got == want).float().mean().item()
-        ok = (got.shape == want.shape and r < 1e-2
+        ok = (got.shape == want.shape and got.dtype == want.dtype and r < tol
               and got.is_contiguous(memory_format=torch.channels_last)
               and (equal_to is None or torch.equal(got, equal_to)))
         print(f"{'ok ' if ok else 'BAD'} {name}: {tuple(got.shape)} rel {r:.3g} "
@@ -119,13 +120,18 @@ def main(which):
     t0 = time.time()
     if {"stem", "window"} & which:
         for b, h, w, o, relu in ((1, 18, 22, 64, True), (2, 10, 134, 16, False),
-                                 (1, 2, 2, 8, True)):
+                                 (1, 2, 2, 8, True), (1, 4, 260, 128, True),
+                                 (3, 6, 14, 24, False)):
             args = (image(b, h, w), conv_w(o, 3), *bn(o), relu)
             want = stem.stem_conv_bn_relu_s2_plain(*args)
             k1 = stem.stem_conv_bn_relu_s2(*args)
             check(f"stem {b, h, w, o}", k1, want)
             check(f"window {b, h, w, o}", stem.stem_conv_bn_relu_s2_window(*args),
                   want, equal_to=k1)
+            # the training form: f32 out, the f32 gate
+            x, k = args[0], args[1].to(torch.bfloat16)
+            check(f"stem f32 {b, h, w, o}", stem.stem_conv3x3_s2(x, k),
+                  stem.stem_conv3x3_s2_plain(x, k), tol=1e-4)
     if "pair" in which:
         for b, h, w, relu2 in ((1, 20, 70, True), (2, 6, 10, False)):
             args = (image(b, h, w), conv_w(64, 3), *bn(64), conv_w(64, 64), *bn(64),

@@ -69,6 +69,8 @@ inline void shim_wgmma(float* d, const uint32_t* a, uint64_t b) {
   shim_wg_sync();
   memcpy(d, out, sizeof(out));
 }
+inline void wgmma_m64n16k16(float* d, const uint32_t* a, uint64_t b) { shim_wgmma<16>(d, a, b); }
+inline void wgmma_m64n32k16(float* d, const uint32_t* a, uint64_t b) { shim_wgmma<32>(d, a, b); }
 inline void wgmma_m64n64k16(float* d, const uint32_t* a, uint64_t b) { shim_wgmma<64>(d, a, b); }
 inline void wgmma_m64n128k16(float* d, const uint32_t* a, uint64_t b) { shim_wgmma<128>(d, a, b); }
 

@@ -4,13 +4,14 @@ mds_tpu_torch/deploy/server.py for the protocol).
 
   python tools/serve_torch.py --config configs/bisenetv2_city.json \
       [--weights W.npz|W.pt] [--seed 0] [--size 1024 2048] [--port 8000] \
-      [--name NAME]
+      [--name NAME] [--instances 2]
   python tools/serve_torch.py --config configs/bisenetv1_city.json
 
 The config's `model_name` picks the model (bisenetv2, bisenetv2_origin,
 bisenetv1); --name, the name in the URL, defaults to it. --weights takes an
 .npz of reference-layout keys (mds_tpu_torch/deploy/weights.py) or a
 torch.save'd state dict; without it the weights are a seeded random init.
+--instances bounds how many requests run the model at once.
 The model runs in bf16 with the deploy kernels on, always on CUDA:
 set_stem_impl("kernel") (the RGB stems of either model),
 set_detail_fuse(True) (BiSeNetV2's fused DetailBranch head and StemBlock),
@@ -68,6 +69,8 @@ def main():
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--name", default=None,
                     help="model name in the URL (default: the config's model_name)")
+    ap.add_argument("--instances", type=int, default=2,
+                    help="requests that run the model at once (default 2)")
     args = ap.parse_args()
 
     import torch
@@ -92,7 +95,7 @@ def main():
     set_depthwise_impl("kernel")
     set_pred_impl("fused")
     srv = InferenceServer(build_e2e(args.config, args.weights, args.seed),
-                          tuple(args.size), name=name)
+                          tuple(args.size), name=name, instances=args.instances)
     print(f"serving {name} {srv.in_shape} on :{args.port} "
           f"({torch.cuda.get_device_name(0)})")
     srv.serve(args.port)
