@@ -10,7 +10,8 @@ before the last line:
 2. build    — nvcc builds mds_tpu_torch/csrc/*.cu for sm_90a, one process
               per source; cuobjdump's SASS of the library must show HGMMA
               (warpgroup MMA) and no HMMA (mma.sync) in the conv3,
-              detail-tail and 3×3 stem (kernels 1 and 2) kernels.
+              detail-tail, detail-head (kernel 4) and 3×3 stem (kernels 1
+              and 2) kernels.
 3. kernels  — each stem kernel at the serving shapes (B=1, 1024×2048; the
               7×7 stem of BiSeNetV1 at O=64; the single 3×3 stem and its
               window variant at O=64 and 16, the window variant bit-equal
@@ -22,11 +23,15 @@ before the last line:
               window variant and the 7×7 stems, one bf16 F.conv2d with the
               folded weight and bias (no ReLU) as the library's time; the
               7×7 and the 3×3 stems (with the f32 training form) also on
-              ragged tiles, B > 1 and O from 8 to 128. Then the kernels of
+              ragged tiles, B > 1 and O from 8 to 128; the fused detail head
+              (kernel 4) warm on its weights packed once, cold packing in
+              the call and by its device time. Then the kernels of
               BiSeNetV2's routes at the inputs one served frame gives them
               (captured from the model): the 16 depthwise convs through
               depthwise3x3 (bit-equal share >= 0.999 and rel < 1e-2 against
-              the plain version), the 10 stride-1 ones through
+              the plain version; each shape's device time beside that of
+              the library's bf16 grouped F.conv2d), the 10 stride-1 ones
+              through
               depthwise3x3_dma (also bit-equal to depthwise3x3), the head
               logits (1, 19, 128, 256) through upsample_argmax (label
               agreement >= 0.9999), the /4 detail feature (1, 64, 256, 512)
@@ -40,7 +45,8 @@ before the last line:
               the plain route's five ConvBNReLU modules, or one bf16
               F.conv2d with the folded weight and bias; then the depthwise,
               upsample, S1-pair, tail and conv3 kernels on ragged shapes
-              (odd tiles, B > 1, conv3 at C_in 3-64 and C_out 8-136).
+              (odd tiles, B > 1, the depthwise kernel's staged form at m =
+              2, 3, 4 and 6, conv3 at C_in 3-64 and C_out 8-136).
 4. dropout  — the dropout kernel at the main head's shape (16, 1024, 64,
               128) bf16 channels_last, rate 0.1: bit-identical to its plain
               version, keep fraction within 0.002 of 230/256, kept values
@@ -176,8 +182,9 @@ SOURCES = {
                         "mds_tpu/ops/pallas/stem.py:1235"),
 }
 # the kernels that run warpgroup MMA (csrc/wgmma.cuh): their SASS must show
-# HGMMA and no HMMA (stem_kernel: kernels 1 and 2)
-WGMMA_KERNELS = ("conv3x3_kernel", "detail_tail_kernel", "stem_kernel")
+# HGMMA and no HMMA (stem_kernel: kernels 1 and 2; detail_head_kernel: 4)
+WGMMA_KERNELS = ("conv3x3_kernel", "detail_tail_kernel", "stem_kernel",
+                 "detail_head_kernel")
 # one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -220,9 +227,10 @@ def cuda_ms(fn, n=20):
     return float(np.median(times))
 
 
-def device_ms(fn, kernel, n=10):
-    """The mean device time of `kernel` (a substring of its name) per launch
-    over n calls of fn under torch.profiler, or "not measured"."""
+def device_ms(fn, kernel, n=10, per_call=False):
+    """The mean device time of `kernel` (a substring of its name; "": every
+    kernel) per launch, or per call of fn with per_call, over n calls of fn
+    under torch.profiler, or "not measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -232,10 +240,10 @@ def device_ms(fn, kernel, n=10):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and not e.is_user_annotation and kernel in e.name]
     total = sum(e.device_time_total for e in ev) / 1e3
-    return total / len(ev) if ev and total > 0 else "not measured"
+    return total / (n if per_call else len(ev)) if ev and total > 0 else "not measured"
 
 
 def sass_check(lib):
@@ -344,6 +352,17 @@ def phase_kernels(dev):
             # kernel and plain timed in turns on the same inputs
             ms = cuda_ms(lambda: kernel(*args))
             plain_ms = cuda_ms(lambda: plain(*args))
+            extra = {}
+            if name == "detail_s1s2_fused":
+                # warm on its weights packed once, as the route calls it (`ms`);
+                # cold, packing in the call; the kernel's own device time
+                packed = stem.pack_detail_head(*args[1:])
+                extra = {"cold_ms": ms,
+                         "device_ms": device_ms(lambda: kernel(*args, packed),
+                                                "detail_head_kernel")}
+                ms = cuda_ms(lambda: kernel(*args, packed))
+                for k, v in extra.items():
+                    res[k] = v
             res["ms"] += ms
             res["plain_ms"] += plain_ms
             x_in, ks = args[0], [a for a in args[1:] if torch.is_tensor(a) and a.dim() == 4]
@@ -360,7 +379,7 @@ def phase_kernels(dev):
             res["bound_ms"] += b_ms
             res["bound_by"] = b_by
             shape = {"out": list(got.shape), "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms}
+                     "bound_ms": b_ms, **extra}
             if name == "stem7_conv_bn_relu_s2":
                 # the library's one call for the same conv: bf16 F.conv2d with
                 # the folded weight and bias (the ReLU left out)
@@ -733,7 +752,8 @@ def depthwise_rows(dw_calls):
         kernel = getattr(depthwise, name)
         res = {"max_abs_err": 0.0, "rel": 0.0, "bit_equal": 1.0, "ms": 0.0,
                "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-               "port_route_ms": 0.0, "shapes": []}
+               "port_route_ms": 0.0, "device_ms": 0.0, "library_device_ms": 0.0,
+               "shapes": []}
         for x, w, s in dw_calls:
             if name == "depthwise3x3_dma" and s != 1:
                 continue
@@ -762,6 +782,10 @@ def depthwise_rows(dw_calls):
             shape["plain_ms"] = cuda_ms(lambda: depthwise.depthwise3x3_plain(x, w, s))
             shape["library_ms"] = cuda_ms(lambda: library(x, w, s))
             shape["port_route_ms"] = cuda_ms(lambda: port_route(x, w, s))
+            # device time per call, the kernel's and the library call's
+            shape["device_ms"] = device_ms(lambda: kernel(*args), "dw3x3")
+            shape["library_device_ms"] = device_ms(lambda: library(x, w, s), "",
+                                                   per_call=True)
             # each input read once, each output written once; 9 f32
             # multiply-adds per output on the CUDA cores
             shape["bound_ms"], res["bound_by"] = bound(nbytes(x, w, got),
@@ -771,8 +795,10 @@ def depthwise_rows(dw_calls):
                                      (got.float() - want.float()).abs().max().item())
             res["rel"] = max(res["rel"], r)
             res["bit_equal"] = min(res["bit_equal"], eq)
-            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "port_route_ms"):
-                res[k] += shape[k]
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "port_route_ms",
+                      "device_ms", "library_device_ms"):
+                res[k] = (res[k] + shape[k] if isinstance(shape[k], float)
+                          and isinstance(res[k], float) else "not measured")
             res["shapes"].append(shape)
         emit(phase="kernels", kernel=name, plain="f32 slices of the padded input, "
              "multiply, add in tap order", library="bf16 F.conv2d, groups = C_in",
@@ -840,7 +866,9 @@ def new_kernels_ragged(dev):
             (1, 31, 15, 5, 6, 1, torch.bfloat16), (3, 9, 9, 5, 1, 2, torch.bfloat16),
             (2, 21, 19, 12, 2, 1, torch.bfloat16), (1, 13, 27, 12, 6, 2, torch.bfloat16),
             (2, 7, 11, 12, 1, 1, torch.bfloat16), (1, 11, 13, 16, 6, 1, torch.float32),
-            (2, 9, 10, 8, 1, 2, torch.float32)):
+            (2, 9, 10, 8, 1, 2, torch.float32), (2, 17, 37, 16, 6, 1, torch.bfloat16),
+            (1, 19, 70, 8, 6, 2, torch.bfloat16), (3, 9, 33, 24, 2, 2, torch.bfloat16),
+            (1, 6, 40, 8, 3, 1, torch.bfloat16), (2, 5, 9, 16, 4, 1, torch.bfloat16)):
         x = torch.tensor(rng.normal(0, 1, (b, h, w, c)), device=dev).relu().to(dt)
         x = x.permute(0, 3, 1, 2)
         wt = torch.tensor(rng.normal(0, 0.3, (c * m, 1, 3, 3)), device=dev).to(dt)
@@ -1439,7 +1467,7 @@ def phase_slice(dev, e2e, frames):
         e2e_times[k].append(e2e_ms(e2e, frames[1], **kw))
     # stem_kernel: kernel 1, or kernel 2 on the window-stem route
     of_interest = ("dw3x3_kernel", "upsample_argmax_kernel", "stem_kernel",
-                   "detail_kernel", "stemblock_kernel", "detail_tail_kernel",
+                   "detail_head_kernel", "stemblock_kernel", "detail_tail_kernel",
                    "conv3x3_kernel")
     profiles = {}
     for k, kw in order:

@@ -26,17 +26,26 @@
 // 16 depthwise convs of a 1024x2048 BiSeNetV2 frame move ~100 MB (~30 us at
 // 3.35 TB/s).
 //
-// mds_dw3x3 (the model's kernel): a thread computes P = 4 neighbouring
-// output pixels of one row for a run of 8 consecutive output channels. Its
-// 72 weights are one contiguous 144-byte run of the OIHW weight, loaded once
-// into registers; each of the (P-1)*s + 3 input columns of the three rows is
-// loaded once and fed to every pixel whose tap it is, so the input is read
-// 2.25x (s1) or ~1.6x (s2) from L1/L2 instead of 9x. Lanes run over the
-// channel groups: a warp's loads and 16-byte stores are contiguous along C.
-// Inputs come through the read-only path (ld.global.nc). With m = 1 and
-// C % 8 == 0 a column is one 16-byte load; otherwise each output channel
-// loads its own input channel (m > 1 hits the same bytes in L1). Ragged
-// widths and channel counts are masked.
+// mds_dw3x3 (the model's kernel) has two forms. At a channel multiplier
+// m > 1 (bf16, C % 8 == 0, m <= 12: BiSeNetV2's m = 6 expansions, which
+// write the frame's largest depthwise outputs) a block stages its output
+// tile's input window, 8 input channels of each pixel in one 16-byte
+// cp.async, in shared memory, and each thread computes 4 pixels x 8 output
+// channels from the 2 (at m = 6) input channels they read, its 72 weights
+// in registers (staged in shared memory beside the window instead, the m = 6
+// shapes took 1.1-1.6x as long on an H100): every input byte
+// is read from device memory once per block, by 16-byte accesses (the
+// section below). Otherwise a thread computes P neighbouring output pixels
+// of one row for a run of 8 consecutive output channels: P = 4, 2 or 1, the
+// most that gives every SM a block (at P = 4 the /32 shapes would fill half
+// the SMs). Its 72 weights are one contiguous 144-byte run of the OIHW
+// weight, loaded once into registers; each of the (P-1)*s + 3 input columns
+// of the three rows is loaded once and fed to every pixel whose tap it is.
+// Lanes run over the channel groups: a warp's loads and 16-byte stores are
+// contiguous along C. Inputs come through the read-only path
+// (ld.global.nc). With m = 1 and C % 8 == 0 a column is one 16-byte load;
+// otherwise each output channel loads its own input channel. Ragged widths
+// and channel counts are masked.
 //
 // mds_dw3x3_window (on no model path, as in JAX): a block owns an 8x16
 // output tile and 8 input channels (8*m output channels). It copies its
@@ -51,16 +60,11 @@
 // have no counterpart here. Each launcher returns the cudaError_t of its
 // launch (0 on success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kVec = 8;  // output channels per thread
-constexpr int kPix = 4;  // output pixels per thread (mds_dw3x3)
 constexpr int kThreads = 128;
 constexpr int kTH = 8, kTW = 16, kCT = 8;  // mds_dw3x3_window's tile
 
@@ -153,7 +157,8 @@ __device__ __forceinline__ float madd(float acc, float v, float w, int tap) {
 
 // XVEC: m == 1, C % 8 == 0 and x 16-byte aligned (a column is one vector).
 // OVEC: C*m % 8 == 0 and w, out 16-byte aligned.
-template <typename T, int S, bool XVEC, bool OVEC>
+// P: output pixels per thread.
+template <typename T, int S, int P, bool XVEC, bool OVEC>
 __global__ void __launch_bounds__(kThreads)
 dw3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
              T* __restrict__ out, int B, int H, int W, int C, int M, int Ho,
@@ -168,7 +173,7 @@ dw3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int b = (int)(r / Ho);
   const int Co = C * M;
   const int o0 = g * kVec;
-  const int ox0 = strip * kPix;
+  const int ox0 = strip * P;
 
   float wr[kVec][9];
   load_weights(w, o0, Co, OVEC, wr);
@@ -176,8 +181,8 @@ dw3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
   for (int k = 0; k < kVec; ++k) ci[k] = o0 + k < Co ? (o0 + k) / M : -1;
 
-  float acc[kPix][kVec] = {};
-  constexpr int kCols = (kPix - 1) * S + 3;
+  float acc[P][kVec] = {};
+  constexpr int kCols = (P - 1) * S + 3;
 #pragma unroll
   for (int dy = 0; dy < 3; ++dy) {
     const int iy = oy * S + dy - 1;
@@ -202,7 +207,7 @@ dw3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
                                   : 0.f;
       }
 #pragma unroll
-      for (int p = 0; p < kPix; ++p) {
+      for (int p = 0; p < P; ++p) {
         const int dx = j - S * p;  // this column's tap for pixel p
         if (dx < 0 || dx > 2) continue;
         const int tap = dy * 3 + dx;
@@ -214,7 +219,7 @@ dw3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 
 #pragma unroll
-  for (int p = 0; p < kPix; ++p) {
+  for (int p = 0; p < P; ++p) {
     const int ox = ox0 + p;
     if (ox >= Wo) break;
     T* dst = out + (((long long)b * Ho + oy) * Wo + ox) * Co + o0;
@@ -229,13 +234,6 @@ dw3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // ----------------------------------------- kernel 10: mds_dw3x3_window
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
 
 // ASYNC: C % 8 == 0 and x 16-byte aligned (each window pixel is whole
 // 16-byte chunks). OVEC as above.
@@ -262,8 +260,8 @@ dw3x3_window_kernel(const T* __restrict__ x, const T* __restrict__ w,
           ok ? x + (((long long)b * H + iy) * W + ix) * C + c0 + q * kChunk : x;
       cp_async16(&win[wy][wx][q * kChunk], src, ok ? 16 : 0);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    cp_async_commit();
+    cp_async_wait<0>();
   } else {
     for (int i = tid; i < kPixels * kCT; i += kTH * kTW) {
       const int k = i % kCT, pix = i / kCT;
@@ -310,28 +308,157 @@ dw3x3_window_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// ------------------- kernel 9, channel multiplier m > 1: mds_dw3x3 staged
+//
+// A block owns a kMTH x kMTW tile of output pixels and one run of 8 input
+// channels (8m output channels). It copies the tile's input window, each
+// pixel's 8 channels one 16-byte cp.async (zero-filled outside the image),
+// into shared memory: every input byte the block needs is read once, by
+// 16-byte accesses. Thread (pixel strip, group g) then computes kMP pixels
+// of output channels 8g .. 8g + 7 of the run from its 72 weights in
+// registers; those 8 outputs read at most ND of the run's input channels
+// (ND = 2 at m = 6), so a window column is ND shared loads, each feeding
+// 8 / ND outputs of every pixel whose tap it is. The m groups of one pixel
+// store 16 m contiguous bytes in 16-byte stores. bf16, C % 8 == 0, m <= 12.
+constexpr int kMTH = 4, kMTW = 32, kMP = 4;  // output tile, pixels per thread
+constexpr int kMStrips = kMTH * kMTW / kMP;  // threads per output group
+constexpr int kMMax = 12;                    // the largest m it takes
+
+template <int S, int ND>
+__global__ void __launch_bounds__(kMMax * kMStrips)
+dw3x3_kernel_mult(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                  bf16* __restrict__ out, int H, int W, int C, int M, int Ho,
+                  int Wo, int tiles_x, int tiles_y) {
+  constexpr int kWR = (kMTH - 1) * S + 3, kWC = (kMTW - 1) * S + 3;
+  __shared__ __align__(16) bf16 win[kWR * kWC * 8];
+  const int tile = blockIdx.x, c8 = blockIdx.y;
+  const int tx = tile % tiles_x, ty = (tile / tiles_x) % tiles_y;
+  const int b = tile / (tiles_x * tiles_y);
+  const int oy0 = ty * kMTH, ox0 = tx * kMTW;
+  for (int i = threadIdx.x; i < kWR * kWC; i += blockDim.x) {
+    const int iy = oy0 * S - 1 + i / kWC, ix = ox0 * S - 1 + i % kWC;
+    const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W;
+    const bf16* src = ok ? x + (((long long)b * H + iy) * W + ix) * C + 8 * c8 : x;
+    cp_async16(win + 8 * i, src, ok ? 16 : 0);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int g = threadIdx.x % M, strip = threadIdx.x / M;
+  const int Co = C * M, o0 = 8 * c8 * M + 8 * g;
+  float wr[kVec][9];
+  load_weights(w, o0, Co, true, wr);
+  // output k reads the run's input channel lo + off[k]
+  const int lo = 8 * g / M;
+  int off[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) off[k] = (8 * g % M + k) / M;
+  const int r = strip / (kMTW / kMP), px0 = (strip % (kMTW / kMP)) * kMP;
+
+  float acc[kMP][kVec] = {};
+  constexpr int kCols = (kMP - 1) * S + 3;
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy) {
+    const bf16* wrow = win + ((r * S + dy) * kWC + px0 * S) * 8;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      float c[ND];
+#pragma unroll
+      for (int d = 0; d < ND; ++d) c[d] = to_f(wrow[j * 8 + min(lo + d, 7)]);
+      float v[kVec];
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        v[k] = c[0];
+#pragma unroll
+        for (int d = 1; d < ND; ++d) v[k] = off[k] == d ? c[d] : v[k];
+      }
+#pragma unroll
+      for (int p = 0; p < kMP; ++p) {
+        const int dx = j - S * p;  // this column's tap for pixel p
+        if (dx < 0 || dx > 2) continue;
+        const int tap = dy * 3 + dx;
+#pragma unroll
+        for (int k = 0; k < kVec; ++k)
+          acc[p][k] = madd(acc[p][k], v[k], wr[k][tap], tap);
+      }
+    }
+  }
+  const int oy = oy0 + r;
+  if (oy >= Ho) return;
+#pragma unroll
+  for (int p = 0; p < kMP; ++p) {
+    const int ox = ox0 + px0 + p;
+    if (ox >= Wo) break;
+    store8(out + (((long long)b * Ho + oy) * Wo + ox) * Co + o0, acc[p]);
+  }
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+// The most input channels that one group's 8 outputs read, at multiplier m.
+int span(int M) {
+  int nd = 1;
+  for (int g = 0; g < M; ++g) nd = max(nd, (8 * g % M + 7) / M + 1);
+  return nd;
 }
 
 template <typename T, int S>
 cudaError_t launch_dw3x3(const void* x, const void* w, void* out, int B, int H,
                          int W, int C, int M, cudaStream_t stream) {
   const int Ho = (H + S - 1) / S, Wo = (W + S - 1) / S;
-  const int G = (C * M + kVec - 1) / kVec, strips = (Wo + kPix - 1) / kPix;
-  const long long threads = (long long)B * Ho * strips * G;
-  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
-  const bool xvec = M == 1 && C % kVec == 0 && aligned16(x);
   const bool ovec = (C * M) % kVec == 0 && aligned16(w) && aligned16(out);
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   T* op = static_cast<T*>(out);
-#define MDS_DW3X3(XV, OV)                                                  \
-  dw3x3_kernel<T, S, XV, OV><<<blocks, kThreads, 0, stream>>>(             \
+  if constexpr (sizeof(T) == 2) {
+    const int nd = span(M);
+    if (M > 1 && M <= kMMax && C % kVec == 0 && aligned16(x) && ovec && nd <= 4) {
+      const int tiles_x = (Wo + kMTW - 1) / kMTW, tiles_y = (Ho + kMTH - 1) / kMTH;
+      const dim3 grid((unsigned)((long long)tiles_x * tiles_y * B), C / kVec);
+      const int threads = M * kMStrips;
+#define MDS_DW3X3_MULT(ND)                                                 \
+  dw3x3_kernel_mult<S, ND><<<grid, threads, 0, stream>>>(                  \
+      xp, wp, op, H, W, C, M, Ho, Wo, tiles_x, tiles_y)
+      if (nd <= 2) MDS_DW3X3_MULT(2);
+      else MDS_DW3X3_MULT(4);
+#undef MDS_DW3X3_MULT
+      return cudaGetLastError();
+    }
+  }
+  // pixels per thread: the most of 4, 2, 1 that gives every SM a block
+  const int G = (C * M + kVec - 1) / kVec;
+  auto blocks_of = [&](int p) {
+    return ((long long)B * Ho * ((Wo + p - 1) / p) * G + kThreads - 1) / kThreads;
+  };
+  const int P = blocks_of(4) >= sm_count() ? 4 : blocks_of(2) >= sm_count() ? 2 : 1;
+  const int strips = (Wo + P - 1) / P;
+  const unsigned blocks = (unsigned)blocks_of(P);
+  const bool xvec = M == 1 && C % kVec == 0 && aligned16(x);
+#define MDS_DW3X3(PP, XV, OV)                                              \
+  dw3x3_kernel<T, S, PP, XV, OV><<<blocks, kThreads, 0, stream>>>(         \
       xp, wp, op, B, H, W, C, M, Ho, Wo, G, strips)
-  if (xvec && ovec) MDS_DW3X3(true, true);
-  else if (ovec) MDS_DW3X3(false, true);
-  else MDS_DW3X3(false, false);  // a misaligned w or out: all scalar
+#define MDS_DW3X3_P(XV, OV)                                                \
+  if (P == 4) MDS_DW3X3(4, XV, OV);                                        \
+  else if (P == 2) MDS_DW3X3(2, XV, OV);                                   \
+  else MDS_DW3X3(1, XV, OV)
+  if (xvec && ovec) { MDS_DW3X3_P(true, true); }
+  else if (ovec) { MDS_DW3X3_P(false, true); }
+  else { MDS_DW3X3_P(false, false); }  // a misaligned w or out: all scalar
+#undef MDS_DW3X3_P
 #undef MDS_DW3X3
   return cudaGetLastError();
 }

@@ -4,9 +4,9 @@
 // as PERF.md's table numbers them: 1, 2, 3, 4, 5). All take the memory of a
 // channels_last bf16 tensor, i.e. an NHWC image (B, H, W, 3), and write NHWC
 // bf16 (kernel 1's training form: f32). Their first stage is a 3x3 stride-2
-// pad-1 conv on RGB with the BN folded into f32 weights. Kernels 1 and 2
+// pad-1 conv on RGB with the BN folded into f32 weights. Kernels 1, 2 and 4
 // run it on the tensor cores from that table split into bf16 parts (see
-// their section), kernels 3, 4 and 5 on the CUDA cores from
+// kernel 1's section), kernels 3 and 5 on the CUDA cores from
 //
 //   w[28][O]: rows (dy*3 + dx)*3 + ci are k * scale, row 27 is the bias.
 //
@@ -23,7 +23,7 @@ namespace {
 
 // ---------------------------------------------------------------- helpers
 
-// Stage A of kernels 3, 4 and 5: the folded 3x3 s2 p1 RGB conv at
+// Stage A of kernels 3 and 5: the folded 3x3 s2 p1 RGB conv at
 // half-resolution position (r, c).
 // stem_taps gathers its 27 inputs (dy, dx, ci order; zero outside the
 // image); stem_dot applies output channels [o0, o0 + NC) of the (28, O)
@@ -172,11 +172,12 @@ __device__ __forceinline__ long long stem_row_start(StemTile t, int dy, int H,
 
 // Kernel 1: tile t's window into win by cp.async, 16-byte chunks spread over
 // the threads; the chunks that hold no byte of the image row are skipped.
+// tid: the thread's index among the kStemThreads that copy the window.
 __device__ __forceinline__ void stem_window_async(
     unsigned char* win, const unsigned char* __restrict__ xb, long long total,
-    StemTile t, int H, int W) {
+    StemTile t, int H, int W, int tid) {
   const long long s0 = stem_row_start(t, 0, H, W), row0 = s0 + 8 - 12LL * t.c0;
-  for (int i = threadIdx.x; i < 3 * kStemRowChunks; i += kStemThreads) {
+  for (int i = tid; i < 3 * kStemRowChunks; i += kStemThreads) {
     const int dy = i / kStemRowChunks, q = i - dy * kStemRowChunks;
     if (2 * t.r - 1 + dy < 0) continue;  // the pad row, zeroed in A
     const long long s = s0 + 6LL * W * dy, row = row0 + 6LL * W * dy;
@@ -234,7 +235,7 @@ struct StemLane {
 
 __device__ __forceinline__ StemLane stem_lane(int W) {
   const int lane = threadIdx.x & 31, tq = lane & 3;
-  const int p = 16 * (threadIdx.x >> 5) + (lane >> 2);
+  const int p = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
   StemLane l;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -246,16 +247,17 @@ __device__ __forceinline__ StemLane stem_lane(int W) {
   return l;
 }
 
-// Tile t's GEMM from window win against the table at shared address tbl_s,
-// then [ReLU] and the rounding, into stage: pixels of O + 8 elements, f32 or
-// bf16.
-template <int N, bool F32>
-__device__ __forceinline__ void stem_tile_mma(const unsigned char* win,
-                                              uint32_t tbl_s,
-                                              unsigned char* stage, StemTile t,
+// Tile t's GEMM from window win against the table at shared address tbl_s
+// into acc (the warpgroup's m64nN accumulators; the threads of one
+// warpgroup, whichever of the block's it is). A tile with c0 <= 0 holds the
+// image's left pad column (pixel -c0); pixels left of it read bytes outside
+// the row and are the caller's to discard.
+template <int N>
+__device__ __forceinline__ void stem_tile_acc(const unsigned char* win,
+                                              uint32_t tbl_s, StemTile t,
                                               const StemLane& l, int H, int W,
-                                              int O, int relu) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+                                              float (&acc)[N / 2]) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   uint32_t a[2][4];
   const int sh0 = (int)(stem_row_start(t, 0, H, W) & 15);
@@ -268,7 +270,7 @@ __device__ __forceinline__ void stem_tile_mma(const unsigned char* win,
       a[j >> 1][h + 2 * (j & 1)] = (v & l.keep[j]) | (l.keep[j] ? 0u : 0x3F80u);
     }
   }
-  if (t.r == 0 || t.c0 == 0) {  // the conv's padding: the row above the
+  if (t.r == 0 || t.c0 <= 0) {  // the conv's padding: the row above the
 #pragma unroll                  // image and the column left of it
     for (int j = 0; j < 4; ++j) {
       const int k = 2 * tq + 8 * j, dy = k / 10, e = k - 10 * dy;
@@ -279,7 +281,6 @@ __device__ __forceinline__ void stem_tile_mma(const unsigned char* win,
           a[j >> 1][h + 2 * (j & 1)] = 0;
     }
   }
-  float acc[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
     acc[i] = 0.f;
@@ -294,6 +295,20 @@ __device__ __forceinline__ void stem_tile_mma(const unsigned char* win,
   wgmma_wait<0>();
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) reg_fence(acc[i]);
+}
+
+// Tile t's GEMM, then [ReLU] and the rounding, into stage: pixels of O + 8
+// elements, f32 or bf16.
+template <int N, bool F32>
+__device__ __forceinline__ void stem_tile_mma(const unsigned char* win,
+                                              uint32_t tbl_s,
+                                              unsigned char* stage, StemTile t,
+                                              const StemLane& l, int H, int W,
+                                              int O, int relu) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  float acc[N / 2];
+  stem_tile_acc<N>(win, tbl_s, t, l, H, W, acc);
 
   constexpr int kEs = F32 ? 4 : 2;
   const int ps = (O + 8) * kEs;
@@ -366,7 +381,8 @@ __global__ void __launch_bounds__(kStemThreads)
   }
   if (!BULK) {
     if (tile < tiles)
-      stem_window_async(win, xb, total, stem_tile(tile, tiles_x, H2), H, W);
+      stem_window_async(win, xb, total, stem_tile(tile, tiles_x, H2), H, W,
+                        threadIdx.x);
     cp_async_commit();
   }
   mbar_wait(bar, 0);
@@ -385,7 +401,8 @@ __global__ void __launch_bounds__(kStemThreads)
         stem_window_bulk(w_next, xb, total, tn, H, W, bar + 1 + (buf ^ 1));
       mbar_wait(bar + 1 + buf, (it >> 1) & 1);
     } else {
-      if (next < tiles) stem_window_async(w_next, xb, total, tn, H, W);
+      if (next < tiles)
+        stem_window_async(w_next, xb, total, tn, H, W, threadIdx.x);
       cp_async_commit();  // possibly empty: the wait below stays uniform
       cp_async_wait<1>();
       __syncthreads();
@@ -441,40 +458,420 @@ int stem_dispatch(const void* x, const void* table, void* out, int B, int H,
 
 // ------------------------------------ TPU kernel 4: detail_s1s2_fused
 //
-// Replaces mds_tpu/ops/pallas/stem.py::detail_s1s2_fused (:458-643).
-// DetailBranch S1_1 (3x3 s2, 3->64) -> S1_2 (3x3, 64->64) -> S2_1 (3x3 s2,
-// 64->64), every BN folded, every layer ReLU, bf16 out at /4.
-// Bound: arithmetic. About 50 GFLOP at 1024x2048, 39 of them in S1_2. Design:
-// one block per 4x32 tile of the /4 output keeps both S1 activations in
-// shared memory (the TPU kernel's point: they never reach device memory),
-// and runs the two 64->64 convs as implicit GEMMs on the tensor cores with
-// mma.sync m16n8k16 (bf16 in, f32 accumulate), M = pixels, N = 64,
-// K = 9 taps x 64 channels. The weights come pre-packed in B-fragment order
-// (one 8-byte load per lane, shared by two M tiles) from L1/L2. S1_1 runs on
-// the CUDA cores, one pixel and all 64 channels per thread so the weight
-// reads are broadcasts. (With 8 channels per thread and one M tile per warp
-// pass, the call took 2.3x as long on an H100.)
+// Replaces mds_tpu/ops/pallas/stem.py::detail_s1s2_fused (:582-643, body
+// _detail_kernel :458-579). DetailBranch S1_1 (3x3 s2, 3->64) -> S1_2 (3x3,
+// 64->64) -> S2_1 (3x3 s2, 64->64), every BN folded, every layer ReLU, bf16
+// out at /4. Rounding points follow the TPU kernel: S1_1 in f32 from the f32
+// folded weights, rounded to bf16; S1_2 and S2_1 on bf16(k * scale), the f32
+// bias added to the f32 sum, ReLU, rounded to bf16. Out-of-image positions
+// of S1_1 and S1_2 are the next conv's zero padding, never ReLU(bias).
 //
-// Rounding points follow the TPU kernel: S1_1 in f32 from f32 weights,
-// rounded to bf16; S1_2 and S2_1 on bf16 weights bf16(k*scale), bias added
-// to the f32 sum, ReLU, rounded to bf16.
+// Bound: arithmetic. At (1, 3, 1024, 2048) the three convs are 50.2 GFLOP
+// (38.7 of them in S1_2; 0.051 ms on the bf16 tensor cores) against 29 MB
+// moved. Design: persistent blocks, one per SM, each walk a contiguous run
+// of row steps down 62-column strips of the /4 output, keeping the last
+// three rows of S1_1 and of S1_2 (127 and 125 pixels of 128 bytes, wgmma.cuh's
+// 16-byte XOR swizzle) in shared memory as rings: a step (one /4 row q)
+// computes two S1_1 rows, two S1_2 rows and one S2_1 row, so only the
+// strip's side halo is recomputed (127/124 of S1_1, 125/124 of S1_2) and
+// every M tile is whole but for one pixel. A run that starts a strip (or
+// moves to the next) first computes three S1_1 rows and one S1_2 row.
+// - All three convs on warpgroup MMA, bf16 in, f32 accumulate; two consumer
+//   warpgroups, each one 64-pixel M tile of a row.
+// - S1_1 is kernel 1 at O = 64 with ReLU (stem_tile_acc: A built from the
+//   tile's image window, the f32 table as three bf16 parts, exact), its
+//   window copied by cp.async one S1_1 row ahead; its output goes to the
+//   ring, not to device memory.
+// - S1_2 is an implicit GEMM (M = pixels, N = 64, K = 9 taps x 64) with A
+//   from the S1_1 ring by ldmatrix.x4 (the tap's shift in each lane's row
+//   address) and B from S1_2's 9 weight slices, resident in shared memory
+//   for the whole run (pack_sw128, packed once per parameter version).
+// - S2_1 likewise from the S1_2 ring at stride 2, one M tile per step, the
+//   two warpgroups each 32 of its output channels (m64n32k16); its 9 slices
+//   do not fit beside the rest and stream from L2 through a ring of four
+//   slots by cp.async.bulk under full/empty mbarriers (72 KB per step, read
+//   by both warpgroups): thread 0 refills a slot with the slice four ahead
+//   once both warpgroups are done with it. (A producer warp of its own
+//   would make nine warps, three on one SM sub-partition, which caps a
+//   thread at 168 registers; the consumers' accumulators and A fragments
+//   then spill.)
+// A tap's wgmmas are one group; each conv's taps sum into two accumulators
+// (dx & 1), added in f32 at the end. On an H100 that raised the share of
+// outputs equal to the plain version with f64 sums from 0.9971 to 0.9976 at
+// the frame shape (long chains of accumulation on the tensor cores lose
+// precision) for 2% of the kernel's time. A tap's A fragments load two taps
+// ahead; the loop over dy stays rolled, which keeps the registers below 255
+// (three accumulators, or the nine taps unrolled with two, spilled). Rows,
+// columns and strips past the image are computed on whatever the buffers
+// hold and discarded (masked in the epilogue), so no wgmma is issued under a
+// condition. Any B >= 1 and H, W divisible by 4.
 
-constexpr int kDetTQ = 4;                 // /4 output rows per block
-constexpr int kDetTP = 32;                // /4 output cols per block
-constexpr int kDetAR = 2 * kDetTQ + 3;    // S1_1 rows held (11)
-constexpr int kDetAC = 2 * kDetTP + 3;    // S1_1 cols held (67)
-constexpr int kDetACh = 72;               // S1_1 channel stride (bank spread)
-constexpr int kDetBR = 2 * kDetTQ + 1;    // S1_2 rows held (9)
-constexpr int kDetBC = 2 * kDetTP + 1;    // S1_2 cols held (65)
-constexpr int kDetBCh = 68;               // S1_2 channel stride (bank spread)
-constexpr int kDetBM = kDetBR * kDetBC;   // S1_2 pixels = GEMM M (585)
-constexpr int kDetThreads = 256;
-constexpr size_t kDetSmem = 28 * 64 * sizeof(float) +
-                            (size_t)kDetAR * kDetAC * kDetACh * sizeof(bf16) +
-                            (size_t)kDetBM * kDetBCh * sizeof(bf16);
+constexpr int kHdW = 62;                        // /4 output cols of a strip
+constexpr int kHdS1 = 2 * kHdW + 3;             // S1_1 pixels of a strip row
+constexpr int kHdS2 = 2 * kHdW + 1;             // S1_2 pixels of a strip row
+constexpr int kHdS1Row = kHdS1 * 128, kHdS2Row = kHdS2 * 128;  // bytes
+constexpr int kHdSlice = 8192;                  // one tap x 64 K x 64 N
+constexpr int kHdTbl = 2 * 64 * 128;            // S1_1's table (pack_stem)
+constexpr int kHdSlots = 4;                     // S2_1's weight ring
+constexpr int kHdThreads = 256;                 // two warpgroups
+// 1024 bytes of slack to align the slices to the swizzle's 1024-byte
+// pattern; S1_2's slices, S1_1's table, S2_1's ring, the S1_1 and S1_2
+// rings, two windows per warpgroup, the barriers (weights, full and empty
+// per slot)
+constexpr size_t kHdSmem = 1024 + 9 * kHdSlice + kHdTbl + kHdSlots * kHdSlice +
+                           3 * kHdS1Row + 3 * kHdS2Row + 4 * kStemWinBytes +
+                           (1 + 2 * kHdSlots) * sizeof(uint64_t);
+static_assert(kHdSmem <= 232448, "over the 227 KB a block may opt into");
 
-// Stage A of the detail kernels: S1_1 over a (rows, cols) region of the /2
-// grid with origin (R, C), ReLU, as bf16 pixels of kDetACh elements in s1;
+// A run of row steps of one strip: /4 rows qa .. qb - 1 of the strip whose
+// first /4 column is p0, image b. Steps are numbered (b, strip, q), q
+// fastest; a block's steps [s, end) split into such runs.
+struct HdRun {
+  int b, p0, qa, qb;
+};
+
+__device__ __forceinline__ HdRun hd_run(long long s, long long end, int H4,
+                                        int strips) {
+  const int q = (int)(s % H4);
+  const long long bs = s / H4;
+  return {(int)(bs / strips), (int)(bs % strips) * kHdW, q,
+          (int)min((long long)H4, q + (end - s))};
+}
+
+// S2_1's weight ring: slice k of the block's stream (tap k % 9 of a step)
+// lives in slot k % kHdSlots.
+struct HdRing {
+  unsigned char* base;       // slot 0
+  uint64_t* full;            // per slot: thread 0's arrival and the bytes
+  uint64_t* empty;           // per slot: one arrival per warp
+  const unsigned char* src;  // S2_1's 9 packed slices
+  uint32_t total;            // slices in the block's stream
+
+  __device__ __forceinline__ void load(uint32_t k) const {
+    const uint32_t slot = k % kHdSlots;
+    mbar_arrive_expect_tx(full + slot, kHdSlice);
+    bulk_g2s(base + slot * kHdSlice, src + (k % 9) * kHdSlice, kHdSlice, full + slot);
+  }
+  // Slice k is done with in this warp; thread 0 then refills its slot with
+  // slice k + kHdSlots once every warp is done with it.
+  __device__ __forceinline__ void release(uint32_t k) const {
+    const uint32_t slot = k % kHdSlots;
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + slot);
+    if (threadIdx.x == 0 && k + kHdSlots < total) {
+      mbar_wait(empty + slot, (k / kHdSlots) & 1);
+      load(k + kHdSlots);
+    }
+  }
+};
+
+// A ring slot of row r (r >= -6).
+__device__ __forceinline__ int hd_slot(int r) { return (r + 6) % 3; }
+
+// S1_1 row r of run g, this warpgroup's tile (local pixels 64 wg .. 64 wg +
+// 63, /2 column 2 p0 - 2 + local), from window win: ReLU, bf16, into ring row
+// dst; zero outside the image.
+__device__ __forceinline__ void hd_s1(const unsigned char* win, uint32_t tbl_s,
+                                      unsigned char* dst, const HdRun& g, int r,
+                                      const StemLane& l, int H, int W) {
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
+  const StemTile t{g.b, r, 2 * g.p0 - 2 + 64 * wg};
+  float acc[32];
+  stem_tile_acc<64>(win, tbl_s, t, l, H, W, acc);
+  const bool row_in = r >= 0 && r < H / 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = 16 * warp + gq + 8 * h, loc = 64 * wg + p, c = t.c0 + p;
+    if (loc >= kHdS1) continue;
+    const bool in = row_in && c >= 0 && c < W / 2;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float v0 = in ? fmaxf(acc[4 * j + 2 * h], 0.f) : 0.f;
+      const float v1 = in ? fmaxf(acc[4 * j + 2 * h + 1], 0.f) : 0.f;
+      *reinterpret_cast<uint32_t*>(dst + swz(loc, j, 128) + tq * 4) = pack2(v0, v1);
+    }
+  }
+}
+
+// The lane's ldmatrix row among the 64 of its warpgroup's M tile, and its
+// 8-wide K half.
+__device__ __forceinline__ int hd_arow() {
+  const int lane = threadIdx.x & 31;
+  return 16 * ((threadIdx.x >> 5) & 3) + (lane & 7) + 8 * ((lane >> 3) & 1);
+}
+
+// A fragments of one tap (its 4 k16 steps) for the lane's row pixel pix of
+// ring row `row` (shared address).
+__device__ __forceinline__ void hd_load_a(uint32_t (&a)[4][4], uint32_t row,
+                                          int pix) {
+  const int ahalf = (threadIdx.x & 31) >> 4;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    ldmatrix_x4(a[ks], row + swz(pix, 2 * ks + ahalf, 128));
+}
+
+// S1_2 row r of run g: ReLU(b2 + S1_1 rows r - 1 .. r + 1 (ring at s1_s) *
+// the resident slices at w_s), bf16, into ring row dst; zero outside the
+// image. Warpgroup wg computes local pixels 64 wg .. 64 wg + 63 (/2 column
+// 2 p0 - 1 + local; the last tile's pixel 125 reads a clamped one and is
+// not stored).
+__device__ __forceinline__ void hd_s12(uint32_t s1_s, unsigned char* dst,
+                                       uint32_t w_s,
+                                       const float* __restrict__ b2,
+                                       const HdRun& g, int r, int H2, int W2) {
+  const int wg = threadIdx.x >> 7, wiw = (threadIdx.x >> 5) & 3;
+  const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
+  const int pix = min(64 * wg + hd_arow(), kHdS2 - 1);
+  float acc[2][32];  // tap (dy, dx) sums into acc[dx & 1]
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      acc[j][i] = 0.f;
+      reg_fence(acc[j][i]);
+    }
+  uint32_t a[3][4][4];  // tap (dy, dx) in a[dx]
+  const uint32_t row0 = s1_s + hd_slot(r - 1) * kHdS1Row;
+  hd_load_a(a[0], row0, pix);
+  hd_load_a(a[1], row0, pix + 1);
+#pragma unroll 1
+  for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const int tap = 3 * dy + dx;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_m64n64k16(acc[dx & 1], a[dx][ks],
+                        sw128_desc(w_s + tap * kHdSlice + 32 * ks));
+      wgmma_commit();
+      wgmma_wait<1>();  // tap - 1 is done: its registers take tap + 2
+      if (tap < 7)
+        hd_load_a(a[(dx + 2) % 3], s1_s + hd_slot(r - 1 + (tap + 2) / 3) * kHdS1Row,
+                  pix + (dx + 2) % 3);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) reg_fence(acc[j][i]);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[0][i] += acc[1][i];
+  const bool row_in = r >= 0 && r < H2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int loc = 64 * wg + 16 * wiw + gq + 8 * h, c = 2 * g.p0 - 1 + loc;
+    if (loc >= kHdS2) continue;
+    const bool in = row_in && c >= 0 && c < W2;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = 8 * j + 2 * tq;
+      const float v0 = in ? fmaxf(acc[0][4 * j + 2 * h] + __ldg(b2 + n), 0.f) : 0.f;
+      const float v1 = in ? fmaxf(acc[0][4 * j + 2 * h + 1] + __ldg(b2 + n + 1), 0.f) : 0.f;
+      *reinterpret_cast<uint32_t*>(dst + swz(loc, j, 128) + tq * 4) = pack2(v0, v1);
+    }
+  }
+}
+
+// S2_1 row q of run g from the S1_2 ring at s2_s (rows 2q - 1 .. 2q + 1, at
+// stride 2) and the next 9 slices of the weight ring (slices n .. n + 8 of
+// the block's stream; each is released once this warpgroup's wgmmas on it
+// are done): ReLU(b3 + sum), bf16, to out.
+// Warpgroup wg computes output channels 32 wg .. 32 wg + 31 of the row's
+// 62 pixels (M rows 62, 63 read a clamped pixel and are not stored).
+__device__ __forceinline__ void hd_s21(uint32_t s2_s, const HdRing& ring,
+                                       uint32_t& n, const float* __restrict__ b3,
+                                       bf16* __restrict__ out, const HdRun& g,
+                                       int q, int H4, int W4) {
+  const int wg = threadIdx.x >> 7, wiw = (threadIdx.x >> 5) & 3;
+  const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
+  const int pix = 2 * min(hd_arow(), kHdW - 1);
+  float acc[2][16];  // tap (dy, dx) sums into acc[dx & 1]
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      acc[j][i] = 0.f;
+      reg_fence(acc[j][i]);
+    }
+  uint32_t a[3][4][4];  // tap (dy, dx) in a[dx]
+  const uint32_t ring_s = smem_u32(ring.base);
+  const uint32_t row0 = s2_s + hd_slot(2 * q - 1) * kHdS2Row;
+  hd_load_a(a[0], row0, pix);
+  hd_load_a(a[1], row0, pix + 1);
+#pragma unroll 1
+  for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const int tap = 3 * dy + dx;
+      const uint32_t sl = n + tap, slot = sl % kHdSlots;
+      mbar_wait(ring.full + slot, (sl / kHdSlots) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_m64n32k16(acc[dx & 1], a[dx][ks],
+                        sw128_desc(ring_s + slot * kHdSlice + wg * 32 * 128 + 32 * ks));
+      wgmma_commit();
+      wgmma_wait<1>();  // tap - 1 is done: its slot goes back, its registers
+      if (tap > 0) ring.release(sl - 1);  // take tap + 2
+      if (tap < 7)
+        hd_load_a(a[(dx + 2) % 3], s2_s + hd_slot(2 * q - 1 + (tap + 2) / 3) * kHdS2Row,
+                  pix + (dx + 2) % 3);
+    }
+  }
+  wgmma_wait<0>();
+  ring.release(n + 8);
+  n += 9;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) reg_fence(acc[j][i]);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[0][i] += acc[1][i];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = 16 * wiw + gq + 8 * h, p = g.p0 + i;
+    if (i >= kHdW || p >= W4) continue;
+    bf16* o = out + (((size_t)g.b * H4 + q) * W4 + p) * 64 + 32 * wg;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 8 * j + 2 * tq;
+      const float v0 = fmaxf(acc[0][4 * j + 2 * h] + __ldg(b3 + 32 * wg + c), 0.f);
+      const float v1 = fmaxf(acc[0][4 * j + 2 * h + 1] + __ldg(b3 + 32 * wg + c + 1), 0.f);
+      *reinterpret_cast<uint32_t*>(o + c) = pack2(v0, v1);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kHdThreads, 1)
+    detail_head_kernel(const bf16* __restrict__ x, const bf16* __restrict__ tbl,
+                       const bf16* __restrict__ w2p, const float* __restrict__ b2,
+                       const bf16* __restrict__ w3p, const float* __restrict__ b3,
+                       bf16* __restrict__ out, int B, int H, int W, int strips,
+                       int per_block) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* w12 = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* t1 = w12 + 9 * kHdSlice;
+  unsigned char* ring = t1 + kHdTbl;
+  unsigned char* s1 = ring + kHdSlots * kHdSlice;
+  unsigned char* s2 = s1 + 3 * kHdS1Row;
+  unsigned char* wins = s2 + 3 * kHdS2Row;
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(wins + 4 * kStemWinBytes);
+  uint64_t* full = wbar + 1;
+  uint64_t* empty = full + kHdSlots;
+  const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
+  const long long steps = (long long)B * strips * H4;
+  const long long s0 = (long long)blockIdx.x * per_block;
+  const long long end = min(steps, s0 + per_block);
+
+  const HdRing wring{ring, full, empty, reinterpret_cast<const unsigned char*>(w3p),
+                     (uint32_t)(9 * (end - s0))};
+  if (threadIdx.x == 0) {
+    mbar_init(wbar, 1);
+    for (int i = 0; i < kHdSlots; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kHdThreads / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // S1_2's slices and S1_1's table, once per block;
+    mbar_arrive_expect_tx(wbar, 9 * kHdSlice + kHdTbl);  // S2_1's first slices
+    const unsigned char* w2 = reinterpret_cast<const unsigned char*>(w2p);
+    for (int t = 0; t < 9; ++t)
+      bulk_g2s(w12 + t * kHdSlice, w2 + t * kHdSlice, kHdSlice, wbar);
+    bulk_g2s(t1, tbl, kHdTbl, wbar);
+    for (uint32_t k = 0; k < kHdSlots && k < wring.total; ++k) wring.load(k);
+  }
+
+  const int wg = threadIdx.x >> 7;
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+  const long long total = 6LL * B * H * W;  // bytes of x
+  const StemLane lane = stem_lane(W);
+  unsigned char* win = wins + wg * 2 * kStemWinBytes;
+  const uint32_t tbl_s = smem_u32(t1), w12_s = smem_u32(w12);
+  const uint32_t s1_s = smem_u32(s1), s2_s = smem_u32(s2);
+
+  // The S1_1 rows in the order this block computes them (runs one after
+  // the other; a run's rows 2 qa - 2 .. 2 qb), for the window prefetch.
+  long long fs = s0;
+  HdRun fg = hd_run(s0, end, H4, strips);
+  int fr = 2 * fg.qa - 2;
+  bool fvalid = true;
+  // this warpgroup's window of the prefetch cursor's row into buf, then on
+  auto fetch = [&](unsigned char* buf) {
+    if (fvalid && fr >= 0 && fr < H2)
+      stem_window_async(buf, xb, total, StemTile{fg.b, fr, 2 * fg.p0 - 2 + 64 * wg},
+                        H, W, threadIdx.x & 127);
+    cp_async_commit();  // possibly empty: the waits stay uniform
+    if (fr < 2 * fg.qb) {
+      ++fr;
+    } else {
+      fs += fg.qb - fg.qa;
+      fvalid = fs < end;
+      if (fvalid) {
+        fg = hd_run(fs, end, H4, strips);
+        fr = 2 * fg.qa - 2;
+      }
+    }
+  };
+  int k = 0;  // S1_1 rows computed by this warpgroup: row k's window in buf k & 1
+  fetch(win);
+  mbar_wait(wbar, 0);
+  auto s1_row = [&](const HdRun& g, int r) {
+    named_bar_sync(2 + wg, 128);  // buffer (k + 1) & 1 is read
+    fetch(win + ((k + 1) & 1) * kStemWinBytes);
+    cp_async_wait<1>();
+    named_bar_sync(2 + wg, 128);  // row k's window is whole
+    hd_s1(win + (k & 1) * kStemWinBytes, tbl_s, s1 + hd_slot(r) * kHdS1Row, g, r,
+          lane, H, W);
+    ++k;
+  };
+
+  uint32_t n = 0;  // S2_1 slices consumed
+  for (long long s = s0; s < end;) {
+    const HdRun g = hd_run(s, end, H4, strips);
+    for (int r = 2 * g.qa - 2; r <= 2 * g.qa; ++r) s1_row(g, r);
+    named_bar_sync(1, kHdThreads);
+    hd_s12(s1_s, s2 + hd_slot(2 * g.qa - 1) * kHdS2Row, w12_s, b2, g,
+           2 * g.qa - 1, H2, W2);
+    named_bar_sync(1, kHdThreads);
+    for (int q = g.qa; q < g.qb; ++q) {
+      if (q > g.qa) hd_s21(s2_s, wring, n, b3, out, g, q - 1, H4, W4);
+      s1_row(g, 2 * q + 1);
+      named_bar_sync(1, kHdThreads);
+      hd_s12(s1_s, s2 + hd_slot(2 * q) * kHdS2Row, w12_s, b2, g, 2 * q, H2, W2);
+      named_bar_sync(1, kHdThreads);
+      s1_row(g, 2 * q + 2);
+      named_bar_sync(1, kHdThreads);
+      hd_s12(s1_s, s2 + hd_slot(2 * q + 1) * kHdS2Row, w12_s, b2, g, 2 * q + 1,
+             H2, W2);
+      named_bar_sync(1, kHdThreads);
+    }
+    hd_s21(s2_s, wring, n, b3, out, g, g.qb - 1, H4, W4);
+    named_bar_sync(1, kHdThreads);
+    s += g.qb - g.qa;
+  }
+  cp_async_wait<0>();
+}
+
+// ------------------------------------ TPU kernel 3: stem_s1_pair_fused
+//
+// Replaces mds_tpu/ops/pallas/stem.py::stem_s1_pair_fused (:408-455, body
+// _pair_kernel :365-405): DetailBranch S1_1 (3x3 s2, 3->64) -> S1_2 (3x3,
+// 64->64), BNs folded, the second ReLU optional: the first two convs of
+// kernel 4, with their rounding points (S1_1 in f32 on the CUDA cores here). Bound: arithmetic, 40.5 GFLOP at 1024x2048
+// (38.7 of them in S1_2) against 80 MB moved. Design: one block per 8x32
+// tile of the /2 output; S1_1 over the tile and its one-pixel halo (10 x 34)
+// in shared memory on the CUDA cores (s1_1_region); each warp computes one
+// output row as two M tiles on the tensor cores and stores it.
+
+constexpr int kPairCh = 72;               // S1_1 channel stride (bank spread)
+constexpr int kPairThreads = 256;
+
+// Stage A of kernel 3: S1_1 over a (rows, cols) region of the /2
+// grid with origin (R, C), ReLU, as bf16 pixels of kPairCh elements in s1;
 // one pixel (all 64 channels) per thread, so every weight read is a
 // warp-wide broadcast; zero outside the image.
 __device__ __forceinline__ void s1_1_region(const bf16* __restrict__ xb,
@@ -483,7 +880,7 @@ __device__ __forceinline__ void s1_1_region(const bf16* __restrict__ xb,
                                             int cols) {
   for (int p = threadIdx.x; p < rows * cols; p += blockDim.x) {
     const int r = R + p / cols, c = C + p % cols;
-    uint4* dst = reinterpret_cast<uint4*>(s1 + p * kDetACh);
+    uint4* dst = reinterpret_cast<uint4*>(s1 + p * kPairCh);
     if (r >= 0 && r < H / 2 && c >= 0 && c < W / 2) {
       float v[27], acc[64];
       stem_taps(xb, H, W, r, c, v);
@@ -499,118 +896,15 @@ __device__ __forceinline__ void s1_1_region(const bf16* __restrict__ xb,
   }
 }
 
-__global__ void __launch_bounds__(kDetThreads)
-    detail_kernel(const bf16* __restrict__ x, const float* __restrict__ w1,
-                  const uint2* __restrict__ w2p, const float* __restrict__ b2,
-                  const uint2* __restrict__ w3p, const float* __restrict__ b3,
-                  bf16* __restrict__ out, int H, int W) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* w1s = reinterpret_cast<float*>(smem);
-  bf16* s1 = reinterpret_cast<bf16*>(smem + 28 * 64 * sizeof(float));
-  bf16* s2 = s1 + kDetAR * kDetAC * kDetACh;
-
-  const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
-  const int q0 = blockIdx.y * kDetTQ, p0 = blockIdx.x * kDetTP;
-  const int b = blockIdx.z;
-  const bf16* xb = x + (size_t)b * H * W * 3;
-  const int tid = threadIdx.x;
-  const int R1 = 2 * q0 - 2, C1 = 2 * p0 - 2;  // S1_1 origin (/2 coords)
-  const int R2 = 2 * q0 - 1, C2 = 2 * p0 - 1;  // S1_2 origin (/2 coords)
-
-  for (int i = tid; i < 28 * 64; i += kDetThreads) w1s[i] = w1[i];
-  __syncthreads();
-
-  // stage A: S1_1 over the (11, 67) halo region
-  s1_1_region(xb, H, W, w1s, s1, R1, C1, kDetAR, kDetAC);
-  __syncthreads();
-
-  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
-  constexpr int kWarps = kDetThreads / 32;
-
-  // stage B: S1_2 over the (9, 65) region; GEMM M = 585 in 37 tiles, two
-  // tiles per warp pass (the second may lie past M: loads clamp, stores skip)
-  {
-    constexpr int kTiles = (kDetBM + 15) / 16;
-    float acc[2][8][4];
-    for (int pr = warp; 2 * pr < kTiles; pr += kWarps) {
-      int ms[4], base[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        ms[k] = (2 * pr + k / 2) * 16 + gq + 8 * (k % 2);
-        const int mc = min(ms[k], kDetBM - 1);
-        base[k] = ((mc / kDetBC) * kDetAC + mc % kDetBC) * kDetACh + tq * 2;
-      }
-      conv3x3_mma<kDetAC, kDetACh, 4, 8, 2>(s1, base, w2p, 8, 8, lane, acc);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int m = ms[k], t = k / 2, h = k % 2;
-        if (m >= kDetBM) continue;
-        const int r = R2 + m / kDetBC, c = C2 + m % kDetBC;
-        const bool in = r >= 0 && r < H2 && c >= 0 && c < W2;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int col = nt * 8 + tq * 2;
-          float v0 = 0.f, v1 = 0.f;
-          if (in) {
-            v0 = fmaxf(acc[t][nt][2 * h] + __ldg(b2 + col), 0.f);
-            v1 = fmaxf(acc[t][nt][2 * h + 1] + __ldg(b2 + col + 1), 0.f);
-          }
-          *reinterpret_cast<uint32_t*>(s2 + m * kDetBCh + col) = pack2(v0, v1);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // stage C: S2_1 (s2) for the 4x32 output tile; GEMM M = 128 in 8 tiles
-  {
-    float acc[1][8][4];
-    for (int mt = warp; mt < kDetTQ * kDetTP / 16; mt += kWarps) {
-      int ms[2], base[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        ms[h] = mt * 16 + gq + 8 * h;
-        base[h] = ((2 * (ms[h] / kDetTP)) * kDetBC + 2 * (ms[h] % kDetTP)) *
-                      kDetBCh + tq * 2;
-      }
-      conv3x3_mma<kDetBC, kDetBCh, 4, 8, 1>(s2, base, w3p, 8, 8, lane, acc);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = q0 + ms[h] / kDetTP, p = p0 + ms[h] % kDetTP;
-        if (q >= H4 || p >= W4) continue;
-        bf16* o = out + (((size_t)b * H4 + q) * W4 + p) * 64;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int col = nt * 8 + tq * 2;
-          const float v0 = fmaxf(acc[0][nt][2 * h] + __ldg(b3 + col), 0.f);
-          const float v1 = fmaxf(acc[0][nt][2 * h + 1] + __ldg(b3 + col + 1), 0.f);
-          *reinterpret_cast<uint32_t*>(o + col) = pack2(v0, v1);
-        }
-      }
-    }
-  }
-}
-
-// ------------------------------------ TPU kernel 3: stem_s1_pair_fused
-//
-// Replaces mds_tpu/ops/pallas/stem.py::stem_s1_pair_fused (:408-455, body
-// _pair_kernel :365-405): DetailBranch S1_1 (3x3 s2, 3->64) -> S1_2 (3x3,
-// 64->64), BNs folded, the second ReLU optional: kernel 4 without its stage
-// C, with its rounding points. Bound: arithmetic, 40.5 GFLOP at 1024x2048
-// (38.7 of them in S1_2) against 80 MB moved. Design: one block per 8x32
-// tile of the /2 output; S1_1 over the tile and its one-pixel halo (10 x 34)
-// in shared memory on the CUDA cores (s1_1_region); each warp computes one
-// output row as two M tiles on the tensor cores and stores it.
-
 constexpr int kPairTQ = 8;                // /2 output rows per block
 constexpr int kPairTP = 32;               // /2 output cols per block
 constexpr int kPairAR = kPairTQ + 2;      // S1_1 rows held (10)
 constexpr int kPairAC = kPairTP + 2;      // S1_1 cols held (34)
 constexpr size_t kPairSmem = 28 * 64 * sizeof(float) +
-                             (size_t)kPairAR * kPairAC * kDetACh * sizeof(bf16);
-static_assert(kPairTQ * 32 == kDetThreads, "one output row per warp");
+                             (size_t)kPairAR * kPairAC * kPairCh * sizeof(bf16);
+static_assert(kPairTQ * 32 == kPairThreads, "one output row per warp");
 
-__global__ void __launch_bounds__(kDetThreads)
+__global__ void __launch_bounds__(kPairThreads)
     pair_kernel(const bf16* __restrict__ x, const float* __restrict__ w1,
                 const uint2* __restrict__ w2p, const float* __restrict__ b2,
                 bf16* __restrict__ out, int H, int W, int relu2) {
@@ -620,7 +914,7 @@ __global__ void __launch_bounds__(kDetThreads)
   const int H2 = H / 2, W2 = W / 2;
   const int r0 = blockIdx.y * kPairTQ, c0 = blockIdx.x * kPairTP;
   const int b = blockIdx.z;
-  for (int i = threadIdx.x; i < 28 * 64; i += kDetThreads) w1s[i] = w1[i];
+  for (int i = threadIdx.x; i < 28 * 64; i += kPairThreads) w1s[i] = w1[i];
   __syncthreads();
   s1_1_region(x + (size_t)b * H * W * 3, H, W, w1s, s1, r0 - 1, c0 - 1,
               kPairAR, kPairAC);
@@ -631,9 +925,9 @@ __global__ void __launch_bounds__(kDetThreads)
   int base[4];  // the lane's A rows: cols gq, gq + 8, gq + 16, gq + 24
 #pragma unroll
   for (int k = 0; k < 4; ++k)
-    base[k] = (warp * kPairAC + 8 * k + gq) * kDetACh + tq * 2;
+    base[k] = (warp * kPairAC + 8 * k + gq) * kPairCh + tq * 2;
   float acc[2][8][4];
-  conv3x3_mma<kPairAC, kDetACh, 4, 8, 2>(s1, base, w2p, 8, 8, lane, acc);
+  conv3x3_mma<kPairAC, kPairCh, 4, 8, 2>(s1, base, w2p, 8, 8, lane, acc);
   const int r = r0 + warp;
   if (r >= H2) return;
 #pragma unroll
@@ -847,29 +1141,41 @@ extern "C" int mds_stem_s1_pair_fused(const void* x, const void* w1,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W / 2 + kPairTP - 1) / kPairTP,
                   (H / 2 + kPairTQ - 1) / kPairTQ, B);
-  pair_kernel<<<grid, kDetThreads, kPairSmem, (cudaStream_t)stream>>>(
+  pair_kernel<<<grid, kPairThreads, kPairSmem, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(w1),
       static_cast<const uint2*>(w2p), static_cast<const float*>(b2),
       static_cast<bf16*>(out), H, W, relu2);
   return (int)cudaGetLastError();
 }
 
-extern "C" int mds_detail_s1s2_fused(const void* x, const void* w1,
+// t1: pack_stem of S1_1 (O = 64, two slices); w2p, w3p: pack_sw128 of
+// bf16(k * scale) of S1_2 and S2_1 (9 slices each); b2, b3: their f32 biases.
+extern "C" int mds_detail_s1s2_fused(const void* x, const void* t1,
                                      const void* w2p, const void* b2,
                                      const void* w3p, const void* b3,
                                      void* out, int B, int H, int W,
                                      void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      detail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kDetSmem);
+  if (B < 1 || H < 4 || W < 4 || H % 4 || W % 4) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(detail_head_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kHdSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W / 4 + kDetTP - 1) / kDetTP, (H / 4 + kDetTQ - 1) / kDetTQ,
-                  B);
-  detail_kernel<<<grid, kDetThreads, kDetSmem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(w1),
-      static_cast<const uint2*>(w2p), static_cast<const float*>(b2),
-      static_cast<const uint2*>(w3p), static_cast<const float*>(b3),
-      static_cast<bf16*>(out), H, W);
+  const int strips = (W / 4 + kHdW - 1) / kHdW;
+  const long long steps = (long long)B * strips * (H / 4);
+  const long long per_block = (steps + sms - 1) / sms;
+  if (per_block >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const long long blocks = (steps + per_block - 1) / per_block;
+  detail_head_kernel<<<(unsigned)blocks, kHdThreads, kHdSmem,
+                       (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(t1),
+      static_cast<const bf16*>(w2p), static_cast<const float*>(b2),
+      static_cast<const bf16*>(w3p), static_cast<const float*>(b3),
+      static_cast<bf16*>(out), B, H, W, strips, (int)per_block);
   return (int)cudaGetLastError();
 }
 

@@ -73,16 +73,8 @@ class DetailBranch(nn.Module):
 
     def forward(self, xs: MultiX):
         if _fusable(self, xs):
-            from mds_tpu_torch.ops.stem import detail_s1s2_fused
-
-            k1, cf1 = self.S1_1.folded(xs)
-            k2, cf2 = self.S1_2.folded(xs)
-            k3, cf3 = self.S2_1.folded(xs)
-            xs = [
-                None if x is None else detail_s1s2_fused(
-                    x.to(self.dtype), k1, *cf1[i], k2, *cf2[i], k3, *cf3[i])
-                for i, x in enumerate(xs)
-            ]
+            xs = [None if x is None else self._head_fused(x.to(self.dtype), i)
+                  for i, x in enumerate(xs)]
             # the tail: S2_2 … S3_3 as one kernel on the /4 output, whose H4
             # and W4 must be even (H, W divisible by 8; JAX asks H4 % 16 == 0
             # for its tile, mds_tpu/models/bisenetv2.py:98-119)
@@ -97,8 +89,31 @@ class DetailBranch(nn.Module):
             xs = layer(xs)
         return xs
 
+    def _head(self):
+        return (self.S1_1, self.S1_2, self.S2_1)
+
     def _tail(self):
         return (self.S2_2, self.S2_3, self.S3_1, self.S3_2, self.S3_3)
+
+    def _packed(self, name, modules, i, pack, params, x):
+        """pack(*params) for dataset i, once per parameter version of the
+        modules' conv weights and BN tensors (PackCache); None for a CPU x,
+        whose plain version reads no pack."""
+        if x.device.type == "cpu":
+            return None
+        srcs = [t for m in modules
+                for t in (m.conv.weight, *m.bn.tensors_at(i, m._shared()))]
+        return self._packs.get((name, i), srcs, lambda: pack(*params))
+
+    def _head_fused(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """Dataset i's input through the head kernel (S1_1, S1_2, S2_1), its
+        folds and packed weights made once per parameter version."""
+        from mds_tpu_torch.ops.stem import detail_s1s2_fused, pack_detail_head
+
+        params = [t for m in self._head()
+                  for t in (m.conv.weight, *m.fold_cached(i))]
+        packed = self._packed("head", self._head(), i, pack_detail_head, params, x)
+        return detail_s1s2_fused(x, *params, packed)
 
     def _tail_fused(self, x: torch.Tensor, i: int) -> torch.Tensor:
         """Dataset i's /4 feature through the tail kernel, its weights folded
@@ -108,12 +123,7 @@ class DetailBranch(nn.Module):
 
         params = [t for m in self._tail()
                   for t in (m.conv.weight, *m.fold_cached(i))]
-        packed = None
-        if x.device.type != "cpu":
-            srcs = [t for m in self._tail() for t in
-                    (m.conv.weight, *m.bn.tensors_at(i, m._shared()))]
-            packed = self._packs.get(("tail", i), srcs,
-                                     lambda: pack_detail_tail(*params))
+        packed = self._packed("tail", self._tail(), i, pack_detail_tail, params, x)
         return detail_tail_fused(x, *params, packed)
 
 

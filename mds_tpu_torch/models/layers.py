@@ -377,7 +377,8 @@ class ConvBNReLU(nn.Module):
     dataset's tensor. With set_depthwise_impl("kernel") a 3×3 conv with
     groups == in_chan at stride 1 or 2 runs as the depthwise kernel
     (ops/depthwise.py; layers.py:506-512's condition), which refuses inputs
-    that require grad. Otherwise a grouped conv with a channel multiplier
+    that require grad; its weight in the compute dtype is cached (PackCache)
+    under no_grad. Otherwise a grouped conv with a channel multiplier
     (groups == in_chan < out_chan) runs as the input's channels repeated
     `mult` times followed by a depthwise conv on the same (out, 1, k, k)
     weight: PyTorch launches one kernel per group for the grouped form.
@@ -437,7 +438,12 @@ class ConvBNReLU(nn.Module):
             from mds_tpu_torch.ops.depthwise import depthwise3x3
 
             x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
-            return depthwise3x3(x, conv.weight.to(self.dtype), conv.stride[0])
+            # the weight in the compute dtype, cast once per parameter version
+            # (under grad the wrapper must see the weight itself, and refuse it)
+            w = (conv.weight.to(self.dtype) if torch.is_grad_enabled() else
+                 self._packs.get("dw", (conv.weight,),
+                                 lambda: conv.weight.to(self.dtype).contiguous()))
+            return depthwise3x3(x, w, conv.stride[0])
         if conv.groups == conv.in_channels < conv.out_channels:
             x = _repeat_channels(x.to(self.dtype),
                                  conv.out_channels // conv.in_channels)

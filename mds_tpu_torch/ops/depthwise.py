@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from mds_tpu_torch.ops import build as _build
 from mds_tpu_torch.ops.stem import _is_cpu, _ptr, _raise_on, _stream
 
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -77,14 +78,12 @@ def _launch(fn_name: str, x, w, stride: int) -> torch.Tensor:
         raise ValueError(f"{fn_name}: x must be channels_last contiguous")
     if not w.is_contiguous():
         raise ValueError(f"{fn_name}: w must be contiguous")
-    from mds_tpu_torch.ops.build import load
-
     b, c, h, wd = x.shape
     co = w.shape[0]
     out = torch.empty((b, co, -(-h // stride), -(-wd // stride)), dtype=x.dtype,
                       device=x.device, memory_format=torch.channels_last)
     f32 = int(x.dtype == torch.float32)
-    lib = load()
+    lib = _build.load()
     if fn_name == "depthwise3x3":
         err = lib.mds_dw3x3(_ptr(x), _ptr(w), _ptr(out), b, h, wd, c, co // c,
                             stride, f32, _stream())

@@ -22,8 +22,9 @@ train-mode RGB stems take it under set_stem_impl("kernel").
 kernel (2) instead of kernel 1 on a CUDA tensor, as JAX's set_stem_variant
 does (stem.py:1248-1284); the two share one plain version and agree bit for
 bit. Kernels 1 and 2 read their weights as `pack_stem` lays them out (the
-f32 table as three bf16 parts); a caller that holds the weights packs once and passes
-`packed`, else the wrapper packs in the call. stem_s1_pair_fused is on no
+f32 table as three bf16 parts), kernel 4 as `pack_detail_head` and kernel 7
+as `pack_detail_tail` do; a caller that holds the weights packs once and
+passes `packed`, else the wrapper packs in the call. stem_s1_pair_fused is on no
 model path, as in JAX.
 
 Each wrapper takes logically NCHW tensors stored channels_last (NHWC in
@@ -366,29 +367,47 @@ def detail_s1s2_fused_plain(x, k1, s1, b1, k2, s2, b2, k3, s3, b3):
     return _out(F.relu(_conv(y, _fold_bf16(k3, s3), b3, stride=2)))
 
 
-def detail_s1s2_fused(x, k1, s1, b1, k2, s2, b2, k3, s3, b3):
-    """DetailBranch S1_1 → S1_2 → S2_1 with folded BNs and ReLUs.
-    x (B,3,H,W) bf16 channels_last, H and W divisible by 4; k1 (64,3,3,3),
-    k2/k3 (64,64,3,3) → (B,64,H/4,W/4) bf16 channels_last."""
-    if _is_cpu(x):
-        return detail_s1s2_fused_plain(x, k1, s1, b1, k2, s2, b2, k3, s3, b3)
-    name = "detail_s1s2_fused"
-    _check_image(x, 4, name)
-    _check_params(x, name, (k1, s1, b1, k2, s2, b2, k3, s3, b3))
+def pack_detail_head(k1, s1, b1, k2, s2, b2, k3, s3, b3):
+    """Kernel 4's weights as csrc/stem.cu reads them: (pack_stem of S1_1's
+    f32 folded table, pack_sw128 of bf16(k·scale) of S1_2, its f32 bias, the
+    same of S2_1). Once per parameter version: the route caches it
+    (models/bisenetv2.py DetailBranch)."""
     if (tuple(k1.shape) != (64, 3, 3, 3) or tuple(k2.shape) != (64, 64, 3, 3)
             or tuple(k3.shape) != (64, 64, 3, 3)):
-        raise ValueError(f"{name}: bad kernel shapes {k1.shape} {k2.shape} "
-                         f"{k3.shape}")
+        raise ValueError(f"pack_detail_head: bad kernel shapes {k1.shape} "
+                         f"{k2.shape} {k3.shape}")
+    return (pack_stem(k1, s1, b1), pack_sw128(_fold_bf16(k2, s2)),
+            b2.float().contiguous(), pack_sw128(_fold_bf16(k3, s3)),
+            b3.float().contiguous())
+
+
+def detail_s1s2_fused(x, k1, s1, b1, k2, s2, b2, k3, s3, b3, packed=None):
+    """DetailBranch S1_1 → S1_2 → S2_1 with folded BNs and ReLUs.
+    x (B,3,H,W) bf16 channels_last, H and W divisible by 4; k1 (64,3,3,3),
+    k2/k3 (64,64,3,3) → (B,64,H/4,W/4) bf16 channels_last. `packed`: the
+    same parameters through pack_detail_head, made once; a CUDA launch
+    packs them itself when it is None."""
+    params = (k1, s1, b1, k2, s2, b2, k3, s3, b3)
+    if _is_cpu(x):
+        return detail_s1s2_fused_plain(x, *params)
+    name = "detail_s1s2_fused"
+    _check_image(x, 4, name)
+    _check_aligned(x, 16, name)
+    _check_params(x, name, params)
+    t1, w2p, b2f, w3p, b3f = pack_detail_head(*params) if packed is None else packed
+    if (t1.dtype != _BF16 or t1.numel() != 2 * 64 * 64 or w2p.dtype != _BF16
+            or w2p.numel() != 9 * 4096 or w3p.dtype != _BF16 or w3p.numel() != 9 * 4096
+            or b2f.dtype != torch.float32 or b2f.numel() != 64
+            or b3f.dtype != torch.float32 or b3f.numel() != 64):
+        raise ValueError(f"{name}: packed weights are not pack_detail_head's")
+    _check_params(x, name, (t1, w2p, b2f, w3p, b3f))
     from mds_tpu_torch.ops.build import load
 
     b, _, h, w = x.shape
-    w1 = _stem_table(k1, s1, b1)
-    w2p, w3p = _mma_b_pack(_fold_bf16(k2, s2)), _mma_b_pack(_fold_bf16(k3, s3))
-    b2f, b3f = b2.float().contiguous(), b3.float().contiguous()
     out = torch.empty((b, 64, h // 4, w // 4), dtype=_BF16, device=x.device,
                       memory_format=_CL)
     err = load().mds_detail_s1s2_fused(
-        _ptr(x), _ptr(w1), _ptr(w2p), _ptr(b2f), _ptr(w3p), _ptr(b3f),
+        _ptr(x), _ptr(t1), _ptr(w2p), _ptr(b2f), _ptr(w3p), _ptr(b3f),
         _ptr(out), b, h, w, _stream())
     _raise_on(err, name)
     detail_s1s2_fused.launches += 1

@@ -315,3 +315,99 @@ def test_stem_routes_pack_once_per_version(monkeypatch):
                                tstem.pack_stem(conv.weight.to(torch.bfloat16)))
     finally:
         tl.set_stem_impl("plain")
+
+
+def _head_params(seed):
+    rng = np.random.default_rng(seed)
+    params = []
+    for o, i in ((64, 3), (64, 64), (64, 64)):
+        params += [weights(o, i, seed + i),
+                   torch.tensor(rng.normal(1, .1, o), dtype=torch.float32),
+                   torch.tensor(rng.normal(0, .1, o), dtype=torch.float32)]
+    return params
+
+
+def test_detail_head_pack_reads_back():
+    """Kernel 4's weights: S1_1's f32 table in three bf16 parts read back as
+    kernels 1 and 2 address it (exact sum), S1_2 and S2_1's bf16(k·scale) as
+    9 slices each through the descriptor and swizzle addressing, the f32
+    biases as they are."""
+    params = _head_params(5)
+    t1, w2p, b2, w3p, b3 = tstem.pack_detail_head(*params)
+    hi, mid, lo = (read_stem(t1, 64, p) for p in range(3))
+    np.testing.assert_array_equal(hi + mid + lo, stem_table(*params[:3]))
+    for packed, (k, s) in ((w2p, params[3:5]), (w3p, params[6:8])):
+        assert packed.dtype == torch.bfloat16 and packed.numel() * 2 == 9 * SLICE
+        wb = tstem._fold_bf16(k, s)
+        for tap in range(9):
+            for ks in range(4):
+                np.testing.assert_array_equal(read_b(packed, tap, ks),
+                                              expected_b(wb, 0, tap, 0, ks))
+    np.testing.assert_array_equal(b2.numpy(), params[5].numpy())
+    np.testing.assert_array_equal(b3.numpy(), params[8].numpy())
+    with pytest.raises(ValueError, match="bad kernel shapes"):
+        tstem.pack_detail_head(*params[:3], weights(64, 32, 0), *params[4:])
+
+
+def test_detail_head_route_packs_once_per_version():
+    """The DetailBranch head's three folds and its pack: each built once over
+    two eval calls, rebuilt after an in-place weight update and a BN
+    running-stat update, and the pack handed to the kernel is
+    pack_detail_head of the current values. (A CPU input runs the plain
+    version, which reads no pack: the pack's cache is driven here with an
+    input on the meta device, as a CUDA one would.)"""
+    tm = tb.DetailBranch(n_bn=1, dtype=torch.bfloat16).eval()
+    x = torch.randn((1, 3, 16, 24), generator=torch.Generator().manual_seed(6)
+                    ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    meta = torch.empty(1, device="meta")
+
+    def pack():
+        params = [t for m in tm._head() for t in (m.conv.weight, *m.fold_cached(0))]
+        return tm._packed("head", tm._head(), 0, tstem.pack_detail_head, params, meta)
+
+    tl.set_detail_fuse(True)
+    try:
+        with torch.no_grad():
+            a = tm([x])[0]
+            assert torch.equal(tm([x])[0], a)
+            assert [m._packs.builds for m in tm._head()] == [1, 1, 1]
+            first = pack()
+            assert pack() is first and tm._packs.builds == 1
+            tm.S1_2.conv.weight.mul_(1.5)
+            assert pack() is not first and tm._packs.builds == 2
+            tm.S2_1.bn[0].running_var.add_(0.25)
+            got = pack()
+            assert tm._packs.builds == 3
+            assert [m._packs.builds for m in tm._head()] == [1, 1, 2]
+            params = [t for m in tm._head() for t in (m.conv.weight, *m.fold_cached(0))]
+            for g, w in zip(got, tstem.pack_detail_head(*params)):
+                assert torch.equal(g, w)
+            assert tm._packed("head", tm._head(), 0, tstem.pack_detail_head, params, x) is None
+    finally:
+        tl.set_detail_fuse(False)
+
+
+def test_depthwise_route_casts_once_per_version():
+    """The depthwise route's bf16 weight: cast once over two eval calls under
+    no_grad, again after an in-place weight update; under grad the layer
+    hands the wrapper the weight itself, which it refuses."""
+    tm = tl.ConvBNReLU(8, 48, 3, groups=8, dtype=torch.bfloat16).eval()
+    x = torch.randn((1, 8, 9, 13), generator=torch.Generator().manual_seed(7)
+                    ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    tl.set_depthwise_impl("kernel")
+    try:
+        with torch.no_grad():
+            a = tm([x])[0]
+            assert torch.equal(tm([x])[0], a)
+            builds = tm._packs.builds  # the fold and the cast
+            assert torch.equal(tm._packs._entries["dw"][1],
+                               tm.conv.weight.to(torch.bfloat16))
+            tm.conv.weight.mul_(-1)
+            b = tm([x])[0]
+            assert tm._packs.builds == builds + 1 and not torch.equal(a, b)
+            assert torch.equal(tm._packs._entries["dw"][1],
+                               tm.conv.weight.to(torch.bfloat16))
+        with pytest.raises(RuntimeError, match="has no backward"):
+            tm([x])
+    finally:
+        tl.set_depthwise_impl("plain")

@@ -32,6 +32,7 @@ struct uint4 { uint32_t x, y, z, w; };
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
 
 struct __nv_bfloat16 { uint16_t b; };
@@ -45,6 +46,7 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   return {uint16_t(u >> 16)};
 }
 inline float __bfloat162float(__nv_bfloat16 h) { return __uint_as_float(uint32_t(h.b) << 16); }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.b; }
 inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
   return {__float2bfloat16_rn(lo), __float2bfloat16_rn(hi)};
 }
@@ -81,6 +83,15 @@ struct ShimBlock {
 extern thread_local ShimBlock* shim_blk;
 extern thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline unsigned char* shim_smem() { return shim_blk->smem.data(); }
+// a kernel's static __shared__ arrays, one after the other in the block's
+// shared memory, in the order the kernel declares them (the same in every
+// thread: each starts from offset 0)
+extern thread_local size_t shim_static_off;
+inline unsigned char* shim_static(size_t bytes) {
+  unsigned char* p = shim_smem() + shim_static_off;
+  shim_static_off += (bytes + 15) & ~size_t(15);
+  return p;
+}
 inline void __syncthreads() { shim_blk->bar->arrive_and_wait(); }
 inline void __syncwarp() { shim_blk->wbar[threadIdx.x / 32]->arrive_and_wait(); }
 
@@ -95,7 +106,9 @@ struct ShimLaunch {
       std::vector<std::thread> ths;
       for (int bi = b0; bi < std::min(nb, b0 + par); ++bi) {
         auto blk = std::make_unique<ShimBlock>();
-        blk->smem.assign(std::max<size_t>(smem, 16), 0xA5);  // garbage, not zeros
+        // dynamic shared memory, or the 48 KB static arrays may take;
+        // garbage, not zeros
+        blk->smem.assign(std::max<size_t>(smem, 49152), 0xA5);
         blk->bar = std::make_unique<std::barrier<>>(nt);
         for (int w = 0; w < (nt + 31) / 32; ++w)
           blk->wbar.push_back(std::make_unique<std::barrier<>>(32));
@@ -108,6 +121,7 @@ struct ShimLaunch {
         for (int t = 0; t < nt; ++t)
           ths.emplace_back([=, this]() {
             shim_blk = bp; blockIdx = bp->idx; blockDim = b; gridDim = g;
+            shim_static_off = 0;
             threadIdx = dim3(t % b.x, (t / b.x) % b.y, t / (b.x * b.y));
             k(args...);
           });

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Run the port's tensor-core kernels on the CPU, without a card or nvcc.
 
-  python tools/cuda_shim/rehearse.py [stem window pair detail stem7 conv3 tail]
+  python tools/cuda_shim/rehearse.py [stem window pair detail stem7 conv3 tail depthwise]
 
-Compiles csrc/stem.cu, stem7.cu, conv3x3.cu and detail_tail.cu with g++
+Compiles csrc/stem.cu, stem7.cu, conv3x3.cu, detail_tail.cu and depthwise.cu with g++
 against the stand-in CUDA runtime beside this script (one std::thread per
 CUDA thread, std::barrier for __syncthreads, __syncwarp, named barriers and
 wgmma's fence/commit/wait; mma.sync m16n8k16 computed lane by lane from the
@@ -32,7 +32,7 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent.parent
 SRC = ROOT / "mds_tpu_torch" / "csrc"
 OUT = ROOT / "mds_tpu_torch" / "build" / "shim"
-SOURCES = ("stem.cu", "stem7.cu", "conv3x3.cu", "detail_tail.cu")
+SOURCES = ("stem.cu", "stem7.cu", "conv3x3.cu", "detail_tail.cu", "depthwise.cu")
 
 sys.path.insert(0, str(ROOT))
 
@@ -56,7 +56,11 @@ def build() -> Path:
             s = s.replace("namespace {", '#include "mma_impl.h"\nnamespace {', 1)
         s = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) (\w+)\[\];",
                    r"\1* \2 = reinterpret_cast<\1*>(shim_smem());", s)
-        s = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\(", r"shim_launch(\1, \2)(", s,
+        # a block's static shared arrays: views of its shared memory, one
+        # after the other
+        s = re.sub(r"__shared__ __align__\(\d+\) (\w+) (\w+)((?:\[[^\]]+\])+);",
+                   r"auto& \2 = *reinterpret_cast<\1(*)\3>(shim_static(sizeof(\1\3)));", s)
+        s = re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\(", r"shim_launch(\1, \2)(", s,
                    flags=re.S)
         cpp = OUT / (f[:-3] + ".cpp")
         cpp.write_text(s)
@@ -77,7 +81,7 @@ def main(which):
     import torch
 
     from mds_tpu_torch.ops import build as kbuild
-    from mds_tpu_torch.ops import conv3x3, stem
+    from mds_tpu_torch.ops import conv3x3, depthwise, stem
 
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in kbuild._SIGNATURES.items():
@@ -86,8 +90,8 @@ def main(which):
             getattr(lib, name).restype = ctypes.c_int
     # the wrappers launch through the stand-in library on CPU tensors
     kbuild.load = lambda: lib
-    stem._is_cpu = conv3x3._is_cpu = lambda x: False
-    stem._stream = conv3x3._stream = lambda: ctypes.c_void_p(0)
+    stem._is_cpu = conv3x3._is_cpu = depthwise._is_cpu = lambda x: False
+    stem._stream = conv3x3._stream = depthwise._stream = lambda: ctypes.c_void_p(0)
 
     rng = np.random.default_rng(0)
 
@@ -139,10 +143,13 @@ def main(which):
             check(f"pair {b, h, w}", stem.stem_s1_pair_fused(*args),
                   stem.stem_s1_pair_fused_plain(*args))
     if "detail" in which:
-        args = (image(1, 16, 72), conv_w(64, 3), *bn(64), conv_w(64, 64), *bn(64),
-                conv_w(64, 64), *bn(64))
-        check("detail", stem.detail_s1s2_fused(*args),
-              stem.detail_s1s2_fused_plain(*args))
+        # one strip; two strips, the second 3 columns wide, B = 2; a strip
+        # one column past 62; the smallest image
+        for b, h, w in ((1, 16, 72), (2, 12, 260), (1, 20, 252), (1, 4, 4)):
+            args = (image(b, h, w), conv_w(64, 3), *bn(64), conv_w(64, 64), *bn(64),
+                    conv_w(64, 64), *bn(64))
+            check(f"detail {b, h, w}", stem.detail_s1s2_fused(*args),
+                  stem.detail_s1s2_fused_plain(*args))
     if "stem7" in which:
         args = (image(2, 18, 70), conv_w(32, 3, 7), *bn(32), True)
         check("stem7", stem.stem7_conv_bn_relu_s2(*args),
@@ -161,10 +168,29 @@ def main(which):
             args = (image(b, h4, w4, 64), *params)
             check(f"tail {b, h4, w4}", stem.detail_tail_fused(*args),
                   stem.detail_tail_fused_plain(*args))
+    if "depthwise" in which:
+        # m = 6 and 4 (two input channels per group of 8 outputs), 2, 3 and 5
+        # (four) on the staged kernel; m = 1 at 4, 2 and 1 pixels per thread;
+        # f32 and C % 8 != 0 on the scalar path. Bit for bit.
+        for b, c, h, w, m, s, dt in (
+                (1, 16, 9, 37, 6, 1, torch.bfloat16), (2, 16, 11, 70, 6, 2, torch.bfloat16),
+                (1, 8, 6, 33, 4, 1, torch.bfloat16), (2, 8, 13, 70, 2, 2, torch.bfloat16),
+                (1, 24, 5, 9, 3, 1, torch.bfloat16), (1, 8, 7, 12, 5, 2, torch.bfloat16),
+                (2, 64, 33, 65, 1, 1, torch.bfloat16), (1, 16, 20, 40, 1, 2, torch.bfloat16),
+                (1, 8, 3, 5, 1, 1, torch.bfloat16), (1, 16, 7, 9, 6, 1, torch.float32),
+                (2, 12, 9, 10, 6, 2, torch.bfloat16)):
+            x = image(b, h, w, c).to(dt)
+            wt = torch.tensor(rng.normal(0, 0.3, (c * m, 1, 3, 3)), dtype=torch.float32).to(dt)
+            want = depthwise.depthwise3x3_plain(x, wt, s)
+            got = depthwise.depthwise3x3(x, wt, s)
+            check(f"depthwise {b, c, h, w} m={m} s={s} {dt}", got, want, equal_to=want)
+            if s == 1:
+                check(f"depthwise_dma {b, c, h, w} m={m}", depthwise.depthwise3x3_dma(x, wt),
+                      want, equal_to=got)
     print(f"{time.time() - t0:.0f} s; " + (f"FAILED: {failures}" if failures else "all ok"))
     return 1 if failures else 0
 
 
 if __name__ == "__main__":
-    names = {"stem", "window", "pair", "detail", "stem7", "conv3", "tail"}
+    names = {"stem", "window", "pair", "detail", "stem7", "conv3", "tail", "depthwise"}
     sys.exit(main(set(sys.argv[1:]) or names))
