@@ -10,8 +10,8 @@ before the last line:
 2. build    — nvcc builds mds_tpu_torch/csrc/*.cu for sm_90a, one process
               per source; cuobjdump's SASS of the library must show HGMMA
               (warpgroup MMA) and no HMMA (mma.sync) in the conv3,
-              detail-tail, detail-head (kernel 4) and 3×3 stem (kernels 1
-              and 2) kernels.
+              detail-tail, detail-head (kernel 4), 3×3 stem (kernels 1
+              and 2), StemBlock (5) and 7×7 stem (6) kernels.
 3. kernels  — each stem kernel at the serving shapes (B=1, 1024×2048; the
               7×7 stem of BiSeNetV1 at O=64; the single 3×3 stem and its
               window variant at O=64 and 16, the window variant bit-equal
@@ -23,9 +23,13 @@ before the last line:
               window variant and the 7×7 stems, one bf16 F.conv2d with the
               folded weight and bias (no ReLU) as the library's time; the
               7×7 and the 3×3 stems (with the f32 training form) also on
-              ragged tiles, B > 1 and O from 8 to 128; the fused detail head
-              (kernel 4) warm on its weights packed once, cold packing in
-              the call and by its device time. Then the kernels of
+              ragged tiles, B > 1 and O from 8 to 128, the StemBlock at B =
+              2 with H/4 and W/4 off its strips and at H = W = 4; the fused
+              detail head (kernel 4), the StemBlock (5) and the 7×7 stem (6)
+              warm on their weights packed once (the warm output equal to
+              the cold one), cold packing in the call and by their device
+              time, each with its bit-equal share (>= 0.999 for 5 and 6 at
+              the frame). Then the kernels of
               BiSeNetV2's routes at the inputs one served frame gives them
               (captured from the model): the 16 depthwise convs through
               depthwise3x3 (bit-equal share >= 0.999 and rel < 1e-2 against
@@ -182,9 +186,10 @@ SOURCES = {
                         "mds_tpu/ops/pallas/stem.py:1235"),
 }
 # the kernels that run warpgroup MMA (csrc/wgmma.cuh): their SASS must show
-# HGMMA and no HMMA (stem_kernel: kernels 1 and 2; detail_head_kernel: 4)
+# HGMMA and no HMMA (stem_kernel: kernels 1 and 2; detail_head_kernel: 4;
+# stemblock_kernel: 5; stem7_kernel: 6)
 WGMMA_KERNELS = ("conv3x3_kernel", "detail_tail_kernel", "stem_kernel",
-                 "detail_head_kernel")
+                 "detail_head_kernel", "stemblock_kernel", "stem7_kernel")
 # one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -327,6 +332,15 @@ def phase_kernels(dev):
         "stem7_conv_bn_relu_s2": [
             (x, conv_w(rng, 64, 3, 7, dev), *folded_bn(rng, 64, dev), True)],
     }
+    # the kernels whose model routes pack their weights once: the packing
+    # function of the arguments after x, and the kernel's name in a trace
+    warm = {"detail_s1s2_fused": (stem.pack_detail_head, "detail_head_kernel"),
+            "stemblock_fused": (stem.pack_stemblock, "stemblock_kernel"),
+            "stem7_conv_bn_relu_s2": (lambda k, s, b, relu: stem.pack_stem7(k, s, b),
+                                      "stem7_kernel")}
+    # the kernels held at the frame to a bit-equal share >= BIT_EQUAL_GATE
+    # with their plain version, as stem_rows holds kernels 1 and 2
+    share_gated = ("stemblock_fused", "stem7_conv_bn_relu_s2")
     for name, arg_sets in calls.items():
         kernel = getattr(stem, name)
         plain = getattr(stem, name + "_plain")
@@ -348,19 +362,27 @@ def phase_kernels(dev):
             res["max_abs_err"] = max(res["max_abs_err"],
                                      (got.float() - want.float()).abs().max().item())
             res["rel"] = max(res["rel"], r)
-            res["bit_equal"] = min(res["bit_equal"], share_equal(bits(got), bits(want)))
+            eq = share_equal(bits(got), bits(want))
+            if name in share_gated and eq < BIT_EQUAL_GATE:
+                raise RuntimeError(f"{name}: bit-equal share {eq} < {BIT_EQUAL_GATE}")
+            res["bit_equal"] = min(res["bit_equal"], eq)
             # kernel and plain timed in turns on the same inputs
             ms = cuda_ms(lambda: kernel(*args))
             plain_ms = cuda_ms(lambda: plain(*args))
             extra = {}
-            if name == "detail_s1s2_fused":
+            if name in warm:
                 # warm on its weights packed once, as the route calls it (`ms`);
                 # cold, packing in the call; the kernel's own device time
-                packed = stem.pack_detail_head(*args[1:])
+                pack, dev_kernel = warm[name]
+                packed = pack(*args[1:])
+                # the warm call, the routes' own, gives the cold call's output
+                if not torch.equal(kernel(*args, packed=packed), got):
+                    raise RuntimeError(f"{name}: output on packed weights differs "
+                                       "from the one packing in the call")
                 extra = {"cold_ms": ms,
-                         "device_ms": device_ms(lambda: kernel(*args, packed),
-                                                "detail_head_kernel")}
-                ms = cuda_ms(lambda: kernel(*args, packed))
+                         "device_ms": device_ms(lambda: kernel(*args, packed=packed),
+                                                dev_kernel)}
+                ms = cuda_ms(lambda: kernel(*args, packed=packed))
                 for k, v in extra.items():
                     res[k] = v
             res["ms"] += ms
@@ -395,6 +417,7 @@ def phase_kernels(dev):
              **res)
         results[name] = res
     emit(phase="kernels", kernel="stem7_conv_bn_relu_s2", ragged=stem7_ragged(dev))
+    emit(phase="kernels", kernel="stemblock_fused", ragged=stemblock_ragged(dev))
     emit(phase="kernels", kernel="stem_conv_bn_relu_s2", ragged=stem_ragged(dev))
     return results
 
@@ -510,9 +533,34 @@ def stem7_ragged(dev):
         got, want = stem.stem7_conv_bn_relu_s2(*args), stem.stem7_conv_bn_relu_s2_plain(*args)
         r = rel(got, want)
         out.append({"shape": [b, h, w, o], "relu": relu, "rel": r,
-                    "bit_equal": (got == want).float().mean().item()})
+                    "bit_equal": share_equal(bits(got), bits(want))})
         if got.shape != want.shape or not torch.isfinite(got.float()).all() or r >= KERNEL_GATE:
             raise RuntimeError(f"stem7_conv_bn_relu_s2 at {out[-1]}")
+    return out
+
+
+def stemblock_ragged(dev):
+    """The StemBlock at B = 2 with H/4 and W/4 off its 61-column strips, at
+    three strips, and at H = W = 4, against its plain version: rel max-diff
+    and the share of bit-equal outputs per shape. Not counted as main-path
+    launches."""
+    from mds_tpu_torch.ops import stem
+
+    rng = np.random.default_rng(8)
+    out = []
+    for b, h, w in ((2, 36, 260), (2, 20, 252), (1, 4, 4), (1, 68, 500)):
+        x = torch.tensor(rng.normal(0, 1, (b, h, w, 3)), dtype=torch.float32,
+                         device=dev).to(torch.bfloat16).permute(0, 3, 1, 2)
+        args = (x, conv_w(rng, 16, 3, 3, dev), *folded_bn(rng, 16, dev),
+                conv_w(rng, 8, 16, 1, dev), *folded_bn(rng, 8, dev),
+                conv_w(rng, 16, 8, 3, dev), *folded_bn(rng, 16, dev),
+                conv_w(rng, 16, 32, 3, dev), *folded_bn(rng, 16, dev))
+        got, want = stem.stemblock_fused(*args), stem.stemblock_fused_plain(*args)
+        r = rel(got, want)
+        out.append({"shape": [b, h, w], "rel": r,
+                    "bit_equal": share_equal(bits(got), bits(want))})
+        if got.shape != want.shape or not torch.isfinite(got.float()).all() or r >= KERNEL_GATE:
+            raise RuntimeError(f"stemblock_fused at {out[-1]}")
     return out
 
 

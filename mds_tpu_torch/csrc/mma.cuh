@@ -23,19 +23,6 @@ __device__ __forceinline__ uint4 pack8(const float* v) {
                     pack2(v[6], v[7]));
 }
 
-__device__ __forceinline__ void unpack8(uint4 u, float* f) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    f[2 * k] = __uint_as_float(w[k] << 16);
-    f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 __device__ __forceinline__ uint32_t ld_b32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }

@@ -4,9 +4,9 @@
 // as PERF.md's table numbers them: 1, 2, 3, 4, 5). All take the memory of a
 // channels_last bf16 tensor, i.e. an NHWC image (B, H, W, 3), and write NHWC
 // bf16 (kernel 1's training form: f32). Their first stage is a 3x3 stride-2
-// pad-1 conv on RGB with the BN folded into f32 weights. Kernels 1, 2 and 4
-// run it on the tensor cores from that table split into bf16 parts (see
-// kernel 1's section), kernels 3 and 5 on the CUDA cores from
+// pad-1 conv on RGB with the BN folded into f32 weights. Kernels 1, 2, 4 and
+// 5 run it on the tensor cores from that table split into bf16 parts (see
+// kernel 1's section), kernel 3 on the CUDA cores from
 //
 //   w[28][O]: rows (dy*3 + dx)*3 + ci are k * scale, row 27 is the bias.
 //
@@ -23,8 +23,8 @@ namespace {
 
 // ---------------------------------------------------------------- helpers
 
-// Stage A of kernels 3 and 5: the folded 3x3 s2 p1 RGB conv at
-// half-resolution position (r, c).
+// Stage A of kernel 3: the folded 3x3 s2 p1 RGB conv at half-resolution
+// position (r, c).
 // stem_taps gathers its 27 inputs (dy, dx, ci order; zero outside the
 // image); stem_dot applies output channels [o0, o0 + NC) of the (28, O)
 // folded table w (shared memory, 16-byte aligned, read as float4; NC, O
@@ -233,33 +233,29 @@ struct StemLane {
   uint32_t keep[4];
 };
 
-__device__ __forceinline__ StemLane stem_lane(int W) {
+__device__ __forceinline__ StemLane stem_lane(int W, int row_bytes = kStemRowBytes) {
   const int lane = threadIdx.x & 31, tq = lane & 3;
   const int p = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
   StemLane l;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int k = 2 * tq + 8 * j, dy = min(k / 10, 2), e = k - 10 * (k / 10);
-    l.off[j] = dy * kStemRowBytes + 2 * e + 12 * p;
+    l.off[j] = dy * row_bytes + 2 * e + 12 * p;
     l.rsh[j] = (6 * W * dy) & 15;
     l.keep[j] = k == 30 ? 0u : e == 0 ? 0xffff0000u : 0xffffffffu;
   }
   return l;
 }
 
-// Tile t's GEMM from window win against the table at shared address tbl_s
-// into acc (the warpgroup's m64nN accumulators; the threads of one
-// warpgroup, whichever of the block's it is). A tile with c0 <= 0 holds the
-// image's left pad column (pixel -c0); pixels left of it read bytes outside
-// the row and are the caller's to discard.
-template <int N>
-__device__ __forceinline__ void stem_tile_acc(const unsigned char* win,
-                                              uint32_t tbl_s, StemTile t,
-                                              const StemLane& l, int H, int W,
-                                              float (&acc)[N / 2]) {
+// Tile t's A fragments (K 0..15 in a[0], 16..31 in a[1]) from window win
+// (the threads of one warpgroup, whichever of the block's it is). A tile
+// with c0 <= 0 holds the image's left pad column (pixel -c0); pixels left of
+// it read bytes outside the row and are the caller's to discard.
+__device__ __forceinline__ void stem_tile_a(const unsigned char* win, StemTile t,
+                                            const StemLane& l, int H, int W,
+                                            uint32_t (&a)[2][4]) {
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  uint32_t a[2][4];
   const int sh0 = (int)(stem_row_start(t, 0, H, W) & 15);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -281,6 +277,17 @@ __device__ __forceinline__ void stem_tile_acc(const unsigned char* win,
           a[j >> 1][h + 2 * (j & 1)] = 0;
     }
   }
+}
+
+// Tile t's GEMM from window win against the table at shared address tbl_s
+// into acc (the warpgroup's m64nN accumulators), as stem_tile_a says.
+template <int N>
+__device__ __forceinline__ void stem_tile_acc(const unsigned char* win,
+                                              uint32_t tbl_s, StemTile t,
+                                              const StemLane& l, int H, int W,
+                                              float (&acc)[N / 2]) {
+  uint32_t a[2][4];
+  stem_tile_a(win, t, l, H, W, a);
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
     acc[i] = 0.f;
@@ -524,17 +531,18 @@ constexpr size_t kHdSmem = 1024 + 9 * kHdSlice + kHdTbl + kHdSlots * kHdSlice +
 static_assert(kHdSmem <= 232448, "over the 227 KB a block may opt into");
 
 // A run of row steps of one strip: /4 rows qa .. qb - 1 of the strip whose
-// first /4 column is p0, image b. Steps are numbered (b, strip, q), q
-// fastest; a block's steps [s, end) split into such runs.
-struct HdRun {
+// first /4 column is p0, image b, strips `width` /4 columns wide. Steps are
+// numbered (b, strip, q), q fastest; a block's steps [s, end) split into such
+// runs (kernels 4 and 5).
+struct StripRun {
   int b, p0, qa, qb;
 };
 
-__device__ __forceinline__ HdRun hd_run(long long s, long long end, int H4,
-                                        int strips) {
+__device__ __forceinline__ StripRun strip_run(long long s, long long end, int H4,
+                                              int strips, int width) {
   const int q = (int)(s % H4);
   const long long bs = s / H4;
-  return {(int)(bs / strips), (int)(bs % strips) * kHdW, q,
+  return {(int)(bs / strips), (int)(bs % strips) * width, q,
           (int)min((long long)H4, q + (end - s))};
 }
 
@@ -571,7 +579,7 @@ __device__ __forceinline__ int hd_slot(int r) { return (r + 6) % 3; }
 // 63, /2 column 2 p0 - 2 + local), from window win: ReLU, bf16, into ring row
 // dst; zero outside the image.
 __device__ __forceinline__ void hd_s1(const unsigned char* win, uint32_t tbl_s,
-                                      unsigned char* dst, const HdRun& g, int r,
+                                      unsigned char* dst, const StripRun& g, int r,
                                       const StemLane& l, int H, int W) {
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
   const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
@@ -618,7 +626,7 @@ __device__ __forceinline__ void hd_load_a(uint32_t (&a)[4][4], uint32_t row,
 __device__ __forceinline__ void hd_s12(uint32_t s1_s, unsigned char* dst,
                                        uint32_t w_s,
                                        const float* __restrict__ b2,
-                                       const HdRun& g, int r, int H2, int W2) {
+                                       const StripRun& g, int r, int H2, int W2) {
   const int wg = threadIdx.x >> 7, wiw = (threadIdx.x >> 5) & 3;
   const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
   const int pix = min(64 * wg + hd_arow(), kHdS2 - 1);
@@ -682,7 +690,7 @@ __device__ __forceinline__ void hd_s12(uint32_t s1_s, unsigned char* dst,
 // 62 pixels (M rows 62, 63 read a clamped pixel and are not stored).
 __device__ __forceinline__ void hd_s21(uint32_t s2_s, const HdRing& ring,
                                        uint32_t& n, const float* __restrict__ b3,
-                                       bf16* __restrict__ out, const HdRun& g,
+                                       bf16* __restrict__ out, const StripRun& g,
                                        int q, int H4, int W4) {
   const int wg = threadIdx.x >> 7, wiw = (threadIdx.x >> 5) & 3;
   const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
@@ -796,7 +804,7 @@ __global__ void __launch_bounds__(kHdThreads, 1)
   // The S1_1 rows in the order this block computes them (runs one after
   // the other; a run's rows 2 qa - 2 .. 2 qb), for the window prefetch.
   long long fs = s0;
-  HdRun fg = hd_run(s0, end, H4, strips);
+  StripRun fg = strip_run(s0, end, H4, strips, kHdW);
   int fr = 2 * fg.qa - 2;
   bool fvalid = true;
   // this warpgroup's window of the prefetch cursor's row into buf, then on
@@ -811,7 +819,7 @@ __global__ void __launch_bounds__(kHdThreads, 1)
       fs += fg.qb - fg.qa;
       fvalid = fs < end;
       if (fvalid) {
-        fg = hd_run(fs, end, H4, strips);
+        fg = strip_run(fs, end, H4, strips, kHdW);
         fr = 2 * fg.qa - 2;
       }
     }
@@ -819,7 +827,7 @@ __global__ void __launch_bounds__(kHdThreads, 1)
   int k = 0;  // S1_1 rows computed by this warpgroup: row k's window in buf k & 1
   fetch(win);
   mbar_wait(wbar, 0);
-  auto s1_row = [&](const HdRun& g, int r) {
+  auto s1_row = [&](const StripRun& g, int r) {
     named_bar_sync(2 + wg, 128);  // buffer (k + 1) & 1 is read
     fetch(win + ((k + 1) & 1) * kStemWinBytes);
     cp_async_wait<1>();
@@ -831,7 +839,7 @@ __global__ void __launch_bounds__(kHdThreads, 1)
 
   uint32_t n = 0;  // S2_1 slices consumed
   for (long long s = s0; s < end;) {
-    const HdRun g = hd_run(s, end, H4, strips);
+    const StripRun g = strip_run(s, end, H4, strips, kHdW);
     for (int r = 2 * g.qa - 2; r <= 2 * g.qa; ++r) s1_row(g, r);
     named_bar_sync(1, kHdThreads);
     hd_s12(s1_s, s2 + hd_slot(2 * g.qa - 1) * kHdS2Row, w12_s, b2, g,
@@ -948,167 +956,404 @@ __global__ void __launch_bounds__(kPairThreads)
 
 // --------------------------------------- TPU kernel 5: stemblock_fused
 //
-// Replaces mds_tpu/ops/pallas/stem.py::stemblock_fused (:646-852). The whole
-// StemBlock: stem 3x3 s2 3->16 -> {left_1 1x1 16->8 -> left_2 3x3 s2 8->16 ||
-// maxpool 3x3 s2} -> concat 32 -> fuse 3x3 32->16, BN folded, ReLU each.
-// Bound: memory and launch count in the library graph (six narrow layers,
-// 8 to 32 channels, about 2 GFLOP at 1024x2048). Design: one block per 8x32
-// tile of the /4 output keeps every intermediate in shared memory and
-// computes them with f32 FMA on the CUDA cores (products of bf16 values are
-// exact in f32, so this matches the TPU kernel's rounding points):
-//   stem f32 + ReLU; left_1 on bf16(stem) and bf16 weights, f32 + ReLU;
-//   maxpool over the stem (kept as bf16: rounding commutes with max);
-//   left_2 on bf16(left_1), rounded to bf16; fuse on [left_2 | maxpool].
-// Zero padding of the post-ReLU stem stands in for the maxpool's -inf.
+// Replaces mds_tpu/ops/pallas/stem.py::stemblock_fused (:775, body
+// _stemblock_kernel :646-771). The whole StemBlock: stem 3x3 s2 3->16 ->
+// {left_1 1x1 16->8 -> left_2 3x3 s2 8->16 || maxpool 3x3 s2} -> concat 32
+// -> fuse 3x3 32->16, BN folded, ReLU each, bf16 out at /4. Rounding points
+// are the TPU kernel's: the stem is the f32 sum of bf16 x and the f32 folded
+// table (+ bias, ReLU); left_1 sums bf16(stem) x bf16(k * scale) in f32
+// (+ bias, ReLU) and rounds to bf16; left_2 likewise on bf16(left_1); the
+// maxpool of the stem rounded to bf16 (rounding commutes with max, so it is
+// taken over bf16(stem)); the fuse on [left_2 | maxpool]. The stem is >= 0,
+// so the maxpool's zero padding is exact.
+//
+// Bound: memory, 12.6 MB read and 4.2 MB written at (1, 3, 1024, 2048) (5
+// us), against 2.1 GFLOP (2 us on the bf16 tensor cores, 31 us in f32 FMA).
+// Design: every stage with K >= 16 on warpgroup MMA (m64n16k16), bf16 in,
+// f32 accumulate, one warpgroup per block, persistent blocks (three an SM),
+// each walking a contiguous run of row steps down 61-column strips of the
+// /4 output (kernel 4's scheme). A step (one /4 row) computes two stem rows
+// (127 pixels: two M tiles each), one concat row (63 pixels) and one fuse
+// row (61 pixels): every M tile whole but for one to three pixels, and only
+// the strip's side halo recomputed. The rows live in shared memory rings:
+// three stem rows (bf16, 16 channels), three left_1 rows (8, even columns
+// then odd, so that left_2's stride-2 ldmatrix rows are contiguous), three
+// concat rows (32, the 16-byte chunks XOR-swizzled by pixel for ldmatrix).
+// A run starts with three steps that fill the rings (stem rows from 2 qa - 4,
+// concat rows from qa - 1).
+// - The stem: kernel 1's A build against its exact three-part table
+//   (pack_stem, N = 16), six k16 steps a tile, the four tiles of a step in
+//   one group, from the step's window: the five input rows of its two stem
+//   rows across both M tiles, copied by cp.async one step ahead.
+// - left_1 straight from the stem's accumulators: ReLU, bf16, and the m64n16
+//   D fragment is the A fragment of the next k16 (N = 16, the upper 8
+//   columns of B zero).
+// - The maxpool on the CUDA cores: bf16x2 max over the stem ring, 16 bytes
+//   a load (the ring's pixels swapped in pairs against bank conflicts).
+// - left_2: K = 9 taps x 8 = 72, padded to 80, A by ldmatrix from the left_1
+//   ring at stride 2; the fuse: K = 9 x 32 = 288, 18 k16 steps, A by
+//   ldmatrix from the concat ring, two accumulators (alternate k16 steps).
+// - Every B (pack_stemblock: the stem's table, left_1, left_2 and the fuse,
+//   20 KB in the 128-byte swizzle, packed once per parameter version) stays
+//   in shared memory for the block's life, one bulk copy.
+// Out-of-image positions of the stem, left_1 and concat rows are zero (the
+// next layers' padding, never ReLU(bias)); pixels and rows past the image
+// compute on whatever the buffers hold and are discarded, so no wgmma is
+// issued under a condition. Any B >= 1 and H, W divisible by 4.
 
-constexpr int kSbTQ = 8;                 // /4 output rows per block
-constexpr int kSbTP = 32;                // /4 output cols per block
-constexpr int kSbSR = 2 * kSbTQ + 5;     // stem rows held (21)
-constexpr int kSbSC = 2 * kSbTP + 5;     // stem cols held (69)
-constexpr int kSbCR = kSbTQ + 2;         // concat rows held (10)
-constexpr int kSbCC = kSbTP + 2;         // concat cols held (34)
-constexpr int kSbThreads = kSbTQ * kSbTP;  // one thread per output pixel
-// packed f32 weights: ws(28x16) wl1(16x8) bl1(8) wl2(9x8x16) bl2(16)
-//                     wf(9x32x16) bf(16)
-constexpr int kSbWs = 0, kSbWl1 = 448, kSbBl1 = 576, kSbWl2 = 584,
-              kSbBl2 = 1736, kSbWf = 1752, kSbBf = 6360, kSbWTotal = 6376;
-constexpr size_t kSbSmem = kSbWTotal * sizeof(float) +
-                           (size_t)kSbSR * kSbSC * 24 * sizeof(bf16) +
-                           (size_t)kSbCR * kSbCC * 32 * sizeof(bf16);
+constexpr int kSbP = 61;                      // /4 output cols of a strip
+constexpr int kSbC = kSbP + 2;                // concat pixels of a strip row
+constexpr int kSbThreads = 128;               // one warpgroup
+constexpr int kSbMaxPerSm = 3;                // blocks an SM
+constexpr int kSbSlice = 16 * 128;            // one B slice: 16 rows x 64 K
+// the packed weights (pack_stemblock), bf16: the stem's table (two slices),
+// left_1 (one), left_2 (two), the fuse (five)
+constexpr int kSbL1 = 2 * kSbSlice, kSbL2 = 3 * kSbSlice, kSbF = 5 * kSbSlice;
+constexpr int kSbWBytes = 10 * kSbSlice;
+constexpr int kSbStemRow = 128 * 32;          // 128 pixels x 16 channels
+constexpr int kSbL1Odd = 68;                  // left_1 ring: odd columns' entry
+constexpr int kSbL1Row = (kSbL1Odd + 64) * 16;  //   (a 16-byte pixel each)
+constexpr int kSbCatRow = 64 * 64;            // 64 pixels x 32 channels
+// a step's window: input rows 4u - 1 .. 4u + 3, each the wanted 12 * 128 + 8
+// bytes of the strip's two M tiles from up to 15 bytes before them, in
+// whole 16-byte chunks (1568 bytes)
+constexpr int kSbWinRow = (12 * 2 * kStemTC + 8 + 15 + 15) / 16 * 16;
+constexpr int kSbWinChunks = kSbWinRow / 16;
+constexpr int kSbWins = 5 * kSbWinRow;
+// 1024 bytes of slack to align B to the swizzle's 1024-byte pattern, B, two
+// steps' windows, the three rings, the mbarrier of B's copy
+constexpr size_t kSbSmem = 1024 + kSbWBytes + 2 * kSbWins + 3 * kSbStemRow +
+                           3 * kSbL1Row + 3 * kSbCatRow + sizeof(uint64_t);
 
-__global__ void __launch_bounds__(kSbThreads)
-    stemblock_kernel(const bf16* __restrict__ x, const float* __restrict__ wg,
-                     bf16* __restrict__ out, int H, int W) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* wsm = reinterpret_cast<float*>(smem);
-  bf16* st = reinterpret_cast<bf16*>(smem + kSbWTotal * sizeof(float));
-  bf16* cc = st + kSbSR * kSbSC * 24;
+// The max of two bf16 pairs, element by element.
+__device__ __forceinline__ uint32_t bmax2(uint32_t a, uint32_t b) {
+  __nv_bfloat162 r = __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                             *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
 
-  const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
-  const int q0 = blockIdx.y * kSbTQ, p0 = blockIdx.x * kSbTP;
-  const int b = blockIdx.z;
-  const bf16* xb = x + (size_t)b * H * W * 3;
-  const int tid = threadIdx.x;
-  const int RS = 2 * q0 - 3, CS = 2 * p0 - 3;  // stem origin (/2 coords)
+// Ring slots of stem row r (r >= -6) and concat row m (m >= -3).
+__device__ __forceinline__ int sb_slot(int r) { return (r + 6) % 3; }
 
-  for (int i = tid; i < kSbWTotal; i += kSbThreads) wsm[i] = wg[i];
-  __syncthreads();
-  const float* ws = wsm + kSbWs;
-  const float* wl1 = wsm + kSbWl1;
-  const float* bl1 = wsm + kSbBl1;
-  const float* wl2 = wsm + kSbWl2;
-  const float* bl2 = wsm + kSbBl2;
-  const float* wf = wsm + kSbWf;
-  const float* bfs = wsm + kSbBf;
+// The stem ring pixel of strip stem pixel ls: pixels swapped in pairs where
+// bit 2 of ls is set, so that the maxpool's 16-byte loads (eight lanes:
+// four pixels 2 apart, two halves) fall in eight distinct bank groups.
+__device__ __forceinline__ int sb_stem_px(int ls) { return ls ^ ((ls >> 2) & 1); }
 
-  // stage A: stem (16 ch) and left_1 (8 ch) per half-resolution pixel
-  for (int p = tid; p < kSbSR * kSbSC; p += kSbThreads) {
-    const int r = RS + p / kSbSC, c = CS + p % kSbSC;
-    uint4 v0 = make_uint4(0, 0, 0, 0), v1 = v0, v2 = v0;
-    if (r >= 0 && r < H2 && c >= 0 && c < W2) {
-      float v[27], s[16], t[8];
-      stem_taps(xb, H, W, r, c, v);
-      stem_dot<16>(v, ws, 16, 0, s);
-#pragma unroll
-      for (int k = 0; k < 16; ++k) s[k] = fmaxf(s[k], 0.f);
-#pragma unroll
-      for (int o = 0; o < 8; ++o) t[o] = bl1[o];
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const float sv = bf16_round(s[k]);
-#pragma unroll
-        for (int o = 0; o < 8; ++o) t[o] = fmaf(sv, wl1[k * 8 + o], t[o]);
-      }
-#pragma unroll
-      for (int o = 0; o < 8; ++o) t[o] = fmaxf(t[o], 0.f);
-      v0 = pack8(s);
-      v1 = pack8(s + 8);
-      v2 = pack8(t);
-    }
-    uint4* dst = reinterpret_cast<uint4*>(st + p * 24);
-    dst[0] = v0;
-    dst[1] = v1;
-    dst[2] = v2;
-  }
-  __syncthreads();
+// The left_1 ring entry of strip stem pixel ls (even columns, then odd).
+__device__ __forceinline__ int sb_l1_entry(int ls) {
+  return (ls & 1) * kSbL1Odd + (ls >> 1);
+}
 
-  // stage B: left_2 and maxpool per /4 position of the (10, 34) halo region
-  for (int p = tid; p < kSbCR * kSbCC; p += kSbThreads) {
-    const int a = p / kSbCC, bb = p % kSbCC;
-    const int q = q0 - 1 + a, pc = p0 - 1 + bb;
-    uint4 o4[4] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0),
-                   make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
-    if (q >= 0 && q < H4 && pc >= 0 && pc < W4) {
-      float l2[16], mp[16];
-#pragma unroll
-      for (int o = 0; o < 16; ++o) {
-        l2[o] = bl2[o];
-        mp[o] = 0.f;
-      }
+// Byte offset of 16-byte chunk c (0-3) of concat pixel lp in its ring row.
+__device__ __forceinline__ int sb_cat(int lp, int c) {
+  return lp * 64 + ((c ^ ((lp >> 1) & 3)) << 4);
+}
+
+// Step u's window (input rows 4u - 1 .. 4u + 3 of image b, from the byte
+// before the taps of /2 column c0) into win by cp.async, chunk q of each
+// row by thread q; only chunks that overlap the image row are copied. Rows
+// and columns outside the image are masked or discarded where A is built
+// (stem_tile_a) and the rows stored.
+__device__ __forceinline__ void sb_window(unsigned char* win,
+                                          const unsigned char* __restrict__ xb,
+                                          long long total, int b, int u, int c0,
+                                          int H, int W) {
+  static_assert(kSbWinChunks <= kSbThreads, "a chunk of each row per thread");
+  const int q = threadIdx.x;
+  if (q >= kSbWinChunks) return;
 #pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int dy = tap / 3, dx = tap % 3;
-        const uint4* src = reinterpret_cast<const uint4*>(
-            st + ((2 * a + dy) * kSbSC + 2 * bb + dx) * 24);
-        float f[8];
-        unpack8(src[0], f);
+  for (int dy = 0; dy < 5; ++dy) {
+    const int y = 4 * u - 1 + dy;
+    if (y < 0 || y >= H) continue;
+    const long long row = ((long long)b * H + y) * W * 6, s = row + 12LL * c0 - 8;
+    const long long lo = max(s, row);
+    const long long hi = min(s + 12 * 2 * kStemTC + 8, row + 6LL * W);
+    const long long g = (s & ~15LL) + 16 * q;
+    if (g + 16 > lo && g < hi)
+      cp_async16(win + dy * kSbWinRow + 16 * q, xb + g, (int)min(16LL, total - g));
+  }
+}
+
+// Stem rows 2u, 2u + 1 of run g from the step's window (tile i: row 2u + i /
+// 2, window rows 2 (i / 2) .., strip stem pixels 64 (i % 2) .. + 63 at /2
+// column 2 p0 - 3 + pixel): the stem, ReLU, and left_1 on its bf16, + bias,
+// ReLU; both bf16 into their ring rows, zero outside the image. l: the
+// lanes' offsets for window rows kSbWinRow bytes apart.
+__device__ __forceinline__ void sb_stem_rows(const unsigned char* win, uint32_t w_s,
+                                             unsigned char* stem, unsigned char* l1,
+                                             const float* __restrict__ bias,
+                                             const StripRun& g, int u,
+                                             const StemLane& l, int H, int W) {
+  const int warp = threadIdx.x >> 5, gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
+  uint32_t a[4][2][4];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) mp[k] = fmaxf(mp[k], f[k]);
-        unpack8(src[1], f);
+  for (int i = 0; i < 4; ++i)
+    stem_tile_a(win + (i >> 1) * 2 * kSbWinRow + (i & 1) * 12 * kStemTC,
+                StemTile{g.b, 2 * u + (i >> 1), 2 * g.p0 - 3 + 64 * (i & 1)}, l, H, W,
+                a[i]);
+  float acc[4][8];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) mp[8 + k] = fmaxf(mp[8 + k], f[k]);
-        unpack8(src[2], f);
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int ci = 0; ci < 8; ++ci) {
-          const float* wr = wl2 + (tap * 8 + ci) * 16;
-#pragma unroll
-          for (int o = 0; o < 16; ++o) l2[o] = fmaf(f[ci], wr[o], l2[o]);
-        }
-      }
-#pragma unroll
-      for (int o = 0; o < 16; ++o) l2[o] = fmaxf(l2[o], 0.f);
-      o4[0] = pack8(l2);
-      o4[1] = pack8(l2 + 8);
-      o4[2] = pack8(mp);
-      o4[3] = pack8(mp + 8);
+    for (int e = 0; e < 8; ++e) {
+      acc[i][e] = 0.f;
+      reg_fence(acc[i][e]);
     }
-    uint4* dst = reinterpret_cast<uint4*>(cc + p * 32);
+  wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < 4; ++k) dst[k] = o4[k];
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int step = 0; step < 6; ++step)  // hi: steps 0, 1; mid: 2, 3; lo: 4, 5
+      wgmma_m64n16k16(acc[i], a[i][step & 1],
+                      sw128_desc(w_s + step / 4 * kSbSlice + 32 * (step % 4)));
+  wgmma_commit();
+  wgmma_wait<0>();
+  // left_1: the D fragment of ReLU(stem), as bf16, is left_1's A fragment
+  uint32_t a1[4][4];
+  float acc1[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      reg_fence(acc[i][e]);
+      acc[i][e] = fmaxf(acc[i][e], 0.f);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a1[i][r] = pack2(acc[i][2 * r], acc[i][2 * r + 1]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      acc1[i][e] = 0.f;
+      reg_fence(acc1[i][e]);
+    }
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) wgmma_m64n16k16(acc1[i], a1[i], sw128_desc(w_s + kSbL1));
+  wgmma_commit();
+  wgmma_wait<0>();
+  const float b0 = __ldg(bias + 2 * tq), b1 = __ldg(bias + 2 * tq + 1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 2 * u + (i >> 1);
+    unsigned char* srow = stem + sb_slot(r) * kSbStemRow;
+    unsigned char* lrow = l1 + sb_slot(r) * kSbL1Row;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ls = 64 * (i & 1) + 16 * warp + gq + 8 * h, c = 2 * g.p0 - 3 + ls;
+      const bool in = r >= 0 && r < H / 2 && c >= 0 && c < W / 2;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        *reinterpret_cast<uint32_t*>(srow + sb_stem_px(ls) * 32 + 16 * j + 4 * tq) =
+            in ? a1[i][2 * j + h] : 0u;
+      reg_fence(acc1[i][2 * h]);
+      reg_fence(acc1[i][2 * h + 1]);
+      const float v0 = in ? fmaxf(acc1[i][2 * h] + b0, 0.f) : 0.f;
+      const float v1 = in ? fmaxf(acc1[i][2 * h + 1] + b1, 0.f) : 0.f;
+      *reinterpret_cast<uint32_t*>(lrow + sb_l1_entry(ls) * 16 + 4 * tq) = pack2(v0, v1);
+    }
+  }
+}
+
+// Concat row u of run g (strip pixels lp = 0 .. 62 at /4 column p0 - 1 +
+// lp): channels 0-15 left_2 on left_1 rows 2u - 1 .. 2u + 1 (+ bias, ReLU),
+// 16-31 the maxpool of the stem rows, bf16 into its ring row, zero outside
+// the image.
+__device__ __forceinline__ void sb_concat(const unsigned char* stem, uint32_t l1_s,
+                                          unsigned char* cat, uint32_t w_s,
+                                          const float* __restrict__ bias,
+                                          const StripRun& g, int u, int H4, int W4) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  unsigned char* crow = cat + sb_slot(u) * kSbCatRow;
+  // left_2's A: k16 step s holds taps 2s (K 0-7) and 2s + 1 (8-15); tap 9
+  // is zero
+  const int lp = hd_arow(), ahalf = lane >> 4;
+  uint32_t a[5][4];
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    const int tap = min(2 * s + ahalf, 8), dy = tap / 3, dx = tap % 3;
+    ldmatrix_x4(a[s], l1_s + sb_slot(2 * u - 1 + dy) * kSbL1Row +
+                          sb_l1_entry(2 * lp + dx) * 16);
+  }
+  a[4][2] = a[4][3] = 0u;
+  float acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    acc[e] = 0.f;
+    reg_fence(acc[e]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 5; ++s)
+    wgmma_m64n16k16(acc, a[s], sw128_desc(w_s + kSbL2 + s / 4 * kSbSlice + 32 * (s % 4)));
+  wgmma_commit();
+  // the maxpool meanwhile: thread t < 126 takes channels 8 (t & 1) .. + 7 of
+  // pixel t / 2, its taps at strip stem pixels 2 lp .. 2 lp + 2
+  const bool row_in = u >= 0 && u < H4;
+  if (threadIdx.x < 2 * kSbC) {
+    const int mp = threadIdx.x >> 1, half = threadIdx.x & 1, p = g.p0 - 1 + mp;
+    uint32_t m[4];
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      const unsigned char* srow = stem + sb_slot(2 * u - 1 + dy) * kSbStemRow;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            srow + sb_stem_px(2 * mp + dx) * 32 + 16 * half);
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) m[k] = dy == 0 && dx == 0 ? w[k] : bmax2(m[k], w[k]);
+      }
+    }
+    const bool in = row_in && p >= 0 && p < W4;
+    *reinterpret_cast<uint4*>(crow + sb_cat(mp, 2 + half)) =
+        in ? make_uint4(m[0], m[1], m[2], m[3]) : make_uint4(0, 0, 0, 0);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int e = 0; e < 8; ++e) reg_fence(acc[e]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int lo = 16 * warp + gq + 8 * h, p = g.p0 - 1 + lo;
+    if (lo >= kSbC) continue;
+    const bool in = row_in && p >= 0 && p < W4;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = 8 * j + 2 * tq;
+      const float v0 = in ? fmaxf(acc[4 * j + 2 * h] + __ldg(bias + 8 + n), 0.f) : 0.f;
+      const float v1 =
+          in ? fmaxf(acc[4 * j + 2 * h + 1] + __ldg(bias + 8 + n + 1), 0.f) : 0.f;
+      *reinterpret_cast<uint32_t*>(crow + sb_cat(lo, j) + 4 * tq) = pack2(v0, v1);
+    }
+  }
+}
+
+// Fuse row q of run g (strip pixels 0 .. 60 at /4 column p0 + pixel) from
+// concat rows q - 1 .. q + 1: + bias, ReLU, bf16, to out.
+__device__ __forceinline__ void sb_fuse(uint32_t cat_s, uint32_t w_s,
+                                        const float* __restrict__ bias,
+                                        bf16* __restrict__ out, const StripRun& g,
+                                        int q, int H4, int W4) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int lp0 = min(hd_arow(), kSbP - 1), ahalf = lane >> 4;
+  // k16 step s: tap s / 2, channels 16 (s % 2) .. + 15
+  uint32_t a[18][4];
+#pragma unroll
+  for (int s = 0; s < 18; ++s) {
+    const int tap = s >> 1, dy = tap / 3, dx = tap % 3, lp = lp0 + dx;
+    ldmatrix_x4(a[s], cat_s + sb_slot(q - 1 + dy) * kSbCatRow +
+                          sb_cat(lp, 2 * (s & 1) + ahalf));
+  }
+  float acc[2][8];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      acc[k][e] = 0.f;
+      reg_fence(acc[k][e]);
+    }
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 18; ++s)
+    wgmma_m64n16k16(acc[s & 1], a[s],
+                    sw128_desc(w_s + kSbF + s / 4 * kSbSlice + 32 * (s % 4)));
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) reg_fence(acc[k][e]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = 16 * warp + gq + 8 * h, p = g.p0 + i;
+    if (i >= kSbP || p >= W4) continue;
+    bf16* o = out + (((size_t)g.b * H4 + q) * W4 + p) * 16;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = 8 * j + 2 * tq;
+      const float v0 = fmaxf(acc[0][4 * j + 2 * h] + acc[1][4 * j + 2 * h] +
+                                 __ldg(bias + 24 + n), 0.f);
+      const float v1 = fmaxf(acc[0][4 * j + 2 * h + 1] + acc[1][4 * j + 2 * h + 1] +
+                                 __ldg(bias + 24 + n + 1), 0.f);
+      *reinterpret_cast<uint32_t*>(o + n) = pack2(v0, v1);
+    }
+  }
+}
+
+// w: pack_stemblock's 10 slices; bias: f32 left_1 (8), left_2 (16), fuse (16).
+__global__ void __launch_bounds__(kSbThreads, kSbMaxPerSm)
+    stemblock_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                     const float* __restrict__ bias, bf16* __restrict__ out, int B,
+                     int H, int W, int strips, int per_block) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* wts = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* wins = wts + kSbWBytes;
+  unsigned char* stem = wins + 2 * kSbWins;
+  unsigned char* l1 = stem + 3 * kSbStemRow;
+  unsigned char* cat = l1 + 3 * kSbL1Row;
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(cat + 3 * kSbCatRow);
+  const int H4 = H / 4, W4 = W / 4;
+  const long long steps = (long long)B * strips * H4;
+  const long long s0 = (long long)blockIdx.x * per_block;
+  const long long end = min(steps, s0 + per_block);
+
+  if (threadIdx.x == 0) {
+    mbar_init(wbar, 1);
+    mbar_fence_init();
   }
   __syncthreads();
+  if (threadIdx.x == 0) {  // every B, once per block, by the copy engine
+    mbar_arrive_expect_tx(wbar, kSbWBytes);
+    bulk_g2s(wts, w, kSbWBytes, wbar);
+  }
 
-  // stage C: fuse conv 3x3 32->16, one thread per output pixel
-  const int a = tid / kSbTP, bq = tid % kSbTP;
-  const int q = q0 + a, pc = p0 + bq;
-  if (q < H4 && pc < W4) {
-    float acc[16];
-#pragma unroll
-    for (int o = 0; o < 16; ++o) acc[o] = bfs[o];
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      const uint4* src = reinterpret_cast<const uint4*>(
-          cc + ((a + dy) * kSbCC + bq + dx) * 32);
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        float f[8];
-        unpack8(src[v], f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float* wr = wf + (tap * 32 + v * 8 + e) * 16;
-#pragma unroll
-          for (int o = 0; o < 16; ++o) acc[o] = fmaf(f[e], wr[o], acc[o]);
-        }
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+  const long long total = 6LL * B * H * W;  // bytes of x
+  const StemLane lane = stem_lane(W, kSbWinRow);
+  const uint32_t w_s = smem_u32(wts), l1_s = smem_u32(l1), cat_s = smem_u32(cat);
+
+  // The steps in the order this block runs them (runs one after the other;
+  // a run's steps u = qa - 2 .. qb, stem rows 2u, 2u + 1), for the window
+  // prefetch.
+  long long fs = s0;
+  StripRun fg = strip_run(s0, end, H4, strips, kSbP);
+  int fu = fg.qa - 2;
+  bool fvalid = s0 < end;
+  // the window of the prefetch cursor's step into buf, then on
+  auto fetch = [&](unsigned char* buf) {
+    if (fvalid) sb_window(buf, xb, total, fg.b, fu, 2 * fg.p0 - 3, H, W);
+    cp_async_commit();  // possibly empty: the waits stay uniform
+    if (fu < fg.qb) {
+      ++fu;
+    } else {
+      fs += fg.qb - fg.qa;
+      fvalid = fs < end;
+      if (fvalid) {
+        fg = strip_run(fs, end, H4, strips, kSbP);
+        fu = fg.qa - 2;
       }
     }
-#pragma unroll
-    for (int o = 0; o < 16; ++o) acc[o] = fmaxf(acc[o], 0.f);
-    uint4* dst =
-        reinterpret_cast<uint4*>(out + (((size_t)b * H4 + q) * W4 + pc) * 16);
-    dst[0] = pack8(acc);
-    dst[1] = pack8(acc + 8);
+  };
+  int k = 0;  // steps run: step k's windows in buffer k & 1
+  fetch(wins);
+  mbar_wait(wbar, 0);
+  for (long long s = s0; s < end;) {
+    const StripRun g = strip_run(s, end, H4, strips, kSbP);
+    for (int u = g.qa - 2; u <= g.qb; ++u, ++k) {
+      fetch(wins + ((k + 1) & 1) * kSbWins);  // read in step k - 1
+      cp_async_wait<1>();
+      __syncthreads();  // step k's windows are whole; step k - 1 is done
+      sb_stem_rows(wins + (k & 1) * kSbWins, w_s, stem, l1, bias, g, u, lane, H, W);
+      __syncthreads();  // stem and left_1 rows 2u - 1 .. 2u + 1 are whole
+      if (u >= g.qa - 1) sb_concat(stem, l1_s, cat, w_s, bias, g, u, H4, W4);
+      __syncthreads();  // concat rows u - 2 .. u are whole
+      if (u > g.qa) sb_fuse(cat_s, w_s, bias, out, g, u - 1, H4, W4);
+    }
+    s += g.qb - g.qa;
   }
+  cp_async_wait<0>();
 }
 
 }  // namespace
@@ -1179,15 +1424,30 @@ extern "C" int mds_detail_s1s2_fused(const void* x, const void* t1,
   return (int)cudaGetLastError();
 }
 
-extern "C" int mds_stemblock_fused(const void* x, const void* w, void* out,
-                                   int B, int H, int W, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      stemblock_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSbSmem);
+extern "C" int mds_stemblock_fused(const void* x, const void* w, const void* bias,
+                                   void* out, int B, int H, int W, void* stream) {
+  if (B < 1 || H < 4 || W < 4 || H % 4 || W % 4) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(stemblock_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kSbSmem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stemblock_kernel,
+                                                        kSbThreads, kSbSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W / 4 + kSbTP - 1) / kSbTP, (H / 4 + kSbTQ - 1) / kSbTQ, B);
-  stemblock_kernel<<<grid, kSbThreads, kSbSmem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(w),
-      static_cast<bf16*>(out), H, W);
+  const int strips = (W / 4 + kSbP - 1) / kSbP;
+  const long long steps = (long long)B * strips * (H / 4);
+  const long long cap = (long long)max(1, min(per_sm, kSbMaxPerSm)) * sms;
+  const long long per_block = (steps + cap - 1) / cap;
+  if (per_block >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const long long blocks = (steps + per_block - 1) / per_block;
+  stemblock_kernel<<<(unsigned)blocks, kSbThreads, kSbSmem, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<bf16*>(out), B, H, W, strips,
+      (int)per_block);
   return (int)cudaGetLastError();
 }

@@ -7,231 +7,313 @@
 // ResNet18 conv1 and the SpatialPath conv1 of BiSeNetV1.
 //
 // Rounding points are the TPU kernel's: the weight is bf16(k * scale), the
-// bias bf16(bias); the products of bf16 values accumulate in f32, the bias is
-// added, then the ReLU, then one rounding to bf16.
+// bias bf16(bias), both in the GEMM (the bias times an A of one, as the TPU
+// kernel's row of ones); the products of bf16 values accumulate in f32, then
+// the ReLU, then one rounding to bf16.
 //
 // Bound: memory. At 1024x2048 with O = 64 the conv reads 12.6 MB and writes
 // 67.1 MB (0.024 ms at 3.35 TB/s) for 9.9 GFLOP (0.010 ms at 989 TFLOP/s).
-// Design: an implicit GEMM on the tensor cores with mma.sync m16n8k16 (bf16
-// in, f32 accumulate): M = output pixels, N = output channels in groups of
-// 64, K = 7 kernel rows x 22 taps, padded to 160. In NHWC at stride 2 the
-// 21 taps (dx, ci) of one kernel row of an output pixel are 21 consecutive
-// elements of the input row, starting at element 6 * (output column); a
-// 22nd tap of weight zero keeps every pair of taps in one 4-byte word, so
-// each A register is one 32-bit shared-memory load (the 22nd tap's half and
-// the padding past K = 154 are masked to zero, so they never touch a
-// non-finite input). Blocks are persistent: each loads the B fragments (the
-// folded weights, pre-packed by the wrapper) into shared memory once, then
-// walks 8x32 output tiles: the 21x70x3 input window goes to shared memory
-// (zero outside the image: the conv's padding), each warp computes one output
-// row as two M tiles, and the results go through shared memory to 16-byte
-// stores, a row of the tile being contiguous in NHWC. Ragged tiles compute on
-// the zero window and skip their stores, so any even H and W work.
+// The design keeps the store stream going; on the card the pace is set by
+// the per-tile shared-memory traffic (A's loads, B's reads by the tensor
+// cores, the stage) and the N = 64 MMAs (PERF.md §6).
+//
+// - The GEMM: M = 64 output pixels of one output row (a tile, one
+//   warpgroup), N = O padded to 16, 32, 64 or 128, K = 7 kernel rows x 24.
+//   In NHWC at stride 2 the 21 taps (dx, ci) of one kernel row of output
+//   pixel c are 21 consecutive elements of the input row, from element 6c - 9;
+//   a row's 24 K values are the elements from 6c - 10 (the one before the
+//   taps, weight zero, so that every (k, k + 1) pair is one aligned 32-bit
+//   word), the 21 taps and two more of weight zero. A K chunk of 8 (one
+//   lane quad's share of a k16 half) is then one third of one kernel row:
+//   each lane's 42 A words of the 7 rows (21 chunks, two pixels) are 32-bit
+//   shared loads at offsets fixed per lane, plus the window row's 16-byte
+//   shift, and the elements of weight zero are masked to zero in A. K 168
+//   (chunk 21, the last half k16 step) is the bias: A = 1 there, no load.
+// - wgmma m64nNk16 with A from registers and B, bf16(k * scale) in that K
+//   order (ops/stem.py pack_stem7, packed once per parameter version), in
+//   shared memory for the block's life: three 64-deep slices of N rows in
+//   wgmma's K-major layout with the 128-byte swizzle (wgmma.cuh), one bulk
+//   copy. 11 wgmma a tile, one commit.
+// - The window: the tile's 7 input rows, each a 16-byte aligned run of
+//   816 bytes from the chunk that holds its first wanted byte, copied in
+//   16-byte cp.async with zero fill while the tile before computes (two
+//   buffers). What lies outside the image (rows above and below, columns
+//   left and right) arrives as zeros: the conv's padding. The chunk that
+//   starts before its image row (the leftmost tile's) goes as four 4-byte
+//   copies.
+// - The output: the epilogue ([ReLU] and bf16 in one cvt) writes the
+//   accumulators by stmatrix into one of two stage buffers as the
+//   tile's NHWC image, one contiguous run of up to 64 x O x 2 bytes, and
+//   thread 0 hands it to the copy engine in one bulk copy (cp.async.bulk
+//   shared to global, a bulk group per tile), so the 67 MB of stores stream
+//   on while the next tiles load and compute; a stage is written again only
+//   once its copy has read it (wait_group.read 1, two tiles on).
+// - Blocks are persistent, one warpgroup each, as many as fit an SM (four
+//   at O <= 64), each walking every gridDim.x-th tile.
+// Any B >= 1 and even H, W: the pixels of a ragged tile past the image
+// compute on zeros and are not copied out.
 //
 // The launcher returns the cudaError_t of its launch (0 on success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kTH = 8;                 // output rows per tile, one per warp
-constexpr int kTW = 32;                // output cols per tile: two M tiles
-constexpr int kThreads = 32 * kTH;     // 256
-constexpr int kInRows = 2 * kTH + 5;   // input rows of a tile's window (21)
-constexpr int kInCols = 2 * kTW + 6;   // input cols, the 22nd tap's too (70)
-constexpr int kRS = kInCols * 3;       // window row stride in elements (even)
-constexpr int kKRow = 22;              // K per kernel row: 21 taps + 1 zero
-constexpr int kK = 7 * kKRow;          // K in use (154)
-constexpr int kKC = 10;                // K chunks of 16 (160)
-constexpr int kOutStride = 72;         // staged output stride (bank spread)
+constexpr int k7TC = 64;        // output pixels per tile: wgmma's M
+constexpr int k7Threads = 128;  // one warpgroup
+constexpr int k7KRow = 24;      // K per kernel row
+constexpr int k7Chunks = 21;    // 8-wide K chunks in use: 7 rows x 3
+constexpr int k7Steps = 11;     // k16 steps: K = 176, the last half zero
+constexpr int k7Slices = 3;     // 64-deep K slices of B (192)
+// a window row: a tile's wanted 2 * (6 * 63 + 24) bytes from up to 12 bytes
+// after a 16-byte boundary, in whole 16-byte chunks (816 bytes)
+constexpr int k7RowBytes = (2 * (6 * (k7TC - 1) + k7KRow) + 12 + 15) / 16 * 16;
+constexpr int k7RowChunks = k7RowBytes / 16;
+constexpr int k7WinBytes = 7 * k7RowBytes;
 
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+__host__ __device__ constexpr int s7_stage_bytes(int n) { return k7TC * n * 2; }
+
+// 1024 bytes of slack to align B to the swizzle's 1024-byte pattern, B,
+// two windows, two stages, the mbarrier of B's copy
+__host__ __device__ constexpr size_t s7_smem(int n) {
+  return 1024 + k7Slices * n * 128 + 2 * k7WinBytes + 2 * s7_stage_bytes(n) +
+         sizeof(uint64_t);
 }
 
-__device__ __forceinline__ uint32_t ld_b32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+struct S7Tile {
+  int b, r, c0;  // image, output row, first output column
+};
+
+__device__ __forceinline__ S7Tile s7_tile(int tile, int tiles_x, int H2) {
+  const int t = tile / tiles_x;
+  return {t / H2, t % H2, (tile - t * tiles_x) * k7TC};
 }
 
-// D += A(16x16, row) * B(16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16_16816(float* d, uint32_t a0,
-                                               uint32_t a1, uint32_t a2,
-                                               uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// Byte offset in x of element 6 * c0 - 10 of input row 2r - 3 + dy: the
+// first wanted byte of window row dy (before the image row at its left
+// edge; anywhere for a row outside the image).
+__device__ __forceinline__ long long s7_row_start(S7Tile t, int dy, int H, int W) {
+  return (((long long)t.b * H + 2 * t.r - 3 + dy) * W) * 6 + 12LL * t.c0 - 20;
 }
 
-__host__ __device__ constexpr size_t stem7_smem(int nt) {
-  return (size_t)kKC * nt * 32 * sizeof(uint2) +
-         (size_t)kTH * kTW * kOutStride * sizeof(bf16) +
-         (size_t)kInRows * kRS * sizeof(bf16);
+// Tile t's window into win by cp.async, the chunks spread over the block's
+// threads; bytes outside the image row (or its rows outside the image) are
+// zero.
+__device__ __forceinline__ void s7_window(unsigned char* win,
+                                          const unsigned char* __restrict__ xb,
+                                          S7Tile t, int H, int W) {
+  const long long rowb = 6LL * W;
+  for (int i = threadIdx.x; i < 7 * k7RowChunks; i += k7Threads) {
+    const int dy = i / k7RowChunks, q = i - dy * k7RowChunks;
+    unsigned char* dst = win + dy * k7RowBytes + 16 * q;
+    const int y = 2 * t.r - 3 + dy;
+    if (y < 0 || y >= H) {
+      cp_async16(dst, xb, 0);
+      continue;
+    }
+    const long long row = ((long long)t.b * H + y) * rowb;
+    const long long g = (s7_row_start(t, dy, H, W) & ~15LL) + 16 * q;
+    const long long lo = max(g, row), hi = min(g + 16, row + rowb);
+    if (hi <= lo) {
+      cp_async16(dst, xb, 0);
+    } else if (g >= row) {
+      cp_async16(dst, xb + g, (int)(hi - g));
+    } else {  // the chunk starts before the row (rows start 4-byte aligned)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const long long a = g + 4 * k;
+        const bool in = a >= row && a < hi;
+        cp_async4(dst + 4 * k, in ? xb + a : xb, in ? 4 : 0);
+      }
+    }
+  }
 }
 
-// wfrag: the (160, O) bf16 weight matrix, row k = dy * 22 + dx * 3 + ci, as
-// mma.sync B fragments [kc][n-tile][lane][4], lane = n * 4 + t holding rows
-// 2t, 2t+1, 2t+8, 2t+9 of chunk kc. bias: bf16(bias) as f32, (O,).
-__global__ void __launch_bounds__(kThreads, 2)
-    stem7_kernel(const bf16* __restrict__ x, const uint2* __restrict__ wfrag,
-                 const float* __restrict__ bias, bf16* __restrict__ out, int B,
-                 int H, int W, int O, int relu) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int NT = O / 8;
-  uint2* ws = reinterpret_cast<uint2*>(smem);
-  bf16* os = reinterpret_cast<bf16*>(smem + (size_t)kKC * NT * 32 * sizeof(uint2));
-  bf16* win = os + kTH * kTW * kOutStride;
+// Tile t's A fragments from its window w (the lane's base folded in): K
+// chunk m = 2s + i of k16 step s in registers 2i, 2i + 1; chunk 21 holds
+// the bias's A of one (K 168: lane quad 0's low half).
+__device__ __forceinline__ void s7_tile_a(const unsigned char* w, S7Tile t, int H,
+                                          int W, uint32_t keep0, uint32_t keep2,
+                                          uint32_t one, uint32_t (&a)[k7Steps][4]) {
+  const int sh0 = (int)(s7_row_start(t, 0, H, W) & 15);
+  const int rw = (6 * W) & 15;  // a window row's shift step from the one above
+#pragma unroll
+  for (int s = 0; s < k7Steps; ++s)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = 2 * s + i, dy = m / 3, part = m % 3;
+      if (m == k7Chunks) {
+        a[s][2 * i] = a[s][2 * i + 1] = one;
+        continue;
+      }
+      const uint32_t keep = part == 0 ? keep0 : part == 2 ? keep2 : 0xffffffffu;
+      const unsigned char* p = w + dy * k7RowBytes + ((sh0 + dy * rw) & 15) + 16 * part;
+      a[s][2 * i] = *reinterpret_cast<const uint32_t*>(p) & keep;
+      a[s][2 * i + 1] = *reinterpret_cast<const uint32_t*>(p + 96) & keep;
+    }
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+// The accumulators of a tile: [ReLU], bf16, by stmatrix into stage st as
+// the tile's NHWC image: matrix (h, j) is pixels 16 warp + 8h .. + 7,
+// channels 8j .. 8j + 7.
+template <int N>
+__device__ __forceinline__ void s7_epilogue(const float (&acc)[N / 2],
+                                            unsigned char* st, int O, int relu) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nv = O / 8;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t row = smem_u32(st) + (16 * warp + 8 * h + (lane & 7)) * O * 2;
+#pragma unroll
+    for (int j4 = 0; j4 < N / 8; j4 += 4) {
+      if (j4 >= nv) break;
+      uint32_t v[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j4 + jj;
+        if (j < N / 8) {
+          const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          v[jj] = relu ? pack2_relu(v0, v1) : pack2(v0, v1);
+        }
+      }
+      const int n = min(4, nv - j4);  // matrices of this group in O
+      if (n == 4) {
+        stmatrix_x4(row + 16 * (j4 + (lane >> 3)), v);
+      } else {
+        if (n >= 2) stmatrix_x2(row + 16 * (j4 + ((lane >> 3) & 1)), v);
+        if (n != 2) stmatrix_x1(row + 16 * (j4 + (n & 2)), n & 2 ? v[2] : v[0]);
+      }
+    }
+  }
+  fence_proxy_async();
+}
+
+// The stage of tile t to out in one bulk copy (thread 0's bulk group).
+__device__ __forceinline__ void s7_store(const unsigned char* st, bf16* out, S7Tile t,
+                                         int H2, int W2, int O) {
+  const int np = min(k7TC, W2 - t.c0);
+  bulk_s2g(out + (((size_t)t.b * H2 + t.r) * W2 + t.c0) * O, st, np * O * 2);
+  bulk_commit();
+}
+
+// wpk: ops/stem.py pack_stem7's three slices of N rows x 128 bytes.
+template <int N>
+__global__ void __launch_bounds__(k7Threads, N <= 64 ? 4 : 2)
+    stem7_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpk,
+                 bf16* __restrict__ out, int B, int H, int W, int O, int relu,
+                 int tiles_x) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* tbl = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* win = tbl + k7Slices * N * 128;
+  unsigned char* stage = win + 2 * k7WinBytes;
+  constexpr int kStage = s7_stage_bytes(N);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(stage + 2 * kStage);
+  const int H2 = H / 2, W2 = W / 2, tiles = B * H2 * tiles_x;
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  int tile = blockIdx.x;
+  if (threadIdx.x == 0) {  // B, once per block, by the copy engine
+    mbar_arrive_expect_tx(bar, k7Slices * N * 128);
+    bulk_g2s(tbl, wpk, k7Slices * N * 128, bar);
+  }
+  if (tile < tiles) s7_window(win, xb, s7_tile(tile, tiles_x, H2), H, W);
+  cp_async_commit();
+  mbar_wait(bar, 0);
+
+  const uint32_t tbl_s = smem_u32(tbl);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  for (int i = tid; i < kKC * NT * 32; i += kThreads) ws[i] = wfrag[i];
+  // the lane's share of a K chunk: elements 2 tq, 2 tq + 1 of it, at pixel
+  // 16 warp + gq (12 bytes a pixel); element 0 of a row (the one before the
+  // taps) and elements 22, 23 have weight zero and are masked
+  const int lbase = 12 * (16 * warp + gq) + 4 * tq;
+  const uint32_t keep0 = tq == 0 ? 0xffff0000u : 0xffffffffu;
+  const uint32_t keep2 = tq == 3 ? 0u : 0xffffffffu;
+  const uint32_t one = tq == 0 ? 0x3F80u : 0u;  // bf16 1 at K 168, the bias's A
 
-  // this lane's K pairs: slot s = 2 * kc + h holds rows kc*16 + 8h + 2tq and
-  // the next. meta[s] packs their window offset from the pixel's origin (low
-  // 16 bits) with the right shift of an all-ones mask (high bits): 16 keeps
-  // only the first of the pair (the second is a row's 22nd tap), 32 zeroes
-  // both (K padding)
-  uint32_t meta[2 * kKC];
+  S7Tile t = s7_tile(tile, tiles_x, H2);
+  for (int it = 0; tile < tiles; tile += gridDim.x, ++it) {
+    const int buf = it & 1, next = tile + gridDim.x;
+    const S7Tile tn = s7_tile(next, tiles_x, H2);
+    // the next tile's window into the other buffer, which every thread has
+    // read (before the last iteration's second barrier)
+    if (next < tiles) s7_window(win + (buf ^ 1) * k7WinBytes, xb, tn, H, W);
+    cp_async_commit();  // possibly empty: the wait below stays uniform
+    if (threadIdx.x == 0) bulk_wait_read<1>();  // this stage's last copy read it
+    cp_async_wait<1>();
+    __syncthreads();  // this window is whole; this stage is free
+
+    uint32_t a[k7Steps][4];
+    s7_tile_a(win + buf * k7WinBytes + lbase, t, H, W, keep0, keep2, one, a);
+    float acc[N / 2];
 #pragma unroll
-  for (int s = 0; s < 2 * kKC; ++s) {
-    const int k = (s >> 1) * 16 + (s & 1) * 8 + 2 * tq;
-    const int j = k % kKRow;
-    meta[s] = k >= kK ? 32u << 16
-                      : (uint32_t)((k / kKRow) * kRS + j) |
-                            ((j == kKRow - 2 ? 16u : 0u) << 16);
-  }
-  // the lane's four A rows: M tile t, half h → output column 16t + 8h + gq,
-  // whose window origin is 6 * column in the warp's window row
-  int pb[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) pb[i] = 6 * ((i >> 1) * 16 + (i & 1) * 8 + gq);
-
-  const int H2 = H / 2, W2 = W / 2;
-  const int tiles_x = (W2 + kTW - 1) / kTW, tiles_y = (H2 + kTH - 1) / kTH;
-  const long long n_tiles = (long long)B * tiles_y * tiles_x;
-  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int tx = (int)(t % tiles_x);
-    const long long tt = t / tiles_x;
-    const int ty = (int)(tt % tiles_y), b = (int)(tt / tiles_y);
-    const int r0 = ty * kTH, c0 = tx * kTW;
-    const bf16* xb = x + (size_t)b * H * W * 3;
-
-    // the input window: rows from 2*r0 - 3, cols from 2*c0 - 3, zero outside
-    // the image (no warp reads the window of the previous tile any more: the
-    // last store pass below ends in a barrier)
-    const int y0 = 2 * r0 - 3, x0 = 2 * c0 - 3;
-    for (int i = tid; i < kInRows * kRS; i += kThreads) {
-      const int rr = i / kRS, e = i - rr * kRS;
-      const int y = y0 + rr, xc = x0 + e / 3;
-      unsigned short v = 0;
-      if (y >= 0 && y < H && xc >= 0 && xc < W)
-        v = reinterpret_cast<const unsigned short*>(xb)[((size_t)y * W + xc) * 3 + e % 3];
-      reinterpret_cast<unsigned short*>(win)[i] = v;
+    for (int i = 0; i < N / 2; ++i) {
+      acc[i] = 0.f;
+      reg_fence(acc[i]);
     }
-    __syncthreads();
-
-    const bf16* wrow = win + 2 * warp * kRS;  // output row r0 + warp
-    for (int n0 = 0; n0 < NT; n0 += 8) {
-      float acc[2][8][4];
+    wgmma_fence();
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
+    for (int s = 0; s < k7Steps; ++s)
+      wgmma_m64nk16<N>(acc, a[s], sw128_desc(tbl_s + s / 4 * N * 128 + 32 * (s % 4)));
+    wgmma_commit();
+    wgmma_wait<0>();
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[m][nt][q] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < kKC; ++kc) {
-        const int o0 = meta[2 * kc] & 0xffff, o1 = meta[2 * kc + 1] & 0xffff;
-        const uint32_t k0 = __funnelshift_rc(0xffffffffu, 0u, meta[2 * kc] >> 16);
-        const uint32_t k1 = __funnelshift_rc(0xffffffffu, 0u, meta[2 * kc + 1] >> 16);
-        uint32_t a[2][4];
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          a[m][0] = ld_b32(wrow + pb[2 * m] + o0) & k0;
-          a[m][1] = ld_b32(wrow + pb[2 * m + 1] + o0) & k0;
-          a[m][2] = ld_b32(wrow + pb[2 * m] + o1) & k1;
-          a[m][3] = ld_b32(wrow + pb[2 * m + 1] + o1) & k1;
-        }
-        const uint2* wk = ws + ((size_t)kc * NT + n0) * 32 + lane;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          if (n0 + nt < NT) {
-            const uint2 bv = wk[nt * 32];
-#pragma unroll
-            for (int m = 0; m < 2; ++m)
-              mma_bf16_16816(acc[m][nt], a[m][0], a[m][1], a[m][2], a[m][3],
-                             bv.x, bv.y);
-          }
-        }
-      }
-      // epilogue: + bias, ReLU, bf16, staged as [pixel][channel of group]
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        if (n0 + nt >= NT) continue;
-        const int col = nt * 8 + 2 * tq;
-        const float b0 = __ldg(bias + n0 * 8 + col);
-        const float b1 = __ldg(bias + n0 * 8 + col + 1);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int m = i >> 1, h = i & 1;
-          float v0 = acc[m][nt][2 * h] + b0, v1 = acc[m][nt][2 * h + 1] + b1;
-          if (relu) {
-            v0 = fmaxf(v0, 0.f);
-            v1 = fmaxf(v1, 0.f);
-          }
-          const int p = warp * kTW + m * 16 + h * 8 + gq;
-          *reinterpret_cast<uint32_t*>(os + p * kOutStride + col) = pack2(v0, v1);
-        }
-      }
-      __syncthreads();
-      // 16-byte stores: consecutive threads, consecutive 16 bytes of a row
-      const int nv = min(8, NT - n0);  // 16-byte vectors per pixel
-      for (int i = tid; i < kTH * kTW * nv; i += kThreads) {
-        const int p = i / nv, v = i - p * nv;
-        const int r = r0 + p / kTW, c = c0 + p % kTW;
-        if (r < H2 && c < W2)
-          *reinterpret_cast<uint4*>(out + (((size_t)b * H2 + r) * W2 + c) * O +
-                                    n0 * 8 + v * 8) =
-              *reinterpret_cast<const uint4*>(os + p * kOutStride + v * 8);
-      }
-      __syncthreads();
-    }
+    for (int i = 0; i < N / 2; ++i) reg_fence(acc[i]);
+    unsigned char* st = stage + buf * kStage;
+    s7_epilogue<N>(acc, st, O, relu);
+    __syncthreads();  // the stage is whole, and this window is read
+    if (threadIdx.x == 0) s7_store(st, out, t, H2, W2, O);
+    t = tn;
   }
+  if (threadIdx.x == 0) bulk_wait<0>();
+  cp_async_wait<0>();
+}
+
+template <int N>
+int stem7_launch(const void* x, const void* wpk, void* out, int B, int H, int W,
+                 int O, int relu, cudaStream_t stream) {
+  auto kern = stem7_kernel<N>;
+  constexpr size_t smem = s7_smem(N);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, k7Threads,
+                                                        smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (W / 2 + k7TC - 1) / k7TC;
+  const long long tiles = (long long)B * (H / 2) * tiles_x;
+  if (tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  long long blocks = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  if (blocks > tiles) blocks = tiles;
+  kern<<<(unsigned)blocks, k7Threads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wpk),
+      static_cast<bf16*>(out), B, H, W, O, relu, tiles_x);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // ------------------------------------------------------------ C interface
 
-extern "C" int mds_stem7_conv_bn_relu_s2(const void* x, const void* wfrag,
-                                         const void* bias, void* out, int B,
-                                         int H, int W, int O, int relu,
+// wpk: ops/stem.py pack_stem7 (N = O padded to 16, 32, 64 or 128).
+extern "C" int mds_stem7_conv_bn_relu_s2(const void* x, const void* wpk, void* out,
+                                         int B, int H, int W, int O, int relu,
                                          void* stream) {
-  const size_t smem = stem7_smem(O / 8);
-  cudaError_t err = cudaFuncSetAttribute(
-      stem7_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stem7_kernel,
-                                                        kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (long long)B * ((H / 2 + kTH - 1) / kTH) *
-                          ((W / 2 + kTW - 1) / kTW);
-  const long long cap = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  const long long blocks = tiles < cap ? tiles : cap;
-  stem7_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(x), static_cast<const uint2*>(wfrag),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), B, H, W, O,
-      relu);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (O <= 0 || O % 8 || O > 128 || B < 1 || H < 2 || W < 2 || H % 2 || W % 2)
+    return (int)cudaErrorInvalidValue;
+  if (O <= 16) return stem7_launch<16>(x, wpk, out, B, H, W, O, relu, s);
+  if (O <= 32) return stem7_launch<32>(x, wpk, out, B, H, W, O, relu, s);
+  if (O <= 64) return stem7_launch<64>(x, wpk, out, B, H, W, O, relu, s);
+  return stem7_launch<128>(x, wpk, out, B, H, W, O, relu, s);
 }

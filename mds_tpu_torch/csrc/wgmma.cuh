@@ -1,8 +1,10 @@
 // Hopper (sm_90a) helpers shared by the warpgroup-MMA kernels of the port
-// (conv3x3.cu, detail_tail.cu): wgmma.mma_async m64nNk16 (N = 64, 128) with A from
-// registers and B from shared memory through a matrix descriptor, its
-// fence/commit/wait, ldmatrix, mbarriers, the bulk copy (cp.async.bulk) that
-// completes on an mbarrier, and named barriers. Raw PTX, as in mma.cuh.
+// (stem.cu, stem7.cu, conv3x3.cu, detail_tail.cu): wgmma.mma_async m64nNk16
+// (N = 16, 32, 64, 128) with A from registers and B from shared memory
+// through a matrix descriptor, its fence/commit/wait, ldmatrix and stmatrix,
+// mbarriers, the bulk copies (cp.async.bulk) global to shared, completing on
+// an mbarrier, and shared to global in bulk groups, and named barriers. Raw
+// PTX, as in mma.cuh.
 //
 // The B operand layout (what ops/conv3x3.py and ops/stem.py pack): a slice
 // is one (tap, 64-deep K chunk, 64-wide N chunk) of a 3x3 conv's weight,
@@ -186,6 +188,74 @@ __device__ __forceinline__ void bulk_g2s(void* smem, const void* gmem,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(smem)),
       "l"(gmem), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Four (x4), two (x2) or one (x1) 8x8 b16 matrices from registers to shared
+// memory, ldmatrix's inverse: lane l gives the row address of matrix l / 8,
+// row l % 8 (lanes past the count give none), and r[i] holds (row l / 4,
+// cols 2 (l % 4), +1) of matrix i, an mma accumulator fragment packed to
+// bf16.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t* r) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+          addr),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+__device__ __forceinline__ void stmatrix_x2(uint32_t addr, const uint32_t* r) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x2.shared.b16 [%0], {%1, %2};\n" ::"r"(
+                   addr),
+               "r"(r[0]), "r"(r[1])
+               : "memory");
+}
+
+__device__ __forceinline__ void stmatrix_x1(uint32_t addr, uint32_t r) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x1.shared.b16 [%0], {%1};\n" ::"r"(addr),
+               "r"(r)
+               : "memory");
+}
+
+// bf16(max(lo, 0)) and bf16(max(hi, 0)) in one word, lo in the low half
+// (pack2 with the ReLU in the rounding instruction).
+__device__ __forceinline__ uint32_t pack2_relu(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// Makes this thread's ordinary writes to shared memory visible to the copy
+// engine (the bulk copies that read them).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from shared to
+// global memory by the copy engine, in this thread's open bulk group.
+__device__ __forceinline__ void bulk_s2g(void* gmem, const void* smem,
+                                         uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gmem),
+      "r"(smem_u32(smem)), "r"(bytes)
+      : "memory");
+}
+
+// Closes this thread's open bulk group.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's bulk groups still read their shared
+// sources (their writes may still be in flight).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Until at most N of this thread's bulk groups are still in flight.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Barrier `id` (1-15; 0 is __syncthreads) over the first `n` threads to

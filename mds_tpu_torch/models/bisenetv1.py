@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mds_tpu_torch.models.layers import (
+    PackCache,
     bn_eval,
     conv2d,
     conv_bn_relu,
@@ -40,7 +41,8 @@ _TRAIN_NOT_PORTED = (
 
 class ConvBNReLU1(nn.Module):
     """conv → single BN → ReLU (mds_tpu/models/bisenetv1.py:25-65); a 7×7
-    s2 p3 conv on RGB takes the stem kernel route (layers.conv_bn_relu)."""
+    s2 p3 conv on RGB takes the stem kernel route (layers.conv_bn_relu), its
+    fold and packed weight kept once per parameter version (a PackCache)."""
 
     def __init__(self, in_chan: int, out_chan: int, ks: int = 3,
                  stride: int = 1, padding: int = 1,
@@ -49,9 +51,10 @@ class ConvBNReLU1(nn.Module):
         self.conv = nn.Conv2d(in_chan, out_chan, ks, stride, padding, bias=False)
         self.bn = nn.BatchNorm2d(out_chan)
         self.dtype = dtype
+        self._packs = PackCache()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_bn_relu(self.conv, self.bn, x, self.dtype)
+        return conv_bn_relu(self.conv, self.bn, x, self.dtype, self._packs)
 
 
 class AttentionRefinementModule(nn.Module):

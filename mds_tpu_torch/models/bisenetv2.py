@@ -54,6 +54,17 @@ def _fusable(module: nn.Module, xs: MultiX) -> bool:
         for x in xs)
 
 
+def _pack_cached(owner, name, modules, i, pack, params, x):
+    """pack(*params) for dataset i, once per parameter version of the
+    modules' conv weights and BN tensors (owner's PackCache); None for a CPU
+    x, whose plain version reads no pack."""
+    if x.device.type == "cpu":
+        return None
+    srcs = [t for m in modules
+            for t in (m.conv.weight, *m.bn.tensors_at(i, m._shared()))]
+    return owner._packs.get((name, i), srcs, lambda: pack(*params))
+
+
 class DetailBranch(nn.Module):
     """High-resolution detail path (mds_tpu/models/bisenetv2.py:42)."""
 
@@ -95,16 +106,6 @@ class DetailBranch(nn.Module):
     def _tail(self):
         return (self.S2_2, self.S2_3, self.S3_1, self.S3_2, self.S3_3)
 
-    def _packed(self, name, modules, i, pack, params, x):
-        """pack(*params) for dataset i, once per parameter version of the
-        modules' conv weights and BN tensors (PackCache); None for a CPU x,
-        whose plain version reads no pack."""
-        if x.device.type == "cpu":
-            return None
-        srcs = [t for m in modules
-                for t in (m.conv.weight, *m.bn.tensors_at(i, m._shared()))]
-        return self._packs.get((name, i), srcs, lambda: pack(*params))
-
     def _head_fused(self, x: torch.Tensor, i: int) -> torch.Tensor:
         """Dataset i's input through the head kernel (S1_1, S1_2, S2_1), its
         folds and packed weights made once per parameter version."""
@@ -112,7 +113,7 @@ class DetailBranch(nn.Module):
 
         params = [t for m in self._head()
                   for t in (m.conv.weight, *m.fold_cached(i))]
-        packed = self._packed("head", self._head(), i, pack_detail_head, params, x)
+        packed = _pack_cached(self, "head", self._head(), i, pack_detail_head, params, x)
         return detail_s1s2_fused(x, *params, packed)
 
     def _tail_fused(self, x: torch.Tensor, i: int) -> torch.Tensor:
@@ -123,13 +124,14 @@ class DetailBranch(nn.Module):
 
         params = [t for m in self._tail()
                   for t in (m.conv.weight, *m.fold_cached(i))]
-        packed = self._packed("tail", self._tail(), i, pack_detail_tail, params, x)
+        packed = _pack_cached(self, "tail", self._tail(), i, pack_detail_tail, params, x)
         return detail_tail_fused(x, *params, packed)
 
 
 class StemBlock(nn.Module):
     """Stem: conv ×2↓ then conv path ‖ maxpool, fuse
-    (mds_tpu/models/bisenetv2.py:128)."""
+    (mds_tpu/models/bisenetv2.py:128). Fused (see the module docstring), its
+    folds and packed weights are made once per parameter version."""
 
     def __init__(self, n_bn=1, shared_affine=True, dtype=torch.float32):
         super().__init__()
@@ -139,19 +141,24 @@ class StemBlock(nn.Module):
         self.left_2 = ConvBNReLU(8, 16, 3, stride=2, **cfg)
         self.fuse = ConvBNReLU(32, 16, 3, **cfg)
         self.dtype = dtype
+        self._packs = PackCache()
+
+    def _convs(self):
+        return (self.conv, self.left_1, self.left_2, self.fuse)
+
+    def _fused(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """Dataset i's input through the StemBlock kernel (PackCache keyed on
+        the four modules' conv weights and BN tensors and on i)."""
+        from mds_tpu_torch.ops.stem import pack_stemblock, stemblock_fused
+
+        params = [t for m in self._convs() for t in (m.conv.weight, *m.fold_cached(i))]
+        packed = _pack_cached(self, "stemblock", self._convs(), i, pack_stemblock, params, x)
+        return stemblock_fused(x, *params, packed=packed)
 
     def forward(self, xs: MultiX):
         if _fusable(self, xs):
-            from mds_tpu_torch.ops.stem import stemblock_fused
-
-            parts = [m.folded(xs)
-                     for m in (self.conv, self.left_1, self.left_2, self.fuse)]
-            return [
-                None if x is None else stemblock_fused(
-                    x.to(self.dtype),
-                    *(t for k, cf in parts for t in (k, *cf[i])))
-                for i, x in enumerate(xs)
-            ]
+            return [None if x is None else self._fused(x.to(self.dtype), i)
+                    for i, x in enumerate(xs)]
         xs = self.conv(xs)
         left = self.left_2(self.left_1(xs))
         right = lmap(max_pool_3x3_s2, xs)

@@ -342,21 +342,30 @@ def bn_eval(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Te
 
 
 def conv_bn_relu(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
+                 dtype: torch.dtype, packs: Optional[PackCache] = None) -> torch.Tensor:
     """conv → plain single BN (bn_eval) → ReLU in `dtype`. A 7×7 s2 p3 conv
     (ResNet18's conv1, the SpatialPath's conv1) in eval with
     set_stem_impl("kernel") on a bf16 3-channel input of even H and W runs
     as the 7×7 stem kernel with the BN folded in (ops/stem.py
     stem7_conv_bn_relu_s2; mds_tpu/models/resnet.py:58-79 and
     bisenetv1.py:42-58, without JAX's W ≥ 512 Mosaic guard); any other
-    input takes the library ops."""
+    input takes the library ops. On that route `packs`, the caller's
+    PackCache, keeps the fold and the kernel's packed weight (a CUDA input's
+    only) until the conv weight or a BN tensor changes; a caller without one
+    gets a fresh cache, so both are made in the call."""
     if (conv.kernel_size == (7, 7) and conv.stride == (2, 2)
             and conv.padding == (3, 3) and not conv.training
             and _STEM_IMPL == "kernel" and dtype == torch.bfloat16
             and x.shape[1] == 3 and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0):
-        from mds_tpu_torch.ops.stem import stem7_conv_bn_relu_s2
+        from mds_tpu_torch.ops.stem import pack_stem7, stem7_conv_bn_relu_s2
 
-        return stem7_conv_bn_relu_s2(x.to(dtype), conv.weight, *bn_fold(bn))
+        packs = PackCache() if packs is None else packs
+        stats = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        scale, bias = packs.get("fold", stats, lambda: bn_fold(bn))
+        packed = None if x.device.type == "cpu" else packs.get(
+            "stem7", (conv.weight, *stats), lambda: pack_stem7(conv.weight, scale, bias))
+        return stem7_conv_bn_relu_s2(x.to(dtype), conv.weight, scale, bias,
+                                     packed=packed)
     return F.relu(bn_eval(bn, conv2d(conv, x, dtype), dtype))
 
 

@@ -4,7 +4,8 @@ Single-BN, torchvision layout (`conv1`, `bn1`, `layer{1..4}.{0,1}.conv1/bn1/
 conv2/bn2`, `downsample.0/1`), so a torchvision or reference checkpoint
 loads strictly. Every BN is a plain BatchNorm2d evaluated in flax's order
 and rounding (layers.bn_eval); eval only. With set_stem_impl("kernel") the
-bf16 7×7 stem conv1 + bn1 + ReLU runs as one CUDA kernel.
+bf16 7×7 stem conv1 + bn1 + ReLU runs as one CUDA kernel, its fold and
+packed weight kept once per parameter version (a PackCache).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mds_tpu_torch.models.layers import (
+    PackCache,
     bn_eval,
     conv2d,
     conv_bn_relu,
@@ -66,10 +68,12 @@ class Resnet18(nn.Module):
                 BasicBlock(chans[i - 1], chans[i], stride, dtype),
                 BasicBlock(chans[i], chans[i], 1, dtype)))
         self.dtype = dtype
+        self._packs = PackCache()
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
                                                  torch.Tensor]:
-        x = max_pool_3x3_s2(conv_bn_relu(self.conv1, self.bn1, x, self.dtype))
+        x = max_pool_3x3_s2(conv_bn_relu(self.conv1, self.bn1, x, self.dtype,
+                                          self._packs))
         feat8 = self.layer2(self.layer1(x))
         feat16 = self.layer3(feat8)
         return feat8, feat16, self.layer4(feat16)

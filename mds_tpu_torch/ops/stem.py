@@ -22,10 +22,10 @@ train-mode RGB stems take it under set_stem_impl("kernel").
 kernel (2) instead of kernel 1 on a CUDA tensor, as JAX's set_stem_variant
 does (stem.py:1248-1284); the two share one plain version and agree bit for
 bit. Kernels 1 and 2 read their weights as `pack_stem` lays them out (the
-f32 table as three bf16 parts), kernel 4 as `pack_detail_head` and kernel 7
-as `pack_detail_tail` do; a caller that holds the weights packs once and
-passes `packed`, else the wrapper packs in the call. stem_s1_pair_fused is on no
-model path, as in JAX.
+f32 table as three bf16 parts), kernels 4, 5, 6 and 7 as `pack_detail_head`,
+`pack_stemblock`, `pack_stem7` and `pack_detail_tail` do; a caller that holds
+the weights packs once and passes `packed`, else the wrapper packs in the
+call. stem_s1_pair_fused is on no model path, as in JAX.
 
 Each wrapper takes logically NCHW tensors stored channels_last (NHWC in
 memory), torch OIHW conv weights and the folded eval-BN (scale, bias) of each
@@ -129,6 +129,19 @@ def _stem_n(o: int) -> int:
     return next(n for n in (16, 32, 64, 128) if o <= n)
 
 
+def _kmajor_sw128(m: torch.Tensor) -> torch.Tensor:
+    """A GEMM's B as (N, K) (row n: output channel n's K values, already those
+    the kernel multiplies by; N % 8 == 0) → csrc/wgmma.cuh's B operand, flat
+    bf16: K zero-padded to a multiple of 64, slices of 64 K × N rows (128
+    bytes a row), logical 16-byte chunk c of row n stored at chunk c ^ (n % 8)
+    (wgmma's K-major layout, 128-byte swizzle)."""
+    n, k = m.shape
+    m = F.pad(m.float(), (0, -k % 64)).reshape(n, -1, 8, 8).permute(1, 0, 2, 3)
+    r = torch.arange(n, device=m.device).reshape(n, 1)
+    c = torch.arange(8, device=m.device).reshape(1, 8)
+    return m[:, r, c ^ (r % 8)].to(_BF16).contiguous().flatten()
+
+
 @torch.no_grad()
 def pack_stem(k, scale=None, bias=None):
     """Kernels 1 and 2's weights (csrc/stem.cu): the f32 folded table in
@@ -136,11 +149,10 @@ def pack_stem(k, scale=None, bias=None):
     hi), lo = bf16(w − hi − mid), which sum to w exactly. Column j of the
     (O, 32) table: dy·10 + 1 + dx·3 + ci holds k·scale at (dy, dx, ci);
     dy·10 is zero (the element before a pixel's taps); 30 holds the bias; 31
-    is zero. Two slices of N = _stem_n(O) rows (zero past O) × 64 bf16
-    (128 bytes): rows [hi | mid], then rows [lo | 0], logical 16-byte chunk
-    c of row n stored at chunk c ^ (n % 8) (wgmma's K-major layout, 128-byte
-    swizzle); flat bf16. scale=None, bias=None: unit scale, zero bias (the
-    training form; for a bf16 k, mid and lo are zero)."""
+    is zero. As _kmajor_sw128 of the (N, 128) matrix [hi | mid | lo | 0], N
+    = _stem_n(O) rows (zero past O): two slices, [hi | mid] and [lo | 0].
+    scale=None, bias=None: unit scale, zero bias (the training form; for a
+    bf16 k, mid and lo are zero)."""
     o = k.shape[0]
     w = k.float() if scale is None else _fold(k, scale)
     w = F.pad(w.permute(0, 2, 3, 1).reshape(o, 3, 9), (1, 0)).reshape(o, 30)
@@ -149,12 +161,8 @@ def pack_stem(k, scale=None, bias=None):
     hi = w.to(_BF16)
     mid = (w - hi.float()).to(_BF16)
     lo = (w - hi.float() - mid.float()).to(_BF16)
-    n = _stem_n(o)
-    t = torch.stack([torch.cat([hi, mid], 1), torch.cat([lo, torch.zeros_like(lo)], 1)])
-    t = F.pad(t, (0, 0, 0, n - o)).reshape(2, n, 8, 8)
-    r = torch.arange(n, device=k.device).reshape(n, 1)
-    c = torch.arange(8, device=k.device).reshape(1, 8)
-    return t[:, r, c ^ (r % 8)].contiguous().flatten()
+    t = torch.cat([hi, mid, lo, torch.zeros_like(lo)], 1).float()
+    return _kmajor_sw128(F.pad(t, (0, 0, 0, _stem_n(o) - o)))
 
 
 def _mma_b_pack(wb: torch.Tensor) -> torch.Tensor:
@@ -429,38 +437,58 @@ def stemblock_fused_plain(x, k_s, s_s, b_s, k_l1, s_l1, b_l1,
     return _out(F.relu(_conv(cat, _fold_bf16(k_f, s_f), b_f)))
 
 
+_SB_SHAPES = [(16, 3, 3, 3), (8, 16, 1, 1), (16, 8, 3, 3), (16, 32, 3, 3)]
+
+
+def pack_stemblock(k_s, s_s, b_s, k_l1, s_l1, b_l1, k_l2, s_l2, b_l2, k_f, s_f,
+                   b_f):
+    """Kernel 5's weights as csrc/stem.cu reads them: (one flat bf16 tensor
+    of ten _kmajor_sw128 slices of 16 rows: the stem's f32 folded table as
+    pack_stem lays it out (two slices); bf16(k·scale) of left_1 (one: column
+    ci, rows 8-15 zero), of left_2 (two: column tap·8 + ci, tap = dy·3 + dx)
+    and of the fuse (five: column tap·32 + ci); the f32 biases of left_1,
+    left_2 and the fuse, 8 + 16 + 16). Once per parameter version: the
+    StemBlock caches it (models/bisenetv2.py)."""
+    shapes = [tuple(k.shape) for k in (k_s, k_l1, k_l2, k_f)]
+    if shapes != _SB_SHAPES:
+        raise ValueError(f"pack_stemblock: bad kernel shapes {shapes}")
+    l1 = F.pad(_fold_bf16(k_l1, s_l1)[:, :, 0, 0], (0, 0, 0, 8))
+    l2 = _fold_bf16(k_l2, s_l2).permute(0, 2, 3, 1).reshape(16, 72)
+    fu = _fold_bf16(k_f, s_f).permute(0, 2, 3, 1).reshape(16, 288)
+    w = torch.cat([pack_stem(k_s, s_s, b_s), _kmajor_sw128(l1), _kmajor_sw128(l2),
+                   _kmajor_sw128(fu)])
+    return w, torch.cat([t.float().flatten() for t in (b_l1, b_l2, b_f)])
+
+
 def stemblock_fused(x, k_s, s_s, b_s, k_l1, s_l1, b_l1,
-                    k_l2, s_l2, b_l2, k_f, s_f, b_f):
+                    k_l2, s_l2, b_l2, k_f, s_f, b_f, packed=None):
     """BiSeNetV2 StemBlock with folded BNs and ReLUs. x (B,3,H,W) bf16
     channels_last, H and W divisible by 4; k_s (16,3,3,3), k_l1 (8,16,1,1),
-    k_l2 (16,8,3,3), k_f (16,32,3,3) → (B,16,H/4,W/4) bf16 channels_last."""
+    k_l2 (16,8,3,3), k_f (16,32,3,3) → (B,16,H/4,W/4) bf16 channels_last.
+    `packed`: the same parameters through pack_stemblock, made once; a CUDA
+    launch packs them itself when it is None."""
     args = (k_s, s_s, b_s, k_l1, s_l1, b_l1, k_l2, s_l2, b_l2, k_f, s_f, b_f)
     if _is_cpu(x):
         return stemblock_fused_plain(x, *args)
     name = "stemblock_fused"
     _check_image(x, 4, name)
+    _check_aligned(x, 16, name)
     _check_params(x, name, args)
     shapes = [tuple(k.shape) for k in (k_s, k_l1, k_l2, k_f)]
-    if shapes != [(16, 3, 3, 3), (8, 16, 1, 1), (16, 8, 3, 3), (16, 32, 3, 3)]:
+    if shapes != _SB_SHAPES:
         raise ValueError(f"{name}: bad kernel shapes {shapes}")
+    w, bias = pack_stemblock(*args) if packed is None else packed
+    if (w.dtype != _BF16 or w.numel() != 10 * 1024 or bias.dtype != torch.float32
+            or bias.numel() != 40):
+        raise ValueError(f"{name}: packed weights are not pack_stemblock's")
+    _check_params(x, name, (w, bias))
     from mds_tpu_torch.ops.build import load
 
-    b, _, h, w = x.shape
-    # one f32 table, laid out as csrc/stem.cu's kSb* offsets say
-    table = torch.cat([
-        _stem_table(k_s, s_s, b_s).flatten(),
-        _fold_bf16(k_l1, s_l1)[:, :, 0, 0].t().flatten(),
-        b_l1.float().flatten(),
-        _fold_bf16(k_l2, s_l2).permute(2, 3, 1, 0).flatten(),
-        b_l2.float().flatten(),
-        _fold_bf16(k_f, s_f).permute(2, 3, 1, 0).flatten(),
-        b_f.float().flatten(),
-    ]).contiguous()
-    assert table.numel() == 6376, table.numel()
-    out = torch.empty((b, 16, h // 4, w // 4), dtype=_BF16, device=x.device,
+    b, _, h, wd = x.shape
+    out = torch.empty((b, 16, h // 4, wd // 4), dtype=_BF16, device=x.device,
                       memory_format=_CL)
-    err = load().mds_stemblock_fused(_ptr(x), _ptr(table), _ptr(out), b, h, w,
-                                     _stream())
+    err = load().mds_stemblock_fused(_ptr(x), _ptr(w), _ptr(bias), _ptr(out), b, h,
+                                     wd, _stream())
     _raise_on(err, name)
     stemblock_fused.launches += 1
     return out
@@ -471,17 +499,21 @@ stemblock_fused.launches = 0
 
 # ------------------------------- kernel 6: the 7×7 RGB stem of BiSeNetV1
 
-def _stem7_b_frags(k: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """bf16(k·scale), k (O,3,7,7) → csrc/stem7.cu's (160, O) GEMM matrix as
-    mma.sync m16n8k16 B fragments [kc][n-tile][lane][4]. Row dy·22 + dx·3 + ci
-    holds tap (dy, dx, ci); row dy·22 + 21 and rows 154-159 are zero. Lane
-    n·4 + t of chunk kc holds rows 2t, 2t+1, 2t+8, 2t+9 of output channel n."""
+def pack_stem7(k, scale, bias):
+    """Kernel 6's weights (csrc/stem7.cu): bf16(k·scale) and bf16(bias) as the
+    (N, 169) GEMM matrix through _kmajor_sw128, three slices, N = _stem_n(O)
+    rows, zero past O: column dy·24 + 1 + dx·3 + ci holds tap (dy, dx, ci),
+    columns dy·24, dy·24 + 22 and dy·24 + 23 are zero (the element before a
+    pixel's taps and two after them), column 168 holds the bias (the
+    kernel's A is 1 there). Once per parameter version: the 7×7 route caches
+    it (models/layers.py conv_bn_relu)."""
     o = k.shape[0]
-    w = _fold(k, scale).permute(2, 3, 1, 0).reshape(7, 21, o)
-    w = F.pad(F.pad(w, (0, 0, 0, 1)).reshape(154, o), (0, 0, 0, 6))
-    wt = w.reshape(10, 2, 4, 2, o // 8, 8)
-    # dims: kc, kh, t, kl, nt, n  →  kc, nt, n, t, kh, kl
-    return wt.permute(0, 4, 5, 2, 1, 3).reshape(10, o // 8, 32, 4).to(_BF16)
+    if tuple(k.shape[1:]) != (3, 7, 7) or o % 8 or not 0 < o <= 128:
+        raise ValueError(f"pack_stem7: k must be (O,3,7,7), O % 8 == 0, O <= 128, "
+                         f"got {tuple(k.shape)}")
+    w = F.pad(_fold_bf16(k, scale).permute(0, 2, 3, 1).reshape(o, 7, 21), (1, 2))
+    w = torch.cat([w.reshape(o, 168), bias.to(_BF16).float().reshape(o, 1)], 1)
+    return _kmajor_sw128(F.pad(w, (0, 0, 0, _stem_n(o) - o)))
 
 
 def stem7_conv_bn_relu_s2_plain(x, k, scale, bias, relu=True):
@@ -491,30 +523,31 @@ def stem7_conv_bn_relu_s2_plain(x, k, scale, bias, relu=True):
     return _out(F.relu(y) if relu else y)
 
 
-def stem7_conv_bn_relu_s2(x, k, scale, bias, relu=True):
+def stem7_conv_bn_relu_s2(x, k, scale, bias, relu=True, packed=None):
     """x (B,3,H,W) bf16 channels_last, H and W even; k (O,3,7,7) with
     O % 8 == 0 and O <= 128; the folded eval BN (scale, bias) →
-    (B,O,H/2,W/2) bf16 channels_last."""
+    (B,O,H/2,W/2) bf16 channels_last. `packed`: pack_stem7(k, scale, bias),
+    made once; a CUDA launch packs itself when it is None."""
     if _is_cpu(x):
         return stem7_conv_bn_relu_s2_plain(x, k, scale, bias, relu)
     name = "stem7_conv_bn_relu_s2"
     _check_image(x, 2, name)
+    _check_aligned(x, 16, name)
     _check_params(x, name, (k, scale, bias))
     o = k.shape[0]
     if tuple(k.shape[1:]) != (3, 7, 7) or o % 8 or not 0 < o <= 128:
         raise ValueError(f"{name}: k must be (O,3,7,7), O % 8 == 0, O <= 128")
-    b, _, h, w = x.shape
-    if h < 2 or w < 2:
-        raise ValueError(f"{name}: need H, W >= 2, got {tuple(x.shape)}")
+    wp = pack_stem7(k, scale, bias) if packed is None else packed
+    if wp.dtype != _BF16 or wp.numel() != 3 * 64 * _stem_n(o):
+        raise ValueError(f"{name}: packed is not pack_stem7's for O={o}")
+    _check_params(x, name, (wp,))
     from mds_tpu_torch.ops.build import load
 
-    frags = _stem7_b_frags(k, scale)
-    b16 = bias.to(_BF16).float().contiguous()
+    b, _, h, w = x.shape
     out = torch.empty((b, o, h // 2, w // 2), dtype=_BF16, device=x.device,
                       memory_format=_CL)
     err = load().mds_stem7_conv_bn_relu_s2(
-        _ptr(x), _ptr(frags), _ptr(b16), _ptr(out), b, h, w, o, int(relu),
-        _stream())
+        _ptr(x), _ptr(wp), _ptr(out), b, h, w, o, int(relu), _stream())
     _raise_on(err, name)
     stem7_conv_bn_relu_s2.launches += 1
     return out

@@ -85,31 +85,6 @@ def test_stem7_plain_matches_jax_kernel(o, relu):
         assert (want < 0).any()
 
 
-def test_stem7_b_frags_hold_the_folded_weight():
-    """csrc/stem7.cu's B fragments: lane n·4 + t of chunk kc holds rows
-    2t, 2t+1, 2t+8, 2t+9 of the (160, O) matrix, row dy·22 + dx·3 + ci."""
-    rng = np.random.default_rng(0)
-    o = 24
-    k = torch.from_numpy(rng.normal(0, 0.1, (o, 3, 7, 7)).astype(np.float32))
-    scale = torch.from_numpy(folded_bn(rng, o)[0])
-    frags = tstem._stem7_b_frags(k, scale)
-    assert frags.shape == (10, o // 8, 32, 4) and frags.dtype == torch.bfloat16
-    mat = torch.zeros(160, o, dtype=torch.bfloat16)
-    for kc in range(10):
-        for nt in range(o // 8):
-            for lane in range(32):
-                n, t = divmod(lane, 4)
-                for q, r in enumerate((2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)):
-                    mat[kc * 16 + r, nt * 8 + n] = frags[kc, nt, lane, q]
-    want = (k * scale.reshape(-1, 1, 1, 1)).to(torch.bfloat16)
-    for dy in range(7):
-        for dx in range(7):
-            for ci in range(3):
-                assert torch.equal(mat[dy * 22 + dx * 3 + ci], want[:, ci, dy, dx])
-        assert not mat[dy * 22 + 21].any()
-    assert not mat[154:].any()
-
-
 def test_stem7_wrapper_rejects_other_devices():
     x = torch.empty((1, 3, 8, 8), dtype=torch.bfloat16, device="meta")
     k, s = torch.empty((64, 3, 7, 7), device="meta"), torch.empty(64, device="meta")

@@ -1,5 +1,6 @@
-"""The weights that kernels 8, 7, 1 and 2 read through wgmma descriptors,
-and the caches that pack them once per parameter version, on the CPU.
+"""The weights that kernels 8, 7, 1, 2, 4, 5 and 6 read through wgmma
+descriptors, and the caches that pack them once per parameter version, on
+the CPU.
 
 `pack_conv3x3` (bf16(k), unscaled) and `pack_detail_tail` (bf16(k·scale) of
 five convs) lay the weights out as csrc/wgmma.cuh's B operand. Here each
@@ -17,6 +18,12 @@ at O = 8, 16, 24, 64, 128: hi + mid + lo is the f32 table exactly, hi + mid
 within 2^-16 of it relative; for a bf16 weight with unit scale and no bias
 (the training form) hi is the weight and mid, lo are zero.
 
+`pack_stemblock` (kernel 5) holds the StemBlock's stem table as `pack_stem`
+lays it out and bf16(k·scale) of left_1, left_2 and the fuse in 16-row
+slices, column tap·C_in + ci; `pack_stem7` (kernel 6) the 7×7 stem's
+bf16(k·scale) in N-row slices, column dy·24 + 1 + dx·3 + ci. Read back the
+same way, k16 step by k16 step, zero wherever K or N is padded.
+
 `PackCache` (models/layers.py) keeps a value until a source tensor changes:
 reused across two eval calls, rebuilt after an in-place weight update, a BN
 running-stat update and load_state_dict; the stems' tables likewise, on the
@@ -27,8 +34,10 @@ import numpy as np
 import pytest
 import torch
 
+from mds_tpu_torch.models import bisenetv1 as tv1
 from mds_tpu_torch.models import bisenetv2 as tb
 from mds_tpu_torch.models import layers as tl
+from mds_tpu_torch.models.resnet import Resnet18
 from mds_tpu_torch.ops import conv3x3 as tc3
 from mds_tpu_torch.ops import stem as tstem
 
@@ -363,7 +372,8 @@ def test_detail_head_route_packs_once_per_version():
 
     def pack():
         params = [t for m in tm._head() for t in (m.conv.weight, *m.fold_cached(0))]
-        return tm._packed("head", tm._head(), 0, tstem.pack_detail_head, params, meta)
+        return tb._pack_cached(tm, "head", tm._head(), 0, tstem.pack_detail_head,
+                               params, meta)
 
     tl.set_detail_fuse(True)
     try:
@@ -382,7 +392,8 @@ def test_detail_head_route_packs_once_per_version():
             params = [t for m in tm._head() for t in (m.conv.weight, *m.fold_cached(0))]
             for g, w in zip(got, tstem.pack_detail_head(*params)):
                 assert torch.equal(g, w)
-            assert tm._packed("head", tm._head(), 0, tstem.pack_detail_head, params, x) is None
+            assert tb._pack_cached(tm, "head", tm._head(), 0, tstem.pack_detail_head,
+                                   params, x) is None
     finally:
         tl.set_detail_fuse(False)
 
@@ -411,3 +422,207 @@ def test_depthwise_route_casts_once_per_version():
             tm([x])
     finally:
         tl.set_depthwise_impl("plain")
+
+
+def read_steps(packed, n_rows, steps):
+    """B(k, n) for k < 16·steps and n < n_rows, as f32 values, as a kernel
+    whose slices are n_rows × 128 bytes addresses it: k16 step k // 16 in
+    slice k // 64 at 32 bytes a step, 8-row groups 1024 bytes apart, rows 128
+    bytes, then the swizzle on the address bits."""
+    k = np.arange(16 * steps).reshape(-1, 1)
+    n = np.arange(n_rows).reshape(1, -1)
+    a = ((k // 64) * n_rows * 128 + (k % 64 // 16) * 32 + (n // 8) * 1024
+         + (n % 8) * 128 + (k % 16) * 2)
+    a = a ^ (((a >> 7) & 7) << 4)
+    bits = packed.view(torch.int16).numpy()[a // 2].astype(np.int32) << 16
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def bf16_folded(k, scale):
+    """bf16(k·scale) per output channel, as f32 values (OIHW)."""
+    return (k * scale.reshape(-1, 1, 1, 1)).to(torch.bfloat16).float().numpy()
+
+
+def _bn_params(rng, o):
+    return (torch.tensor(rng.normal(1, 0.1, o), dtype=torch.float32),
+            torch.tensor(rng.normal(0, 0.1, o), dtype=torch.float32))
+
+
+@pytest.mark.parametrize("o", [8, 24, 64, 128])
+def test_stem7_pack_reads_back(o):
+    """Kernel 6's B: 11 k16 steps (K = 7 rows × 24, then the bias) through
+    three slices of N rows: column dy·24 + 1 + dx·3 + ci holds bf16(k·scale)
+    at (dy, dx, ci), column 168 bf16(bias); columns dy·24, dy·24 + 22,
+    dy·24 + 23, 169 onwards and rows past O are zero."""
+    rng = np.random.default_rng(o + 2)
+    k = torch.tensor(rng.normal(0, 0.1, (o, 3, 7, 7)), dtype=torch.float32)
+    scale, bias = _bn_params(rng, o)
+    wp = tstem.pack_stem7(k, scale, bias)
+    n = tstem._stem_n(o)
+    assert wp.dtype == torch.bfloat16 and wp.numel() == 3 * 64 * n
+    got = read_steps(wp, n, 12)  # K 0..191: the three slices whole
+    want = np.zeros((192, n), np.float32)
+    wb = bf16_folded(k, scale)
+    for dy in range(7):
+        for dx in range(7):
+            for ci in range(3):
+                want[dy * 24 + 1 + dx * 3 + ci, :o] = wb[:, ci, dy, dx]
+    want[168, :o] = bias.to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="pack_stem7"):
+        tstem.pack_stem7(k[:, :, :5, :5], scale, bias)
+
+
+def _stemblock_params(seed):
+    rng = np.random.default_rng(seed)
+    params = []
+    for o, i, ks in ((16, 3, 3), (8, 16, 1), (16, 8, 3), (16, 32, 3)):
+        params += [torch.tensor(rng.normal(0, np.sqrt(2 / (ks * ks * o)), (o, i, ks, ks)),
+                                dtype=torch.float32), *_bn_params(rng, o)]
+    return params
+
+
+def test_stemblock_pack_reads_back():
+    """Kernel 5's weights: the stem's table in three bf16 parts as kernels 1
+    and 2 address it (hi + mid + lo is the f32 fold exactly), then left_1 (K
+    = 16 channels, rows 8-15 zero), left_2 (column tap·8 + ci, zero from 72)
+    and the fuse (column tap·32 + ci, zero from 288), 16-row slices read
+    step by step; the f32 biases of left_1, left_2 and the fuse in order."""
+    params = _stemblock_params(9)
+    w, bias = tstem.pack_stemblock(*params)
+    assert w.dtype == torch.bfloat16 and w.numel() == 10 * 1024
+    hi, mid, lo = (read_stem(w[:2048], 16, p) for p in range(3))
+    np.testing.assert_array_equal(hi + mid + lo, stem_table(*params[:3]))
+    assert not read_stem(w[:2048], 16, 3).any()
+    l1, l2, fu = (bf16_folded(params[i], params[i + 1]) for i in (3, 6, 9))
+    want = np.zeros((64, 16), np.float32)
+    want[:16, :8] = l1[:, :, 0, 0].T
+    np.testing.assert_array_equal(read_steps(w[2048:3072], 16, 4), want)
+    for part, (wb, cin, steps) in ((w[3072:5120], (l2, 8, 8)), (w[5120:], (fu, 32, 20))):
+        want = np.zeros((16 * steps, 16), np.float32)
+        for dy in range(3):
+            for dx in range(3):
+                for ci in range(cin):
+                    want[(dy * 3 + dx) * cin + ci] = wb[:, ci, dy, dx]
+        np.testing.assert_array_equal(read_steps(part, 16, steps), want)
+    np.testing.assert_array_equal(
+        bias.numpy(), torch.cat([params[5], params[8], params[11]]).numpy())
+    with pytest.raises(ValueError, match="bad kernel shapes"):
+        tstem.pack_stemblock(*params[:9], params[9][:, :16], *params[10:])
+
+
+def _randomize(module, seed):
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in module.named_parameters():
+            t.copy_(torch.randn(t.shape, generator=g) * 0.1 + name.endswith(
+                ("affine_weight", "bn.weight", "bn1.weight")))
+        for name, t in module.named_buffers():
+            if name.endswith("running_mean"):
+                t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+            elif name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+    return module.eval()
+
+
+def test_stemblock_route_packs_once_per_version():
+    """The StemBlock's four folds and its pack: built once over two eval
+    calls, rebuilt after an in-place weight update, a BN running-stat update
+    and load_state_dict, and the pack handed to the kernel is
+    pack_stemblock of the current values. (A CPU input runs the plain
+    version, which reads no pack: the pack's cache is driven with an input
+    on the meta device, as a CUDA one would.)"""
+    tm = _randomize(tb.StemBlock(n_bn=1, dtype=torch.bfloat16), 10)
+    x = torch.randn((1, 3, 16, 24), generator=torch.Generator().manual_seed(11)
+                    ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    meta = torch.empty(1, device="meta")
+
+    def params():
+        return [t for m in tm._convs() for t in (m.conv.weight, *m.fold_cached(0))]
+
+    def pack():
+        return tb._pack_cached(tm, "stemblock", tm._convs(), 0, tstem.pack_stemblock,
+                               params(), meta)
+
+    tl.set_detail_fuse(True)
+    try:
+        with torch.no_grad():
+            a = tm([x])[0]
+            assert torch.equal(tm([x])[0], a)
+            assert [m._packs.builds for m in tm._convs()] == [1] * 4
+            first = pack()
+            assert pack() is first and tm._packs.builds == 1
+            tm.left_2.conv.weight.mul_(1.5)
+            assert pack() is not first and tm._packs.builds == 2
+            tm.fuse.bn[0].running_var.add_(0.25)
+            got = pack()
+            assert tm._packs.builds == 3
+            assert [m._packs.builds for m in tm._convs()] == [1, 1, 1, 2]
+            for g, w in zip(got, tstem.pack_stemblock(*params())):
+                assert torch.equal(g, w)
+            tm.load_state_dict({k: v.clone() for k, v in tm.state_dict().items()})
+            pack()
+            assert tm._packs.builds == 4
+            assert [m._packs.builds for m in tm._convs()] == [2, 2, 2, 3]
+            assert tb._pack_cached(tm, "stemblock", tm._convs(), 0, tstem.pack_stemblock,
+                                   params(), x) is None
+            assert torch.equal(tm([x])[0], tb.StemBlock.forward(tm, [x])[0])
+    finally:
+        tl.set_detail_fuse(False)
+
+
+@pytest.mark.parametrize("owner", ["resnet18", "convbnrelu1"])
+def test_stem7_route_packs_once_per_version(owner, monkeypatch):
+    """The 7×7 route's fold and pack, held by Resnet18 and ConvBNReLU1 (the
+    two 7×7 stems of BiSeNetV1): a second forward builds nothing; an
+    in-place weight update rebuilds the pack, a BN running-stat update and
+    load_state_dict the fold and the pack; the pack handed to the kernel is
+    pack_stem7 of the current values. A CPU input makes the fold and no pack
+    (its plain version reads none); the pack is driven with an input on the
+    meta device, as a CUDA one would, the wrapper stood in for."""
+    if owner == "resnet18":
+        tm = _randomize(Resnet18(dtype=torch.bfloat16), 12)
+        conv, bn = tm.conv1, tm.bn1
+
+        def fwd(x):
+            return tl.conv_bn_relu(tm.conv1, tm.bn1, x, torch.bfloat16, tm._packs)
+    else:
+        tm = _randomize(tv1.ConvBNReLU1(3, 64, 7, 2, 3, dtype=torch.bfloat16), 12)
+        conv, bn, fwd = tm.conv, tm.bn, tm
+    seen = []
+    real = tstem.stem7_conv_bn_relu_s2
+
+    def spy(x, k, scale, bias, relu=True, packed=None):
+        seen.append(packed)
+        if x.device.type == "meta":
+            return torch.empty((x.shape[0], k.shape[0], x.shape[2] // 2, x.shape[3] // 2),
+                               device="meta")
+        return real(x, k, scale, bias, relu, packed)
+
+    monkeypatch.setattr(tstem, "stem7_conv_bn_relu_s2", spy)
+    x = torch.randn((1, 3, 16, 24), generator=torch.Generator().manual_seed(13)
+                    ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    meta = torch.empty((1, 3, 16, 24), dtype=torch.bfloat16, device="meta")
+    tl.set_stem_impl("kernel")
+    try:
+        with torch.no_grad():
+            a = tm(x) if owner == "convbnrelu1" else tm(x)[0]
+            b = tm(x) if owner == "convbnrelu1" else tm(x)[0]
+            assert torch.equal(a, b) and tm._packs.builds == 1  # the fold alone
+            assert seen == [None, None]
+            fwd(meta)
+            fwd(meta)
+            assert tm._packs.builds == 2 and seen[2] is seen[3] is not None
+            conv.weight.mul_(1.5)
+            fwd(meta)
+            assert tm._packs.builds == 3  # the pack; the fold keys on the BN
+            bn.running_var.add_(0.25)
+            fwd(meta)
+            assert tm._packs.builds == 5
+            scale, bias = tl.bn_fold(bn)
+            assert torch.equal(seen[-1], tstem.pack_stem7(conv.weight, scale, bias))
+            tm.load_state_dict({k: v.clone() for k, v in tm.state_dict().items()})
+            fwd(meta)
+            assert tm._packs.builds == 7
+    finally:
+        tl.set_stem_impl("plain")

@@ -50,6 +50,10 @@ inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.b; }
 inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
   return {__float2bfloat16_rn(lo), __float2bfloat16_rn(hi)};
 }
+inline __nv_bfloat162 __hmax2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return {__bfloat162float(a.x) >= __bfloat162float(b.x) ? a.x : b.x,
+          __bfloat162float(a.y) >= __bfloat162float(b.y) ? a.y : b.y};
+}
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline float __fmul_rn(float a, float b) { return a * b; }

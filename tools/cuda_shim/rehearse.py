@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Run the port's tensor-core kernels on the CPU, without a card or nvcc.
 
-  python tools/cuda_shim/rehearse.py [stem window pair detail stem7 conv3 tail depthwise]
+  python tools/cuda_shim/rehearse.py [stem window pair detail stemblock stem7 conv3 tail depthwise]
 
 Compiles csrc/stem.cu, stem7.cu, conv3x3.cu, detail_tail.cu and depthwise.cu with g++
 against the stand-in CUDA runtime beside this script (one std::thread per
@@ -11,7 +11,10 @@ exchanged fragments; wgmma m64n64k16 computed per warpgroup, its B read
 through the descriptor's start and stride byte offsets and the 128-byte
 swizzle on the address bits; ldmatrix from the exchanged row addresses;
 mbarriers with arrival and transfer counts; cp.async (with zero fill) and
-cp.async.bulk as copies), into the git-ignored mds_tpu_torch/build/shim/. Then it
+cp.async.bulk global to shared as copies; stmatrix to the exchanged row
+addresses; cp.async.bulk shared to global held until the wait that completes
+its bulk group, so a stage written again before its wait, or a missing final
+wait, shows), into the git-ignored mds_tpu_torch/build/shim/. Then it
 calls each kernel's wrapper on CPU tensors at small, ragged shapes, with the
 wrappers made to launch (through ctypes, as on the card), and holds every
 output to the kernel's plain version: rel max-diff < 1e-2 (1e-4 for the
@@ -150,10 +153,23 @@ def main(which):
                     conv_w(64, 64), *bn(64))
             check(f"detail {b, h, w}", stem.detail_s1s2_fused(*args),
                   stem.detail_s1s2_fused_plain(*args))
+    if "stemblock" in which:
+        # one strip; B = 2 with a second strip 3 columns wide and H/4, W/4 off
+        # any tile; the smallest image; three strips, the last one column
+        for b, h, w in ((1, 12, 100), (2, 20, 256), (1, 4, 4), (1, 8, 492)):
+            args = (image(b, h, w), conv_w(16, 3), *bn(16), conv_w(8, 16, 1), *bn(8),
+                    conv_w(16, 8), *bn(16), conv_w(16, 32), *bn(16))
+            check(f"stemblock {b, h, w}", stem.stemblock_fused(*args),
+                  stem.stemblock_fused_plain(*args))
     if "stem7" in which:
-        args = (image(2, 18, 70), conv_w(32, 3, 7), *bn(32), True)
-        check("stem7", stem.stem7_conv_bn_relu_s2(*args),
-              stem.stem7_conv_bn_relu_s2_plain(*args))
+        # ragged tiles, B = 2, O = 8 to 128 (x4, x2 and x1 stores), without
+        # ReLU, the smallest image
+        for b, h, w, o, relu in ((2, 18, 70, 32, True), (1, 10, 132, 64, False),
+                                 (1, 6, 20, 24, True), (2, 4, 6, 8, False),
+                                 (1, 8, 136, 128, True), (1, 2, 2, 56, True)):
+            args = (image(b, h, w), conv_w(o, 3, 7), *bn(o), relu)
+            check(f"stem7 {b, h, w, o}", stem.stem7_conv_bn_relu_s2(*args),
+                  stem.stem7_conv_bn_relu_s2_plain(*args))
     if "conv3" in which:
         for b, h, w, ci, co, relu in ((1, 9, 40, 64, 64, True), (2, 5, 7, 32, 16, False),
                                       (1, 11, 33, 3, 8, True), (1, 6, 20, 24, 136, True)):
@@ -192,5 +208,6 @@ def main(which):
 
 
 if __name__ == "__main__":
-    names = {"stem", "window", "pair", "detail", "stem7", "conv3", "tail", "depthwise"}
+    names = {"stem", "window", "pair", "detail", "stemblock", "stem7", "conv3", "tail",
+             "depthwise"}
     sys.exit(main(set(sys.argv[1:]) or names))

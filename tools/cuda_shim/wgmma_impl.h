@@ -21,6 +21,50 @@ inline void ldmatrix_x4(uint32_t* r, uint32_t addr) {
   shim_blk->wbar[warp]->arrive_and_wait();
 }
 
+// each lane's row address through the warp's exchange area, then each
+// lane's share of every matrix (row l / 4, cols 2 (l % 4), +1) to its row
+inline void shim_stmatrix(uint32_t addr, const uint32_t* r, int count) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* f = shim_blk->frag.data() + warp * 32 * 6;
+  f[lane * 6] = addr;
+  shim_blk->wbar[warp]->arrive_and_wait();
+  for (int m = 0; m < count; ++m)
+    memcpy(shim_shared(f[(m * 8 + (lane >> 2)) * 6]) + (lane & 3) * 4, &r[m], 4);
+  shim_blk->wbar[warp]->arrive_and_wait();
+}
+inline void stmatrix_x4(uint32_t addr, const uint32_t* r) { shim_stmatrix(addr, r, 4); }
+inline void stmatrix_x2(uint32_t addr, const uint32_t* r) { shim_stmatrix(addr, r, 2); }
+inline void stmatrix_x1(uint32_t addr, uint32_t r) { shim_stmatrix(addr, &r, 1); }
+
+inline uint32_t pack2_relu(float lo, float hi) {
+  return pack2(lo > 0.f ? lo : 0.f, hi > 0.f ? hi : 0.f);
+}
+
+// bulk copies shared -> global: each is held until a wait completes its
+// group and only then reads its source, as late as the hardware may, so a
+// stage written again before its wait, or a missing final wait, shows
+struct ShimBulkCopy { void* dst; const void* src; uint32_t bytes; int group; };
+inline thread_local std::vector<ShimBulkCopy> shim_bulk_copies;
+inline thread_local int shim_bulk_open = 0;  // the open group's number
+inline void fence_proxy_async() {}
+inline void bulk_s2g(void* gmem, const void* smem, uint32_t bytes) {
+  if (bytes % 16 || reinterpret_cast<uintptr_t>(gmem) % 16 || smem_u32(smem) % 16) {
+    fprintf(stderr, "cp.async.bulk stand-in: misaligned store\n");
+    abort();
+  }
+  shim_bulk_copies.push_back({gmem, smem, bytes, shim_bulk_open});
+}
+inline void bulk_commit() { ++shim_bulk_open; }
+inline void shim_bulk_complete(int pending) {
+  auto& v = shim_bulk_copies;
+  for (auto& c : v)
+    if (c.group < shim_bulk_open - pending) memcpy(c.dst, c.src, c.bytes);
+  v.erase(std::remove_if(v.begin(), v.end(), [&](const ShimBulkCopy& c) {
+            return c.group < shim_bulk_open - pending; }), v.end());
+}
+template <int N> inline void bulk_wait_read() { shim_bulk_complete(N); }
+template <int N> inline void bulk_wait() { shim_bulk_complete(N); }
+
 inline void shim_wg_sync() { shim_blk->wgbar[threadIdx.x / 128]->arrive_and_wait(); }
 inline void wgmma_fence() { shim_wg_sync(); }
 inline void wgmma_commit() { shim_wg_sync(); }

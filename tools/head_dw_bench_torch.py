@@ -37,18 +37,15 @@ import argparse
 import ctypes
 import inspect
 import json
-import shutil
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-ROOT = Path(__file__).resolve().parent.parent
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
+from bench_util_torch import (BF16_FLOP_PER_S, HBM_BYTES_PER_S, bit_equal, build_variants,
+                              built, cuda_ms, device_ms, exact_plain, open_tree, print_card,
+                              ptxas_lines, rel)
+
 FRAME = (1, 1024, 2048)
 HEAD_RAGGED = ((2, 36, 260), (1, 4, 4), (1, 20, 252), (3, 12, 136))
 # the depthwise convs of one 1024×2048 BiSeNetV2 frame: (C, H, W, m, stride)
@@ -61,49 +58,6 @@ DW_FRAME = ((16, 256, 512, 6, 2), (96, 128, 256, 1, 1), (16, 256, 512, 1, 2),
             (64, 64, 128, 6, 2), (384, 32, 64, 1, 1), (64, 64, 128, 1, 2),
             (128, 32, 64, 6, 1), (128, 32, 64, 6, 1), (128, 32, 64, 6, 1),
             (128, 128, 256, 1, 1), (128, 32, 64, 1, 1))
-
-
-def cuda_ms(fn, n=20):
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(n):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def device_ms(fn, key="", n=10):
-    """Mean device time per call of the CUDA kernels whose name holds `key`
-    (every kernel of the call for "")."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-          and not e.is_user_annotation and key in e.name]
-    total = sum(e.device_time_total for e in ev) / 1e3
-    return total / n if ev and total > 0 else "not measured"
-
-
-def rel(a, b):
-    a, b = a.float(), b.float()
-    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
-
-
-def bit_equal(a, b):
-    it = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
-    return (a.permute(0, 2, 3, 1).contiguous().view(it)
-            == b.permute(0, 2, 3, 1).contiguous().view(it)).float().mean().item()
 
 
 def head_args(rng, b, h, w, dev):
@@ -133,19 +87,6 @@ def head_packed(stem, args):
             b3.float().contiguous())
 
 
-def exact_plain(stem, args):
-    """The plain version with every conv summed in f64 and rounded once to
-    f32: the rounding points the kernel keeps, with exact sums."""
-    real = stem._conv
-    stem._conv = lambda x, w, b=None, stride=1, pad=1: F.conv2d(
-        x.double(), w.double(), None if b is None else b.double(), stride=stride,
-        padding=pad).float()
-    try:
-        return stem.detail_s1s2_fused_plain(*args)
-    finally:
-        stem._conv = real
-
-
 def measure_head(stem, dev):
     warm = "packed" in inspect.signature(stem.detail_s1s2_fused).parameters
     rng = np.random.default_rng(0)
@@ -157,8 +98,8 @@ def measure_head(stem, dev):
         want = stem.detail_s1s2_fused_plain(*args)
         row = {"kernel": "detail_s1s2_fused", "x": [b, 3, h, w], "rel": rel(got, want),
                "bit_equal": bit_equal(got, want),
-               "bit_equal_f64": bit_equal(got, exact_plain(stem, args)),
-               "plain_bit_equal_f64": bit_equal(want, exact_plain(stem, args)),
+               "bit_equal_f64": bit_equal(got, exact_plain(stem, stem.detail_s1s2_fused_plain, args)),
+               "plain_bit_equal_f64": bit_equal(want, exact_plain(stem, stem.detail_s1s2_fused_plain, args)),
                "finite": bool(torch.isfinite(got.float()).all())}
         if (b, h, w) == FRAME:
             packed = head_packed(stem, args) if warm else None
@@ -210,8 +151,9 @@ def measure_depthwise(depthwise, dev):
 VARIANTS = {
     "no_s1_window": [("stem.cu", "    if (fvalid && fr >= 0 && fr < H2)\n",
                       "    if (H < 0)\n")],
-    "no_s1_mma": [("stem.cu", "  for (int step = 0; step < 6; ++step)  // hi",
-                   "  for (int step = 0; step < 6 * (H < 0); ++step)  // hi")],
+    "no_s1_mma": [("stem.cu", "  for (int step = 0; step < 6; ++step)  // hi: steps 0, 1; mid: 2, 3;"
+                   " lo: 4, 5\n    wgmma_m64nk16<N>(",
+                   "  for (int step = 0; step < 6 * (H < 0); ++step)\n    wgmma_m64nk16<N>(")],
     "no_s12_mma": [("stem.cu", "        wgmma_m64n64k16(acc[dx & 1], a[dx][ks],",
                     "        if (H2 < 0) wgmma_m64n64k16(acc[dx & 1], a[dx][ks],")],
     "no_s21_mma": [("stem.cu", "        wgmma_m64n32k16(acc[dx & 1], a[dx][ks],",
@@ -258,26 +200,12 @@ VARIANTS = {
 
 
 def split(tree, stem, dev):
-    from mds_tpu_torch.ops.build import NVCC_FLAGS, SRC_DIR, _nvcc
+    def skip(name, srcs):  # the earlier design (detail_kernel): no_weight_loads only
+        return name != "built" and ("detail_kernel(" in srcs["stem.cu"]) != (
+            name == "no_weight_loads")
 
     out_dir = tree / "mds_tpu_torch" / "build" / "head_bench"
-    procs = {}
-    for name, patches in [("built", [])] + list(VARIANTS.items()):
-        srcs = {f: (SRC_DIR / f).read_text() for f in ("stem.cu", "mma.cuh", "wgmma.cuh")}
-        old_design = "detail_kernel(" in srcs["stem.cu"]
-        if (any(srcs[f].count(old) < 1 for f, old, _ in patches)
-                or patches and old_design != (name == "no_weight_loads")):
-            continue  # not this tree's design
-        d = out_dir / name
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        for f, old, new in patches:
-            srcs[f] = srcs[f].replace(old, new)
-        for f, text in srcs.items():
-            (d / f).write_text(text)
-        procs[name] = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"), str(d / "stem.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    procs = build_variants("stem.cu", {"built": [], **VARIANTS}, out_dir, skip)
     P, I = ctypes.c_void_p, ctypes.c_int
     args = head_args(np.random.default_rng(0), *FRAME, dev)  # measure_head's
     packed = head_packed(stem, args)
@@ -288,12 +216,9 @@ def split(tree, stem, dev):
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     times = {}
     for name, p in procs.items():
-        log = p.communicate()[0]
-        if p.returncode:
-            sys.exit(f"{name}: nvcc failed\n{log[-4000:]}")
+        log = built(name, p)
         if name == "built":  # ptxas: registers, spills, wgmma serialization
-            print(json.dumps({"ptxas": [ln.strip() for ln in log.splitlines() if any(
-                k in ln for k in ("registers", "spill", "C75"))]}), flush=True)
+            print(json.dumps({"ptxas": ptxas_lines(log)}), flush=True)
         lib = ctypes.CDLL(str(out_dir / name / "lib.so"))
         fn = lib.mds_detail_s1s2_fused
         fn.argtypes = [P] * 7 + [I, I, I, P]
@@ -330,13 +255,13 @@ def split(tree, stem, dev):
 # variants of the staged multiplier kernel (csrc/depthwise.cu), m <= 6
 DW_VARIANTS = {
     "built": [],
-    "rows8": [("constexpr int kMTH = 4, kMTW = 32, kMP = 4;",
+    "rows8": [("depthwise.cu", "constexpr int kMTH = 4, kMTW = 32, kMP = 4;",
                "constexpr int kMTH = 8, kMTW = 32, kMP = 4;"),
-              ("constexpr int kMMax = 12;", "constexpr int kMMax = 6;")],
-    "px2": [("constexpr int kMTH = 4, kMTW = 32, kMP = 4;",
+              ("depthwise.cu", "constexpr int kMMax = 12;", "constexpr int kMMax = 6;")],
+    "px2": [("depthwise.cu", "constexpr int kMTH = 4, kMTW = 32, kMP = 4;",
              "constexpr int kMTH = 4, kMTW = 32, kMP = 2;"),
-            ("constexpr int kMMax = 12;", "constexpr int kMMax = 6;")],
-    "cols16": [("constexpr int kMTH = 4, kMTW = 32, kMP = 4;",
+            ("depthwise.cu", "constexpr int kMMax = 12;", "constexpr int kMMax = 6;")],
+    "cols16": [("depthwise.cu", "constexpr int kMTH = 4, kMTW = 32, kMP = 4;",
                 "constexpr int kMTH = 8, kMTW = 16, kMP = 4;")],
 }
 
@@ -346,25 +271,9 @@ def split_depthwise(tree, dev):
     device ms per shape and over the frame (bit-equal to the plain version
     checked for every variant)."""
     from mds_tpu_torch.ops import depthwise
-    from mds_tpu_torch.ops.build import NVCC_FLAGS, SRC_DIR, _nvcc
 
     out_dir = tree / "mds_tpu_torch" / "build" / "dw_bench"
-    src = (SRC_DIR / "depthwise.cu").read_text()
-    procs = {}
-    for name, patches in DW_VARIANTS.items():
-        if any(src.count(old) != 1 for old, _ in patches):
-            continue
-        d = out_dir / name
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        text = src
-        for old, new in patches:
-            text = text.replace(old, new)
-        (d / "depthwise.cu").write_text(text)
-        shutil.copy(SRC_DIR / "mma.cuh", d / "mma.cuh")
-        procs[name] = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"), str(d / "depthwise.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    procs = build_variants("depthwise.cu", DW_VARIANTS, out_dir)
     rng = np.random.default_rng(1)
     shapes = []
     for c, h, w, m, s in DW_FRAME:
@@ -379,9 +288,7 @@ def split_depthwise(tree, dev):
     P, I = ctypes.c_void_p, ctypes.c_int
     res = {}
     for name, p in procs.items():
-        log = p.communicate()[0]
-        if p.returncode:
-            sys.exit(f"{name}: nvcc failed\n{log[-4000:]}")
+        built(name, p)
         lib = ctypes.CDLL(str(out_dir / name / "lib.so"))
         lib.mds_dw3x3.argtypes = [P, P, P] + [I] * 7 + [P]
         per = []
@@ -407,24 +314,15 @@ def main():
     ap.add_argument("--tree", help="time another checkout's mds_tpu_torch")
     ap.add_argument("--no-split", action="store_true", help="skip the split")
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("head_dw_bench_torch: no CUDA device")
-    tree = Path(args.tree).resolve() if args.tree else ROOT
-    sys.path.insert(0, str(tree))
-    from mds_tpu_torch.ops import build, depthwise, stem
+    tree = open_tree(args.tree, "head_dw_bench_torch")
+    from mds_tpu_torch.ops import depthwise, stem
 
-    build.load()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(json.dumps({"tree": str(tree), "stem_module": stem.__file__}), flush=True)
     measure_head(stem, "cuda")
     measure_depthwise(depthwise, "cuda")
     if not args.no_split:
         split(tree, stem, "cuda")
         split_depthwise(tree, "cuda")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print_card()
 
 
 if __name__ == "__main__":

@@ -31,59 +31,17 @@ import argparse
 import ctypes
 import inspect
 import json
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-ROOT = Path(__file__).resolve().parent.parent
-HBM_BYTES_PER_S = 3.35e12
+from bench_util_torch import (HBM_BYTES_PER_S, ROOT, bits, build_variants, built, cuda_ms,
+                              device_ms, open_tree, print_card, ptxas_lines, rel)
+
 EVAL = (1, 1024, 2048)
 TRAIN = (16, 512, 1024)
 RAGGED = ((2, 18, 134), (1, 6, 2050), (3, 2, 2))
-
-
-def cuda_ms(fn, n=20):
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(n):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def device_ms(fn, n=10, key="stem"):
-    """Mean device time per call of the CUDA kernels whose name holds `key`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and key in e.name]
-    total = sum(e.device_time_total for e in ev) / 1e3
-    return total / n if ev and total > 0 else "not measured"
-
-
-def rel(a, b):
-    a, b = a.float(), b.float()
-    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
-
-
-def bits(t):
-    it = torch.int16 if t.dtype == torch.bfloat16 else torch.int32
-    return t.permute(0, 2, 3, 1).contiguous().view(it)
 
 
 def inputs(rng, b, h, w, o, dev):
@@ -129,7 +87,7 @@ def measure(stem, dev):
                 if not ragged:
                     r["ms"] = cuda_ms(lambda: fn(*args, **kw))
                     r["cold_ms"] = cuda_ms(lambda: fn(*args))
-                    r["device_ms"] = device_ms(lambda: fn(*args, **kw))
+                    r["device_ms"] = device_ms(lambda: fn(*args, **kw), "stem")
                 row[name] = r
             if not ragged:
                 wf = (k * s.reshape(-1, 1, 1, 1)).to(torch.bfloat16)
@@ -149,7 +107,7 @@ def measure(stem, dev):
             if not ragged:
                 r["ms"] = cuda_ms(lambda: fn(x, kb, *kw))
                 r["cold_ms"] = cuda_ms(lambda: fn(x, kb))
-                r["device_ms"] = device_ms(lambda: fn(x, kb, *kw))
+                r["device_ms"] = device_ms(lambda: fn(x, kb, *kw), "stem")
                 xf, kf = x.float(), kb.float()
                 row["library_f32_ms"] = cuda_ms(lambda: F.conv2d(xf, kf, stride=2, padding=1))
                 row["library_bf16_ms"] = cuda_ms(lambda: F.conv2d(x, kb, stride=2, padding=1))
@@ -164,51 +122,38 @@ def measure(stem, dev):
 
 # ------------------------------------------------------------- the split
 
-def _cut(s, old, new):
-    assert s.count(old) == 1, old
-    return s.replace(old, new)
-
-
+# (file, anchor, replacement), as bench_util_torch.build_variants takes them
 VARIANTS = {
-    "built": lambda s: s,
-    "no_window": lambda s: _cut(_cut(
-        s, "    if (g + 16 > lo && g < hi)\n", "    if (H < 0)\n"),
-        "  mbar_arrive_expect_tx(bar, bytes);\n  for (int dy = 0; dy < 3; ++dy)",
-        "  mbar_arrive_expect_tx(bar, 0);\n  for (int dy = 0; dy < 3 * (H < 0); ++dy)"),
-    "no_mma": lambda s: _cut(s, "  for (int step = 0; step < 6; ++step)",
-                             "  for (int step = 0; step < 6 * (H < 0); ++step)"),
-    "no_store": lambda s: _cut(s, "    stem_tile_store<F32>(",
-                               "    if (H < 0) stem_tile_store<F32>("),
+    "built": [],
+    "no_window": [
+        ("stem.cu", "    if (g + 16 > lo && g < hi)\n      cp_async16(win + dy * kStemRowBytes",
+         "    if (H < 0)\n      cp_async16(win + dy * kStemRowBytes"),
+        ("stem.cu", "  mbar_arrive_expect_tx(bar, bytes);\n  for (int dy = 0; dy < 3; ++dy)",
+         "  mbar_arrive_expect_tx(bar, 0);\n  for (int dy = 0; dy < 3 * (H < 0); ++dy)")],
+    "no_mma": [("stem.cu", "  for (int step = 0; step < 6; ++step)  // hi: steps 0, 1; mid: 2, 3;"
+                " lo: 4, 5\n    wgmma_m64nk16<N>(",
+                "  for (int step = 0; step < 6 * (H < 0); ++step)\n    wgmma_m64nk16<N>(")],
+    "no_store": [("stem.cu", "    stem_tile_store<F32>(", "    if (H < 0) stem_tile_store<F32>(")],
 }
 
 
 def split(dev):
     from mds_tpu_torch.ops import stem
-    from mds_tpu_torch.ops.build import NVCC_FLAGS, SRC_DIR, _nvcc
 
     out_dir = ROOT / "mds_tpu_torch" / "build" / "stem_bench"
-    base = (SRC_DIR / "stem.cu").read_text()
-    procs = {}
-    for name, patch in VARIANTS.items():
-        d = out_dir / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "stem.cu").write_text(patch(base))
-        procs[name] = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, f"-I{SRC_DIR}", "-shared", "-o", str(d / "lib.so"),
-             str(d / "stem.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    procs = build_variants("stem.cu", VARIANTS, out_dir)
     P, I = ctypes.c_void_p, ctypes.c_int
     libs = {}
     for name, p in procs.items():
-        log = p.communicate()[0]
-        if p.returncode:
-            sys.exit(f"{name}: nvcc failed\n{log[-4000:]}")
+        log = built(name, p)
         if name == "built":  # ptxas: registers, spills, wgmma serialization
-            print(json.dumps({"ptxas": [ln.strip() for ln in log.splitlines() if any(
-                w in ln for w in ("registers", "spill", "C75"))]}), flush=True)
+            print(json.dumps({"ptxas": ptxas_lines(log)}), flush=True)
         lib = ctypes.CDLL(str(out_dir / name / "lib.so"))
         lib.mds_stem_conv_bn_relu_s2.argtypes = [P, P, P, I, I, I, I, I, I, P]
         lib.mds_stem_conv_bn_relu_s2_window.argtypes = [P, P, P, I, I, I, I, I, P]
         libs[name] = lib
+    if set(libs) != set(VARIANTS):
+        raise RuntimeError(f"stem.cu lacks the anchors of {set(VARIANTS) - set(libs)}")
     rng = np.random.default_rng(1)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)  # noqa: E731
@@ -229,7 +174,7 @@ def split(dev):
             for name, lib in libs.items():
                 if call(lib):
                     raise RuntimeError(f"{name} {kname}: launch failed")
-                times[name] = device_ms(lambda: call(lib))
+                times[name] = device_ms(lambda: call(lib), "stem")
             res[f"{form}_{kname}"] = times
             print(json.dumps({"split": f"{form} {kname}", "x": [b, 3, h, w], "O": 64,
                               "device_ms": times}), flush=True)
@@ -241,22 +186,13 @@ def main():
     ap.add_argument("--tree", help="time another checkout's mds_tpu_torch")
     ap.add_argument("--no-split", action="store_true", help="skip the split")
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("stem_bench_torch: no CUDA device")
-    tree = Path(args.tree).resolve() if args.tree else ROOT
-    sys.path.insert(0, str(tree))
-    from mds_tpu_torch.ops import build, stem
+    open_tree(args.tree, "stem_bench_torch")
+    from mds_tpu_torch.ops import stem
 
-    build.load()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(json.dumps({"tree": str(tree), "stem_module": stem.__file__}), flush=True)
     measure(stem, "cuda")
     if not args.tree and not args.no_split:
         split("cuda")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print_card()
 
 
 if __name__ == "__main__":
