@@ -10,8 +10,8 @@ before the last line:
 2. build    — nvcc builds mds_tpu_torch/csrc/*.cu for sm_90a, one process
               per source; cuobjdump's SASS of the library must show HGMMA
               (warpgroup MMA) and no HMMA (mma.sync) in the conv3,
-              detail-tail, detail-head (kernel 4), 3×3 stem (kernels 1
-              and 2), StemBlock (5) and 7×7 stem (6) kernels.
+              detail-tail, S1-pair (kernel 3), detail-head (4), 3×3 stem
+              (kernels 1 and 2), StemBlock (5) and 7×7 stem (6) kernels.
 3. kernels  — each stem kernel at the serving shapes (B=1, 1024×2048; the
               7×7 stem of BiSeNetV1 at O=64; the single 3×3 stem and its
               window variant at O=64 and 16, the window variant bit-equal
@@ -24,12 +24,12 @@ before the last line:
               folded weight and bias (no ReLU) as the library's time; the
               7×7 and the 3×3 stems (with the f32 training form) also on
               ragged tiles, B > 1 and O from 8 to 128, the StemBlock at B =
-              2 with H/4 and W/4 off its strips and at H = W = 4; the fused
-              detail head (kernel 4), the StemBlock (5) and the 7×7 stem (6)
-              warm on their weights packed once (the warm output equal to
-              the cold one), cold packing in the call and by their device
-              time, each with its bit-equal share (>= 0.999 for 5 and 6 at
-              the frame). Then the kernels of
+              2 with H/4 and W/4 off its strips and at H = W = 4; the S1
+              pair (kernel 3), the fused detail head (4), the StemBlock (5)
+              and the 7×7 stem (6) warm on their weights packed once (the
+              warm output equal to the cold one), cold packing in the call
+              and by their device time, each with its bit-equal share
+              (>= 0.999 for 5 and 6 at the frame). Then the kernels of
               BiSeNetV2's routes at the inputs one served frame gives them
               (captured from the model): the 16 depthwise convs through
               depthwise3x3 (bit-equal share >= 0.999 and rel < 1e-2 against
@@ -38,7 +38,8 @@ before the last line:
               through
               depthwise3x3_dma (also bit-equal to depthwise3x3), the head
               logits (1, 19, 128, 256) through upsample_argmax (label
-              agreement >= 0.9999), the /4 detail feature (1, 64, 256, 512)
+              agreement >= 0.9999, differing pixels and its device time
+              printed), the /4 detail feature (1, 64, 256, 512)
               through detail_tail_fused, and DetailBranch S1_2's input
               (1, 64, 512, 1024) of a frame on the window-stem + conv3 route
               through conv3x3_bn_relu (both rel < 1e-2, bit-equal share
@@ -50,7 +51,8 @@ before the last line:
               F.conv2d with the folded weight and bias; then the depthwise,
               upsample, S1-pair, tail and conv3 kernels on ragged shapes
               (odd tiles, B > 1, the depthwise kernel's staged form at m =
-              2, 3, 4 and 6, conv3 at C_in 3-64 and C_out 8-136).
+              2, 3, 4 and 6, the upsample at s = 1-8 and C = 1-150 in bf16
+              and f32, conv3 at C_in 3-64 and C_out 8-136).
 4. dropout  — the dropout kernel at the main head's shape (16, 1024, 64,
               128) bf16 channels_last, rate 0.1: bit-identical to its plain
               version, keep fraction within 0.002 of 230/256, kept values
@@ -93,8 +95,10 @@ before the last line:
               2 warm-up steps, 5 timed ones (CUDA events, median), finite
               losses, parameters and BN stats moved, 10 dropout launches per
               step and no stem-kernel launch (the fused routes are eval-only);
-              one more step under torch.profiler gives the idle share and
-              the dropout kernel's device time.
+              the dropout kernel's bound for a step (its 10 calls' inputs
+              read and outputs written once, over 3.35 TB/s); one more
+              step under torch.profiler gives the idle share and the
+              dropout kernel's device time.
 8. train_stem — the same train step with set_stem_impl("kernel"): the two
               RGB stems' convs (DetailBranch S1_1, StemBlock conv) run
               stem_conv3x3_s2 (kernel 1 forward, the library conv's
@@ -186,9 +190,9 @@ SOURCES = {
                         "mds_tpu/ops/pallas/stem.py:1235"),
 }
 # the kernels that run warpgroup MMA (csrc/wgmma.cuh): their SASS must show
-# HGMMA and no HMMA (stem_kernel: kernels 1 and 2; detail_head_kernel: 4;
-# stemblock_kernel: 5; stem7_kernel: 6)
-WGMMA_KERNELS = ("conv3x3_kernel", "detail_tail_kernel", "stem_kernel",
+# HGMMA and no HMMA (stem_kernel: kernels 1 and 2; pair_kernel: 3;
+# detail_head_kernel: 4; stemblock_kernel: 5; stem7_kernel: 6)
+WGMMA_KERNELS = ("conv3x3_kernel", "detail_tail_kernel", "stem_kernel", "pair_kernel",
                  "detail_head_kernel", "stemblock_kernel", "stem7_kernel")
 # one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -334,7 +338,8 @@ def phase_kernels(dev):
     }
     # the kernels whose model routes pack their weights once: the packing
     # function of the arguments after x, and the kernel's name in a trace
-    warm = {"detail_s1s2_fused": (stem.pack_detail_head, "detail_head_kernel"),
+    warm = {"stem_s1_pair_fused": (lambda *a: stem.pack_s1_pair(*a[:6]), "pair_kernel"),
+            "detail_s1s2_fused": (stem.pack_detail_head, "detail_head_kernel"),
             "stemblock_fused": (stem.pack_stemblock, "stemblock_kernel"),
             "stem7_conv_bn_relu_s2": (lambda k, s, b, relu: stem.pack_stem7(k, s, b),
                                       "stem7_kernel")}
@@ -575,13 +580,18 @@ def share_equal(a, b):
     return (a == b).sum().item() / a.numel()
 
 
+def _clone(a):
+    return a.clone() if torch.is_tensor(a) else a
+
+
 class _Spy:
     """Stands in for a kernel wrapper in its module: records each call's
-    arguments (cloned) and calls the wrapper. The wrapper counts its launch
-    through its module's name, so `launches` reads and writes the wrapper's."""
+    arguments (each through `keep`: cloned by default) and calls the
+    wrapper. The wrapper counts its launch through its module's name, so
+    `launches` reads and writes the wrapper's."""
 
-    def __init__(self, real):
-        self.real, self.seen = real, []
+    def __init__(self, real, keep=_clone):
+        self.real, self.keep, self.seen = real, keep, []
 
     @property
     def launches(self):
@@ -592,15 +602,15 @@ class _Spy:
         self.real.launches = n
 
     def __call__(self, *args):
-        self.seen.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        self.seen.append(tuple(self.keep(a) for a in args))
         return self.real(*args)
 
 
 @contextlib.contextmanager
-def captured(module, name):
-    """The arguments of every call of module.<name> in the block, cloned
-    (the call itself goes through)."""
-    spy = _Spy(getattr(module, name))
+def captured(module, name, keep=_clone):
+    """The arguments of every call of module.<name> in the block, each
+    through `keep` (cloned by default; the call itself goes through)."""
+    spy = _Spy(getattr(module, name), keep)
     setattr(module, name, spy)
     try:
         yield spy.seen
@@ -756,7 +766,8 @@ def conv_kernels_ragged(dev):
                 or rec["rel"] >= KERNEL_GATE):
             raise RuntimeError(f"{name} ragged: {rec}")
 
-    for b, h, w, relu2 in ((1, 36, 70, True), (2, 18, 10, False), (1, 2, 2, True)):
+    for b, h, w, relu2 in ((1, 36, 70, True), (2, 18, 10, False), (1, 2, 2, True),
+                           (2, 14, 262, True)):
         args = (image(b, h, w), conv_w(rng, 64, 3, 3, dev), *folded_bn(rng, 64, dev),
                 conv_w(rng, 64, 64, 3, dev), *folded_bn(rng, 64, dev), relu2)
         record("stem_s1_pair_fused", {"shape": [b, h, w], "relu2": relu2},
@@ -859,7 +870,8 @@ def upsample_argmax_row(ua_call):
     """upsample_argmax at the frame's head logits against its plain version
     (label agreement, differing pixels), timed beside the plain version and
     the library chain the plain route runs (bf16 F.interpolate, argmax, int32
-    cast); no single PyTorch call computes the function (library_ms null)."""
+    cast), its device time read by the profiler; no single PyTorch call
+    computes the function (library_ms null)."""
     from mds_tpu_torch.ops import upsample_argmax as ua
 
     logits, s = ua_call
@@ -880,6 +892,7 @@ def upsample_argmax_row(ua_call):
         return up.argmax(dim=1).to(torch.int32)
 
     ms = cuda_ms(lambda: ua.upsample_argmax(logits, s))
+    dev_ms = device_ms(lambda: ua.upsample_argmax(logits, s), "upsample_argmax_kernel")
     plain_ms = cuda_ms(lambda: ua.upsample_argmax_plain(logits, s))
     chain_ms = cuda_ms(chain)
     # the separable passes: 3 f32 operations per vertical and per horizontal
@@ -892,7 +905,7 @@ def upsample_argmax_row(ua_call):
            "library_ms": None}
     emit(phase="kernels", kernel="upsample_argmax", shape=list(logits.shape),
          scale=s, dtype=str(logits.dtype), agreement=agree,
-         differing_pixels=int((got != want).sum()),
+         differing_pixels=int((got != want).sum()), device_ms=dev_ms,
          chain_ms=chain_ms, chain="bf16 F.interpolate + argmax + int32 cast",
          plain="two f32 passes, bf16 rounding between, argmax", **res)
     if agree < UPSAMPLE_ARGMAX_GATE:
@@ -903,8 +916,9 @@ def upsample_argmax_row(ua_call):
 def new_kernels_ragged(dev):
     """The depthwise kernels at odd H and W, B > 1, C = 3, 5, 12, m = 1, 2,
     6, both strides (and f32), against their plain version; upsample_argmax
-    at odd h and w, C = 1, 5, 150, s = 2, 3, 4, 8, against its plain
-    version. Not counted as main-path launches."""
+    at odd h and w, B = 1 and 2, C = 1, 5, 19, 150, s = 1, 2, 3, 4, 5, 8, bf16
+    and f32, against its plain version. Not counted as main-path
+    launches."""
     from mds_tpu_torch.ops import depthwise, upsample_argmax as ua
 
     rng = np.random.default_rng(6)
@@ -932,11 +946,14 @@ def new_kernels_ragged(dev):
             raise RuntimeError(f"depthwise ragged: {rec}")
     for b, h, w, c, s, dt in ((1, 9, 13, 1, 2, torch.bfloat16), (2, 7, 11, 5, 4, torch.bfloat16),
                               (1, 15, 9, 150, 8, torch.bfloat16), (1, 5, 7, 19, 3, torch.bfloat16),
-                              (1, 11, 5, 5, 8, torch.float32)):
+                              (1, 11, 5, 5, 8, torch.float32), (2, 13, 37, 19, 8, torch.bfloat16),
+                              (1, 9, 71, 19, 1, torch.bfloat16), (2, 7, 9, 19, 5, torch.bfloat16),
+                              (2, 17, 35, 19, 8, torch.float32)):
         lg = torch.tensor(rng.normal(0, 1, (b, h, w, c)), device=dev).to(dt).permute(0, 3, 1, 2)
         got, want = ua.upsample_argmax(lg, s), ua.upsample_argmax_plain(lg, s)
         rec = {"shape": [b, c, h, w], "scale": s, "dtype": str(dt),
-               "agreement": share_equal(got, want)}
+               "agreement": share_equal(got, want),
+               "differing_pixels": int((got != want).sum())}
         out["upsample_argmax"].append(rec)
         if got.shape != want.shape or rec["agreement"] < UPSAMPLE_ARGMAX_GATE:
             raise RuntimeError(f"upsample_argmax ragged: {rec}")
@@ -1068,7 +1085,15 @@ def phase_train(dev):
     gen = torch.Generator().manual_seed(0)
     p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
     s0 = {k: v.clone() for k, v in model.named_buffers() if "running" in k}
-    metrics = [step(ims, lbs, gen) for _ in range(2)]  # warm-up
+    from mds_tpu_torch.ops import dropout
+
+    metrics = [step(ims, lbs, gen)]  # warm-up
+    # the dropout kernel's calls in one step (5 forward, 5 backward): their
+    # bound reads each input once and writes each output once
+    with captured(dropout, "dropout_u8",
+                  lambda a: a.numel() * a.element_size() if torch.is_tensor(a) else None) as dc:
+        metrics.append(step(ims, lbs, gen))
+    drop_bytes = sum(2 * c[0] for c in dc)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1093,7 +1118,9 @@ def phase_train(dev):
          step_ms=times, median_step_ms=step_ms, images_per_s=b / step_ms * 1e3,
          max_memory_allocated=peak, params_moved=f"{moved}/{len(p0)}",
          bn_stats_moved=f"{stats_moved}/{len(s0)}", optimizer_steps=opt.count,
-         launches=launches, **idle)
+         launches=launches, dropout_calls_per_step=len(dc),
+         dropout_step_bytes=drop_bytes,
+         dropout_step_bound_ms=drop_bytes / HBM_BYTES_PER_S * 1e3, **idle)
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"non-finite train losses {losses}")
     if stats_moved != len(s0) or moved < 0.9 * len(p0):

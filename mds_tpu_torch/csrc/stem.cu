@@ -4,11 +4,8 @@
 // as PERF.md's table numbers them: 1, 2, 3, 4, 5). All take the memory of a
 // channels_last bf16 tensor, i.e. an NHWC image (B, H, W, 3), and write NHWC
 // bf16 (kernel 1's training form: f32). Their first stage is a 3x3 stride-2
-// pad-1 conv on RGB with the BN folded into f32 weights. Kernels 1, 2, 4 and
-// 5 run it on the tensor cores from that table split into bf16 parts (see
-// kernel 1's section), kernel 3 on the CUDA cores from
-//
-//   w[28][O]: rows (dy*3 + dx)*3 + ci are k * scale, row 27 is the bias.
+// pad-1 conv on RGB with the BN folded into f32 weights, run on the tensor
+// cores from that table split into bf16 parts (see kernel 1's section).
 //
 // Out-of-image positions of every intermediate are ZERO (the next conv's
 // padding), never ReLU(folded bias); ragged tiles are masked, so any H and W
@@ -20,55 +17,6 @@
 #include "wgmma.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------- helpers
-
-// Stage A of kernel 3: the folded 3x3 s2 p1 RGB conv at half-resolution
-// position (r, c).
-// stem_taps gathers its 27 inputs (dy, dx, ci order; zero outside the
-// image); stem_dot applies output channels [o0, o0 + NC) of the (28, O)
-// folded table w (shared memory, 16-byte aligned, read as float4; NC, O
-// and o0 multiples of 4), bias first, before any ReLU. Where all lanes of a
-// warp share o0 the weight reads are broadcasts.
-__device__ __forceinline__ void stem_taps(const bf16* __restrict__ xb, int H,
-                                          int W, int r, int c, float* v) {
-#pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    const int y = 2 * r - 1 + dy;
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const int x = 2 * c - 1 + dx;
-      const bool in = y >= 0 && y < H && x >= 0 && x < W;
-      const bf16* px = xb + ((size_t)(in ? y : 0) * W + (in ? x : 0)) * 3;
-#pragma unroll
-      for (int ci = 0; ci < 3; ++ci)
-        v[(dy * 3 + dx) * 3 + ci] = in ? __bfloat162float(px[ci]) : 0.f;
-    }
-  }
-}
-
-template <int NC>
-__device__ __forceinline__ void stem_dot(const float* v, const float* w, int O,
-                                         int o0, float* acc) {
-  static_assert(NC % 4 == 0, "stem_dot reads weights as float4");
-#pragma unroll
-  for (int j = 0; j < NC; j += 4) {
-    const float4 b = *reinterpret_cast<const float4*>(w + 27 * O + o0 + j);
-    acc[j] = b.x, acc[j + 1] = b.y, acc[j + 2] = b.z, acc[j + 3] = b.w;
-  }
-#pragma unroll
-  for (int k = 0; k < 27; ++k) {
-    const float* wr = w + k * O + o0;
-#pragma unroll
-    for (int j = 0; j < NC; j += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(wr + j);
-      acc[j] = fmaf(v[k], q.x, acc[j]);
-      acc[j + 1] = fmaf(v[k], q.y, acc[j + 1]);
-      acc[j + 2] = fmaf(v[k], q.z, acc[j + 2]);
-      acc[j + 3] = fmaf(v[k], q.w, acc[j + 3]);
-    }
-  }
-}
 
 // --------------- TPU kernels 1 and 2: stem_conv_bn_relu_s2, its training
 // --------------- form and its window variant, on warpgroup MMA
@@ -575,22 +523,24 @@ struct HdRing {
 // A ring slot of row r (r >= -6).
 __device__ __forceinline__ int hd_slot(int r) { return (r + 6) % 3; }
 
-// S1_1 row r of run g, this warpgroup's tile (local pixels 64 wg .. 64 wg +
-// 63, /2 column 2 p0 - 2 + local), from window win: ReLU, bf16, into ring row
-// dst; zero outside the image.
+// S1_1 row r of image b, M tile `tile` of a strip row of npix pixels (local
+// pixels 64 tile .. 64 tile + 63, local pixel 0 at /2 column c1), by this
+// warpgroup from window win: ReLU, bf16, into ring row dst; zero outside the
+// image (kernels 3 and 4).
 __device__ __forceinline__ void hd_s1(const unsigned char* win, uint32_t tbl_s,
-                                      unsigned char* dst, const StripRun& g, int r,
-                                      const StemLane& l, int H, int W) {
-  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+                                      unsigned char* dst, int b, int r, int c1,
+                                      int npix, int tile, const StemLane& l, int H,
+                                      int W) {
+  const int warp = (threadIdx.x >> 5) & 3;
   const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
-  const StemTile t{g.b, r, 2 * g.p0 - 2 + 64 * wg};
+  const StemTile t{b, r, c1 + 64 * tile};
   float acc[32];
   stem_tile_acc<64>(win, tbl_s, t, l, H, W, acc);
   const bool row_in = r >= 0 && r < H / 2;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int p = 16 * warp + gq + 8 * h, loc = 64 * wg + p, c = t.c0 + p;
-    if (loc >= kHdS1) continue;
+    const int p = 16 * warp + gq + 8 * h, loc = 64 * tile + p, c = t.c0 + p;
+    if (loc >= npix) continue;
     const bool in = row_in && c >= 0 && c < W / 2;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -618,19 +568,13 @@ __device__ __forceinline__ void hd_load_a(uint32_t (&a)[4][4], uint32_t row,
     ldmatrix_x4(a[ks], row + swz(pix, 2 * ks + ahalf, 128));
 }
 
-// S1_2 row r of run g: ReLU(b2 + S1_1 rows r - 1 .. r + 1 (ring at s1_s) *
-// the resident slices at w_s), bf16, into ring row dst; zero outside the
-// image. Warpgroup wg computes local pixels 64 wg .. 64 wg + 63 (/2 column
-// 2 p0 - 1 + local; the last tile's pixel 125 reads a clamped one and is
-// not stored).
-__device__ __forceinline__ void hd_s12(uint32_t s1_s, unsigned char* dst,
-                                       uint32_t w_s,
-                                       const float* __restrict__ b2,
-                                       const StripRun& g, int r, int H2, int W2) {
-  const int wg = threadIdx.x >> 7, wiw = (threadIdx.x >> 5) & 3;
-  const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
-  const int pix = min(64 * wg + hd_arow(), kHdS2 - 1);
-  float acc[2][32];  // tap (dy, dx) sums into acc[dx & 1]
+// S1_2's implicit GEMM at ring row r (kernels 3 and 4): into acc[0], the
+// sum over the 9 taps of S1_1 rows r - 1 .. r + 1 (ring at s1_s, rows
+// row_bytes apart) times the resident slices at w_s, for the M row of this
+// lane's ldmatrix row pixel pix (its taps at pix .. pix + 2). Tap (dy, dx)
+// sums into acc[dx & 1], the two added in f32 at the end.
+__device__ __forceinline__ void s12_acc(uint32_t s1_s, int row_bytes, uint32_t w_s,
+                                        int r, int pix, float (&acc)[2][32]) {
 #pragma unroll
   for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -639,7 +583,7 @@ __device__ __forceinline__ void hd_s12(uint32_t s1_s, unsigned char* dst,
       reg_fence(acc[j][i]);
     }
   uint32_t a[3][4][4];  // tap (dy, dx) in a[dx]
-  const uint32_t row0 = s1_s + hd_slot(r - 1) * kHdS1Row;
+  const uint32_t row0 = s1_s + hd_slot(r - 1) * row_bytes;
   hd_load_a(a[0], row0, pix);
   hd_load_a(a[1], row0, pix + 1);
 #pragma unroll 1
@@ -655,7 +599,7 @@ __device__ __forceinline__ void hd_s12(uint32_t s1_s, unsigned char* dst,
       wgmma_commit();
       wgmma_wait<1>();  // tap - 1 is done: its registers take tap + 2
       if (tap < 7)
-        hd_load_a(a[(dx + 2) % 3], s1_s + hd_slot(r - 1 + (tap + 2) / 3) * kHdS1Row,
+        hd_load_a(a[(dx + 2) % 3], s1_s + hd_slot(r - 1 + (tap + 2) / 3) * row_bytes,
                   pix + (dx + 2) % 3);
     }
   }
@@ -666,6 +610,21 @@ __device__ __forceinline__ void hd_s12(uint32_t s1_s, unsigned char* dst,
     for (int i = 0; i < 32; ++i) reg_fence(acc[j][i]);
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[0][i] += acc[1][i];
+}
+
+// S1_2 row r of run g: ReLU(b2 + S1_1 rows r - 1 .. r + 1 (ring at s1_s) *
+// the resident slices at w_s), bf16, into ring row dst; zero outside the
+// image. Warpgroup wg computes local pixels 64 wg .. 64 wg + 63 (/2 column
+// 2 p0 - 1 + local; the last tile's pixel 125 reads a clamped one and is
+// not stored).
+__device__ __forceinline__ void hd_s12(uint32_t s1_s, unsigned char* dst,
+                                       uint32_t w_s,
+                                       const float* __restrict__ b2,
+                                       const StripRun& g, int r, int H2, int W2) {
+  const int wg = threadIdx.x >> 7, wiw = (threadIdx.x >> 5) & 3;
+  const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
+  float acc[2][32];
+  s12_acc(s1_s, kHdS1Row, w_s, r, min(64 * wg + hd_arow(), kHdS2 - 1), acc);
   const bool row_in = r >= 0 && r < H2;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -832,8 +791,8 @@ __global__ void __launch_bounds__(kHdThreads, 1)
     fetch(win + ((k + 1) & 1) * kStemWinBytes);
     cp_async_wait<1>();
     named_bar_sync(2 + wg, 128);  // row k's window is whole
-    hd_s1(win + (k & 1) * kStemWinBytes, tbl_s, s1 + hd_slot(r) * kHdS1Row, g, r,
-          lane, H, W);
+    hd_s1(win + (k & 1) * kStemWinBytes, tbl_s, s1 + hd_slot(r) * kHdS1Row, g.b, r,
+          2 * g.p0 - 2, kHdS1, wg, lane, H, W);
     ++k;
   };
 
@@ -866,92 +825,185 @@ __global__ void __launch_bounds__(kHdThreads, 1)
 
 // ------------------------------------ TPU kernel 3: stem_s1_pair_fused
 //
-// Replaces mds_tpu/ops/pallas/stem.py::stem_s1_pair_fused (:408-455, body
-// _pair_kernel :365-405): DetailBranch S1_1 (3x3 s2, 3->64) -> S1_2 (3x3,
-// 64->64), BNs folded, the second ReLU optional: the first two convs of
-// kernel 4, with their rounding points (S1_1 in f32 on the CUDA cores here). Bound: arithmetic, 40.5 GFLOP at 1024x2048
-// (38.7 of them in S1_2) against 80 MB moved. Design: one block per 8x32
-// tile of the /2 output; S1_1 over the tile and its one-pixel halo (10 x 34)
-// in shared memory on the CUDA cores (s1_1_region); each warp computes one
-// output row as two M tiles on the tensor cores and stores it.
+// Replaces mds_tpu/ops/pallas/stem.py::stem_s1_pair_fused (:408, body
+// _pair_kernel :321): DetailBranch S1_1 (3x3 s2, 3->64) -> S1_2 (3x3,
+// 64->64), BNs folded, the second ReLU optional, bf16 out at /2: the first
+// two convs of kernel 4, with its rounding points (S1_1 the f32 sum of x and
+// the f32 folded table, + bias, ReLU, bf16; S1_2 on bf16(k2 * scale2), + the
+// f32 bias, [ReLU], bf16). Out-of-image positions of S1_1 are S1_2's zero
+// padding, never ReLU(bias).
+//
+// Bound: arithmetic. At (1, 3, 1024, 2048) the two convs are 40.5 GFLOP
+// (38.7 of them in S1_2; 0.041 ms on the bf16 tensor cores) against 12.6 MB
+// read and 67.1 MB written (0.024 ms). Design: kernel 4's rolling rows
+// without S2_1, writing S1_2 out. Persistent blocks, one per SM, of two
+// warpgroups; each warpgroup walks its own contiguous run of row steps down
+// 62-column strips of the /2 output, keeping the last three S1_1 rows of its
+// strip (64 pixels of 128 bytes, wgmma.cuh's 16-byte XOR swizzle: one whole
+// M tile) in a shared-memory ring of its own: a step (one output row r)
+// computes S1_1 row r + 1 and S1_2 row r, so only the strip's two halo
+// columns of S1_1 are recomputed (64/62). A run that starts a strip (or
+// moves to the next) first computes two S1_1 rows. The warpgroups share
+// only the weights and meet at no barrier, so one's S1_1 and epilogue run
+// beside the other's S1_2 MMAs.
+// - Both convs on warpgroup MMA, bf16 in, f32 accumulate.
+// - S1_1 is kernel 1 at O = 64 with ReLU (hd_s1: A built from the tile's
+//   image window, the f32 table as three exact bf16 parts), its window
+//   copied by cp.async one row ahead.
+// - S1_2 is kernel 4's implicit GEMM (s12_acc: A from the ring by ldmatrix,
+//   its 9 B slices, 72 KB, resident for the block's life, two accumulators).
+// - The epilogue (+ bias, [ReLU] in the rounding cvt, bf16) writes the row
+//   by stmatrix into one of the warpgroup's two stages as the NHWC image of
+//   its 64 pixels, and the warpgroup's first thread hands the row's min(62,
+//   W/2 - c0) pixels to the copy engine in one bulk copy (a bulk group a
+//   step; a stage is written again once wait_group.read says its copy two
+//   steps back has read it), so the 67 MB of stores stream on under the
+//   next steps' MMAs.
+// - The weights (pack_s1_pair: S1_1's table, S1_2's slices, its f32 bias)
+//   are packed once per parameter version by the caller and copied into
+//   shared memory once per block.
+// Columns and strips past the image are computed on whatever the buffers
+// hold and never copied out, so no wgmma is issued under a condition. Any
+// B >= 1 and even H, W.
 
-constexpr int kPairCh = 72;               // S1_1 channel stride (bank spread)
-constexpr int kPairThreads = 256;
+constexpr int kPrW = 62;               // /2 output cols of a strip
+constexpr int kPrS1 = kPrW + 2;        // S1_1 pixels of a strip row: one M tile
+constexpr int kPrRow = kPrS1 * 128;    // bytes of an S1_1 ring row, of a stage
+constexpr int kPrThreads = 256;        // two warpgroups, each on its own strips
+// a warpgroup's ring (three rows), stages (two) and windows (two), in whole
+// 128-byte lines
+constexpr int kPrWg = 5 * kPrRow + (2 * kStemWinBytes + 127) / 128 * 128;
+// 1024 bytes of slack to align the slices to the swizzle's 1024-byte
+// pattern; S1_2's slices, S1_1's table, the warpgroups' buffers, the
+// weights' mbarrier
+constexpr size_t kPrSmem = 1024 + 9 * kHdSlice + kHdTbl + 2 * kPrWg + sizeof(uint64_t);
+static_assert(kPrSmem <= 232448, "over the 227 KB a block may opt into");
 
-// Stage A of kernel 3: S1_1 over a (rows, cols) region of the /2
-// grid with origin (R, C), ReLU, as bf16 pixels of kPairCh elements in s1;
-// one pixel (all 64 channels) per thread, so every weight read is a
-// warp-wide broadcast; zero outside the image.
-__device__ __forceinline__ void s1_1_region(const bf16* __restrict__ xb,
-                                            int H, int W, const float* w1s,
-                                            bf16* s1, int R, int C, int rows,
-                                            int cols) {
-  for (int p = threadIdx.x; p < rows * cols; p += blockDim.x) {
-    const int r = R + p / cols, c = C + p % cols;
-    uint4* dst = reinterpret_cast<uint4*>(s1 + p * kPairCh);
-    if (r >= 0 && r < H / 2 && c >= 0 && c < W / 2) {
-      float v[27], acc[64];
-      stem_taps(xb, H, W, r, c, v);
-      stem_dot<64>(v, w1s, 64, 0, acc);
+// S1_2 row r: + b2, [ReLU], bf16, by stmatrix into stage as the NHWC image of
+// the warpgroup's 64 strip pixels (pixels 62 and 63 read a clamped one and
+// are never copied out).
+__device__ __forceinline__ void pr_s12(uint32_t s1_s, uint32_t w_s,
+                                       const float* __restrict__ b2,
+                                       unsigned char* stage, int r, int relu2) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, tq = lane & 3;
+  float acc[2][32];
+  s12_acc(s1_s, kPrRow, w_s, r, min(hd_arow(), kPrW - 1), acc);
 #pragma unroll
-      for (int j = 0; j < 64; ++j) acc[j] = fmaxf(acc[j], 0.f);
+  for (int h = 0; h < 2; ++h) {
+    // matrix (h, j): pixels 16 warp + 8h .. + 7, channels 8j .. 8j + 7
+    const uint32_t row = smem_u32(stage) + (16 * warp + 8 * h + (lane & 7)) * 128;
 #pragma unroll
-      for (int g = 0; g < 8; ++g) dst[g] = pack8(acc + 8 * g);
-    } else {
+    for (int j4 = 0; j4 < 8; j4 += 4) {
+      uint32_t v[4];
 #pragma unroll
-      for (int g = 0; g < 8; ++g) dst[g] = make_uint4(0, 0, 0, 0);
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j4 + jj, n = 8 * j + 2 * tq;
+        const float v0 = acc[0][4 * j + 2 * h] + __ldg(b2 + n);
+        const float v1 = acc[0][4 * j + 2 * h + 1] + __ldg(b2 + n + 1);
+        v[jj] = relu2 ? pack2_relu(v0, v1) : pack2(v0, v1);
+      }
+      stmatrix_x4(row + 16 * (j4 + (lane >> 3)), v);
     }
   }
+  fence_proxy_async();
 }
 
-constexpr int kPairTQ = 8;                // /2 output rows per block
-constexpr int kPairTP = 32;               // /2 output cols per block
-constexpr int kPairAR = kPairTQ + 2;      // S1_1 rows held (10)
-constexpr int kPairAC = kPairTP + 2;      // S1_1 cols held (34)
-constexpr size_t kPairSmem = 28 * 64 * sizeof(float) +
-                             (size_t)kPairAR * kPairAC * kPairCh * sizeof(bf16);
-static_assert(kPairTQ * 32 == kPairThreads, "one output row per warp");
-
-__global__ void __launch_bounds__(kPairThreads)
-    pair_kernel(const bf16* __restrict__ x, const float* __restrict__ w1,
-                const uint2* __restrict__ w2p, const float* __restrict__ b2,
-                bf16* __restrict__ out, int H, int W, int relu2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* w1s = reinterpret_cast<float*>(smem);
-  bf16* s1 = reinterpret_cast<bf16*>(smem + 28 * 64 * sizeof(float));
+// t1: pack_stem of S1_1 (two slices); w2p: pack_sw128 of bf16(k2 * s2) (9
+// slices); b2: S1_2's f32 bias. Warpgroup u = 2 blockIdx.x + wg runs steps
+// [u per_wg, (u + 1) per_wg) of the B x strips x H/2 (q fastest).
+__global__ void __launch_bounds__(kPrThreads, 1)
+    pair_kernel(const bf16* __restrict__ x, const bf16* __restrict__ t1,
+                const bf16* __restrict__ w2p, const float* __restrict__ b2,
+                bf16* __restrict__ out, int B, int H, int W, int relu2, int strips,
+                int per_wg) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* w12 = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* tb = w12 + 9 * kHdSlice;
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(tb + kHdTbl + 2 * kPrWg);
+  const int wg = threadIdx.x >> 7, wt = threadIdx.x & 127;
+  unsigned char* s1 = tb + kHdTbl + wg * kPrWg;  // this warpgroup's ring,
+  unsigned char* stage = s1 + 3 * kPrRow;        // stages
+  unsigned char* win = stage + 2 * kPrRow;       // and windows
   const int H2 = H / 2, W2 = W / 2;
-  const int r0 = blockIdx.y * kPairTQ, c0 = blockIdx.x * kPairTP;
-  const int b = blockIdx.z;
-  for (int i = threadIdx.x; i < 28 * 64; i += kPairThreads) w1s[i] = w1[i];
-  __syncthreads();
-  s1_1_region(x + (size_t)b * H * W * 3, H, W, w1s, s1, r0 - 1, c0 - 1,
-              kPairAR, kPairAC);
-  __syncthreads();
+  const long long steps = (long long)B * strips * H2;
+  const long long s0 = (2LL * blockIdx.x + wg) * per_wg;
+  const long long end = min(steps, s0 + per_wg);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  int base[4];  // the lane's A rows: cols gq, gq + 8, gq + 16, gq + 24
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    base[k] = (warp * kPairAC + 8 * k + gq) * kPairCh + tq * 2;
-  float acc[2][8][4];
-  conv3x3_mma<kPairAC, kPairCh, 4, 8, 2>(s1, base, w2p, 8, 8, lane, acc);
-  const int r = r0 + warp;
-  if (r >= H2) return;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int c = c0 + 8 * k + gq, t = k / 2, h = k % 2;
-    if (c >= W2) continue;
-    bf16* o = out + (((size_t)b * H2 + r) * W2 + c) * 64;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = nt * 8 + tq * 2;
-      float v0 = acc[t][nt][2 * h] + __ldg(b2 + col);
-      float v1 = acc[t][nt][2 * h + 1] + __ldg(b2 + col + 1);
-      if (relu2) v0 = fmaxf(v0, 0.f), v1 = fmaxf(v1, 0.f);
-      *reinterpret_cast<uint32_t*>(o + col) = pack2(v0, v1);
-    }
+  if (threadIdx.x == 0) {
+    mbar_init(wbar, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // S1_2's slices and S1_1's table, once per block
+    mbar_arrive_expect_tx(wbar, 9 * kHdSlice + kHdTbl);
+    const unsigned char* w2 = reinterpret_cast<const unsigned char*>(w2p);
+    for (int t = 0; t < 9; ++t)
+      bulk_g2s(w12 + t * kHdSlice, w2 + t * kHdSlice, kHdSlice, wbar);
+    bulk_g2s(tb, t1, kHdTbl, wbar);
+  }
+
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+  const long long total = 6LL * B * H * W;  // bytes of x
+  const StemLane lane = stem_lane(W);
+  const uint32_t tbl_s = smem_u32(tb), w12_s = smem_u32(w12), s1_s = smem_u32(s1);
+
+  // The S1_1 rows in the order this warpgroup computes them (runs one after
+  // the other; a run's rows qa - 1 .. qb), for the window prefetch.
+  long long fs = s0;
+  StripRun fg = strip_run(s0, end, H2, strips, kPrW);
+  int fr = fg.qa - 1;
+  bool fvalid = s0 < end;
+  // the window of the prefetch cursor's row into buf, then on
+  auto fetch = [&](unsigned char* buf) {
+    if (fvalid && fr >= 0 && fr < H2)
+      stem_window_async(buf, xb, total, StemTile{fg.b, fr, fg.p0 - 1}, H, W, wt);
+    cp_async_commit();  // possibly empty: the waits stay uniform
+    if (fr < fg.qb) {
+      ++fr;
+    } else {
+      fs += fg.qb - fg.qa;
+      fvalid = fs < end;
+      if (fvalid) {
+        fg = strip_run(fs, end, H2, strips, kPrW);
+        fr = fg.qa - 1;
+      }
+    }
+  };
+  int k = 0;  // S1_1 rows computed: row k's window in buf k & 1
+  fetch(win);
+  mbar_wait(wbar, 0);
+  auto s1_row = [&](const StripRun& g, int r) {
+    named_bar_sync(2 + wg, 128);  // buffer (k + 1) & 1 is read
+    fetch(win + ((k + 1) & 1) * kStemWinBytes);
+    cp_async_wait<1>();
+    named_bar_sync(2 + wg, 128);  // row k's window is whole
+    hd_s1(win + (k & 1) * kStemWinBytes, tbl_s, s1 + hd_slot(r) * kPrRow, g.b, r,
+          g.p0 - 1, kPrS1, 0, lane, H, W);
+    ++k;
+  };
+
+  int n = 0;  // rows stored: row n's stage is n & 1
+  for (long long s = s0; s < end;) {
+    const StripRun g = strip_run(s, end, H2, strips, kPrW);
+    s1_row(g, g.qa - 1);
+    s1_row(g, g.qa);
+    for (int r = g.qa; r < g.qb; ++r, ++n) {
+      s1_row(g, r + 1);
+      if (wt == 0) bulk_wait_read<1>();  // the copy of row n - 2 has read it
+      named_bar_sync(2 + wg, 128);  // S1_1 rows r - 1 .. r + 1 are whole, and
+      unsigned char* st = stage + (n & 1) * kPrRow;  // stage n & 1 is free
+      pr_s12(s1_s, w12_s, b2, st, r, relu2);
+      named_bar_sync(2 + wg, 128);  // the stage is whole; ring row r - 1 is read
+      if (wt == 0) {
+        bulk_s2g(out + (((size_t)g.b * H2 + r) * W2 + g.p0) * 64, st,
+                 min(kPrW, W2 - g.p0) * 128);
+        bulk_commit();
+      }
+    }
+    s += g.qb - g.qa;
+  }
+  if (wt == 0) bulk_wait<0>();
+  cp_async_wait<0>();
 }
 
 // --------------------------------------- TPU kernel 5: stemblock_fused
@@ -1376,20 +1428,30 @@ extern "C" int mds_stem_conv_bn_relu_s2_window(const void* x, const void* table,
   return stem_dispatch<false, true>(x, table, out, B, H, W, O, relu, stream);
 }
 
-extern "C" int mds_stem_s1_pair_fused(const void* x, const void* w1,
+// t1: pack_stem of S1_1 (O = 64, two slices); w2p: pack_sw128 of bf16(k2 *
+// scale2) (9 slices); b2: its f32 bias (ops/stem.py pack_s1_pair).
+extern "C" int mds_stem_s1_pair_fused(const void* x, const void* t1,
                                       const void* w2p, const void* b2,
                                       void* out, int B, int H, int W,
                                       int relu2, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kPairSmem);
+  if (B < 1 || H < 2 || W < 2 || H % 2 || W % 2) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kPrSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W / 2 + kPairTP - 1) / kPairTP,
-                  (H / 2 + kPairTQ - 1) / kPairTQ, B);
-  pair_kernel<<<grid, kPairThreads, kPairSmem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(w1),
-      static_cast<const uint2*>(w2p), static_cast<const float*>(b2),
-      static_cast<bf16*>(out), H, W, relu2);
+  const int strips = (W / 2 + kPrW - 1) / kPrW;
+  const long long steps = (long long)B * strips * (H / 2);
+  const long long per_wg = (steps + 2LL * sms - 1) / (2LL * sms);
+  if (per_wg >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const long long blocks = ((steps + per_wg - 1) / per_wg + 1) / 2;
+  pair_kernel<<<(unsigned)blocks, kPrThreads, kPrSmem, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(t1),
+      static_cast<const bf16*>(w2p), static_cast<const float*>(b2),
+      static_cast<bf16*>(out), B, H, W, relu2, strips, (int)per_wg);
   return (int)cudaGetLastError();
 }
 

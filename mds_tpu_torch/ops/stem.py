@@ -22,10 +22,11 @@ train-mode RGB stems take it under set_stem_impl("kernel").
 kernel (2) instead of kernel 1 on a CUDA tensor, as JAX's set_stem_variant
 does (stem.py:1248-1284); the two share one plain version and agree bit for
 bit. Kernels 1 and 2 read their weights as `pack_stem` lays them out (the
-f32 table as three bf16 parts), kernels 4, 5, 6 and 7 as `pack_detail_head`,
-`pack_stemblock`, `pack_stem7` and `pack_detail_tail` do; a caller that holds
-the weights packs once and passes `packed`, else the wrapper packs in the
-call. stem_s1_pair_fused is on no model path, as in JAX.
+f32 table as three bf16 parts), kernels 3-7 as `pack_s1_pair`,
+`pack_detail_head`, `pack_stemblock`, `pack_stem7` and `pack_detail_tail`
+do; a caller that holds the weights packs once and passes `packed`, else the
+wrapper packs in the call. stem_s1_pair_fused is on no model path, as in
+JAX.
 
 Each wrapper takes logically NCHW tensors stored channels_last (NHWC in
 memory), torch OIHW conv weights and the folded eval-BN (scale, bias) of each
@@ -116,14 +117,6 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
-def _stem_table(k: torch.Tensor, scale: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
-    """(28, O) f32: rows (dy·3+dx)·3+ci hold k·scale, row 27 the bias."""
-    o = k.shape[0]
-    w = _fold(k, scale).permute(2, 3, 1, 0).reshape(27, o)
-    return torch.cat([w, bias.float().reshape(1, o)]).contiguous()
-
-
 def _stem_n(o: int) -> int:
     """Kernels 1 and 2's GEMM width N for O output channels: 16, 32, 64, 128."""
     return next(n for n in (16, 32, 64, 128) if o <= n)
@@ -163,17 +156,6 @@ def pack_stem(k, scale=None, bias=None):
     lo = (w - hi.float() - mid.float()).to(_BF16)
     t = torch.cat([hi, mid, lo, torch.zeros_like(lo)], 1).float()
     return _kmajor_sw128(F.pad(t, (0, 0, 0, _stem_n(o) - o)))
-
-
-def _mma_b_pack(wb: torch.Tensor) -> torch.Tensor:
-    """3×3 weights (O, I, 3, 3), values already bf16, I % 16 == 0 and
-    O % 8 == 0 → the B fragments of mma.sync m16n8k16 in launch order
-    (csrc/mma.cuh conv3x3_mma): [tap][kc][n-tile][lane][4] with lane = n·4 + t
-    holding k = 2t, 2t+1, 2t+8, 2t+9 of its 16-deep chunk."""
-    o, i = wb.shape[:2]
-    wt = wb.permute(2, 3, 1, 0).reshape(9, i // 16, 2, 4, 2, o // 8, 8)
-    # dims: tap, kc, kh, t, kl, nt, n  →  tap, kc, nt, n, t, kh, kl
-    return wt.permute(0, 1, 5, 6, 3, 2, 4).contiguous().to(_BF16)
 
 
 def pack_sw128(w: torch.Tensor) -> torch.Tensor:
@@ -338,26 +320,42 @@ def stem_s1_pair_fused_plain(x, k1, s1, b1, k2, s2, b2, relu2=True):
     return _out(F.relu(y) if relu2 else y)
 
 
-def stem_s1_pair_fused(x, k1, s1, b1, k2, s2, b2, relu2=True):
+def pack_s1_pair(k1, s1, b1, k2, s2, b2):
+    """Kernel 3's weights as csrc/stem.cu reads them: (pack_stem of S1_1's
+    f32 folded table, pack_sw128 of bf16(k2·s2), S1_2's f32 bias). Made once
+    per parameter version by a caller that holds the weights."""
+    if tuple(k1.shape) != (64, 3, 3, 3) or tuple(k2.shape) != (64, 64, 3, 3):
+        raise ValueError(f"pack_s1_pair: bad kernel shapes {k1.shape} {k2.shape}")
+    return (pack_stem(k1, s1, b1), pack_sw128(_fold_bf16(k2, s2)),
+            b2.float().contiguous())
+
+
+def stem_s1_pair_fused(x, k1, s1, b1, k2, s2, b2, relu2=True, packed=None):
     """DetailBranch S1_1 → S1_2 with folded BNs, the first ReLU always, the
     second if relu2. x (B,3,H,W) bf16 channels_last, H and W even;
-    k1 (64,3,3,3), k2 (64,64,3,3) → (B,64,H/2,W/2) bf16 channels_last."""
+    k1 (64,3,3,3), k2 (64,64,3,3) → (B,64,H/2,W/2) bf16 channels_last.
+    `packed`: the same parameters through pack_s1_pair, made once; a CUDA
+    launch packs them itself when it is None."""
+    params = (k1, s1, b1, k2, s2, b2)
     if _is_cpu(x):
-        return stem_s1_pair_fused_plain(x, k1, s1, b1, k2, s2, b2, relu2)
+        return stem_s1_pair_fused_plain(x, *params, relu2)
     name = "stem_s1_pair_fused"
     _check_image(x, 2, name)
-    _check_params(x, name, (k1, s1, b1, k2, s2, b2))
-    if tuple(k1.shape) != (64, 3, 3, 3) or tuple(k2.shape) != (64, 64, 3, 3):
-        raise ValueError(f"{name}: bad kernel shapes {k1.shape} {k2.shape}")
+    _check_aligned(x, 16, name)
+    _check_params(x, name, params)
+    t1, w2p, b2f = pack_s1_pair(*params) if packed is None else packed
+    if (t1.dtype != _BF16 or t1.numel() != 2 * 64 * 64 or w2p.dtype != _BF16
+            or w2p.numel() != 9 * 4096 or b2f.dtype != torch.float32
+            or b2f.numel() != 64):
+        raise ValueError(f"{name}: packed weights are not pack_s1_pair's")
+    _check_params(x, name, (t1, w2p, b2f))
     from mds_tpu_torch.ops.build import load
 
     b, _, h, w = x.shape
-    w1 = _stem_table(k1, s1, b1)
-    w2p, b2f = _mma_b_pack(_fold_bf16(k2, s2)), b2.float().contiguous()
     out = torch.empty((b, 64, h // 2, w // 2), dtype=_BF16, device=x.device,
                       memory_format=_CL)
     err = load().mds_stem_s1_pair_fused(
-        _ptr(x), _ptr(w1), _ptr(w2p), _ptr(b2f), _ptr(out), b, h, w,
+        _ptr(x), _ptr(t1), _ptr(w2p), _ptr(b2f), _ptr(out), b, h, w,
         int(relu2), _stream())
     _raise_on(err, name)
     stem_s1_pair_fused.launches += 1
@@ -384,8 +382,7 @@ def pack_detail_head(k1, s1, b1, k2, s2, b2, k3, s3, b3):
             or tuple(k3.shape) != (64, 64, 3, 3)):
         raise ValueError(f"pack_detail_head: bad kernel shapes {k1.shape} "
                          f"{k2.shape} {k3.shape}")
-    return (pack_stem(k1, s1, b1), pack_sw128(_fold_bf16(k2, s2)),
-            b2.float().contiguous(), pack_sw128(_fold_bf16(k3, s3)),
+    return (*pack_s1_pair(k1, s1, b1, k2, s2, b2), pack_sw128(_fold_bf16(k3, s3)),
             b3.float().contiguous())
 
 

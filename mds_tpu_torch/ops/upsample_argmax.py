@@ -16,9 +16,10 @@ Logits (B, C, h, w), stored channels_last, bf16 or f32 → the int32 label map
 Every weight at s = 2, 4, 8 is k/(2s), exact in bf16, so with bf16 logits
 every product is exact in f32: `upsample_argmax_plain` (two separable passes
 with that rounding, no dense interpolation matrix) and the kernel agree bit
-for bit. On a CPU tensor the wrapper runs the plain version; on a CUDA
-tensor it launches the kernel or raises. `upsample_argmax.launches` counts
-kernel launches.
+for bit. The kernel works by input cell and takes its weights from a table
+per run kind and phase, which `phase_taps` describes. On a CPU tensor the
+wrapper runs the plain version; on a CUDA tensor it launches the kernel or
+raises. `upsample_argmax.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Tuple
 
 import torch
 
-from mds_tpu_torch.ops.stem import _is_cpu, _ptr, _raise_on, _stream
+from mds_tpu_torch.ops.stem import _check_aligned, _is_cpu, _ptr, _raise_on, _stream
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -52,6 +53,21 @@ def interp_taps(n_in: int, scale: int, dtype: torch.dtype,
         return v.float().to(dtype).float().to(device)
 
     return lo.to(device), hi.to(device), rounded(w_lo), rounded(w_hi)
+
+
+def phase_taps(n_in: int, scale: int, dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's weight table along an axis (csrc/upsample_argmax.cu):
+    (3, scale, 2) f32 values (w_lo, w_hi) by run kind and phase. Run j, the
+    outputs scale·j + scale//2 + p (p < scale) between inputs j and j + 1,
+    is of kind 0 for j = −1 (the left edge), 2 for j = n_in − 1 (the right
+    edge) and 1 between; each kind's weights are those of its first run's
+    outputs as interp_taps gives them (an output outside the image: the
+    nearest one's)."""
+    _, _, w_lo, w_hi = interp_taps(n_in, scale, dtype)
+    p = torch.arange(scale)
+    pos = torch.stack([(scale * j + scale // 2 + p).clamp(0, n_in * scale - 1)
+                       for j in (-1, 0, n_in - 1)])
+    return torch.stack([w_lo[pos], w_hi[pos]], -1)
 
 
 def upsample_argmax_plain(logits: torch.Tensor, scale: int) -> torch.Tensor:
@@ -82,6 +98,7 @@ def upsample_argmax(logits: torch.Tensor, scale: int) -> torch.Tensor:
         return upsample_argmax_plain(logits, scale)
     if not logits.is_contiguous(memory_format=torch.channels_last):
         raise ValueError(f"{name}: logits must be channels_last contiguous")
+    _check_aligned(logits, 16, name)
     from mds_tpu_torch.ops.build import load
 
     b, c, h, w = logits.shape

@@ -134,14 +134,16 @@ def test_stem_variant_names():
     assert tstem.get_stem_variant() == "tiles"
 
 
+@pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("relu2", [True, False])
-def test_stem_s1_pair_fused(relu2):
+def test_stem_s1_pair_fused(relu2, packed):
     rng = np.random.default_rng(6)
     xj, xt = _image(rng, 2, 32, 48)
     ja, ta = _both([(_conv(rng, (3, 3, 3, 64)), *folded_bn(rng, 64)),
                     (_conv(rng, (3, 3, 64, 64)), *folded_bn(rng, 64))])
     want = jstem.stem_s1_pair_fused(xj, *ja, interpret=True, relu2=relu2)
-    got = tstem.stem_s1_pair_fused(xt, *ta, relu2=relu2)
+    kw = {"packed": tstem.pack_s1_pair(*ta)} if packed else {}
+    got = tstem.stem_s1_pair_fused(xt, *ta, relu2=relu2, **kw)
     assert got.shape == (2, 64, 16, 24)
     assert got.is_contiguous(memory_format=torch.channels_last)
     _close(nhwc(got), want)

@@ -77,6 +77,28 @@ def test_interp_taps_match_interp_matrix(n_in, scale):
             dense.numpy(), np.asarray(jnp.asarray(want, jdt), np.float32))
 
 
+@pytest.mark.parametrize("scale", range(1, 9))
+@pytest.mark.parametrize("n_in", [1, 5, 255])
+def test_phase_taps_match_interp_matrix(n_in, scale):
+    """The kernel's table by run kind and phase, spread over every output
+    row (run j = floor((i − scale//2) / scale), phase the rest; kind 0 for
+    run −1, 2 for run n_in − 1, else 1), equals interp_matrix's rows, in
+    f32 and rounded to bf16: the weights depend on nothing else."""
+    want = jua.interp_matrix(n_in, n_in * scale)
+    i = torch.arange(n_in * scale)
+    j = torch.div(i - scale // 2, scale, rounding_mode="floor")
+    p = i - scale // 2 - j * scale
+    kind = torch.where(j < 0, 0, torch.where(j == n_in - 1, 2, 1))
+    for dtype, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        tbl = tua.phase_taps(n_in, scale, dtype)
+        assert tbl.shape == (3, scale, 2) and tbl.dtype == torch.float32
+        dense = torch.zeros(n_in * scale, n_in)
+        dense.index_put_((i, j.clamp(0, n_in - 1)), tbl[kind, p, 0], accumulate=True)
+        dense.index_put_((i, (j + 1).clamp(0, n_in - 1)), tbl[kind, p, 1], accumulate=True)
+        np.testing.assert_array_equal(
+            dense.numpy(), np.asarray(jnp.asarray(want, jdt), np.float32))
+
+
 def test_ties_take_the_first_class():
     logits = np.zeros((1, 3, 5, 4), np.float32)
     got = tua.upsample_argmax(nchw(logits), 8)

@@ -1,4 +1,4 @@
-"""The weights that kernels 8, 7, 1, 2, 4, 5 and 6 read through wgmma
+"""The weights that kernels 8, 7, 1, 2, 3, 4, 5 and 6 read through wgmma
 descriptors, and the caches that pack them once per parameter version, on
 the CPU.
 
@@ -356,6 +356,30 @@ def test_detail_head_pack_reads_back():
     np.testing.assert_array_equal(b3.numpy(), params[8].numpy())
     with pytest.raises(ValueError, match="bad kernel shapes"):
         tstem.pack_detail_head(*params[:3], weights(64, 32, 0), *params[4:])
+
+
+def test_s1_pair_pack_reads_back():
+    """Kernel 3's weights: S1_1's f32 table in three bf16 parts read back as
+    kernels 1 and 2 address it (exact sum), S1_2's bf16(k·scale) as 9 slices
+    through the descriptor and swizzle addressing, its f32 bias as it is;
+    the same as kernel 4's first three."""
+    params = _head_params(7)[:6]
+    t1, w2p, b2 = tstem.pack_s1_pair(*params)
+    hi, mid, lo = (read_stem(t1, 64, p) for p in range(3))
+    np.testing.assert_array_equal(hi + mid + lo, stem_table(*params[:3]))
+    assert w2p.dtype == torch.bfloat16 and w2p.numel() * 2 == 9 * SLICE
+    wb = tstem._fold_bf16(params[3], params[4])
+    for tap in range(9):
+        for ks in range(4):
+            np.testing.assert_array_equal(read_b(w2p, tap, ks),
+                                          expected_b(wb, 0, tap, 0, ks))
+    assert b2.dtype == torch.float32
+    np.testing.assert_array_equal(b2.numpy(), params[5].numpy())
+    head = tstem.pack_detail_head(*params, *_head_params(8)[6:])
+    for a, b in zip((t1, w2p, b2), head):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="bad kernel shapes"):
+        tstem.pack_s1_pair(*params[:3], weights(64, 32, 0), *params[4:])
 
 
 def test_detail_head_route_packs_once_per_version():

@@ -1,5 +1,6 @@
 """What the kernel bench tools (tools/stem_bench_torch.py,
-tools/head_dw_bench_torch.py, tools/stem_block7_bench_torch.py) share: the
+tools/head_dw_bench_torch.py, tools/stem_block7_bench_torch.py,
+tools/pred_pair_bench_torch.py) share: the
 timers, the comparisons with a plain version, the tree they time (--tree)
 and the builds of a csrc source with parts taken out (the split).
 

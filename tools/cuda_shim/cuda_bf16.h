@@ -1,6 +1,6 @@
 // CPU stand-in for the CUDA runtime: one std::thread per CUDA thread,
 // std::barrier for __syncthreads/__syncwarp and the named and warpgroup
-// barriers, mma.sync emulated per warp and wgmma per warpgroup.
+// barriers, wgmma emulated per warpgroup.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -31,6 +31,8 @@ struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+struct int4 { int x, y, z, w; };
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
@@ -58,6 +60,11 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline float __double2float_rn(double a) { return float(a); }
 [[noreturn]] inline void __trap() { abort(); }
 using std::min;
 using std::max;
@@ -77,7 +84,7 @@ struct ShimBlock {
   std::vector<unsigned char> smem;
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<std::barrier<>>> wbar;
-  std::vector<uint32_t> frag;  // [warp][lane][6]
+  std::vector<uint32_t> frag;  // [warp][lane][6]: ldmatrix's and stmatrix's rows
   std::vector<std::unique_ptr<std::barrier<>>> wgbar;  // per warpgroup
   std::vector<uint32_t> wgfrag;  // [warpgroup][thread][4]: wgmma's A
   std::mutex mu;                 // guards `named`

@@ -1,13 +1,15 @@
 #!/usr/bin/env python
-"""Run the port's tensor-core kernels on the CPU, without a card or nvcc.
+"""Run the port's CUDA kernels (all but the dropout) on the CPU, without a
+card or nvcc.
 
-  python tools/cuda_shim/rehearse.py [stem window pair detail stemblock stem7 conv3 tail depthwise]
+  python tools/cuda_shim/rehearse.py [stem window pair detail stemblock stem7 conv3 tail
+                                      depthwise upsample_argmax]
 
-Compiles csrc/stem.cu, stem7.cu, conv3x3.cu, detail_tail.cu and depthwise.cu with g++
+Compiles csrc/stem.cu, stem7.cu, conv3x3.cu, detail_tail.cu, depthwise.cu
+and upsample_argmax.cu with g++
 against the stand-in CUDA runtime beside this script (one std::thread per
 CUDA thread, std::barrier for __syncthreads, __syncwarp, named barriers and
-wgmma's fence/commit/wait; mma.sync m16n8k16 computed lane by lane from the
-exchanged fragments; wgmma m64n64k16 computed per warpgroup, its B read
+wgmma's fence/commit/wait; wgmma m64nNk16 computed per warpgroup, its B read
 through the descriptor's start and stride byte offsets and the 128-byte
 swizzle on the address bits; ldmatrix from the exchanged row addresses;
 mbarriers with arrival and transfer counts; cp.async (with zero fill) and
@@ -18,9 +20,9 @@ wait, shows), into the git-ignored mds_tpu_torch/build/shim/. Then it
 calls each kernel's wrapper on CPU tensors at small, ragged shapes, with the
 wrappers made to launch (through ctypes, as on the card), and holds every
 output to the kernel's plain version: rel max-diff < 1e-2 (1e-4 for the
-stem's f32 training form), and the window stem bit-equal to the single
-stem. It finds indexing, masking and tiling
-faults before a chip call; it says nothing of speed, of races between
+stem's f32 training form), the window stem bit-equal to the single stem,
+and the depthwise and upsample + argmax kernels bit for bit. It finds
+indexing, masking and tiling faults before a chip call; it says nothing of speed, of races between
 threads or of what nvcc accepts. Exits 1 on any mismatch.
 """
 
@@ -35,7 +37,8 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent.parent
 SRC = ROOT / "mds_tpu_torch" / "csrc"
 OUT = ROOT / "mds_tpu_torch" / "build" / "shim"
-SOURCES = ("stem.cu", "stem7.cu", "conv3x3.cu", "detail_tail.cu", "depthwise.cu")
+SOURCES = ("stem.cu", "stem7.cu", "conv3x3.cu", "detail_tail.cu", "depthwise.cu",
+           "upsample_argmax.cu")
 
 sys.path.insert(0, str(ROOT))
 
@@ -45,7 +48,7 @@ def build() -> Path:
     for mma_impl.h, dynamic shared memory and <<<...>>> launches rewritten."""
     OUT.mkdir(parents=True, exist_ok=True)
     m = (SRC / "mma.cuh").read_text()
-    a, b = m.index("// D += A(16x16"), m.index("// The implicit GEMM of a 3x3 conv")
+    a, b = m.index("// Asynchronous copies into shared memory"), m.index("}  // namespace")
     (OUT / "mma.cuh").write_text(m[:a] + '#include "mma_impl.h"\n\n' + m[b:])
     g = (SRC / "wgmma.cuh").read_text()
     a, b = g.index("// -- PTX begin"), g.index("// -- PTX end")
@@ -53,8 +56,7 @@ def build() -> Path:
     cpps = []
     for f in SOURCES:
         s = (SRC / f).read_text()
-        s = re.sub(r"__device__ __forceinline__ void (mma_bf16_16816|cp_async16)"
-                   r"\(.*?\n}\n", "", s, flags=re.S)
+
         if '#include "mma.cuh"' not in s and '#include "wgmma.cuh"' not in s:
             s = s.replace("namespace {", '#include "mma_impl.h"\nnamespace {', 1)
         s = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) (\w+)\[\];",
@@ -85,6 +87,7 @@ def main(which):
 
     from mds_tpu_torch.ops import build as kbuild
     from mds_tpu_torch.ops import conv3x3, depthwise, stem
+    from mds_tpu_torch.ops import upsample_argmax as ua
 
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in kbuild._SIGNATURES.items():
@@ -93,8 +96,9 @@ def main(which):
             getattr(lib, name).restype = ctypes.c_int
     # the wrappers launch through the stand-in library on CPU tensors
     kbuild.load = lambda: lib
-    stem._is_cpu = conv3x3._is_cpu = depthwise._is_cpu = lambda x: False
-    stem._stream = conv3x3._stream = depthwise._stream = lambda: ctypes.c_void_p(0)
+    stem._is_cpu = conv3x3._is_cpu = depthwise._is_cpu = ua._is_cpu = lambda x: False
+    stem._stream = conv3x3._stream = depthwise._stream = ua._stream = \
+        lambda: ctypes.c_void_p(0)
 
     rng = np.random.default_rng(0)
 
@@ -140,7 +144,10 @@ def main(which):
             check(f"stem f32 {b, h, w, o}", stem.stem_conv3x3_s2(x, k),
                   stem.stem_conv3x3_s2_plain(x, k), tol=1e-4)
     if "pair" in which:
-        for b, h, w, relu2 in ((1, 20, 70, True), (2, 6, 10, False)):
+        # one strip; B = 2; two strips, the second 5 columns wide, B = 2; the
+        # smallest image; three strips, the last 2 columns wide
+        for b, h, w, relu2 in ((1, 20, 70, True), (2, 6, 10, False), (2, 10, 262, True),
+                               (1, 2, 2, True), (1, 8, 508, False)):
             args = (image(b, h, w), conv_w(64, 3), *bn(64), conv_w(64, 64), *bn(64),
                     relu2)
             check(f"pair {b, h, w}", stem.stem_s1_pair_fused(*args),
@@ -203,11 +210,29 @@ def main(which):
             if s == 1:
                 check(f"depthwise_dma {b, c, h, w} m={m}", depthwise.depthwise3x3_dma(x, wt),
                       want, equal_to=got)
+    if "upsample_argmax" in which:
+        # C = 1, 19, 150 and 400 (classes staged in three chunks), s = 1, 3, 8
+        # and 12 (two threads a run), bf16 and f32, B = 2, odd h and w, three
+        # blocks of runs, a 1x1 input. Bit for bit.
+        for b, c, h, w, s, dt in (
+                (2, 19, 7, 9, 8, torch.bfloat16), (1, 1, 5, 11, 8, torch.bfloat16),
+                (2, 150, 3, 5, 8, torch.float32), (1, 19, 6, 37, 3, torch.bfloat16),
+                (2, 1, 9, 4, 1, torch.float32), (1, 150, 4, 7, 3, torch.bfloat16),
+                (1, 19, 9, 70, 8, torch.float32), (1, 400, 3, 4, 8, torch.bfloat16),
+                (1, 19, 5, 6, 1, torch.bfloat16), (2, 5, 3, 3, 12, torch.bfloat16),
+                (1, 3, 1, 1, 8, torch.float32), (2, 19, 5, 3, 3, torch.float32)):
+            lg = torch.tensor(rng.normal(0, 1, (b, h, w, c)), dtype=dt).permute(0, 3, 1, 2)
+            got, want = ua.upsample_argmax(lg, s), ua.upsample_argmax_plain(lg, s)
+            ok = got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want)
+            print(f"{'ok ' if ok else 'BAD'} upsample_argmax {b, c, h, w} s={s} {dt}: "
+                  f"differing {int((got != want).sum())}", flush=True)
+            if not ok:
+                failures.append(f"upsample_argmax {b, c, h, w, s}")
     print(f"{time.time() - t0:.0f} s; " + (f"FAILED: {failures}" if failures else "all ok"))
     return 1 if failures else 0
 
 
 if __name__ == "__main__":
     names = {"stem", "window", "pair", "detail", "stemblock", "stem7", "conv3", "tail",
-             "depthwise"}
+             "depthwise", "upsample_argmax"}
     sys.exit(main(set(sys.argv[1:]) or names))

@@ -79,12 +79,7 @@ def head_args(rng, b, h, w, dev):
 
 def head_packed(stem, args):
     """The tree's kernel-4 weights as its launcher reads them."""
-    k1, s1, b1, k2, s2, b2, k3, s3, b3 = args[1:]
-    if hasattr(stem, "pack_detail_head"):
-        return stem.pack_detail_head(*args[1:])
-    return (stem._stem_table(k1, s1, b1), stem._mma_b_pack(stem._fold_bf16(k2, s2)),
-            b2.float().contiguous(), stem._mma_b_pack(stem._fold_bf16(k3, s3)),
-            b3.float().contiguous())
+    return stem.pack_detail_head(*args[1:])
 
 
 def measure_head(stem, dev):
