@@ -36,7 +36,8 @@ before the last line:
               the plain version; each shape's device time beside that of
               the library's bf16 grouped F.conv2d), the 10 stride-1 ones
               through
-              depthwise3x3_dma (also bit-equal to depthwise3x3), the head
+              depthwise3x3_dma (also bit-equal to depthwise3x3; kernel 9's
+              device time beside its own at each shape), the head
               logits (1, 19, 128, 256) through upsample_argmax (label
               agreement >= 0.9999, differing pixels and its device time
               printed), the /4 detail feature (1, 64, 256, 512)
@@ -51,7 +52,11 @@ before the last line:
               F.conv2d with the folded weight and bias; then the depthwise,
               upsample, S1-pair, tail and conv3 kernels on ragged shapes
               (odd tiles, B > 1, the depthwise kernel's staged form at m =
-              2, 3, 4 and 6, the upsample at s = 1-8 and C = 1-150 in bf16
+              2, 3, 4 and 6, the DMA kernel's TMA form with windows off
+              every side of the image, more tiles than one persistent pass,
+              B = 3 and f32, and its masked form at C % 8 != 0 -- each
+              bit-equal to the plain version and to depthwise3x3 --, the
+              upsample at s = 1-8 and C = 1-150 in bf16
               and f32, conv3 at C_in 3-64 and C_out 8-136).
 4. dropout  — the dropout kernel at the main head's shape (16, 1024, 64,
               128) bf16 channels_last, rate 0.1: bit-identical to its plain
@@ -794,7 +799,8 @@ def depthwise_rows(dw_calls):
     stride-1 ones against their plain version (rel max-diff, bit-equal
     share; the DMA kernel bit-equal to kernel 9), each timed beside its
     plain version, one bf16 F.conv2d with groups = C (the library call) and
-    the port's library route (repeat_interleave + depthwise conv)."""
+    the port's library route (repeat_interleave + depthwise conv); beside
+    the DMA kernel's device time, kernel 9's at the same shape."""
     from mds_tpu_torch.models.layers import _repeat_channels
     from mds_tpu_torch.ops import depthwise
 
@@ -841,8 +847,15 @@ def depthwise_rows(dw_calls):
             shape["plain_ms"] = cuda_ms(lambda: depthwise.depthwise3x3_plain(x, w, s))
             shape["library_ms"] = cuda_ms(lambda: library(x, w, s))
             shape["port_route_ms"] = cuda_ms(lambda: port_route(x, w, s))
-            # device time per call, the kernel's and the library call's
+            # device time per call, the kernel's and the library call's; at
+            # kernel 10's shapes also kernel 9's
             shape["device_ms"] = device_ms(lambda: kernel(*args), "dw3x3")
+            if name == "depthwise3x3_dma":
+                shape["k9_device_ms"] = device_ms(lambda: depthwise.depthwise3x3(x, w, 1),
+                                                  "dw3x3_kernel")
+                res["k9_device_ms"] = res.get("k9_device_ms", 0.0) + (
+                    shape["k9_device_ms"] if isinstance(shape["k9_device_ms"], float)
+                    else float("nan"))
             shape["library_device_ms"] = device_ms(lambda: library(x, w, s), "",
                                                    per_call=True)
             # each input read once, each output written once; 9 f32
@@ -915,7 +928,10 @@ def upsample_argmax_row(ua_call):
 
 def new_kernels_ragged(dev):
     """The depthwise kernels at odd H and W, B > 1, C = 3, 5, 12, m = 1, 2,
-    6, both strides (and f32), against their plain version; upsample_argmax
+    6, both strides (and f32), against their plain version (depthwise3x3_dma
+    also equal to depthwise3x3, bit for bit, and on its TMA form at
+    tiles off the image, more tiles than one persistent pass, an image
+    narrower than a tile, B = 3); upsample_argmax
     at odd h and w, B = 1 and 2, C = 1, 5, 19, 150, s = 1, 2, 3, 4, 5, 8, bf16
     and f32, against its plain version. Not counted as main-path
     launches."""
@@ -930,7 +946,16 @@ def new_kernels_ragged(dev):
             (2, 7, 11, 12, 1, 1, torch.bfloat16), (1, 11, 13, 16, 6, 1, torch.float32),
             (2, 9, 10, 8, 1, 2, torch.float32), (2, 17, 37, 16, 6, 1, torch.bfloat16),
             (1, 19, 70, 8, 6, 2, torch.bfloat16), (3, 9, 33, 24, 2, 2, torch.bfloat16),
-            (1, 6, 40, 8, 3, 1, torch.bfloat16), (2, 5, 9, 16, 4, 1, torch.bfloat16)):
+            (1, 6, 40, 8, 3, 1, torch.bfloat16), (2, 5, 9, 16, 4, 1, torch.bfloat16),
+            # depthwise3x3_dma's TMA form: windows off the image on all four
+            # sides, H and W off its tiles, more tiles than one persistent
+            # pass (m = 1: 2 × 66 × 9 tiles of 2 × 32; m = 6: 67 × 7 of
+            # 1 × 20), a 3 × 5 image (narrower than a tile, its windows off
+            # all four sides), B = 3, f32; its masked form at C % 8 != 0
+            (2, 131, 259, 64, 1, 1, torch.bfloat16), (1, 67, 129, 32, 6, 1, torch.bfloat16),
+            (3, 13, 45, 32, 1, 1, torch.bfloat16), (1, 3, 5, 64, 6, 1, torch.bfloat16),
+            (3, 35, 70, 16, 2, 1, torch.bfloat16), (2, 21, 45, 32, 6, 1, torch.float32),
+            (1, 19, 37, 20, 3, 1, torch.float32), (2, 17, 33, 12, 6, 1, torch.bfloat16)):
         x = torch.tensor(rng.normal(0, 1, (b, h, w, c)), device=dev).relu().to(dt)
         x = x.permute(0, 3, 1, 2)
         wt = torch.tensor(rng.normal(0, 0.3, (c * m, 1, 3, 3)), device=dev).to(dt)
@@ -939,10 +964,13 @@ def new_kernels_ragged(dev):
         rec = {"shape": [b, h, w, c], "m": m, "stride": s, "dtype": str(dt),
                "rel": rel(got, want), "bit_equal": share_equal(bits(got), bits(want))}
         if s == 1:
-            rec["dma_equal"] = torch.equal(bits(depthwise.depthwise3x3_dma(x, wt)), bits(got))
+            dma = bits(depthwise.depthwise3x3_dma(x, wt))
+            rec["dma_equal"] = torch.equal(dma, bits(got))
+            rec["dma_bit_equal"] = share_equal(dma, bits(want))
         out["depthwise"].append(rec)
         if (got.shape != want.shape or rec["rel"] >= KERNEL_GATE
-                or rec["bit_equal"] < BIT_EQUAL_GATE or rec.get("dma_equal") is False):
+                or rec["bit_equal"] < BIT_EQUAL_GATE or rec.get("dma_equal") is False
+                or rec.get("dma_bit_equal", 1.0) < BIT_EQUAL_GATE):
             raise RuntimeError(f"depthwise ragged: {rec}")
     for b, h, w, c, s, dt in ((1, 9, 13, 1, 2, torch.bfloat16), (2, 7, 11, 5, 4, torch.bfloat16),
                               (1, 15, 9, 150, 8, torch.bfloat16), (1, 5, 7, 19, 3, torch.bfloat16),

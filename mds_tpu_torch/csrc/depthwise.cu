@@ -47,26 +47,53 @@
 // otherwise each output channel loads its own input channel. Ragged widths
 // and channel counts are masked.
 //
-// mds_dw3x3_window (on no model path, as in JAX): a block owns an 8x16
-// output tile and 8 input channels (8*m output channels). It copies its
-// (8+2)x(16+2)x8 input window into shared memory with cp.async -- 16-byte
-// chunks, the halo zero-filled through src-size 0, the counterpart of the
-// TPU kernel's DMA into VMEM -- then each thread reads its 9 taps from
-// shared memory for each group of 8 output channels. C % 8 != 0 stages with
-// plain loads instead.
+// mds_dw3x3_window (on no model path, as in JAX) stages its input window as
+// the TPU kernel does, with Hopper's counterpart of that DMA: the Tensor
+// Memory Accelerator. The NHWC input is a 4-d tensor map (C, W, H, B); one
+// copy brings a tile's (TH+2) x (TW+2) x Cb window, the halo and the ragged
+// right and bottom edges zero-filled by the hardware (the plain version's
+// +0 padding), so the load side has no masks. Blocks are persistent: each
+// keeps one run of Cb input channels for its life, its threads' weights in
+// registers, and walks the run's tiles (b, y, x) with a ring of kWinStages
+// windows (full and empty mbarriers): a producer warp's first lane issues
+// the copy of tile k + kWinStages into a slot once the consumer warps have
+// released it, so the copies overlap the arithmetic. Lanes run over
+// channels, each thread computing P neighbouring pixels of a row (kWinP1 at
+// m = 1, kWinPM at m > 1) with its weights in registers: at m = 1 it owns
+// a 16-byte run of channels (8 bf16 or 4 f32), a window column one 16-byte
+// shared load and its output one 16-byte store; at m > 1 it owns
+// mc outputs of one input channel (mc the largest divisor of m up to 8:
+// BiSeNetV2's m = 6 whole), so a column is one value that feeds all of them
+// and a warp's stores cover whole runs of a pixel's outputs (the 8
+// consecutive outputs of the first design read up to two input channels
+// each, and the choice between them, value by value, was the largest part
+// of its m = 6 time). Cb is
+// the widest power of two dividing C with a 128-byte pixel run at m = 1 and
+// 64 bytes at m > 1 (m = 6: 32 channels, a pixel's 192 outputs three
+// 128-byte lines); a tile is kWinTW columns wide where the block's threads
+// allow and as many rows as they fill (kWinTHMax at most), fewer where the
+// tiles would not give every SM one. The tensor map needs C * sizeof(T) %
+// 16 == 0 and a 16-byte aligned input; other shapes (C % 8 != 0 in bf16,
+// C % 4 != 0 in f32, a misaligned tensor) take the masked kernel,
+// dw3x3_window_masked: a block owns an 8x16 output tile and 8 input
+// channels, copies its (8+2)x(16+2)x8 window with cp.async (16-byte chunks,
+// the halo zero-filled through src-size 0) or, at C % 8 != 0, plain loads,
+// then each thread reads its 9 taps for each group of 8 output channels.
+// Both count as the wrapper's launches: a dispatch on shape between two
+// CUDA kernels.
 //
 // JAX's XLA-side halo restack, stride-2 parity planes, _BLOCK_BYTES tiling
 // and (..., m, C) output with an outside transpose are Mosaic workarounds and
 // have no counterpart here. Each launcher returns the cudaError_t of its
 // launch (0 on success).
 
-#include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr int kVec = 8;  // output channels per thread
 constexpr int kThreads = 128;
-constexpr int kTH = 8, kTW = 16, kCT = 8;  // mds_dw3x3_window's tile
+constexpr int kTH = 8, kTW = 16, kCT = 8;  // dw3x3_window_masked's tile
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -233,13 +260,13 @@ dw3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// ----------------------------------------- kernel 10: mds_dw3x3_window
+// ------------------- kernel 10, the masked form: mds_dw3x3_window
 
 // ASYNC: C % 8 == 0 and x 16-byte aligned (each window pixel is whole
 // 16-byte chunks). OVEC as above.
 template <typename T, bool ASYNC, bool OVEC>
 __global__ void __launch_bounds__(kTH * kTW)
-dw3x3_window_kernel(const T* __restrict__ x, const T* __restrict__ w,
+dw3x3_window_masked(const T* __restrict__ x, const T* __restrict__ w,
                     T* __restrict__ out, int B, int H, int W, int C, int M) {
   __shared__ __align__(16) T win[kTH + 2][kTW + 2][kCT];
   const int nct = (C + kCT - 1) / kCT;
@@ -305,6 +332,221 @@ dw3x3_window_kernel(const T* __restrict__ x, const T* __restrict__ w,
       for (int k = 0; k < kVec; ++k)
         if (o0 + k < Co) dst[k] = from_f<T>(acc[k]);
     }
+  }
+}
+
+// ------------------------------ kernel 10, the TMA form: mds_dw3x3_window
+
+constexpr int kWinStages = 3;   // windows in flight a block
+// consumer threads a block, at most: with the producer warp 256 threads, two
+// warps on each of an SM's four register-file quarters (255 registers a
+// thread; a ninth warp would cap it at 168)
+constexpr int kWinNC = 224;
+// output pixels a thread (neighbours in a row), at m = 1 and at m > 1
+constexpr int kWinP1 = 4, kWinPM = 8;
+// tile columns where a block's threads allow, and tile rows at most
+constexpr int kWinTW = 32, kWinTHMax = 32;
+// a pixel's channel run in bytes, at most: at m = 1 and at m > 1
+constexpr int kWinRunBytes1 = 128, kWinRunBytesM = 64;
+constexpr int kWinMaxMC = 8;  // outputs of one input channel a thread, at m > 1
+
+// A launch's shapes and tiling (host-computed, passed by value).
+struct WinGeo {
+  int H, W, C, M;
+  int cb;           // input channels of a run
+  int lanes;        // threads of a pixel strip: cb / (16 / sizeof(T)) at m = 1,
+                    // cb * M / mc at m > 1
+  int mc;           // m > 1: outputs a thread, all of one input channel
+  int strips;       // strips of P pixels in a tile: th * spr
+  int th, tw, spr;  // tile rows, columns (P * spr), strips a row
+  int runs, tiles_x, tiles_y, tiles;  // channel runs; tiles of a run, all images
+  int box_bytes;    // one window, as the copy counts it
+  int stage_bytes;  // one ring slot (box_bytes rounded up to 128)
+};
+
+__device__ __forceinline__ void unpack16(uint4 u, float (&v)[8]) {
+  v[0] = bf16_lo(u.x); v[1] = bf16_hi(u.x);
+  v[2] = bf16_lo(u.y); v[3] = bf16_hi(u.y);
+  v[4] = bf16_lo(u.z); v[5] = bf16_hi(u.z);
+  v[6] = bf16_lo(u.w); v[7] = bf16_hi(u.w);
+}
+__device__ __forceinline__ void unpack16(float4 u, float (&v)[4]) {
+  v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+}
+// 16 bytes of T (16-byte aligned) as f32: from global memory through the
+// read-only path, or from shared memory; and 16 bytes stored.
+__device__ __forceinline__ void ldg16(const bf16* p, float (&v)[8]) {
+  unpack16(__ldg(reinterpret_cast<const uint4*>(p)), v);
+}
+__device__ __forceinline__ void ldg16(const float* p, float (&v)[4]) {
+  unpack16(__ldg(reinterpret_cast<const float4*>(p)), v);
+}
+__device__ __forceinline__ void lds16(const bf16* p, float (&v)[8]) {
+  unpack16(*reinterpret_cast<const uint4*>(p), v);
+}
+__device__ __forceinline__ void lds16(const float* p, float (&v)[4]) {
+  unpack16(*reinterpret_cast<const float4*>(p), v);
+}
+__device__ __forceinline__ void store16(bf16* p, const float (&v)[8]) { store8(p, v); }
+__device__ __forceinline__ void store16(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+// N consecutive values rounded to T: bf16 pairs as 4-byte stores where N is
+// even (p then 4-byte aligned), else one value at a time.
+template <int N>
+__device__ __forceinline__ void store_n(bf16* p, const float (&v)[N]) {
+  if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2)
+      *reinterpret_cast<uint32_t*>(p + i) = pack_bf16x2(v[i], v[i + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = __float2bfloat16_rn(v[i]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_n(float* p, const float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) p[i] = v[i];
+}
+
+// The 9 * V weights of output channels o0 .. o0 + V - 1 (OIHW rows of 9),
+// as wr[k][tap]: one contiguous run of nine 16-byte chunks (aligned, as o0
+// is a multiple of V) where V values are 16 bytes, else read one value at a
+// time.
+template <typename T, int V>
+__device__ __forceinline__ void load_weights_run(const T* __restrict__ w, long long o0,
+                                                 float (&wr)[V][9]) {
+  const T* p = w + o0 * 9;
+  if constexpr (V * sizeof(T) == 16) {
+#pragma unroll
+    for (int q = 0; q < 9; ++q) {
+      float v[V];
+      ldg16(p + q * V, v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int f = q * V + e;  // flat index k*9 + tap
+        wr[f / 9][f % 9] = v[e];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+#pragma unroll
+      for (int t = 0; t < 9; ++t) wr[k][t] = to_f(__ldg(p + k * 9 + t));
+  }
+}
+
+// MC == 0: m == 1, a thread's outputs are one 16-byte run of channels, each
+// read from its own input channel (a column is one 16-byte shared load);
+// else MC outputs of one input channel (a column is one value, no select).
+// P: output pixels a thread. The warp after the consumers produces: its
+// first lane issues window k into slot k % kWinStages once the consumer
+// warps have released the window before it.
+template <typename T, int MC, int P>
+__global__ void __launch_bounds__(kWinNC + 32, 1)
+dw3x3_window_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const T* __restrict__ w, T* __restrict__ out, const WinGeo g) {
+  constexpr int kV = 16 / sizeof(T);
+  constexpr int kOut = MC ? MC : kV;  // outputs a thread, of each pixel
+  extern __shared__ __align__(128) unsigned char win_smem[];
+  unsigned char* base = win_smem + ((128u - (smem_u32(win_smem) & 127u)) & 127u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);  // a slot's window arrived
+  uint64_t* empty = full + kWinStages;                 // a slot's window read
+  unsigned char* ring = base + 128;
+  const int workers = g.lanes * g.strips;
+  const int nc = (workers + 31) / 32 * 32;  // consumer threads, whole warps
+  const int run = blockIdx.x % g.runs, c0 = run * g.cb;
+  const int first = blockIdx.x / g.runs, step = gridDim.x / g.runs;
+  const int n = first < g.tiles ? (g.tiles - first + step - 1) / step : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWinStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, nc / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= nc) {  // the producer warp
+    if (threadIdx.x == nc) {
+      for (int k = 0; k < n; ++k) {
+        const int slot = k % kWinStages, t = first + k * step;
+        if (k >= kWinStages) mbar_wait(empty + slot, (k / kWinStages - 1) & 1);
+        const int tx = t % g.tiles_x, ty = (t / g.tiles_x) % g.tiles_y;
+        const int b = t / (g.tiles_x * g.tiles_y);
+        mbar_arrive_expect_tx(full + slot, g.box_bytes);
+        tma_load_4d(ring + slot * g.stage_bytes, &xmap, c0, tx * g.tw - 1,
+                    ty * g.th - 1, b, full + slot);
+      }
+    }
+    return;
+  }
+
+  const bool works = threadIdx.x < workers;
+  const int lane = threadIdx.x % g.lanes, strip = threadIdx.x / g.lanes;
+  const int r = strip / g.spr, px0 = (strip % g.spr) * P;
+  // the run's input channel this thread reads (m = 1: its first) and its
+  // first output channel
+  int ch;
+  long long o0;
+  if constexpr (MC) {
+    const int per = g.M / MC;  // threads of an input channel
+    ch = lane / per;
+    o0 = (long long)(c0 + ch) * g.M + lane % per * MC;
+  } else {
+    ch = lane * kV;
+    o0 = c0 + ch;
+  }
+  const int Co = g.C * g.M;
+  float wr[kOut][9];
+  if (works) load_weights_run(w, o0, wr);
+  const int row_vals = (g.tw + 2) * g.cb;  // values in a window row
+
+  for (int k = 0; k < n; ++k) {
+    const int slot = k % kWinStages, t = first + k * step;
+    mbar_wait(full + slot, (k / kWinStages) & 1);
+    if (works) {
+      const T* win = reinterpret_cast<const T*>(ring + slot * g.stage_bytes);
+      float acc[P][kOut] = {};
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const T* wrow = win + (r + dy) * row_vals + px0 * g.cb + ch;
+#pragma unroll
+        for (int j = 0; j < P + 2; ++j) {
+          float v[kOut];
+          if constexpr (MC) {
+            const float c = to_f(wrow[j * g.cb]);
+#pragma unroll
+            for (int q = 0; q < kOut; ++q) v[q] = c;
+          } else {
+            lds16(wrow + j * g.cb, v);
+          }
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            const int dx = j - p;  // this column's tap for pixel p
+            if (dx < 0 || dx > 2) continue;
+            const int tap = dy * 3 + dx;
+#pragma unroll
+            for (int q = 0; q < kOut; ++q) acc[p][q] = madd(acc[p][q], v[q], wr[q][tap], tap);
+          }
+        }
+      }
+      const int tx = t % g.tiles_x, ty = (t / g.tiles_x) % g.tiles_y;
+      const int b = t / (g.tiles_x * g.tiles_y);
+      const int oy = ty * g.th + r, ox0 = tx * g.tw + px0;
+      if (oy < g.H) {
+        T* dst = out + (((long long)b * g.H + oy) * g.W + ox0) * Co + o0;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          if (ox0 + p >= g.W) break;
+          if constexpr (MC) store_n(dst + (long long)p * Co, acc[p]);
+          else store16(dst + (long long)p * Co, acc[p]);
+        }
+      }
+    }
+    __syncwarp();  // the warp's reads of the slot are done
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + slot);
   }
 }
 
@@ -463,18 +705,137 @@ cudaError_t launch_dw3x3(const void* x, const void* w, void* out, int B, int H,
   return cudaGetLastError();
 }
 
+// The TMA form's tiling of (B, H, W, C) at multiplier M, P pixels a thread,
+// or false where the shape takes the masked form.
+template <typename T>
+bool plan_window(int B, int H, int W, int C, int M, int P, WinGeo& g) {
+  constexpr int kV = 16 / sizeof(T);
+  g = WinGeo{H, W, C, M};
+  // m > 1: the most outputs of one channel a thread that divides m
+  g.mc = 0;
+  for (int mc = min(M, kWinMaxMC); M > 1 && !g.mc; --mc)
+    if (M % mc == 0) g.mc = mc;
+  const int per_channel = M == 1 ? 1 : M / g.mc;  // threads of an input channel
+  const int max_cb = (M == 1 ? kWinRunBytes1 : kWinRunBytesM) / (int)sizeof(T);
+  for (int cb = max_cb; cb >= kV && !g.cb; cb /= 2)
+    if (C % cb == 0 && (M == 1 ? cb / kV : cb * per_channel) <= kWinNC) g.cb = cb;
+  if (!g.cb) return false;
+  g.lanes = M == 1 ? g.cb / kV : g.cb * per_channel;
+  // kWinTW columns where the block's threads allow (a power of two, so the
+  // tiles divide the frame's widths), then as many rows
+  g.spr = 1;
+  while (2 * g.spr <= min(kWinNC / g.lanes, kWinTW / P)) g.spr *= 2;
+  g.tw = P * g.spr;
+  g.th = min(kWinTHMax, kWinNC / (g.lanes * g.spr));
+  g.runs = C / g.cb;
+  g.tiles_x = (W + g.tw - 1) / g.tw;
+  auto tiles_of = [&](int th) { return (long long)B * ((H + th - 1) / th) * g.tiles_x; };
+  while (g.th > 1 && tiles_of(g.th) * g.runs < sm_count()) g.th /= 2;  // every SM a tile
+  if (tiles_of(g.th) >= (1LL << 31)) return false;
+  g.strips = g.th * g.spr;
+  g.tiles_y = (H + g.th - 1) / g.th;
+  g.tiles = (int)tiles_of(g.th);
+  g.box_bytes = (g.th + 2) * (g.tw + 2) * g.cb * (int)sizeof(T);
+  g.stage_bytes = (g.box_bytes + 127) / 128 * 128;
+  return true;
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+template <typename T, int MC, int P>
+cudaError_t launch_window_tma(const CUtensorMap& map, const T* w, T* out, const WinGeo& g,
+                              cudaStream_t stream) {
+  auto kernel = dw3x3_window_kernel<T, MC, P>;
+  const int threads = (g.lanes * g.strips + 31) / 32 * 32 + 32;  // + the producer
+  const int smem = 256 + kWinStages * g.stage_bytes;  // barriers, alignment, ring
+  static int smem_set = 0, last_threads = 0, last_smem = 0, per_sm = 1;
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+    if (e != cudaSuccess) return e;
+    smem_set = smem;
+  }
+  if (threads != last_threads || smem != last_smem) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
+            cudaSuccess || per_sm < 1)
+      per_sm = 1;
+    last_threads = threads;
+    last_smem = smem;
+  }
+  // persistent: about every block the card holds at once, a whole number of
+  // blocks per run and at most one per tile
+  const int per_run = max(1, min(g.tiles, sm_count() * per_sm / g.runs));
+  kernel<<<g.runs * per_run, threads, smem, stream>>>(map, w, out, g);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_window(const void* x, const void* w, void* out, int B, int H,
                           int W, int C, int M, cudaStream_t stream) {
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  T* op = static_cast<T*>(out);
+  constexpr int kV = 16 / sizeof(T);
+  const int P = M == 1 ? kWinP1 : kWinPM;
+  WinGeo g{};
+  if (C % kV == 0 && aligned16(x) && aligned16(w) && aligned16(out) &&
+      plan_window<T>(B, H, W, C, M, P, g)) {
+    EncodeTiledFn encode = encode_tiled();
+    if (!encode) return cudaErrorNotSupported;
+    const size_t e = sizeof(T);
+    const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {C * e, (cuuint64_t)W * C * e, (cuuint64_t)H * W * C * e};
+    const cuuint32_t box[4] = {(cuuint32_t)g.cb, (cuuint32_t)g.tw + 2, (cuuint32_t)g.th + 2, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    CUtensorMap map;
+    if (encode(&map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+               4, const_cast<void*>(x), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+    switch (g.mc) {
+      case 0: return launch_window_tma<T, 0, kWinP1>(map, wp, op, g, stream);
+      case 1: return launch_window_tma<T, 1, kWinPM>(map, wp, op, g, stream);
+      case 2: return launch_window_tma<T, 2, kWinPM>(map, wp, op, g, stream);
+      case 3: return launch_window_tma<T, 3, kWinPM>(map, wp, op, g, stream);
+      case 4: return launch_window_tma<T, 4, kWinPM>(map, wp, op, g, stream);
+      case 5: return launch_window_tma<T, 5, kWinPM>(map, wp, op, g, stream);
+      case 6: return launch_window_tma<T, 6, kWinPM>(map, wp, op, g, stream);
+      case 7: return launch_window_tma<T, 7, kWinPM>(map, wp, op, g, stream);
+      default: return launch_window_tma<T, 8, kWinPM>(map, wp, op, g, stream);
+    }
+  }
   const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH,
                   B * ((C + kCT - 1) / kCT));
   const bool async = C % kCT == 0 && aligned16(x);
   const bool ovec = (C * M) % kVec == 0 && aligned16(w) && aligned16(out);
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  T* op = static_cast<T*>(out);
 #define MDS_WINDOW(AS, OV)                                                 \
-  dw3x3_window_kernel<T, AS, OV><<<grid, kTH * kTW, 0, stream>>>(          \
+  dw3x3_window_masked<T, AS, OV><<<grid, kTH * kTW, 0, stream>>>(          \
       xp, wp, op, B, H, W, C, M)
   if (async && ovec) MDS_WINDOW(true, true);
   else if (async) MDS_WINDOW(true, false);

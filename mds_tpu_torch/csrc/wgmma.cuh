@@ -1,10 +1,11 @@
 // Hopper (sm_90a) helpers shared by the warpgroup-MMA kernels of the port
-// (stem.cu, stem7.cu, conv3x3.cu, detail_tail.cu): wgmma.mma_async m64nNk16
-// (N = 16, 32, 64, 128) with A from registers and B from shared memory
-// through a matrix descriptor, its fence/commit/wait, ldmatrix and stmatrix,
-// mbarriers, the bulk copies (cp.async.bulk) global to shared, completing on
-// an mbarrier, and shared to global in bulk groups, and named barriers. Raw
-// PTX, as in mma.cuh.
+// (stem.cu, stem7.cu, conv3x3.cu, detail_tail.cu) and by depthwise.cu's
+// window kernel: wgmma.mma_async m64nNk16 (N = 16, 32, 64, 128) with A from
+// registers and B from shared memory through a matrix descriptor, its
+// fence/commit/wait, ldmatrix and stmatrix, mbarriers, the bulk copies
+// (cp.async.bulk) global to shared, completing on an mbarrier, and shared to
+// global in bulk groups, the tensor copy (TMA) of a 4-d box through a tensor
+// map, and named barriers. Raw PTX, as in mma.cuh.
 //
 // The B operand layout (what ops/conv3x3.py and ops/stem.py pack): a slice
 // is one (tap, 64-deep K chunk, 64-wide N chunk) of a 3x3 conv's weight,
@@ -22,6 +23,8 @@
 // land in eight distinct bank groups.
 
 #pragma once
+
+#include <cuda.h>  // CUtensorMap
 
 #include "mma.cuh"
 
@@ -187,6 +190,22 @@ __device__ __forceinline__ void bulk_g2s(void* smem, const void* gmem,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(smem)),
       "l"(gmem), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The box of the 4-d tensor map `map` (a __grid_constant__ kernel parameter)
+// whose first element sits at coordinates (c0, c1, c2, c3), innermost first,
+// from global to shared memory (128-byte aligned) by the copy engine, dense
+// in box order; elements outside the tensor arrive as zeros. Completes as the
+// box's bytes, all of them, on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* smem, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(smem)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -111,7 +111,9 @@ depthwise3x3.launches = 0
 
 def depthwise3x3_dma(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """depthwise3x3 at stride 1 with the input window staged in shared
-    memory by cp.async (TPU kernel 10); the same function, bit for bit."""
+    memory (TPU kernel 10): tensor-map (TMA) copies into a ring that
+    persistent blocks walk, or, for C·size % 16 != 0 or a misaligned
+    tensor, cp.async; the same function, bit for bit."""
     _check(x, w, 1, "depthwise3x3_dma")
     if _is_cpu(x):
         return depthwise3x3_plain(x, w, 1)

@@ -4,9 +4,15 @@ depthwise_dma.py (depthwise3x3_dma) in interpret mode on the CPU.
 
 On a CPU tensor each wrapper runs its plain version, which defines what the
 CUDA kernels compute (the card-side comparison, bit for bit, lives in
-chip_smoke.py). Tolerances: f32 rel ≤ 1e-5 (the same products and sums in
+chip_smoke.py; `test_window_kernel_rehearsal` runs the kernels' source on
+the CPU through tools/cuda_shim/rehearse.py). Tolerances: f32 rel ≤ 1e-5 (the same products and sums in
 the same order; XLA may contract a product into an FMA); bf16 rel < 1e-2,
 one bf16 rounding, with ≥ 99% of the outputs bit-equal."""
+
+import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -82,17 +88,46 @@ def test_plain_matches_pallas(stride, m, dtype):
     _close(nhwc(got), want, dtype)
 
 
+# (seed, B, H, W, C, m) of depthwise3x3_dma's cases: the first two from the
+# start; then the card's TMA form at its narrowest channel run (C = 8) and
+# its masked form (C = 12, C % 8 != 0 in bf16), m = 1, 2 and 6, B = 2, H and
+# W off the form's tiles (4 or 1 rows of 32 columns at these widths)
+_DMA_CASES = [(21, 2, 15, 19, 8, 1), (26, 2, 15, 19, 8, 6),
+              (31, 2, 9, 37, 8, 2), (32, 1, 13, 70, 12, 1), (33, 2, 6, 33, 12, 6),
+              (34, 1, 11, 35, 8, 6), (35, 2, 7, 45, 12, 2)]
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("m", [1, 6])
-def test_dma_plain_matches_pallas_dma(m, dtype):
-    rng = np.random.default_rng(20 + m)
-    b, h, w, c = 2, 15, 19, 8
+@pytest.mark.parametrize("case", _DMA_CASES,
+                         ids=["1", "6"] + ["b{1}-h{2}-w{3}-c{4}-m{5}".format(*c)
+                                           for c in _DMA_CASES[2:]])
+def test_dma_plain_matches_pallas_dma(case, dtype):
+    seed, b, h, w, c, m = case
+    rng = np.random.default_rng(seed)
     x, k = _inputs(rng, b, h, w, c, m, dtype)
     want = j_dma(*_jax(x, k, c, dtype))
     got = tdw.depthwise3x3_dma(*_port(x, k, dtype))
+    assert got.shape == (b, c * m, h, w)
     _close(nhwc(got), want, dtype)
     # the DMA variant computes kernel 9's function at stride 1
     assert torch.equal(got, tdw.depthwise3x3(*_port(x, k, dtype), 1))
+
+
+def test_window_kernel_rehearsal():
+    """csrc/depthwise.cu compiled for the CPU against tools/cuda_shim's
+    stand-ins (a thread per CUDA thread; the TMA box copy with zero fill,
+    mbarriers with transfer counts) and run through the wrappers: kernels 9
+    and 10 bit for bit against the plain version, kernel 10 on its TMA form
+    (ragged tiles, more tiles than one pass of the persistent blocks, B = 2,
+    f32) and its masked form (C % 8 != 0)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is absent: the rehearsal compiles csrc/ with it")
+    root = Path(__file__).resolve().parent.parent
+    res = subprocess.run([sys.executable, str(root / "tools" / "cuda_shim" / "rehearse.py"),
+                          "depthwise"], cwd=root, capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    assert res.stdout.rstrip().endswith("all ok")
+    assert res.stdout.count("ok  depthwise_dma") >= 17
 
 
 def test_oihw_weight_mapping():

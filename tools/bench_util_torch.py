@@ -151,12 +151,15 @@ def built(name, proc):
 
 def ptxas_lines(log, kernel=None):
     """ptxas's registers, spills, wgmma serialization (C75xx) and warnings,
-    of `kernel`'s entries only where one is named."""
+    of `kernel`'s entries only (each after its mangled name) where one is
+    named."""
     out, keep = [], kernel is None
     for ln in log.splitlines():
         if kernel is not None and ("Compiling entry function" in ln
                                    or "Function properties for" in ln):
             keep = kernel in ln
+            if keep and "Compiling entry function" in ln:
+                out.append(ln.split("'")[1] if "'" in ln else ln.strip())
         if keep and any(k in ln for k in ("registers", "spill", "C75", "warning")):
             out.append(ln.strip())
     return out

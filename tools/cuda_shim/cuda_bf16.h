@@ -4,6 +4,7 @@
 #pragma once
 #include <algorithm>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <condition_variable>
 #include <cstdint>
@@ -22,6 +23,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
+#define __grid_constant__
 
 struct dim3 {
   unsigned x, y, z;
@@ -71,7 +73,7 @@ using std::max;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorNotSupported = 801 };
 enum { cudaDevAttrMultiProcessorCount = 16 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }

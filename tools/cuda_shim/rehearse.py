@@ -5,18 +5,22 @@ card or nvcc.
   python tools/cuda_shim/rehearse.py [stem window pair detail stemblock stem7 conv3 tail
                                       depthwise upsample_argmax]
 
-Compiles csrc/stem.cu, stem7.cu, conv3x3.cu, detail_tail.cu, depthwise.cu
-and upsample_argmax.cu with g++
+Compiles the csrc/ sources the named checks need (all: stem.cu, stem7.cu,
+conv3x3.cu, detail_tail.cu, depthwise.cu, upsample_argmax.cu) with g++
 against the stand-in CUDA runtime beside this script (one std::thread per
 CUDA thread, std::barrier for __syncthreads, __syncwarp, named barriers and
 wgmma's fence/commit/wait; wgmma m64nNk16 computed per warpgroup, its B read
 through the descriptor's start and stride byte offsets and the 128-byte
 swizzle on the address bits; ldmatrix from the exchanged row addresses;
 mbarriers with arrival and transfer counts; cp.async (with zero fill) and
-cp.async.bulk global to shared as copies; stmatrix to the exchanged row
-addresses; cp.async.bulk shared to global held until the wait that completes
-its bulk group, so a stage written again before its wait, or a missing final
-wait, shows), into the git-ignored mds_tpu_torch/build/shim/. Then it
+cp.async.bulk global to shared as copies; the tensor copy (TMA) of a 4-d
+box as a copy through the tensor map that cuTensorMapEncodeTiled's
+stand-in records, zeros outside the tensor, completing the box's bytes on
+its mbarrier; an mbarrier wait that sees no phase change for 30 s aborts;
+stmatrix to the exchanged row addresses; cp.async.bulk shared to global
+held until the wait that completes its bulk group, so a stage written again
+before its wait, or a missing final wait, shows), into the git-ignored
+mds_tpu_torch/build/shim/. Then it
 calls each kernel's wrapper on CPU tensors at small, ragged shapes, with the
 wrappers made to launch (through ctypes, as on the card), and holds every
 output to the kernel's plain version: rel max-diff < 1e-2 (1e-4 for the
@@ -37,24 +41,30 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent.parent
 SRC = ROOT / "mds_tpu_torch" / "csrc"
 OUT = ROOT / "mds_tpu_torch" / "build" / "shim"
-SOURCES = ("stem.cu", "stem7.cu", "conv3x3.cu", "detail_tail.cu", "depthwise.cu",
-           "upsample_argmax.cu")
+# the source each check needs
+SOURCES = {"stem": "stem.cu", "window": "stem.cu", "pair": "stem.cu", "detail": "stem.cu",
+           "stemblock": "stem.cu", "stem7": "stem7.cu", "conv3": "conv3x3.cu",
+           "tail": "detail_tail.cu", "depthwise": "depthwise.cu",
+           "upsample_argmax": "upsample_argmax.cu"}
 
 sys.path.insert(0, str(ROOT))
 
 
-def build() -> Path:
+def build(sources) -> Path:
     """The sources as C++ for the stand-in runtime: the asm helpers swapped
-    for mma_impl.h, dynamic shared memory and <<<...>>> launches rewritten."""
-    OUT.mkdir(parents=True, exist_ok=True)
+    for mma_impl.h, dynamic shared memory and <<<...>>> launches rewritten;
+    into a directory of their own under OUT."""
+    out = OUT / ("all" if set(sources) == set(SOURCES.values())
+                 else "-".join(Path(f).stem for f in sorted(sources)))
+    out.mkdir(parents=True, exist_ok=True)
     m = (SRC / "mma.cuh").read_text()
     a, b = m.index("// Asynchronous copies into shared memory"), m.index("}  // namespace")
-    (OUT / "mma.cuh").write_text(m[:a] + '#include "mma_impl.h"\n\n' + m[b:])
+    (out / "mma.cuh").write_text(m[:a] + '#include "mma_impl.h"\n\n' + m[b:])
     g = (SRC / "wgmma.cuh").read_text()
     a, b = g.index("// -- PTX begin"), g.index("// -- PTX end")
-    (OUT / "wgmma.cuh").write_text(g[:a] + '#include "wgmma_impl.h"\n' + g[b:])
+    (out / "wgmma.cuh").write_text(g[:a] + '#include "wgmma_impl.h"\n' + g[b:])
     cpps = []
-    for f in SOURCES:
+    for f in sorted(sources):
         s = (SRC / f).read_text()
 
         if '#include "mma.cuh"' not in s and '#include "wgmma.cuh"' not in s:
@@ -67,13 +77,13 @@ def build() -> Path:
                    r"auto& \2 = *reinterpret_cast<\1(*)\3>(shim_static(sizeof(\1\3)));", s)
         s = re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\(", r"shim_launch(\1, \2)(", s,
                    flags=re.S)
-        cpp = OUT / (f[:-3] + ".cpp")
+        cpp = out / (f[:-3] + ".cpp")
         cpp.write_text(s)
         cpps.append(str(cpp))
-    lib = OUT / "libshim.so"
+    lib = out / "libshim.so"
     res = subprocess.run(
         ["g++", "-std=c++20", "-O1", "-fPIC", "-shared", "-ffp-contract=off",
-         "-fno-strict-aliasing", "-pthread", f"-I{HERE}", f"-I{OUT}", "-o",
+         "-fno-strict-aliasing", "-pthread", f"-I{HERE}", f"-I{out}", "-o",
          str(lib), str(HERE / "shim_rt.cpp"), *cpps],
         capture_output=True, text=True)
     if res.returncode:
@@ -89,7 +99,7 @@ def main(which):
     from mds_tpu_torch.ops import conv3x3, depthwise, stem
     from mds_tpu_torch.ops import upsample_argmax as ua
 
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(build({SOURCES[n] for n in which})))
     for name, argtypes in kbuild._SIGNATURES.items():
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
@@ -193,22 +203,37 @@ def main(which):
                   stem.detail_tail_fused_plain(*args))
     if "depthwise" in which:
         # m = 6 and 4 (two input channels per group of 8 outputs), 2, 3 and 5
-        # (four) on the staged kernel; m = 1 at 4, 2 and 1 pixels per thread;
-        # f32 and C % 8 != 0 on the scalar path. Bit for bit.
+        # (four) on kernel 9's staged form; m = 1 at 4, 2 and 1 pixels per
+        # thread; f32 and C % 8 != 0 on its scalar path. Kernel 10 at every
+        # stride-1 shape: on its TMA form where C * size % 16 == 0, else its
+        # masked form (C = 12, 20 in bf16); beyond the first: more tiles than
+        # one pass of SHIM_SMS blocks walks, ragged right and bottom, at m = 1
+        # (C = 64: 4x32 tiles) and m = 6 (C = 32: 1x32), B = 2; an image
+        # smaller than a tile; f32 at m = 1, 3 and 6 (C = 20: 4-channel
+        # runs); m = 2 and 3 with C = 16; m = 5, 7, 8, 11 and 12 (a thread
+        # 5, 7, 8, 1 and 6 outputs of a channel). Bit for bit.
         for b, c, h, w, m, s, dt in (
                 (1, 16, 9, 37, 6, 1, torch.bfloat16), (2, 16, 11, 70, 6, 2, torch.bfloat16),
                 (1, 8, 6, 33, 4, 1, torch.bfloat16), (2, 8, 13, 70, 2, 2, torch.bfloat16),
                 (1, 24, 5, 9, 3, 1, torch.bfloat16), (1, 8, 7, 12, 5, 2, torch.bfloat16),
                 (2, 64, 33, 65, 1, 1, torch.bfloat16), (1, 16, 20, 40, 1, 2, torch.bfloat16),
                 (1, 8, 3, 5, 1, 1, torch.bfloat16), (1, 16, 7, 9, 6, 1, torch.float32),
-                (2, 12, 9, 10, 6, 2, torch.bfloat16)):
+                (2, 12, 9, 10, 6, 2, torch.bfloat16),
+                (2, 64, 19, 70, 1, 1, torch.bfloat16), (2, 32, 5, 45, 6, 1, torch.bfloat16),
+                (1, 128, 6, 35, 1, 1, torch.bfloat16), (1, 32, 2, 3, 6, 1, torch.bfloat16),
+                (2, 12, 7, 13, 1, 1, torch.bfloat16), (1, 20, 6, 9, 3, 1, torch.bfloat16),
+                (2, 8, 11, 40, 1, 1, torch.float32), (1, 20, 5, 11, 3, 1, torch.float32),
+                (2, 32, 3, 37, 6, 1, torch.float32), (1, 16, 9, 14, 2, 1, torch.bfloat16),
+                (2, 16, 6, 21, 3, 1, torch.bfloat16), (1, 8, 5, 9, 12, 1, torch.bfloat16),
+                (1, 8, 4, 7, 7, 1, torch.bfloat16), (1, 16, 3, 6, 11, 1, torch.bfloat16),
+                (1, 8, 5, 6, 8, 1, torch.float32), (2, 24, 4, 11, 5, 1, torch.bfloat16)):
             x = image(b, h, w, c).to(dt)
             wt = torch.tensor(rng.normal(0, 0.3, (c * m, 1, 3, 3)), dtype=torch.float32).to(dt)
             want = depthwise.depthwise3x3_plain(x, wt, s)
             got = depthwise.depthwise3x3(x, wt, s)
             check(f"depthwise {b, c, h, w} m={m} s={s} {dt}", got, want, equal_to=want)
             if s == 1:
-                check(f"depthwise_dma {b, c, h, w} m={m}", depthwise.depthwise3x3_dma(x, wt),
+                check(f"depthwise_dma {b, c, h, w} m={m} {dt}", depthwise.depthwise3x3_dma(x, wt),
                       want, equal_to=got)
     if "upsample_argmax" in which:
         # C = 1, 19, 150 and 400 (classes staged in three chunks), s = 1, 3, 8
@@ -233,6 +258,4 @@ def main(which):
 
 
 if __name__ == "__main__":
-    names = {"stem", "window", "pair", "detail", "stemblock", "stem7", "conv3", "tail",
-             "depthwise", "upsample_argmax"}
-    sys.exit(main(set(sys.argv[1:]) or names))
+    sys.exit(main(set(sys.argv[1:]) or set(SOURCES)))

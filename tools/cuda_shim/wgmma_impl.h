@@ -149,11 +149,18 @@ inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   --s->pending;
   shim_mbar_step(s);
 }
-// blocks until the phase of this parity has completed
+// blocks until the phase of this parity has completed; a wait that sees no
+// phase change for 30 s (a schedule fault: an arrival or transfer that never
+// comes, a count that never reaches zero) aborts
 inline bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
   std::unique_lock<std::mutex> lk(shim_mbar_mu());
   auto* s = reinterpret_cast<ShimMbar*>(bar);
-  shim_mbar_cv().wait(lk, [&] { return s->phase != parity; });
+  if (!shim_mbar_cv().wait_for(lk, std::chrono::seconds(30),
+                               [&] { return s->phase != parity; })) {
+    fprintf(stderr, "mbarrier stand-in: no phase change in 30 s (arrivals pending %d, "
+            "transfer bytes pending %d)\n", s->pending, s->tx);
+    abort();
+  }
   return true;
 }
 inline void bulk_g2s(void* smem, const void* gmem, uint32_t bytes, uint64_t* bar) {
@@ -167,6 +174,40 @@ inline void bulk_g2s(void* smem, const void* gmem, uint32_t bytes, uint64_t* bar
   s->tx -= int32_t(bytes);
   shim_mbar_step(s);
 }
+// the 4-d box at (c0, c1, c2, c3) of the tensor map, dense in box order,
+// zeros outside the tensor; then the box's bytes, all of them, as completed
+// transfer on the mbarrier (a count it was not told to expect leaves its
+// phase open, and the wait aborts)
+inline void tma_load_4d(void* smem, const CUtensorMap* m, int c0, int c1, int c2, int c3,
+                        uint64_t* bar) {
+  if (smem_u32(smem) % 128 || m->rank != 4) {
+    fprintf(stderr, "cp.async.bulk.tensor stand-in: misaligned box or not a 4-d map\n");
+    abort();
+  }
+  const int64_t c[4] = {c0, c1, c2, c3};
+  const uint32_t e = m->esize;
+  unsigned char* dst = static_cast<unsigned char*>(smem);
+  for (uint32_t i3 = 0; i3 < m->box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < m->box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < m->box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < m->box[0]; ++i0, dst += e) {
+          const int64_t at[4] = {c[0] + i0, c[1] + i1, c[2] + i2, c[3] + i3};
+          int64_t off = 0;
+          bool in = true;
+          for (int d = 0; d < 4; ++d) {
+            in = in && at[d] >= 0 && at[d] < int64_t(m->dims[d]);
+            off += at[d] * int64_t(m->strides[d]);
+          }
+          if (in) memcpy(dst, m->base + off, e);
+          else memset(dst, 0, e);
+        }
+  const int32_t bytes = int32_t(dst - static_cast<unsigned char*>(smem));
+  std::lock_guard<std::mutex> lk(shim_mbar_mu());
+  auto* s = reinterpret_cast<ShimMbar*>(bar);
+  s->tx -= bytes;
+  shim_mbar_step(s);
+}
+
 inline void named_bar_sync(int id, int n) {
   std::barrier<>* b;
   {

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
-"""Kernels 4 (csrc/stem.cu: the DetailBranch head, S1_1 → S1_2 → S2_1) and 9
-(csrc/depthwise.cu: the depthwise / channel-multiplier 3×3) on a CUDA card, at
-the served frame's shapes.
+"""Kernels 4 (csrc/stem.cu: the DetailBranch head, S1_1 → S1_2 → S2_1), 9
+(csrc/depthwise.cu: the depthwise / channel-multiplier 3×3) and 10 (its
+stride-1 form with a staged window) on a CUDA card, at the served frame's
+shapes.
 
   python tools/head_dw_bench_torch.py [--tree DIR] [--no-split]
 
@@ -12,7 +13,10 @@ of 20 CUDA-event runs, and by its device time (torch.profiler, mean of 10).
 Kernel 9 at the 16 shapes of a 1024×2048 BiSeNetV2 frame: bit-equal share,
 its device time per call and that of bf16 F.conv2d(groups=C), the library's
 one call for the same function, and the bound (bytes over 3.35 TB/s). One
-JSON line per shape.
+JSON line per shape. Kernel 10 at the frame's 10 stride-1 shapes: bit-equal
+to the plain version and to kernel 9, its wrapper ms (median of 20 CUDA-event
+runs) and device ms beside kernel 9's device ms, the library call's and the
+bound; one line per shape and one for their sums.
 
 Then the split: the tree's csrc built again with one part of kernel 4 taken
 out at a time (this design: "no_s1_window", "no_s1_mma", "no_s12_mma",
@@ -20,7 +24,13 @@ out at a time (this design: "no_s1_window", "no_s1_mma", "no_s12_mma",
 "s21_stride1", "one_chain"; the design before it,
 whose weights stream from L2 for every warp pass: "no_weight_loads", B
 fragments made in registers), each variant's device time at the frame
-shape, into the git-ignored mds_tpu_torch/build/head_bench/ of the tree.
+shape, into the git-ignored mds_tpu_torch/build/head_bench/ of the tree;
+depthwise.cu variants of kernel 9's staged tile; and depthwise.cu variants
+of kernel 10 (WIN_VARIANTS: without the window copies, the ring at one and
+two stages, without the stores, the old kernel's 8-channel 16-column
+tile, 2 or 8 pixels a thread at m = 1, 4 at m > 1, nine warps a block, two
+blocks an SM at m > 1) at its 10 shapes, after ptxas's registers and spills
+of every dw3x3_window_kernel entry.
 What a part costs is the built kernel's time less its variant's (the parts
 overlap; the differences need not add up, and a variant's numbers are wrong
 by design). A variant with a wgmma under a condition serializes every wgmma
@@ -138,6 +148,52 @@ def measure_depthwise(depthwise, dev):
     print(json.dumps({"kernel": "depthwise3x3", "frame_device_ms": dev_total,
                       "frame_library_device_ms": lib_total, "frame_bound_ms": bound_total,
                       "min_bit_equal": min(r["bit_equal"] for r in rows)}), flush=True)
+
+
+def window_shapes(dev):
+    """Kernel 10's inputs: the frame's stride-1 depthwise convs, (x, w, m)."""
+    rng = np.random.default_rng(2)
+    out = []
+    for c, h, w, m, s in DW_FRAME:
+        if s != 1:
+            continue
+        x = torch.tensor(rng.normal(0, 1, (1, h, w, c)), dtype=torch.float32,
+                         device=dev).relu().to(torch.bfloat16).permute(0, 3, 1, 2)
+        wt = torch.tensor(rng.normal(0, 0.3, (c * m, 1, 3, 3)), dtype=torch.float32,
+                          device=dev).to(torch.bfloat16)
+        out.append((x, wt, m))
+    return out
+
+
+def measure_window(depthwise, dev):
+    """Kernel 10 at window_shapes: one JSON line per shape, one of sums."""
+    keys = ("ms", "device_ms", "k9_device_ms", "library_device_ms", "bound_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    eq = []
+    for x, wt, m in window_shapes(dev):
+        c = x.shape[1]
+        with torch.no_grad():
+            got = depthwise.depthwise3x3_dma(x, wt)
+            torch.cuda.synchronize()
+            want = depthwise.depthwise3x3_plain(x, wt, 1)
+            k9 = depthwise.depthwise3x3(x, wt, 1)
+            row = {"kernel": "depthwise3x3_dma", "x": list(x.shape), "m": m,
+                   "bit_equal": bit_equal(got, want), "equal_to_k9": bit_equal(got, k9),
+                   "ms": cuda_ms(lambda: depthwise.depthwise3x3_dma(x, wt)),
+                   "device_ms": device_ms(lambda: depthwise.depthwise3x3_dma(x, wt),
+                                          "dw3x3_window"),
+                   "k9_device_ms": device_ms(lambda: depthwise.depthwise3x3(x, wt, 1),
+                                             "dw3x3_kernel"),
+                   "library_device_ms": device_ms(lambda: F.conv2d(x, wt, None, 1, 1, 1, c)),
+                   "bound_ms": (x.numel() + wt.numel() + got.numel()) * 2
+                   / HBM_BYTES_PER_S * 1e3}
+        for k in keys:
+            tot[k] += row[k] if isinstance(row[k], float) else float("nan")
+        eq += [row["bit_equal"], row["equal_to_k9"]]
+        print(json.dumps(row), flush=True)
+    print(json.dumps({"kernel": "depthwise3x3_dma", "shapes": 10,
+                      **{f"sum_{k}": v for k, v in tot.items()}, "min_bit_equal": min(eq)}),
+          flush=True)
 
 
 # ------------------------------------------------------------- the split
@@ -304,6 +360,85 @@ def split_depthwise(tree, dev):
     print(json.dumps({"split": "depthwise3x3", "device_ms": res}), flush=True)
 
 
+# variants of kernel 10's TMA form (csrc/depthwise.cu), each anchor unique to
+# it; WIN_RIGHT: the variants that must stay bit-equal to the plain version
+WIN_VARIANTS = {
+    "built": [],
+    "no_tma": [("depthwise.cu", "        mbar_arrive_expect_tx(full + slot, g.box_bytes);\n"
+                "        tma_load_4d(ring + slot * g.stage_bytes, &xmap,",
+                "        mbar_arrive(full + slot);\n"
+                "        if (g.H < 0) tma_load_4d(ring + slot * g.stage_bytes, &xmap,")],
+    "ring1": [("depthwise.cu", "constexpr int kWinStages = 3;", "constexpr int kWinStages = 1;")],
+    "ring2": [("depthwise.cu", "constexpr int kWinStages = 3;", "constexpr int kWinStages = 2;")],
+    # a sum of every output keeps all the arithmetic alive without the stores
+    "no_store": [("depthwise.cu", "          if (ox0 + p >= g.W) break;\n",
+                  "          float chk = 0.f;\n"
+                  "          for (int q = 0; q < kOut; ++q) chk += acc[p][q];\n"
+                  "          if (ox0 + p >= g.W || chk != -1e30f) break;\n")],
+    "old_tile": [("depthwise.cu", "constexpr int kWinRunBytes1 = 128, kWinRunBytesM = 64;",
+                  "constexpr int kWinRunBytes1 = 16, kWinRunBytesM = 16;"),
+                 ("depthwise.cu", "constexpr int kWinTW = 32, kWinTHMax = 32;",
+                  "constexpr int kWinTW = 16, kWinTHMax = 8;")],
+    "p2_m1": [("depthwise.cu", "constexpr int kWinP1 = 4, kWinPM = 8;",
+               "constexpr int kWinP1 = 2, kWinPM = 8;")],
+    "p8_m1": [("depthwise.cu", "constexpr int kWinP1 = 4, kWinPM = 8;",
+               "constexpr int kWinP1 = 8, kWinPM = 8;")],
+    "p4_mult": [("depthwise.cu", "constexpr int kWinP1 = 4, kWinPM = 8;",
+                 "constexpr int kWinP1 = 4, kWinPM = 4;")],
+    # nine warps a block: 168 registers a thread at most
+    "nc256": [("depthwise.cu", "constexpr int kWinNC = 224;", "constexpr int kWinNC = 256;")],
+    # two blocks an SM at m > 1: 128 registers a thread at most
+    "two_blocks_mult": [("depthwise.cu", "__launch_bounds__(kWinNC + 32, 1)",
+                         "__launch_bounds__(kWinNC + 32, MC ? 2 : 1)")],
+}
+WIN_RIGHT = ("built", "ring1", "ring2", "old_tile", "p2_m1", "p8_m1", "p4_mult", "nc256",
+             "two_blocks_mult")
+
+
+def split_window(tree, dev):
+    """Each WIN_VARIANTS build of depthwise.cu at kernel 10's 10 shapes:
+    device ms per shape and summed, bit-equality for the WIN_RIGHT ones;
+    first ptxas's lines for dw3x3_window_kernel."""
+    from mds_tpu_torch.ops import depthwise
+
+    out_dir = tree / "mds_tpu_torch" / "build" / "win_bench"
+    procs = build_variants("depthwise.cu", WIN_VARIANTS, out_dir)
+    shapes = []
+    for x, wt, m in window_shapes(dev):
+        b, c, h, w = x.shape
+        out = torch.empty((b, c * m, h, w), dtype=torch.bfloat16, device=dev,
+                          memory_format=torch.channels_last)
+        shapes.append((x, wt, out, c, h, w, m, depthwise.depthwise3x3_plain(x, wt, 1)))
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    P, I = ctypes.c_void_p, ctypes.c_int
+    res = {}
+    for name, p in procs.items():
+        log = built(name, p)
+        if name in ("built", "p8_m1", "nc256"):
+            print(json.dumps({"ptxas": name, "lines": ptxas_lines(log, "dw3x3_window_kernel")}),
+                  flush=True)
+        lib = ctypes.CDLL(str(out_dir / name / "lib.so"))
+        lib.mds_dw3x3_window.argtypes = [P, P, P] + [I] * 6 + [P]
+        per, right = [], True
+        for x, wt, out, c, h, w, m, want in shapes:
+            def call():
+                err = lib.mds_dw3x3_window(ptr(x), ptr(wt), ptr(out), 1, h, w, c, m, 0,
+                                           ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+                if err:
+                    raise RuntimeError(f"{name}: launch failed ({err})")
+            call()
+            torch.cuda.synchronize()
+            right = right and torch.equal(out.view(torch.int16), want.view(torch.int16))
+            t = device_ms(call, "dw3x3_window")
+            per.append(t if isinstance(t, float) else float("nan"))
+        res[name] = {"sum_device_ms": sum(per), "m6_device_ms": sum(
+            t for t, sh in zip(per, shapes) if sh[6] > 1), "shapes": per, "bit_equal": right}
+    print(json.dumps({"split": "depthwise3x3_dma", "device_ms": res}), flush=True)
+    wrong = [k for k in WIN_RIGHT if k in res and not res[k]["bit_equal"]]
+    if wrong:
+        raise RuntimeError(f"kernel 10 differs from the plain version in {wrong}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", help="time another checkout's mds_tpu_torch")
@@ -314,7 +449,9 @@ def main():
 
     measure_head(stem, "cuda")
     measure_depthwise(depthwise, "cuda")
+    measure_window(depthwise, "cuda")
     if not args.no_split:
+        split_window(tree, "cuda")
         split(tree, stem, "cuda")
         split_depthwise(tree, "cuda")
     print_card()
