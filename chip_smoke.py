@@ -103,8 +103,31 @@ before the last line:
               the dropout kernel's bound for a step (its 10 calls' inputs
               read and outputs written once, over 3.35 TB/s); one more
               step under torch.profiler gives the idle share and the
-              dropout kernel's device time.
-8. train_stem — the same train step with set_stem_impl("kernel"): the two
+              dropout kernel's device time. Then the step with
+              train.fused_up_loss (each head's OHEM CE through the phase
+              decomposition of its upsample) from the same weights, batch
+              and dropout seed: first loss within 1e-2 (relative) of the
+              plain route's; both routes' step ms (median of 3) and peak
+              memory in turns plain, fused, fused, plain; then, at every
+              head's logits of the batch scaled to a trained head's spread
+              (std 3) with 5% of the labels ignored, the phase-decomposed
+              CE against the CE of F.interpolate's upsample: the valid
+              pixels' CE as sorted multisets (rel <= 1e-5) and the gradient
+              of their sum wrt the logits (rel <= 1e-4).
+8. trainer  — tools/train_torch.py's main in this process, on
+              configs/bisenetv2_city.json with the Synthetic reader at
+              1024×2048 (19 classes, 64 frames) and lr.max_iter 6,
+              train.ckpt_interval 3, train.log_interval 1: 6 steps of bs16
+              512×1024 crops with finite losses, checkpoints at 3 and 6, a
+              fresh Trainer restoring step 6 (state_dict, momentum, count
+              equal), --max-iter 8 resuming to 8; exactly 10 dropout_u8
+              launches a step and no other kernel's; the loader's pipeline
+              (native or numpy), step ms (CUDA events), images/s by the step,
+              by the loop (steps 2-6: all their images over the sum of
+              their iterations' host ms) and by the run's wall, the ms
+              waited on the loader and on the H2D copy a step, the ms of a
+              checkpoint save, peak memory.
+9. train_stem — the same train step with set_stem_impl("kernel"): the two
               RGB stems' convs (DetailBranch S1_1, StemBlock conv) run
               stem_conv3x3_s2 (kernel 1 forward, the library conv's
               gradients backward). From one set of weights and one batch, a
@@ -117,7 +140,7 @@ before the last line:
               cold and by the profiler's device time, beside its plain
               version, f32 F.conv2d (TF32 off: the same function) and bf16
               F.conv2d.
-9. parity   — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
+10. parity  — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
               on the card (dropout kernel) and on the CPU (its plain
               version), same weights and generator seed: loss rel < 1e-4,
               per-group gradient cosine > 0.9999, parameters after the step
@@ -136,6 +159,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -1065,8 +1089,10 @@ def phase_dropout(dev):
     return res
 
 
-def train_step_for(cfg, model, compute_dtype):
-    """The config's optimizer, schedule and normalization around `model`."""
+def train_step_for(cfg, model, compute_dtype, fused_up_loss=False):
+    """The config's optimizer, schedule and normalization around `model`;
+    `fused_up_loss` takes each head's OHEM CE through the phase
+    decomposition of its upsample."""
     from mds_tpu_torch.data.labels import get_spec
     from mds_tpu_torch.engine.lr_schedule import warmup_poly_lr
     from mds_tpu_torch.engine.optim import build_optimizer
@@ -1083,7 +1109,7 @@ def train_step_for(cfg, model, compute_dtype):
     step = make_seg_train_step(
         model, opt, [spec.mean], [spec.std],
         ohem_thresh=float(cfg.get("loss", "ohem_thresh")),
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, fused_up_loss=fused_up_loss)
     return step, opt
 
 
@@ -1104,9 +1130,10 @@ def phase_train(dev):
     n_classes = cfg.n_cats(0)
     b = int(cfg.dataset_cfg(0)["ims_per_gpu"])
     h, w = cfg.get("train", "cropsize")
-    model = MODELS[cfg.get("model_name")](n_classes=(n_classes,), n_bn=1, aux=True,
-                                          dtype=torch.bfloat16)
-    model.init_weights(torch.Generator().manual_seed(WEIGHT_SEED)).to(dev)
+    init = MODELS[cfg.get("model_name")](n_classes=(n_classes,), n_bn=1, aux=True,
+                                         dtype=torch.bfloat16)
+    init.init_weights(torch.Generator().manual_seed(WEIGHT_SEED))
+    model = copy.deepcopy(init).to(dev)
     step, opt = train_step_for(cfg, model, torch.bfloat16)
     im, lb = seg_batch(np.random.default_rng(0), b, h, w, n_classes)
     ims, lbs = [torch.from_numpy(im).to(dev)], [torch.from_numpy(lb).to(dev)]
@@ -1157,7 +1184,173 @@ def phase_train(dev):
     want["dropout_u8"] = 10 * 5
     if launches != want:
         raise RuntimeError(f"train launches {launches}, expected {want}")
+    fused_up_routes(dev, cfg, init, (step, model), ims, lbs, losses[0])
     return launches
+
+
+def fused_up_routes(dev, cfg, init, plain, ims, lbs, plain_loss):
+    """The train step with train.fused_up_loss from the same weights,
+    batch and dropout seed as the plain route's first step: the first
+    losses within 1e-2 (the plain route's bf16 upsampled volume against
+    the fused route's f32 blends); then both routes' step ms (CUDA events,
+    median of 3) and peak memory in turns plain, fused, fused, plain."""
+    fused_model = copy.deepcopy(init).to(dev)
+    fused_step, _ = train_step_for(cfg, fused_model, torch.bfloat16, fused_up_loss=True)
+    fused_loss = fused_step(ims, lbs, torch.Generator().manual_seed(0))["loss"].item()
+    routes = {"plain": plain[0], "fused": fused_step}
+    gen = torch.Generator().manual_seed(1)
+    turns = []
+    for name in ("plain", "fused", "fused", "plain"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            routes[name](ims, lbs, gen)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        turns.append({"route": name, "median_step_ms": float(np.median(times)),
+                      "step_ms": times, "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    loss_rel = abs(fused_loss - plain_loss) / abs(plain_loss)
+    emit(phase="train", fused_up_loss={"first_loss": fused_loss, "plain_first_loss": plain_loss,
+                                       "loss_rel": loss_rel, "turns": turns})
+    if not np.isfinite(fused_loss) or loss_rel >= 1e-2:
+        raise RuntimeError(f"fused_up_loss: first loss {fused_loss} vs plain {plain_loss}")
+    fused_ce_heads(cfg, fused_model, ims, lbs)
+
+
+def fused_ce_heads(cfg, model, ims, lbs, ignore_share=0.05):
+    """cross_entropy_upsampled on the card at every head of the batch, held
+    against the CE of F.interpolate's bilinear upsample of the same logits.
+    The first-loss gate above cannot see a wrong tap, blend or label layout:
+    at a random init every pixel's CE is about log 19 whatever the blends.
+    So each head's logits (the model's up=False forward, no grad) are scaled
+    to a standard deviation of 3, as a trained head's spread, and a seeded
+    5% of the labels are ignored. Gates, those of tests/test_torch_losses.py:
+    the same valid pixels; the valid pixels' CE as sorted multisets, max-diff
+    over the largest, <= 1e-5; the gradient of their sum wrt the logits, the
+    same measure, <= 1e-4."""
+    from mds_tpu_torch.data.labels import get_spec
+    from mds_tpu_torch.engine.train_step import normalize_images
+    from mds_tpu_torch.losses.ohem_ce import cross_entropy_per_pixel, cross_entropy_upsampled
+
+    spec = get_spec(cfg.dataset_cfg(0)["spec"])
+    with torch.no_grad():
+        out = model(normalize_images(ims, [spec.mean], [spec.std], torch.bfloat16),
+                    up=False, generator=torch.Generator().manual_seed(2))
+    main_f, aux_fs = out["up_factors"]
+    heads = [("main", main_f, out["logits"][0])] + [
+        (f"aux{i}", f, a[0]) for i, (f, a) in enumerate(zip(aux_fs, out["aux"]))]
+    drop = torch.rand(lbs[0].shape, generator=torch.Generator().manual_seed(3))
+    lb = torch.where(drop.to(lbs[0].device) < ignore_share, 255, lbs[0].long())
+    rows = []
+    for name, f, logits in heads:
+        lg = logits.float()
+        x = (lg * (3.0 / lg.std())).requires_grad_()
+        ce, valid = cross_entropy_upsampled(x, lb, f)
+        (g_fused,) = torch.autograd.grad(ce[valid].sum(), x)
+        up = F.interpolate(x, scale_factor=f, mode="bilinear", align_corners=False)
+        ref, ref_valid = cross_entropy_per_pixel(up, lb)
+        (g_ref,) = torch.autograd.grad(ref[ref_valid].sum(), x)
+        n, n_ref = int(valid.sum()), int(ref_valid.sum())
+        want = torch.sort(ref[ref_valid].detach()).values
+        rows.append({"head": name, "logits": list(x.shape), "factor": f,
+                     "valid": n, "ref_valid": n_ref, "ce_std": want.std().item(),
+                     "ce_rel": rel(torch.sort(ce[valid].detach()).values, want)
+                     if n == n_ref else None,
+                     "grad_rel": rel(g_fused, g_ref)})
+        del ce, valid, g_fused, up, ref, ref_valid, g_ref, want
+    emit(phase="train", fused_up_ce=rows)
+    bad = [r for r in rows if r["ce_rel"] is None or r["ce_rel"] > 1e-5
+           or r["grad_rel"] > 1e-4]
+    if bad:
+        raise RuntimeError(f"cross_entropy_upsampled against the upsampled CE: {bad}")
+
+
+TRAINER_OVERRIDES = [
+    "dataset1.data_reader", "Synthetic",
+    "dataset1.reader_kwargs", "{'n_cats': 19, 'size': [1024, 2048], 'length': 64}",
+    "lr.max_iter", "6", "train.ckpt_interval", "3", "train.log_interval", "1"]
+
+
+def phase_trainer(dev):
+    """tools/train_torch.py's main in this process on the config with the
+    Synthetic reader at Cityscapes' 1024×2048 frame: 6 steps, checkpoints at
+    3 and 6, a fresh Trainer restoring step 6 exactly, --max-iter 8
+    resuming to step 8; 10 dropout launches a step and no other kernel's."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import train_torch
+
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.trainer import Trainer
+    from mds_tpu_torch.utils.metrics_writer import read_metrics
+
+    with tempfile.TemporaryDirectory() as work:
+        args = ["--config", CONFIG, "--work-dir", work] + TRAINER_OVERRIDES
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        run = train_torch.main(args)
+        wall_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [r["seg"] for r in read_metrics(os.path.join(work, "runs"))]
+        saved = run.ckpt.all_steps()
+        fresh = Trainer(Configer(config_file=CONFIG, args_parser=TRAINER_OVERRIDES),
+                        work_dir=work, device=dev)
+        fresh.restore_if_available()
+        names = {id(p): n for n, p in run.model.named_parameters()}
+        fresh_params = dict(fresh.model.named_parameters())
+        restored = {
+            "step": fresh.step, "count": fresh.optimizer.count,
+            "state_dict_equal": all(torch.equal(fresh.model.state_dict()[k], v)
+                                    for k, v in run.model.state_dict().items()),
+            "momentum_equal": len(run.optimizer.state) > 0 and all(
+                torch.equal(fresh.optimizer.state[fresh_params[names[id(p)]]]["momentum_buffer"],
+                            st["momentum_buffer"]) for p, st in run.optimizer.state.items())}
+        del fresh
+        reset_counts()
+        resumed = train_torch.main(args + ["--max-iter", "8"])
+        resume_launches = read_counts()
+        resumed_saved = resumed.ckpt.all_steps()
+    steps = run.timings
+    timed = [r["step_ms"] for r in steps[1:]]  # the first step builds and tunes
+    b = sum(int(run.configer.dataset_cfg(i)["ims_per_gpu"])
+            for i in range(run.configer.n_datasets))
+    res = {"batch": b, "crop": run.configer.get("train", "cropsize"),
+           "frame": run.configer.dataset_cfg(0)["reader_kwargs"]["size"],
+           "pipeline": run.pipeline, "losses": losses, "checkpoints": saved,
+           "restored": restored, "resumed_to": resumed.step,
+           "resumed_checkpoints": resumed_saved, "launches": launches,
+           "resume_launches": resume_launches,
+           "step_ms": [r["step_ms"] for r in steps],
+           "median_step_ms": float(np.median(timed)),
+           "images_per_s": b / float(np.median(timed)) * 1e3,
+           "loader_wait_ms": [r["loader_ms"] for r in steps],
+           "median_loader_wait_ms": float(np.median([r["loader_ms"] for r in steps[1:]])),
+           "copy_ms": [r["copy_ms"] for r in steps],
+           "median_copy_ms": float(np.median([r["copy_ms"] for r in steps])),
+           "checkpoint_save_ms": [r["ckpt_ms"] for r in steps if "ckpt_ms" in r],
+           "images_per_s_loop": b * len(steps[1:]) / sum(r["loop_ms"] for r in steps[1:]) * 1e3,
+           "run_wall_s": wall_s, "images_per_s_wall": b * len(steps) / wall_s,
+           "max_memory_allocated": peak}
+    emit(phase="trainer", **res)
+    want = {k: 0 for k in launches}
+    want["dropout_u8"] = 10 * 6
+    want_resume = dict(want, dropout_u8=10 * 2)
+    if len(losses) != 6 or not np.isfinite(losses).all():
+        raise RuntimeError(f"trainer: losses {losses}")
+    if saved != [3, 6] or resumed_saved != [3, 6, 8] or resumed.step != 8:
+        raise RuntimeError(f"trainer: checkpoints {saved}, {resumed_saved}")
+    if restored != {"step": 6, "count": 6, "state_dict_equal": True, "momentum_equal": True}:
+        raise RuntimeError(f"trainer: restore {restored}")
+    if launches != want or resume_launches != want_resume:
+        raise RuntimeError(f"trainer launches {launches}, {resume_launches}")
+    return launches["dropout_u8"] + resume_launches["dropout_u8"]
 
 
 def phase_train_stem(dev):
@@ -1681,6 +1874,8 @@ def main():
     launches["stem7_conv_bn_relu_s2"] = phase_v1_slice(dev)["stem7_conv_bn_relu_s2"]
     torch.cuda.empty_cache()
     launches["dropout_u8"] = phase_train(dev)["dropout_u8"]
+    torch.cuda.empty_cache()
+    launches["dropout_u8"] += phase_trainer(dev)
     torch.cuda.empty_cache()
     results["stem_conv3x3_s2"] = phase_train_stem(dev)
     launches["stem_conv3x3_s2"] = results["stem_conv3x3_s2"]["launches"]

@@ -205,6 +205,27 @@ def bisenetv2_state_dict_from_jax(params: Mapping,
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
 
 
+def detect_torch_layout(sd: Mapping) -> str:
+    """The layout of a torch state_dict — the port's copy of
+    mds_tpu/deploy/torch_import.py `detect_torch_layout` (:606): 'semseg',
+    'bisenetv2_contrast', 'hrnet_ref', 'hrnet_imagenet', 'bisenetv1',
+    'swin', 'resnet18' or 'bisenetv2'."""
+    if "backbone.conv1.weight" in sd and "unify_prototype" in sd:
+        return "semseg"
+    if "projHead.conv_last.weight" in sd:
+        return "bisenetv2_contrast"
+    if any(k.startswith(("transition1.", "stage2.0.branches")) for k in sd):
+        return "hrnet_ref" if "conv1.conv.weight" in sd else "hrnet_imagenet"
+    if "cp.resnet.conv1.weight" in sd:
+        return "bisenetv1"
+    if "patch_embed.proj.weight" in sd and any(k.startswith("layers.0.blocks.") for k in sd):
+        return "swin"
+    if "fc.weight" in sd or ("conv1.weight" in sd and "layer1.0.conv1.weight" in sd
+                             and "detail.S1_1.conv.weight" not in sd):
+        return "resnet18"
+    return "bisenetv2"
+
+
 def load_reference_weights(model: nn.Module, state: Mapping) -> nn.Module:
     """Load a reference-layout mapping (numpy arrays or tensors) strictly.
     Aux-head entries (BiSeNetV2's aux2-aux5_4, BiSeNetV1's conv_out16 and
@@ -214,3 +235,20 @@ def load_reference_weights(model: nn.Module, state: Mapping) -> nn.Module:
           if has_aux or not k.startswith(_AUX_HEADS)}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def train_state_from_jax(params: Mapping, batch_stats: Mapping, opt_state,
+                         step: int) -> Dict:
+    """A JAX BiSeNetV2 train state (numpy trees; `opt_state` the JAX
+    package's `SGDGroupsState`, with `count` and the momentum `trace`) →
+    the port's checkpoint state (engine/checkpoints.py `train_state`): the
+    model's state_dict, GroupSGD's momentum buffers by parameter name with
+    the step count, and the step. A run of the JAX package resumes in the
+    port from it."""
+    model = bisenetv2_state_dict_from_jax(params, batch_stats)
+    trace = bisenetv2_state_dict_from_jax(opt_state.trace, batch_stats)
+    momentum = {k: {"momentum_buffer": v} for k, v in trace.items()
+                if not k.endswith(("running_mean", "running_var"))}
+    return {"model": model,
+            "optimizer": {"count": int(np.asarray(opt_state.count)), "state": momentum},
+            "step": int(np.asarray(step))}

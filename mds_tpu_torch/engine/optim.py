@@ -1,5 +1,8 @@
-"""SGD over the reference's 4 param groups — counterpart of
-mds_tpu/engine/optim.py (`sgd_param_groups` :63-109, `build_optimizer` :122).
+"""The optimizers — counterparts of mds_tpu/engine/optim.py
+(`sgd_param_groups` :63-109, `adamw` :112, `build_optimizer` :121) — and
+their state by parameter name, as checkpoints hold it.
+
+SGD runs over the reference's 4 param groups.
 
 Groups (tools/train_amp.py:138-166 of the reference): weight decay on conv
 and linear weights (ndim ≥ 2), none on 1-d params (BN affine, biases); lr ×
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -84,17 +88,84 @@ def sgd_param_groups(model: nn.Module, schedule: Callable[[int], float],
                     momentum=momentum)
 
 
+class AdamW(torch.optim.Optimizer):
+    """optax.adamw (mds_tpu/engine/optim.py:112): per parameter, mu ← b1·mu
+    + (1 − b1)·g, nu ← b2·nu + (1 − b2)·g², t = count + 1, update = mu/(1 −
+    b1^t) / (sqrt(nu/(1 − b2^t)) + eps) + wd·p, p ← p − schedule(count) ·
+    update: eps outside the root, decay decoupled from the moments and on
+    every parameter, no per-group multiplier. The bias corrections are
+    rounded to f32 as optax computes them. A parameter without a gradient
+    takes a zero one, as JAX's gradient of an unused parameter is."""
+
+    def __init__(self, params, schedule: Callable[[int], float], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4):
+        super().__init__(params, {"lr": 0.0})
+        self.schedule = schedule
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamW takes no closure")
+        lr = self.schedule(self.count)
+        t = np.float32(self.count + 1)
+        bc1 = float(np.float32(1) - np.float32(self.b1) ** t)
+        bc2 = float(np.float32(1) - np.float32(self.b2) ** t)
+        for group in self.param_groups:
+            group["lr"] = lr
+            for p in group["params"]:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                state = self.state[p]
+                if "mu" not in state:
+                    state["mu"] = torch.zeros_like(p)
+                    state["nu"] = torch.zeros_like(p)
+                mu, nu = state["mu"], state["nu"]
+                mu.copy_(g * (1 - self.b1) + mu * self.b1)
+                nu.copy_(g * g * (1 - self.b2) + nu * self.b2)
+                upd = (mu / bc1) / ((nu / bc2).sqrt() + self.eps)
+                p.sub_((upd + p * self.weight_decay) * lr)
+        self.count += 1
+
+
+def optimizer_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> Dict:
+    """The optimizer's step count and per-parameter state (momentum
+    buffers, or AdamW's moments) keyed by parameter name, on the CPU."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {"count": int(optimizer.count),
+            "state": {names[id(p)]: {k: v.detach().cpu().clone() for k, v in s.items()}
+                      for p, s in optimizer.state.items()}}
+
+
+def load_optimizer_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                         state: Dict) -> None:
+    """The inverse of `optimizer_state`; raises on a name the model lacks."""
+    params = dict(model.named_parameters())
+    unknown = set(state["state"]) - set(params)
+    if unknown:
+        raise KeyError(f"optimizer state for unknown parameters {sorted(unknown)[:5]}")
+    optimizer.state.clear()
+    for name, s in state["state"].items():
+        p = params[name]
+        optimizer.state[p] = {k: v.to(device=p.device, dtype=p.dtype) for k, v in s.items()}
+    optimizer.count = int(state["count"])
+
+
 def build_optimizer(configer, model: nn.Module,
-                    schedule: Callable[[int], float]) -> GroupSGD:
-    """From the config's `lr` section; SGD only (AdamW comes with the GNN
-    trainer)."""
+                    schedule: Callable[[int], float]) -> torch.optim.Optimizer:
+    """From the config's `lr` section: `optim` sgd (the 4 groups) or
+    adamw."""
     name = (configer.get("lr", "optim", default="sgd") or "sgd").lower()
+    wd = float(configer.get("lr", "weight_decay", default=5e-4))
+    if name == "adamw":
+        return AdamW([p for p in model.parameters() if p.requires_grad], schedule,
+                     weight_decay=wd)
     if name != "sgd":
-        raise ValueError(f"optimizer {name!r} is not in the port yet")
+        raise ValueError(f"unknown optimizer {name}")
     if configer.get("lr", "nesterov", default=False):
         raise ValueError("Nesterov momentum is not in the port")
     return sgd_param_groups(
         model, schedule,
         momentum=float(configer.get("lr", "momentum", default=0.9)),
-        weight_decay=float(configer.get("lr", "weight_decay", default=5e-4)),
+        weight_decay=wd,
         lr_mul=float(configer.get("lr", "lr_mul", default=10.0)))

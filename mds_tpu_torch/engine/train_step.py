@@ -8,6 +8,12 @@ over heads and datasets (tools/train_amp.py:253-263 of the reference) →
 backward → the optimizer's step at lr = schedule(count). Nothing in it waits
 for the device: the metrics come back as tensors. The dropout seed words of
 each step come from the CPU `torch.Generator` the caller passes in.
+
+With `fused_up_loss` the model runs with up=False, every head stays at its
+own resolution, and each head's OHEM CE is taken through the phase
+decomposition of its bilinear upsample (`OhemCELoss.upsampled`,
+mds_tpu/engine/train_step.py:51-93): the same loss, without the full-size
+class volumes in the compute dtype.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ def normalize_images(ims: Images, means: Sequence, stds: Sequence,
 
 def make_seg_loss_fn(model: nn.Module, means: Sequence, stds: Sequence,
                      ohem_thresh: float = 0.7,
-                     compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
+                     compute_dtype: torch.dtype = torch.bfloat16,
+                     fused_up_loss: bool = False) -> Callable:
     """loss_fn(ims, lbs, generator) -> (loss, metrics): the model's forward
     in its current mode and, per present dataset, OHEM CE of the main
     logits plus that of each aux head's."""
@@ -51,15 +58,17 @@ def make_seg_loss_fn(model: nn.Module, means: Sequence, stds: Sequence,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         xs = normalize_images(ims, means, stds, compute_dtype)
-        out = model(xs, generator=generator)
+        out = model(xs, up=not fused_up_loss, generator=generator)
+        main_f, aux_fs = out.get("up_factors", (1, [1] * len(out.get("aux", []))))
         total = 0.0
         metrics: Dict[str, torch.Tensor] = {}
         for i, (logits, lb) in enumerate(zip(out["logits"], lbs)):
             if logits is None:
                 continue
             lb = lb.long()
-            l_main = criterion(logits, lb)
-            l_aux = sum(criterion(aux[i], lb) for aux in out.get("aux", [])
+            l_main = criterion.upsampled(logits, lb, main_f)
+            l_aux = sum(criterion.upsampled(aux[i], lb, f)
+                        for f, aux in zip(aux_fs, out.get("aux", []))
                         if aux[i] is not None)
             total = total + l_main + l_aux
             metrics[f"loss_pre_{i}"] = l_main.detach()
@@ -72,10 +81,12 @@ def make_seg_loss_fn(model: nn.Module, means: Sequence, stds: Sequence,
 def make_seg_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                         means: Sequence, stds: Sequence,
                         ohem_thresh: float = 0.7,
-                        compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
+                        compute_dtype: torch.dtype = torch.bfloat16,
+                        fused_up_loss: bool = False) -> Callable:
     """step(ims, lbs, generator) -> metrics. `optimizer` takes its learning
-    rate from its own schedule and step count (engine/optim.py GroupSGD)."""
-    loss_fn = make_seg_loss_fn(model, means, stds, ohem_thresh, compute_dtype)
+    rate from its own schedule and step count (engine/optim.py)."""
+    loss_fn = make_seg_loss_fn(model, means, stds, ohem_thresh, compute_dtype,
+                               fused_up_loss)
 
     def step(ims: Images, lbs: Images,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,6 @@
-"""OHEM cross-entropy losses — counterparts of mds_tpu/losses/ohem_ce.py.
+"""OHEM cross-entropy losses — counterparts of mds_tpu/losses/ohem_ce.py
+(`cross_entropy_per_pixel` :33, `_phase_taps` :46, `cross_entropy_upsampled`
+:60, `OhemCELoss` :125 with `upsampled` :140, `MdsOhemCELoss` :152).
 
 Logits are NCHW (class axis 1, as the port's models return them); labels are
 (B, H, W) integer maps with ignore=255. Per-pixel CE is f32 whatever the
@@ -14,9 +16,10 @@ mean over the kept pixels carries the gradient.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -30,6 +33,68 @@ def cross_entropy_per_pixel(logits: torch.Tensor, labels: torch.Tensor,
     logz = torch.logsumexp(logits, dim=1)
     true_logit = logits.gather(1, safe.unsqueeze(1)).squeeze(1)
     return torch.where(valid, logz - true_logit, 0.0), valid
+
+
+def _phase_taps(f: int) -> List[Tuple[int, float]]:
+    """Bilinear ×f (half-pixel) per output phase p: out[f·q + p] =
+    (1 − frac)·src[q − 1 + a] + frac·src[q + a]; returns [(a, frac)]."""
+    taps = []
+    for p in range(f):
+        off = (p + 0.5) / f - 0.5
+        taps.append((0, 1.0 + off) if off < 0 else (1, off))
+    return taps
+
+
+def cross_entropy_upsampled(logits: torch.Tensor, labels: torch.Tensor,
+                            factor: int, ignore: int = 255
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel CE of the ×factor bilinear upsample (half-pixel, edges
+    replicated) of `logits` (B, C, hs, ws) against `labels` (B, hs·f,
+    ws·f), in the f² sub-pixel phases of the upsample: (ce, valid), each
+    (f², B, hs, ws) in JAX's phase-major order. As a multiset of pixels it
+    is the CE of the upsampled logits.
+
+    Phases that take the same two taps differ only in their blend weight,
+    so they run as one broadcast axis: at most 2 × 2 groups of row and
+    column phases. Each group's blend (npr, npc, B, C, hs, ws) is an f32
+    tensor that eager PyTorch materializes and keeps for the backward:
+    together the groups hold as many elements as the upsampled volume."""
+    b, c, hs, ws = logits.shape
+    f = int(factor)
+    if labels.shape[-2:] != (hs * f, ws * f):
+        raise ValueError(f"labels {tuple(labels.shape)} are not logits "
+                         f"{tuple(logits.shape)} × {f}")
+    taps = _phase_taps(f)
+    fracs = [fr for _, fr in taps]
+    n_lo = sum(1 for a, _ in taps if a == 0)  # phases with taps (q − 1, q)
+    xp = F.pad(logits.float(), (1, 1, 1, 1), mode="replicate")
+    lab5 = labels.reshape(b, hs, f, ws, f)
+    groups = [(0, 0, n_lo), (1, n_lo, f)]
+    ces, vals = [], []
+    for ra, r_lo, r_hi in groups:
+        if r_lo == r_hi:
+            continue
+        npr = r_hi - r_lo
+        frs = torch.tensor(fracs[r_lo:r_hi], dtype=torch.float32,
+                           device=logits.device).reshape(npr, 1, 1, 1, 1)
+        r0 = xp[:, :, ra:ra + hs][None]
+        r1 = xp[:, :, ra + 1:ra + 1 + hs][None]
+        t = (1.0 - frs) * r0 + frs * r1  # (npr, B, C, hs, ws + 2)
+        for ca, c_lo, c_hi in groups:
+            if c_lo == c_hi:
+                continue
+            npc = c_hi - c_lo
+            fcs = torch.tensor(fracs[c_lo:c_hi], dtype=torch.float32,
+                               device=logits.device).reshape(1, npc, 1, 1, 1, 1)
+            c0 = t[..., ca:ca + ws][:, None]
+            c1 = t[..., ca + 1:ca + 1 + ws][:, None]
+            z = (1.0 - fcs) * c0 + fcs * c1  # (npr, npc, B, C, hs, ws)
+            lb_blk = lab5[:, :, r_lo:r_hi, :, c_lo:c_hi].permute(2, 4, 0, 1, 3)
+            ce, valid = cross_entropy_per_pixel(
+                z.flatten(0, 2), lb_blk.flatten(0, 2), ignore)
+            ces.append(ce.reshape(npr * npc, b, hs, ws))
+            vals.append(valid.reshape(npr * npc, b, hs, ws))
+    return torch.cat(ces), torch.cat(vals)
 
 
 def ohem_mean(losses: torch.Tensor, valid: torch.Tensor, thresh: float,
@@ -61,6 +126,15 @@ class OhemCELoss(nn.Module):
 
     def forward(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         ce, valid = cross_entropy_per_pixel(logits, labels, self.ignore_lb)
+        return ohem_mean(ce, valid, self.thresh, self.n_min_ratio)
+
+    def upsampled(self, logits: torch.Tensor, labels: torch.Tensor,
+                  factor: int) -> torch.Tensor:
+        """OHEM CE of the ×factor bilinear upsample of `logits`, through
+        `cross_entropy_upsampled`: the upsampled volume is never formed."""
+        if factor == 1:
+            return self(logits, labels)
+        ce, valid = cross_entropy_upsampled(logits, labels, factor, self.ignore_lb)
         return ohem_mean(ce, valid, self.thresh, self.n_min_ratio)
 
 

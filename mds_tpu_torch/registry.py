@@ -1,4 +1,5 @@
-"""Model registry of the port (counterpart of mds_tpu/registry.py)."""
+"""Registries of the port: models and dataset readers (counterpart of
+mds_tpu/registry.py)."""
 
 from typing import Any, Callable, Dict
 
@@ -25,3 +26,4 @@ class Registry:
 
 
 MODELS = Registry("models")
+DATASETS = Registry("datasets")

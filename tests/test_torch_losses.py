@@ -11,7 +11,15 @@ on the CPU, each alone (no model, so no rounding chaos):
   f32 rounding (8.6e-6 at k = 666) and a poly tail near 0 its cancellation;
 - GroupSGD against `sgd_param_groups` with the same gradients over three
   warmup-poly steps, including an unused (all-zero) gradient and a None
-  one: parameters rel ≤ 1e-6.
+  one: parameters rel ≤ 1e-6;
+- `cross_entropy_upsampled` against JAX's at f = 1-8, odd head sizes and
+  ignored pixels: the phase-major CE as a sorted multiset of the valid
+  pixels, f32 rel ≤ 1e-5 (measured ≤ 1e-7: the same blends in the same
+  order), and the full-size bilinear upsample's CE likewise;
+  `OhemCELoss.upsampled` and its gradient wrt the logits against
+  `jax.grad` of JAX's, rel ≤ 1e-4, equal to `OhemCELoss` at f = 1;
+- AdamW against `optax.adamw` (JAX's `build_optimizer` for `optim` adamw)
+  over three warmup-poly steps: parameters rel ≤ 1e-6.
 """
 
 import jax
@@ -28,8 +36,8 @@ from mds_tpu.losses.ohem_ce import MdsOhemCELoss as JMds
 from mds_tpu.losses.ohem_ce import OhemCELoss as JOhem
 from mds_tpu_torch import MODELS
 from mds_tpu_torch.engine import lr_schedule as tsched
-from mds_tpu_torch.engine.optim import param_groups, sgd_param_groups
-from mds_tpu_torch.losses.ohem_ce import MdsOhemCELoss, OhemCELoss
+from mds_tpu_torch.engine.optim import AdamW, param_groups, sgd_param_groups
+from mds_tpu_torch.losses.ohem_ce import MdsOhemCELoss, OhemCELoss, cross_entropy_upsampled
 from torch_parity import as_port, make_variables, rel_err
 
 
@@ -154,12 +162,13 @@ def test_group_sgd_matches_jax():
 
 
 @pytest.mark.parametrize("lr, error", [
-    ({"optim": "adamw"}, "adamw"),
+    ({"optim": "rmsprop"}, "rmsprop"),
     ({"nesterov": True}, "Nesterov"),
 ])
 def test_build_optimizer_refuses_what_the_port_lacks(lr, error):
-    """The config's SGD settings reach the groups; AdamW and Nesterov
-    momentum are not in the port and raise instead of training otherwise."""
+    """The config's SGD settings reach the groups; an unknown optimizer and
+    Nesterov momentum are not in the port and raise instead of training
+    otherwise."""
     from mds_tpu_torch.config import Configer
     from mds_tpu_torch.engine.optim import build_optimizer
 
@@ -172,3 +181,84 @@ def test_build_optimizer_refuses_what_the_port_lacks(lr, error):
         "head_nowd": (0.0, 5.0)}
     with pytest.raises(ValueError, match=error):
         build_optimizer(Configer(configs={"lr": {**base, **lr}}), tm, lambda _: 1e-2)
+
+
+@pytest.mark.parametrize("f", range(1, 9))
+def test_cross_entropy_upsampled_matches_jax(f):
+    from mds_tpu.losses.ohem_ce import cross_entropy_per_pixel as j_ce
+    from mds_tpu.losses.ohem_ce import cross_entropy_upsampled as j_ce_up
+
+    rng = np.random.default_rng(f)
+    b, hs, ws, c = 2, 3 + f % 2, 5, 7
+    lg = rng.normal(0, 2, (b, hs, ws, c)).astype(np.float32)
+    lb = rng.integers(0, c, (b, hs * f, ws * f)).astype(np.uint8)
+    lb[rng.random(lb.shape) < 0.1] = 255
+    ce, valid = cross_entropy_upsampled(_port(lg).detach(), torch.from_numpy(lb), f)
+    assert ce.shape == valid.shape == (f * f, b, hs, ws)
+    jce, jvalid = j_ce_up(jnp.asarray(lg), jnp.asarray(lb).astype(jnp.int32), f)
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
+    got = np.sort(ce[valid].numpy())
+    assert rel_err(got, np.sort(np.asarray(jce)[np.asarray(jvalid)])) <= 1e-5
+    # the multiset of the full-size volume's CE
+    up = jax.image.resize(jnp.asarray(lg), (b, hs * f, ws * f, c), "linear")
+    fce, fvalid = j_ce(up, jnp.asarray(lb).astype(jnp.int32))
+    assert rel_err(got, np.sort(np.asarray(fce)[np.asarray(fvalid)])) <= 1e-5
+    with pytest.raises(ValueError, match="labels"):
+        cross_entropy_upsampled(_port(lg).detach(), torch.from_numpy(lb[:, 1:]), f)
+
+
+@pytest.mark.parametrize("f, easy", [(1, False), (2, True), (4, False), (8, False), (8, True)])
+def test_ohem_upsampled_and_its_gradient_match_jax(f, easy):
+    lg, lb = _case(10 + f, (2, 6, 5), 19, easy)  # `easy`: logits right, confident
+    lb = np.repeat(np.repeat(lb, f, 1), f, 2)
+    lb[np.random.default_rng(f).random(lb.shape) < 0.05] = 255
+    fn = lambda x: JOhem(0.7, exact=True).upsampled(  # noqa: E731
+        x, jnp.asarray(lb).astype(jnp.int32), f)
+    want, gwant = jax.value_and_grad(fn)(jnp.asarray(lg))
+    x = _port(lg)
+    got = OhemCELoss(0.7).upsampled(x, torch.from_numpy(lb), f)
+    got.backward()
+    assert rel_err(got.detach().numpy(), want) <= 1e-4, (float(got), float(want))
+    assert rel_err(x.grad.permute(0, 2, 3, 1).numpy(), gwant) <= 1e-4
+    if f == 1:
+        assert torch.equal(got, OhemCELoss(0.7)(x, torch.from_numpy(lb)))
+
+
+def test_adamw_matches_optax():
+    from mds_tpu.config import Configer as JConfiger
+    from mds_tpu.engine.optim import build_optimizer as j_build
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.optim import build_optimizer
+
+    rng = np.random.default_rng(0)
+    shapes = {"conv": (8, 4, 3, 3), "bias": (8,), "fc": (5, 8)}
+    p0 = {k: rng.normal(0, 1, s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: rng.normal(0, 1e-2 * (i + 1), s).astype(np.float32)
+              for k, s in shapes.items()} for i in range(3)]
+    grads[1]["bias"][:] = 0.0  # a zero gradient still decays and moves
+    warm = dict(power=0.9, max_iter=10, warmup_iter=2, warmup_ratio=0.1)
+    cfg = {"lr": {"optim": "adamw", "weight_decay": 1e-2}}
+    tx = j_build(JConfiger(configs=cfg), jsched.warmup_poly_lr(1e-3, **warm))
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    opt_state = tx.init(jp)
+
+    class Params(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            for k, v in p0.items():
+                self.register_parameter(k, torch.nn.Parameter(torch.from_numpy(v.copy())))
+
+    tm = Params()
+    opt = build_optimizer(Configer(configs=cfg), tm, tsched.warmup_poly_lr(1e-3, **warm))
+    assert isinstance(opt, AdamW) and opt.weight_decay == 1e-2
+    for g in grads:
+        upd, opt_state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, opt_state, jp)
+        jp = optax.apply_updates(jp, upd)
+        for k, p in tm.named_parameters():
+            p.grad = torch.from_numpy(g[k])
+        opt.step()
+        for k, p in tm.named_parameters():
+            assert rel_err(p.detach().numpy(), jp[k]) <= 1e-6, k
+            # the update itself, not only the parameter it lands on
+            assert rel_err(p.detach().numpy() - p0[k], np.asarray(jp[k]) - p0[k]) <= 1e-5, k
+    assert opt.count == 3

@@ -214,10 +214,12 @@ def test_every_module_and_converter_import_no_mds_tpu(tmp_path):
         "import mds_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(mds_tpu_torch.__path__, 'mds_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 30, mods\n"
         "assert 'mds_tpu_torch.ops.conv3x3' in mods, mods\n"
+        "assert {'mds_tpu_torch.engine.trainer', 'mds_tpu_torch.data.loader',\n"
+        "        'mds_tpu_torch.utils.metrics_writer'} <= set(mods), mods\n"
         "sys.path.insert(0, 'tools')\n"
-        "import serve_torch\n"
+        "import serve_torch, train_torch\n"
         "serve_torch.build_e2e('configs/bisenetv2_city.json', device='cpu')\n"
         "from mds_tpu_torch import MODELS\n"
         "from mds_tpu_torch.deploy.weights import bisenetv2_state_dict_from_jax\n"
@@ -269,7 +271,8 @@ def test_static_scan_finds_no_mds_tpu():
               os.path.join(ROOT, "tools", "cuda_shim", "rehearse.py")]
     files += sorted(glob.glob(os.path.join(ROOT, "tools", "*_torch.py")))
     assert os.path.join(ROOT, "tools", "serve_torch.py") in files
-    assert len(files) >= 21
+    assert os.path.join(ROOT, "tools", "train_torch.py") in files
+    assert len(files) >= 35
     # the kernels' loaders: every module that launches a csrc/*.cu kernel
     loaders = {os.path.join("mds_tpu_torch", "ops", f"{m}.py") for m in (
         "build", "conv3x3", "depthwise", "dropout", "stem", "upsample_argmax")}

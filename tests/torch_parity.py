@@ -27,6 +27,7 @@ from mds_tpu_torch.deploy.weights import (
     bisenetv2_state_dict_from_jax,
     load_reference_weights,
 )
+from mds_tpu_torch.engine.checkpoints import load_train_state
 from mds_tpu_torch.engine.optim import sgd_param_groups
 from mds_tpu_torch.engine.train_step import make_seg_loss_fn
 
@@ -229,12 +230,13 @@ def make_variables(n_classes, n_bn, seed):
     return v["params"], v["batch_stats"]
 
 
-def jax_steps(model, jdtype, ims, lbs, params, stats, schedules):
-    """Per schedule, the JAX step records [{loss, grads, stats, params}]
-    (one record per schedule entry's step), sharing one compile."""
+def jax_steps(model, jdtype, ims, lbs, params, stats, schedules, fused_up_loss=False):
+    """Per schedule, the JAX step records [{loss, grads, stats, params,
+    opt}] (one record per schedule entry's step; `opt` the optimizer state
+    after it), sharing one compile."""
     n = len(ims)
     loss_fn = j_make_seg_loss_fn(model, [CITY_MEAN] * n, [CITY_STD] * n,
-                                 compute_dtype=jdtype)
+                                 compute_dtype=jdtype, fused_up_loss=fused_up_loss)
     vg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
     ims = [None if x is None else jnp.asarray(x) for x in ims]
     lbs = [None if x is None else jnp.asarray(x) for x in lbs]
@@ -248,7 +250,7 @@ def jax_steps(model, jdtype, ims, lbs, params, stats, schedules):
             updates, opt = upd(grads, opt, p)
             p = optax.apply_updates(p, updates)
             rec.append({"loss": float(loss), "grads": np_tree(grads),
-                        "stats": np_tree(s), "params": np_tree(p)})
+                        "stats": np_tree(s), "params": np_tree(p), "opt": np_tree(opt)})
         out.append(rec)
     return out
 
@@ -268,15 +270,19 @@ def f64_islands():
 
 
 def port_steps(name, n_classes, n_bn, tdtype, ims, lbs, params, stats,
-               schedule, n_steps):
-    """The port's step records, from the same JAX variables; in f64 with
+               schedule, n_steps, fused_up_loss=False, start=None):
+    """The port's step records, from the same JAX variables, or from the
+    train state `start` (engine/checkpoints.py) where given; in f64 with
     tdtype=torch.float64 (the exact step an f32 one is held to)."""
     tm = MODELS[name](n_classes=n_classes, n_bn=n_bn, aux=True, dtype=tdtype)
-    load_reference_weights(tm, bisenetv2_state_dict_from_jax(params, stats))
     no_port_dropout(tm)
     opt = sgd_param_groups(tm, schedule, momentum=MOM, weight_decay=WD)
+    if start is None:
+        load_reference_weights(tm, bisenetv2_state_dict_from_jax(params, stats))
+    else:
+        load_train_state(tm, opt, start)
     loss_fn = make_seg_loss_fn(tm, [CITY_MEAN] * n_bn, [CITY_STD] * n_bn,
-                               compute_dtype=tdtype)
+                               compute_dtype=tdtype, fused_up_loss=fused_up_loss)
     t_ims = [None if x is None else torch.from_numpy(x) for x in ims]
     t_lbs = [None if x is None else torch.from_numpy(x) for x in lbs]
     rec = []
