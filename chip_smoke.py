@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Drive the PyTorch port's serving paths and train step once on one CUDA card.
+"""Drive the PyTorch port's serving paths, train step, trainer and evaluation
+once on one CUDA card.
 
   python3 chip_smoke.py
 
@@ -127,7 +128,37 @@ before the last line:
               their iterations' host ms) and by the run's wall, the ms
               waited on the loader and on the H2D copy a step, the ms of a
               checkpoint save, peak memory.
-9. train_stem — the same train step with set_stem_impl("kernel"): the two
+9. eval     — tools/evaluate_torch.py's main in this process on the card,
+              configs/bisenetv2_city.json with the Synthetic reader at
+              1024×2048 (19 classes), eval_ims_per_gpu 1: the served
+              model's weights (WEIGHT_SEED, random BN stats, its aux heads at
+              their seeded init) saved through engine/checkpoints.py and
+              restored by --ckpt. Modes ss and ssc on 4 frames, msf and mscf
+              on 3, each on the served route without the pred tail (stem
+              kernel, detail fusion and tail, depthwise kernel) and on the
+              plain path in turns: the share of pixels whose predictions
+              agree > 0.995 (each frame's printed), more than one class
+              predicted; on each mode's 4 largest calls (msf's 1792×3584
+              frames, mscf's 25 windows), the logits routed against plain
+              rel < 2e-2 (over the batch and its worst image) and every
+              kernel call of that forward against its plain version
+              rel < 1e-2; exactly 1
+              detail_s1s2_fused, stemblock_fused and detail_tail_fused and 16
+              depthwise3x3 launches a forward (1 forward a frame in ss and
+              ssc, 12 in msf, 12 batched calls in mscf: up to 25 windows of
+              512×1024 and their flips), no other kernel's, none on the
+              plain path; per-frame seconds (CUDA events a batch, median of
+              the warm frames), peak memory. BiSeNetV1
+              (configs/bisenetv1_city.json) in ss on 2 frames with
+              set_stem_impl("kernel") against plain: agreement > 0.995, 2
+              stem7_conv_bn_relu_s2 launches a forward. --precise-bn 2 on
+              the plain ss path: every BN stat finite and moved, the model
+              in eval mode, 10 dropout_u8 launches (5 heads a batch, forward
+              only); then precise BN at (2, 3, 128, 256) f32, TF32 and
+              dropout off, the card's stats against the CPU's (max-diff over
+              the larger of the tensor's and its starting stats' largest
+              magnitude < 1e-4).
+10. train_stem — the same train step with set_stem_impl("kernel"): the two
               RGB stems' convs (DetailBranch S1_1, StemBlock conv) run
               stem_conv3x3_s2 (kernel 1 forward, the library conv's
               gradients backward). From one set of weights and one batch, a
@@ -140,7 +171,7 @@ before the last line:
               cold and by the profiler's device time, beside its plain
               version, f32 F.conv2d (TF32 off: the same function) and bf16
               F.conv2d.
-10. parity  — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
+11. parity  — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
               on the card (dropout kernel) and on the CPU (its plain
               version), same weights and generator seed: loss rel < 1e-4,
               per-group gradient cosine > 0.9999, parameters after the step
@@ -630,9 +661,9 @@ class _Spy:
     def launches(self, n):
         self.real.launches = n
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
         self.seen.append(tuple(self.keep(a) for a in args))
-        return self.real(*args)
+        return self.real(*args, **kw)
 
 
 @contextlib.contextmanager
@@ -1353,6 +1384,327 @@ def phase_trainer(dev):
     return launches["dropout_u8"] + resume_launches["dropout_u8"]
 
 
+EVAL_OVERRIDES = [
+    "dataset1.data_reader", "Synthetic", "dataset1.eval_ims_per_gpu", "1"]
+# the served route without the pred tail, as the evaluator's forward runs it
+EVAL_ROUTES = {"stem_impl": "kernel", "fuse": True, "tail": True, "depthwise": "kernel"}
+EVAL_PER_FORWARD = {"detail_s1s2_fused": 1, "stemblock_fused": 1, "detail_tail_fused": 1,
+                    "depthwise3x3": 16}
+# mode → (frames, forwards a frame): msf 6 scales and their flips; mscf
+# every window of a scale in one call, and its flip, at 6 scales. The first
+# frame of a run is cold (new shapes, packs); seconds a frame are the
+# median of the others.
+EVAL_MODES = {"ss": (4, 1), "ssc": (4, 1), "msf": (3, 12), "mscf": (3, 12)}
+
+
+def synthetic_frames(n):
+    return ["dataset1.reader_kwargs",
+            f"{{'n_cats': 19, 'size': [{H}, {W}], 'length': {n}}}"]
+
+
+@contextlib.contextmanager
+def returned(module, name):
+    """The return value of every call of module.<name> in the block."""
+    real, out = getattr(module, name), []
+
+    def call(*args, **kw):
+        out.append(real(*args, **kw))
+        return out[-1]
+
+    setattr(module, name, call)
+    try:
+        yield out
+    finally:
+        setattr(module, name, real)
+
+
+def save_served_weights(config, served, seed, work):
+    """The served model's weights in the config's full model (its aux heads
+    at their seeded init), saved as step 0 through engine/checkpoints.py
+    under work/ckpt, where tools/evaluate_torch.py restores them."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.checkpoints import CheckpointManager, train_state
+    from mds_tpu_torch.engine.optim import build_optimizer
+    from mds_tpu_torch.engine.trainer import build_model
+
+    cfg = Configer(config_file=config)
+    full = build_model(cfg)
+    full.init_weights(torch.Generator().manual_seed(seed))
+    missing, unexpected = full.load_state_dict(served.state_dict(), strict=False)
+    if unexpected or not missing or not all(k.startswith(("aux", "conv_out16", "conv_out32"))
+                                            for k in missing):
+        raise RuntimeError(f"served weights: missing {missing}, unexpected {unexpected}")
+    ckpt = os.path.join(work, "ckpt")
+    CheckpointManager(ckpt).maybe_save(
+        train_state(full, build_optimizer(cfg, full, lambda _: 0.0), 0), force=True)
+    return ckpt
+
+
+def _to_cpu(a):
+    return a.cpu() if torch.is_tensor(a) else a
+
+
+@contextlib.contextmanager
+def largest_calls(evaluator, keep=4):
+    """The first `keep` calls, made in the block, of the evaluator's logits
+    functions whose input is the largest: (logits_fn, image, dataset). ss's
+    four frames; msf's 1792×3584 frame and its flip, of two frames; mscf's
+    25 windows of 512×1024 and their flip, of two frames. The inputs are
+    held, not copied: they add to the run's peak memory."""
+    real, out = evaluator.make_logits_fn, []
+
+    def make(*args, **kw):
+        fn = real(*args, **kw)
+
+        def logits_fn(im, dataset):
+            if out and im.numel() > out[0][1].numel():
+                out.clear()
+            if len(out) < keep and (not out or im.numel() == out[0][1].numel()):
+                out.append((fn, im, dataset))
+            return fn(im, dataset)
+
+        return logits_fn
+
+    evaluator.make_logits_fn = make
+    try:
+        yield out
+    finally:
+        evaluator.make_logits_fn = real
+
+
+# the positional arguments of each kernel of the evaluated forward that its
+# plain version takes (the wrapper's last, the model's pack, left out)
+EVAL_KERNEL_ARGS = {"detail_s1s2_fused": 10, "stemblock_fused": 13, "detail_tail_fused": 16,
+                    "depthwise3x3": 3, "stem7_conv_bn_relu_s2": 4}
+
+
+def largest_call_rels(calls, routes, names):
+    """Each captured call's logits on the route against the plain path, on
+    the same model and input: rel max-diff over the batch, and the worst of
+    its images' own; every logits tensor checked for shape and finiteness.
+    Then each call the routed forward made of the kernels `names`, again
+    against its plain version on the same arguments (KERNEL_GATE). Returns
+    the records and the failures."""
+    from mds_tpu_torch.ops import depthwise, stem
+
+    out, bad = [], []
+    for fn, im, dataset in calls:
+        with torch.inference_mode():
+            ref = fn(im, dataset)
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(route(**routes))
+                seen = {n: stack.enter_context(captured(
+                    depthwise if n == "depthwise3x3" else stem, n)) for n in names}
+                got = fn(im, dataset)
+        if (got.shape != ref.shape or got.shape[0] != im.shape[0]
+                or got.shape[2:] != im.shape[2:]
+                or not (torch.isfinite(got.float()).all()
+                        and torch.isfinite(ref.float()).all())):
+            raise RuntimeError(f"bad logits {got.shape} {ref.shape} of {im.shape}")
+        rec = {"input": list(im.shape), "rel": rel(got, ref),
+               "worst_image_rel": max(rel(g, r) for g, r in zip(got, ref)), "kernels": {}}
+        del got, ref
+        if max(rec["rel"], rec["worst_image_rel"]) >= LOGITS_GATE:
+            bad.append(f"logits of {rec['input']}: rel {rec['rel']}, "
+                       f"worst image {rec['worst_image_rel']}")
+        for n, args_seen in seen.items():
+            mod = depthwise if n == "depthwise3x3" else stem
+            kernel, plain = getattr(mod, n), getattr(mod, n + "_plain")
+            if not args_seen:
+                bad.append(f"{n}: not called by the routed forward of {rec['input']}")
+            rels = []
+            for args in args_seen:
+                args = args[:EVAL_KERNEL_ARGS[n]]
+                try:
+                    with torch.inference_mode():
+                        rels.append(check_kernel_output(n, kernel, plain, args)[2])
+                except RuntimeError as e:
+                    bad.append(f"{n} at {list(args[0].shape)}: {e}")
+            rec["kernels"][n] = {"calls": len(args_seen), "max_rel": max(rels, default=None)}
+        del seen
+        out.append(rec)
+    return out, bad
+
+
+def eval_run(config, ckpt, mode, n_frames, routes, extra=()):
+    """tools/evaluate_torch.py's main in this process on the card under the
+    route switches: its mIoU, each batch's predictions (read at the
+    evaluator's confusion_hist), the kernel launches, each batch's ms
+    (CUDA events, the evaluator's timings), peak memory, wall seconds and
+    the calls with the largest input (`largest_calls`)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import evaluate_torch
+
+    from mds_tpu_torch.evaluation import drivers, evaluator
+
+    args = (["--config", config, "--ckpt", ckpt, "--mode", mode,
+             "--work-dir", os.path.dirname(ckpt)] + list(extra)
+            + EVAL_OVERRIDES + synthetic_frames(n_frames))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with route(**routes), captured(evaluator, "confusion_hist", _to_cpu) as hists, \
+            returned(evaluator, "_make_evaluator") as evs, \
+            returned(drivers, "build_eval_bundle") as bundles, \
+            largest_calls(evaluator) as largest:
+        reset_counts()
+        t0 = time.perf_counter()
+        mious = evaluate_torch.main(args)
+        wall_s = time.perf_counter() - t0
+        launches = read_counts()
+    ms = [t["ms"] for t in evs[0].timings]
+    return {"mious": mious, "preds": [h[1] for h in hists],
+            "launches": launches, "batch_ms": ms,
+            "s_per_frame": float(np.median(ms[1:] or ms)) / 1e3,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(), "wall_s": wall_s,
+            "model": bundles[0], "largest_calls": largest}
+
+
+def eval_pair(config, ckpt, mode, n_frames, routes, per_forward, forwards):
+    """One mode on the routed and the plain path in turns (routed, plain):
+    the share of pixels on which they agree (each frame's beside), exact
+    launch counts on both, times; then, on the routed run's largest calls,
+    the logits on the route against the plain path (LOGITS_GATE, over the
+    batch and on its worst image) and each kernel call of that forward
+    against its plain version (KERNEL_GATE): a kernel wrong at one scale or
+    on the later windows of a batch moves these where the argmax, summed
+    over 12 softmaxes, may not move."""
+    routed = eval_run(config, ckpt, mode, n_frames, routes)
+    plain = eval_run(config, ckpt, mode, n_frames, {})
+    if len(routed["preds"]) != n_frames or len(plain["preds"]) != n_frames:
+        raise RuntimeError(f"eval {mode}: {len(routed['preds'])} and "
+                           f"{len(plain['preds'])} batches for {n_frames} frames")
+    agree = [share_equal(a, b) for a, b in zip(routed["preds"], plain["preds"])]
+    share = float(np.mean(agree))  # every frame has the same pixel count
+    classes = [int(p.unique().numel()) for p in plain["preds"]]
+    all_classes = int(torch.cat([p.flatten() for p in plain["preds"]]).unique().numel())
+    want = {k: 0 for k in routed["launches"]}
+    want.update({k: n * forwards * n_frames for k, n in per_forward.items()})
+    rec = {"mode": mode, "frames": n_frames, "forwards_a_frame": forwards,
+           "pred_shape": list(plain["preds"][0].shape),
+           "argmax_agreement": share, "argmax_agreement_per_frame": agree,
+           "classes_per_frame": classes,
+           "classes": all_classes,
+           "miou": {"routed": routed["mious"], "plain": plain["mious"]},
+           "s_per_frame": {"routed": routed["s_per_frame"], "plain": plain["s_per_frame"]},
+           "batch_ms": {"routed": routed["batch_ms"], "plain": plain["batch_ms"]},
+           "max_memory_allocated": {"routed": routed["max_memory_allocated"],
+                                    "plain": plain["max_memory_allocated"]},
+           "wall_s": {"routed": routed["wall_s"], "plain": plain["wall_s"]},
+           "launches": routed["launches"]}
+    rec["largest_calls"], bad = largest_call_rels(routed["largest_calls"], routes,
+                                                  tuple(per_forward))
+    del routed["largest_calls"]
+    if routed["launches"] != want:
+        bad.append(f"routed launches {routed['launches']}, expected {want}")
+    if any(plain["launches"].values()):
+        bad.append(f"plain launches {plain['launches']}")
+    if share <= ARGMAX_GATE:
+        bad.append(f"agreement {share} ({agree})")
+    if all_classes < 2:  # a constant map would agree with anything
+        bad.append(f"degenerate predictions: {classes} classes")
+    return rec, bad, routed["launches"]
+
+
+def precise_bn_card_vs_cpu(dev):
+    """update_bn_stats at (2, 3, 128, 256) f32, dropout off, TF32 off: the
+    card's recomputed stats against the CPU's from the same weights and
+    batches (rel: max-diff over the larger of the tensor's largest
+    magnitude and that of the stats it started from; plain rel beside)."""
+    from mds_tpu_torch import MODELS
+    from mds_tpu_torch.engine.precise_bn import update_bn_stats
+    from mds_tpu_torch.models.layers import FastDropout
+
+    rng = np.random.default_rng(6)
+    batches = []
+    for _ in range(2):
+        im, _ = seg_batch(rng, 2, 128, 256, 19)
+        gain = rng.uniform(0.2, 1.0, (2, 1, 1, 1))  # spread the pooled features
+        im = (im * gain + rng.uniform(0, 255, (2, 1, 1, 1)) * (1 - gain)) / 255.0
+        batches.append(torch.from_numpy(((im - 0.5) / 0.25).astype(np.float32)))
+    out = {}
+    for d in ("cpu", dev):
+        model = MODELS["bisenetv2"](n_classes=(19,), n_bn=1, aux=True, dtype=torch.float32)
+        model.init_weights(torch.Generator().manual_seed(WEIGHT_SEED))
+        randomize_bn(model, WEIGHT_SEED + 1)
+        for m in model.modules():
+            if isinstance(m, FastDropout):
+                m.rate = 0.0
+        model.to(d)
+        before = {k: v.double().cpu() for k, v in model.state_dict().items() if "running" in k}
+        update_bn_stats(model, [b.to(d).permute(0, 3, 1, 2) for b in batches],
+                        lambda m, x: m([x]))
+        out[d] = {k: v.double().cpu() for k, v in model.state_dict().items() if "running" in k}
+    rels = {k: ((out[dev][k] - v).abs().max()
+                / max(v.abs().max(), before[k].abs().max())).item()
+            for k, v in out["cpu"].items()}
+    plain = {k: rel(out[dev][k], v) for k, v in out["cpu"].items()}
+    worst = max(rels, key=rels.get)
+    return {"tensors": len(rels), "max_rel": rels[worst], "worst": worst,
+            "max_plain_rel": max(plain.values())}
+
+
+def phase_eval(dev):
+    """tools/evaluate_torch.py's main on the card: BiSeNetV2 (the served
+    weights, restored from a checkpoint) in ss, ssc, msf and mscf, each on
+    the deploy routes without the pred tail and on the plain path in turns;
+    BiSeNetV1 in ss with its 7×7 stem kernel and plain; --precise-bn 2 on
+    the plain ss path; precise BN's stats on the card against the CPU's."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from serve_torch import build_e2e
+
+    from mds_tpu_torch.engine.checkpoints import CheckpointManager
+
+    t0 = time.perf_counter()
+    launches, modes, bad = {}, [], []
+    with tempfile.TemporaryDirectory() as work:
+        served, _ = v2_model(dev)
+        ckpt = save_served_weights(CONFIG, served.model, WEIGHT_SEED, work)
+        del served
+        for mode, (frames, forwards) in EVAL_MODES.items():
+            rec, fail, got = eval_pair(CONFIG, ckpt, mode, frames, EVAL_ROUTES,
+                                       EVAL_PER_FORWARD, forwards)
+            modes.append(rec)
+            bad += [f"{mode}: {f}" for f in fail]
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+        v1 = build_e2e(V1_CONFIG, seed=V1_WEIGHT_SEED, device=dev)
+        randomize_bn(v1.model, V1_WEIGHT_SEED + 1)
+        v1_ckpt = save_served_weights(V1_CONFIG, v1.model, V1_WEIGHT_SEED,
+                                      os.path.join(work, "v1"))
+        del v1
+        rec, fail, got = eval_pair(V1_CONFIG, v1_ckpt, "ss", 2, {"stem_impl": "kernel"},
+                                   {"stem7_conv_bn_relu_s2": 2}, 1)
+        rec["model"] = "bisenetv1"
+        modes.append(rec)
+        bad += [f"v1 ss: {f}" for f in fail]
+        for k, n in got.items():
+            launches[k] += n
+        run = eval_run(CONFIG, ckpt, "ss", 1, {}, ["--precise-bn", "2"])
+        saved = CheckpointManager(ckpt).restore()[0]["model"]
+        stats = {k: v for k, v in run["model"].state_dict().items() if "running" in k}
+        moved = sum(not torch.equal(v.cpu(), saved[k]) for k, v in stats.items())
+        pbn = {"miou": run["mious"], "launches": run["launches"], "wall_s": run["wall_s"],
+               "stats": len(stats), "stats_moved": moved,
+               "finite": all(bool(torch.isfinite(v).all()) for v in stats.values()),
+               "eval_mode": not run["model"].training}
+        del run
+    want_pbn = {k: 0 for k in pbn["launches"]}
+    want_pbn["dropout_u8"] = 10  # 2 batches × 5 heads, forward only
+    if pbn["launches"] != want_pbn:
+        bad.append(f"precise BN launches {pbn['launches']}")
+    if not (pbn["finite"] and pbn["eval_mode"] and pbn["stats_moved"] == pbn["stats"]):
+        bad.append(f"precise BN stats: {pbn}")
+    launches["dropout_u8"] += pbn["launches"]["dropout_u8"]
+    pbn["card_vs_cpu"] = precise_bn_card_vs_cpu(dev)
+    if not pbn["card_vs_cpu"]["max_rel"] < F32_GATE:
+        bad.append(f"precise BN card vs CPU: {pbn['card_vs_cpu']}")
+    emit(phase="eval", config=os.path.relpath(CONFIG, ROOT), modes=modes,
+         precise_bn=pbn, launches=launches, seconds=time.perf_counter() - t0)
+    if bad:
+        raise RuntimeError(f"eval: {bad}")
+    return launches
+
+
 def phase_train_stem(dev):
     """The train step with set_stem_impl("kernel") against the plain route
     from one set of weights and one batch; then stem_conv3x3_s2 at the inputs
@@ -1876,6 +2228,9 @@ def main():
     launches["dropout_u8"] = phase_train(dev)["dropout_u8"]
     torch.cuda.empty_cache()
     launches["dropout_u8"] += phase_trainer(dev)
+    torch.cuda.empty_cache()
+    for k, n in phase_eval(dev).items():
+        launches[k] = launches.get(k, 0) + n
     torch.cuda.empty_cache()
     results["stem_conv3x3_s2"] = phase_train_stem(dev)
     launches["stem_conv3x3_s2"] = results["stem_conv3x3_s2"]["launches"]

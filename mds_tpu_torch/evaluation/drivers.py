@@ -1,0 +1,102 @@
+"""The evaluation drivers the eval CLI runs — counterpart of
+mds_tpu/evaluation/drivers.py (`build_eval_bundle` :29,
+`recompute_bn_stats` :89, `run_evaluation` :131).
+
+The model comes from the trainer's `build_model` and its weights from the
+latest checkpoint the port's `Trainer` wrote (`<ckpt>/<step>.pt`), so any
+checkpoint the train CLI writes is evaluable; BiSeNetV1 checkpoints load
+too. The label-usage audit (`_unified_hist`, `find_unuse_label`,
+`eval_find_use_and_unuse_label`, `_slot_buckets`, `find_label_relation`,
+:169-297) reads the flagship's unified logits and bipartite graphs and
+comes with it (ROADMAP queue 1, item 6).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from mds_tpu_torch.evaluation.evaluator import eval_model
+
+_MODE_ITEMS = {
+    "alternate": "ROADMAP queue 1, item 6 (the flagship's alternating SEG/GNN trainer)",
+    "gnn": "ROADMAP queue 1, item 6 (the flagship's alternating SEG/GNN trainer)",
+    "clip": "ROADMAP queue 1, item 6 (the flagship's alternating SEG/GNN trainer)",
+    "contrast": "ROADMAP queue 1, item 7 (the contrast family)",
+}
+DSG_ITEM = ("eval mode 'dsg' scores the stage-2 train lists, which need the "
+            "loader's `stage` option: ROADMAP queue 1, item 6")
+
+
+def build_eval_bundle(configer, ckpt: Optional[str] = None, work_dir: str = "./res",
+                      device="cuda") -> nn.Module:
+    """The model for `eval_model`, in eval mode on `device`: the config's
+    model (bf16 compute) at its seeded init, then the latest checkpoint of `ckpt` (else of
+    `<work_dir>/ckpt`) when there is one. The checkpoints of `train.mode`
+    alternate, gnn, clip and contrast raise NotImplementedError."""
+    from mds_tpu_torch.engine.checkpoints import CheckpointManager, load_train_state
+    from mds_tpu_torch.engine.trainer import build_model
+
+    mode = configer.get("train", "mode", default=None)
+    if mode in _MODE_ITEMS:
+        raise NotImplementedError(
+            f"evaluating a train.mode {mode!r} checkpoint: {_MODE_ITEMS[mode]}")
+    model = build_model(configer)
+    seed = int(configer.get("seed", default=0) or 0)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    directory = os.path.abspath(ckpt) if ckpt else os.path.join(work_dir, "ckpt")
+    if os.path.isdir(directory):
+        manager = CheckpointManager(directory)
+        if manager.latest_step() is not None:
+            state, _ = manager.restore()
+            load_train_state(model, None, state)
+    return model.to(device).eval()
+
+
+def recompute_bn_stats(configer, model: nn.Module, n_batches: int,
+                       compute_dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+    """Precise BN over `n_batches` batches of the config's train loader,
+    normalized per dataset as the train step does, every batch with the
+    same dropout generator (seed 0, as JAX's PRNGKey(0)). `model` is
+    updated in place and left in eval mode."""
+    from mds_tpu_torch.data.loader import get_data_loader
+    from mds_tpu_torch.engine.precise_bn import update_bn_stats
+    from mds_tpu_torch.engine.train_step import normalize_images
+    from mds_tpu_torch.engine.trainer import dataset_stats
+
+    device = next(model.parameters()).device
+    means, stds = dataset_stats(configer)
+
+    def forward(model, batch):
+        ims = [torch.from_numpy(x).to(device) for x in batch["ims"]]
+        xs = normalize_images(ims, means, stds, compute_dtype)
+        model(xs, generator=torch.Generator().manual_seed(0))
+
+    def batches():
+        for _ in range(n_batches):
+            yield next(loader)
+
+    loader = get_data_loader(configer, "train")
+    try:
+        return update_bn_stats(model, batches(), forward)
+    finally:
+        loader.close()
+
+
+def run_evaluation(configer, mode: str = "ss", ckpt: Optional[str] = None,
+                   work_dir: str = "./res", precise_bn: int = 0,
+                   device="cuda") -> List[float]:
+    """Config → per-dataset mIoU for an eval mode (the eval CLI's body).
+    precise_bn > 0 first recomputes the BN running stats over that many
+    train batches."""
+    from mds_tpu_torch.data.loader import get_data_loader
+
+    if mode == "dsg":
+        raise NotImplementedError(DSG_ITEM)
+    model = build_eval_bundle(configer, ckpt=ckpt, work_dir=work_dir, device=device)
+    if precise_bn > 0:
+        recompute_bn_stats(configer, model, precise_bn, compute_dtype=model.dtype)
+    return eval_model(configer, model, get_data_loader(configer, "eval"), mode=mode)
