@@ -158,7 +158,38 @@ before the last line:
               dropout off, the card's stats against the CPU's (max-diff over
               the larger of the tensor's and its starting stats' largest
               magnitude < 1e-4).
-10. train_stem — the same train step with set_stem_impl("kernel"): the two
+10. flagship — configs/ltbgnn_3_datasets_snp.json (snp_rn18 + the BGNN,
+              3 datasets of 11, 19 and 36 classes, M = 52 unified classes)
+              at full width in bf16, each dataset on the Synthetic reader at
+              1024×2048, crops of 768×768, 4 a dataset, with
+              set_stem_impl("kernel"): train_from_config with gnn=True
+              (what tools/train_torch.py --gnn calls, here with
+              compute_dtype bf16) runs 2 GNN steps, the UOT switch, 2 SEG
+              steps, the re-entry and 2 GNN steps (checkpoints at 3 and
+              6): finite losses, exactly 9 kernel-6 launches a GNN step (3
+              datasets × 3 pyramid levels of the frozen seg net) and none a
+              SEG step, each UOT graph one row a column and every dataset
+              class a column, gnn_lr_scale max(0.1, 1 − 2/6); a fresh
+              trainer restores step 6 exactly (both nets, both AdamW
+              states, βs, graphs, the stage machine); one GNN step's frozen
+              features routed against plain (rel < 2e-2) and its 9 kernel-6
+              calls against their plain version (rel < 1e-2, bit-equal
+              share >= 0.999); the SEG step alone on one fixed batch, 5
+              timed steps after a warm one, and its peak memory.
+              tools/serve_torch.py's build_e2e on the checkpoint's seg
+              weights (its UOT graphs) answers 2 requests of 1024×2048
+              frames: 3 kernel-6 launches each, labels against the plain path
+              (> 0.995), logits rel < 2e-2 and each kernel-6 call against its
+              plain version; E2EModel ms and one profiled frame each way.
+              tools/evaluate_torch.py on the checkpoint in contrast and ss on
+              2 Synthetic frames a dataset, routed and plain, as the eval
+              phase holds them (3 kernel-6 launches a forward; the labels'
+              agreement printed, not gated: the random model's ties on the
+              frames' flat blocks). The GNN step's ms (median of the loop's
+              GNN steps after the first), the SEG step's (median of the 5
+              alone; the loop's one warm SEG step printed beside it), SEG
+              images/s, the UOT switch ms and peak memory.
+11. train_stem — the same train step with set_stem_impl("kernel"): the two
               RGB stems' convs (DetailBranch S1_1, StemBlock conv) run
               stem_conv3x3_s2 (kernel 1 forward, the library conv's
               gradients backward). From one set of weights and one batch, a
@@ -171,7 +202,7 @@ before the last line:
               cold and by the profiler's device time, beside its plain
               version, f32 F.conv2d (TF32 off: the same function) and bf16
               F.conv2d.
-11. parity  — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
+12. parity  — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
               on the card (dropout kernel) and on the CPU (its plain
               version), same weights and generator seed: loss rel < 1e-4,
               per-group gradient cosine > 0.9999, parameters after the step
@@ -1496,8 +1527,9 @@ def largest_call_rels(calls, routes, names):
                 seen = {n: stack.enter_context(captured(
                     depthwise if n == "depthwise3x3" else stem, n)) for n in names}
                 got = fn(im, dataset)
+        # logits at the input's size, or at its quarter (snp_rn18's heads)
         if (got.shape != ref.shape or got.shape[0] != im.shape[0]
-                or got.shape[2:] != im.shape[2:]
+                or got.shape[2:] not in (im.shape[2:], (im.shape[2] // 4, im.shape[3] // 4))
                 or not (torch.isfinite(got.float()).all()
                         and torch.isfinite(ref.float()).all())):
             raise RuntimeError(f"bad logits {got.shape} {ref.shape} of {im.shape}")
@@ -1526,20 +1558,22 @@ def largest_call_rels(calls, routes, names):
     return out, bad
 
 
-def eval_run(config, ckpt, mode, n_frames, routes, extra=()):
+def eval_run(config, ckpt, mode, n_frames, routes, extra=(), overrides=None):
     """tools/evaluate_torch.py's main in this process on the card under the
     route switches: its mIoU, each batch's predictions (read at the
     evaluator's confusion_hist), the kernel launches, each batch's ms
     (CUDA events, the evaluator's timings), peak memory, wall seconds and
-    the calls with the largest input (`largest_calls`)."""
+    the calls with the largest input (`largest_calls`). `overrides`: the
+    config overrides, by default dataset1's Synthetic frames."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import evaluate_torch
 
     from mds_tpu_torch.evaluation import drivers, evaluator
 
+    if overrides is None:
+        overrides = EVAL_OVERRIDES + synthetic_frames(n_frames)
     args = (["--config", config, "--ckpt", ckpt, "--mode", mode,
-             "--work-dir", os.path.dirname(ckpt)] + list(extra)
-            + EVAL_OVERRIDES + synthetic_frames(n_frames))
+             "--work-dir", os.path.dirname(ckpt)] + list(extra) + list(overrides))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with route(**routes), captured(evaluator, "confusion_hist", _to_cpu) as hists, \
@@ -1559,7 +1593,8 @@ def eval_run(config, ckpt, mode, n_frames, routes, extra=()):
             "model": bundles[0], "largest_calls": largest}
 
 
-def eval_pair(config, ckpt, mode, n_frames, routes, per_forward, forwards):
+def eval_pair(config, ckpt, mode, n_frames, routes, per_forward, forwards,
+              overrides=None, datasets=1, argmax_gate=ARGMAX_GATE):
     """One mode on the routed and the plain path in turns (routed, plain):
     the share of pixels on which they agree (each frame's beside), exact
     launch counts on both, times; then, on the routed run's largest calls,
@@ -1567,9 +1602,12 @@ def eval_pair(config, ckpt, mode, n_frames, routes, per_forward, forwards):
     batch and on its worst image) and each kernel call of that forward
     against its plain version (KERNEL_GATE): a kernel wrong at one scale or
     on the later windows of a batch moves these where the argmax, summed
-    over 12 softmaxes, may not move."""
-    routed = eval_run(config, ckpt, mode, n_frames, routes)
-    plain = eval_run(config, ckpt, mode, n_frames, {})
+    over 12 softmaxes, may not move. `datasets`: how many datasets the
+    `overrides` give n_frames each. `argmax_gate` None: the agreement is
+    printed, not gated."""
+    routed = eval_run(config, ckpt, mode, n_frames, routes, overrides=overrides)
+    plain = eval_run(config, ckpt, mode, n_frames, {}, overrides=overrides)
+    n_frames *= datasets
     if len(routed["preds"]) != n_frames or len(plain["preds"]) != n_frames:
         raise RuntimeError(f"eval {mode}: {len(routed['preds'])} and "
                            f"{len(plain['preds'])} batches for {n_frames} frames")
@@ -1598,7 +1636,7 @@ def eval_pair(config, ckpt, mode, n_frames, routes, per_forward, forwards):
         bad.append(f"routed launches {routed['launches']}, expected {want}")
     if any(plain["launches"].values()):
         bad.append(f"plain launches {plain['launches']}")
-    if share <= ARGMAX_GATE:
+    if argmax_gate is not None and share <= argmax_gate:
         bad.append(f"agreement {share} ({agree})")
     if all_classes < 2:  # a constant map would agree with anything
         bad.append(f"degenerate predictions: {classes} classes")
@@ -1702,6 +1740,285 @@ def phase_eval(dev):
          precise_bn=pbn, launches=launches, seconds=time.perf_counter() - t0)
     if bad:
         raise RuntimeError(f"eval: {bad}")
+    return launches
+
+
+FLAGSHIP_CONFIG = os.path.join(ROOT, "configs", "ltbgnn_3_datasets_snp.json")
+FLAGSHIP_CATS = (11, 19, 36)  # CamVid, Cityscapes, A2D2: M = int(0.8 · 66) = 52
+# Synthetic frames a dataset for the trainer (its sampler cycles through
+# them: 6 steps take 24 crops of each dataset)
+FLAGSHIP_LENGTH = 8
+FLAGSHIP_STEPS = ["GNN", "GNN", "SEG", "SEG", "GNN", "GNN"]
+
+
+def flagship_readers(length, eval_batch=False):
+    """Each dataset of the flagship config on the Synthetic reader at
+    1024×2048 with its own class count; its spec (normalization, class
+    names for the hashed node features), crop and batch stay the config's."""
+    out = []
+    for i, n in enumerate(FLAGSHIP_CATS, 1):
+        out += [f"dataset{i}.data_reader", "Synthetic", f"dataset{i}.reader_kwargs",
+                f"{{'n_cats': {n}, 'size': [{H}, {W}], 'length': {length}, 'seed': {i}}}"]
+        if eval_batch:
+            out += [f"dataset{i}.eval_ims_per_gpu", "1"]
+    return out
+
+
+FLAGSHIP_OVERRIDES = flagship_readers(FLAGSHIP_LENGTH) + [
+    "train.gnn_iters", "2", "train.seg_iters", "2", "lr.max_iter", "6",
+    "train.ckpt_interval", "3", "train.log_interval", "1"]
+
+
+@contextlib.contextmanager
+def step_launches(records):
+    """Each AlternatingTrainer.step in the block: the trainer, its stage
+    after the step and the kernel-6 launches the step made."""
+    from mds_tpu_torch.engine import gnn_trainer
+    from mds_tpu_torch.ops import stem
+
+    real = gnn_trainer.AlternatingTrainer.step
+
+    def step(self, batch, generator=None):
+        before = stem.stem7_conv_bn_relu_s2.launches
+        out = real(self, batch, generator)
+        records.append({"stage": self.stage,
+                        "stem7": stem.stem7_conv_bn_relu_s2.launches - before})
+        return out
+
+    gnn_trainer.AlternatingTrainer.step = step
+    try:
+        yield
+    finally:
+        gnn_trainer.AlternatingTrainer.step = real
+
+
+def trainer_state_equal(a, b):
+    """Whether two AlternatingTrainers hold the same state: both nets, both
+    AdamW states, βs, UOT graphs and the stage machine."""
+    from mds_tpu_torch.engine.optim import optimizer_state
+
+    def same(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        if torch.is_tensor(x):
+            return torch.equal(x.cpu(), y.cpu())
+        return x == y
+
+    out = {"seg": same(a.seg_model.state_dict(), b.seg_model.state_dict()),
+           "gnn": same(a.gnn_model.state_dict(), b.gnn_model.state_dict()),
+           "seg_optimizer": same(optimizer_state(a.seg_model, a.seg_opt),
+                                 optimizer_state(b.seg_model, b.seg_opt)),
+           "gnn_optimizer": same(optimizer_state(a.gnn_model, a.gnn_opt),
+                                 optimizer_state(b.gnn_model, b.gnn_opt)),
+           "betas": all(np.array_equal(x, y) for x, y in zip(a.betas, b.betas)),
+           "graphs": all(np.array_equal(x, y) for x, y in zip(a.uot_bi, b.uot_bi))}
+    out["meta"] = all(getattr(a, k) == getattr(b, k) for k in (
+        "stage", "alter_iter", "init_iters", "total_iter", "gnn_lr_scale", "seg_steps",
+        "gnn_steps"))
+    return out
+
+
+def stem7_calls_rels(calls):
+    """Each captured kernel-6 call against its plain version: rel max-diff
+    (KERNEL_GATE) and the bit-equal share (BIT_EQUAL_GATE)."""
+    from mds_tpu_torch.ops import stem
+
+    out = []
+    for args in calls:
+        args = args[:EVAL_KERNEL_ARGS["stem7_conv_bn_relu_s2"]]
+        with torch.inference_mode():
+            got, want, r = check_kernel_output(
+                "stem7_conv_bn_relu_s2", stem.stem7_conv_bn_relu_s2,
+                stem.stem7_conv_bn_relu_s2_plain, args)
+        out.append({"input": list(args[0].shape), "rel": r,
+                    "bit_equal": share_equal(bits(got), bits(want))})
+    return out
+
+
+def flagship_batch(rng, dev, crop=768, b=4, ignore=0.05):
+    """uint8 crops and label maps (5% ignored) of each flagship dataset on
+    the card."""
+    ims, lbs = [], []
+    for n in FLAGSHIP_CATS:
+        lb = rng.integers(0, n, (b, crop, crop))
+        lb[rng.random(lb.shape) < ignore] = 255
+        ims.append(torch.from_numpy(rng.integers(0, 256, (b, crop, crop, 3), dtype=np.uint8)).to(dev))
+        lbs.append(torch.from_numpy(lb.astype(np.uint8)).to(dev))
+    return ims, lbs
+
+
+def phase_flagship(dev):
+    """The flagship snp_rn18 + BGNN (configs/ltbgnn_3_datasets_snp.json at
+    full width, bf16) through its three entry points with kernel 6 on:
+    train_from_config with gnn=True, as tools/train_torch.py --gnn calls it
+    (2 GNN steps, the UOT switch, 2 SEG steps, the re-entry, 2 GNN steps;
+    checkpoints at 3 and 6), a fresh trainer restoring step 6, the served
+    frame from that checkpoint's weights, and tools/evaluate_torch.py in
+    contrast and ss on its checkpoint."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from serve_torch import build_e2e
+
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.gnn_trainer import AlternatingTrainer
+    from mds_tpu_torch.engine.trainer import train_from_config
+    from mds_tpu_torch.engine.train_step import normalize_images
+    from mds_tpu_torch.ops import stem
+
+    t0 = time.perf_counter()
+    bad, launches = [], {}
+    rng = np.random.default_rng(7)
+    with tempfile.TemporaryDirectory() as work:
+        # ---- training: what tools/train_torch.py --gnn runs, in bf16
+        steps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with route(stem_impl="kernel"), step_launches(steps):
+            run = train_from_config(FLAGSHIP_CONFIG, FLAGSHIP_OVERRIDES, work_dir=work,
+                                    device=dev, gnn=True, compute_dtype=torch.bfloat16)
+        train_launches = read_counts()
+        train_peak = torch.cuda.max_memory_allocated()
+        timings = run.timings
+        stages = [r["stage"] for r in timings]
+        losses = [r["loss"] for r in timings]
+        want = {k: 0 for k in train_launches}
+        want["stem7_conv_bn_relu_s2"] = 9 * FLAGSHIP_STEPS.count("GNN")
+        per_step = [r["stem7"] for r in steps]
+        if stages != FLAGSHIP_STEPS or len(losses) != 6 or not np.isfinite(losses).all():
+            bad.append(f"train: stages {stages}, losses {losses}")
+        if per_step != [9 if st == "GNN" else 0 for st in FLAGSHIP_STEPS]:
+            bad.append(f"train: kernel-6 launches a step {per_step}")
+        if train_launches != want:
+            bad.append(f"train launches {train_launches}, expected {want}")
+        graphs = run.uot_bi or []
+        graph_ok = len(graphs) == 3 and all(
+            g.shape == (n, 52) and (g.sum(axis=0) == 1).all() and (g.sum(axis=1) >= 1).all()
+            for g, n in zip(graphs, FLAGSHIP_CATS))
+        if not graph_ok:
+            bad.append("UOT graphs: not one row a column and a column a row")
+        lr_scale = run.gnn_lr_scale
+        if lr_scale != max(0.1, 1 - 2 / 6):
+            bad.append(f"gnn_lr_scale {lr_scale}")
+        saved = run.latest_step(os.path.join(work, "ckpt_gnn"))
+        cfg = Configer(config_file=FLAGSHIP_CONFIG, args_parser=FLAGSHIP_OVERRIDES)
+        fresh = AlternatingTrainer(cfg, compute_dtype=torch.bfloat16, device=dev)
+        fresh.restore(os.path.join(work, "ckpt_gnn"))
+        restored = trainer_state_equal(run, fresh)
+        if saved != 6 or not all(restored.values()):
+            bad.append(f"restore of step {saved}: {restored}")
+
+        # one GNN step's frozen features: routed against plain, and every
+        # kernel-6 call of that forward against its plain version
+        ims, lbs = flagship_batch(rng, dev)
+        xs = normalize_images(ims, run.means, run.stds, torch.bfloat16)
+        run.seg_model.eval()
+        with torch.no_grad():
+            plain_feats = run.seg_model.features(xs)
+            with route(stem_impl="kernel"), captured(stem, "stem7_conv_bn_relu_s2") as calls:
+                routed_feats = run.seg_model.features(xs)
+        feats_rel = [rel(a, b) for a, b in zip(routed_feats, plain_feats)]
+        kernel_rels = stem7_calls_rels(calls)
+        del plain_feats, routed_feats, calls
+        if len(kernel_rels) != 9 or max(feats_rel) >= LOGITS_GATE:
+            bad.append(f"features routed vs plain: rel {feats_rel}, {len(kernel_rels)} calls")
+        if min(k["bit_equal"] for k in kernel_rels) < BIT_EQUAL_GATE:
+            bad.append(f"kernel 6 bit-equal share {kernel_rels}")
+
+        # the SEG step alone on the fixed batch: a warm step, then 5 timed
+        fresh.seg_step(ims, lbs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seg_alone_ms = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fresh.seg_step(ims, lbs)
+            end.record()
+            torch.cuda.synchronize()
+            seg_alone_ms.append(start.elapsed_time(end))
+        seg_alone_peak = torch.cuda.max_memory_allocated()
+        del fresh, ims, lbs, xs
+
+        # ---- serving: build_e2e on the checkpoint's seg weights
+        weights = os.path.join(work, "snp_rn18.pt")
+        torch.save({k: v.cpu() for k, v in run.seg_model.state_dict().items()}, weights)
+        e2e = build_e2e(FLAGSHIP_CONFIG, weights=weights, device=dev)
+        served_graph = e2e.model.bipartite_graphs[0].cpu().numpy()
+        if not (served_graph.any() and np.array_equal(served_graph, graphs[0])):
+            bad.append("served graphs are not the checkpoint's UOT graphs")
+        del run
+        frames = np.random.default_rng(8).integers(0, 256, (2, 1, H, W, 3)).astype(np.uint8)
+        served = serve_and_check(e2e, "snp_rn18", frames, FLAGSHIP_CATS[0], stem_impl="kernel")
+        want = {k: 0 for k in served["launches"]}
+        want["stem7_conv_bn_relu_s2"] = 3 * len(frames)
+        if served["launches"] != want:
+            bad.append(f"served launches {served['launches']}, expected {want}")
+        if min(served["agree"]) <= ARGMAX_GATE:
+            bad.append(f"served agreement {served['agree']}")
+        x = normalized(e2e, frames[0])
+        with torch.inference_mode():
+            ref = e2e.model.eval_logits(x)
+            with route(stem_impl="kernel"), captured(stem, "stem7_conv_bn_relu_s2") as calls:
+                got = e2e.model.eval_logits(x)
+        if got.shape != (1, FLAGSHIP_CATS[0], H // 4, W // 4) or not torch.isfinite(got).all():
+            bad.append(f"served logits {got.shape}")
+        serve_logits_rel = rel(got, ref)
+        serve_kernel_rels = stem7_calls_rels(calls)
+        del calls, got, ref
+        if serve_logits_rel >= LOGITS_GATE or len(serve_kernel_rels) != 3:
+            bad.append(f"served logits rel {serve_logits_rel}, {len(serve_kernel_rels)} calls")
+        frame_ms = {"kernel": [], "plain": []}
+        for k, kw in (("kernel", {"stem_impl": "kernel"}), ("plain", {}),
+                      ("plain", {}), ("kernel", {"stem_impl": "kernel"})):
+            frame_ms[k].append(e2e_ms(e2e, frames[1], **kw))
+        profiles = {}
+        for k, kw in (("kernel", {"stem_impl": "kernel"}), ("plain", {})):
+            with route(**kw):
+                profiles[k] = profile_idle_share(lambda: e2e(torch.from_numpy(frames[1])),
+                                                 ("stem7_kernel",))
+        del e2e
+
+        # ---- evaluation: tools/evaluate_torch.py on the checkpoint
+        modes = []
+        eval_launches = 0
+        # the labels' agreement is printed, not gated: on the Synthetic
+        # frames' flat blocks this random model's summed unified logits sit
+        # near ties (0.9931 and 0.9935 of the pixels in the first card run,
+        # while the served noise frames agree on 0.9997); the logits of the
+        # largest calls and every kernel-6 call of them are gated
+        for mode in ("contrast", "ss"):
+            rec, fail, got = eval_pair(
+                FLAGSHIP_CONFIG, os.path.join(work, "ckpt_gnn"), mode, 2,
+                {"stem_impl": "kernel"}, {"stem7_conv_bn_relu_s2": 3}, 1,
+                overrides=flagship_readers(2, eval_batch=True), datasets=3,
+                argmax_gate=None)
+            modes.append(rec)
+            bad += [f"eval {mode}: {f}" for f in fail]
+            eval_launches += got["stem7_conv_bn_relu_s2"]
+    gnn_ms = [r["step_ms"] for r in timings if r["stage"] == "GNN"]
+    seg_ms = [r["step_ms"] for r in timings if r["stage"] == "SEG"]
+    seg_images = 4 * len(FLAGSHIP_CATS)
+    launches["stem7_conv_bn_relu_s2"] = (train_launches["stem7_conv_bn_relu_s2"]
+                                         + served["launches"]["stem7_conv_bn_relu_s2"]
+                                         + eval_launches)
+    emit(phase="flagship", config=os.path.relpath(FLAGSHIP_CONFIG, ROOT),
+         dtype="bfloat16", stages=stages, losses=losses,
+         kernel6_launches_per_step=per_step, train_launches=train_launches,
+         step_ms=[r["step_ms"] for r in timings],
+         gnn_step_ms=float(np.median(gnn_ms[1:])), seg_step_in_loop_ms=seg_ms[1:],
+         seg_step_alone_ms=seg_alone_ms, seg_step_ms=float(np.median(seg_alone_ms)),
+         seg_images_per_s=seg_images / float(np.median(seg_alone_ms)) * 1e3,
+         seg_step_max_memory_allocated=seg_alone_peak,
+         uot_switch_ms=[r["switch_ms"] for r in timings if "switch_ms" in r],
+         train_max_memory_allocated=train_peak, gnn_lr_scale=lr_scale,
+         uot_graph_columns=[g.sum(axis=1).tolist() for g in graphs],
+         restored=restored, features_rel=feats_rel, kernel6_calls=kernel_rels,
+         serve={"latency_ms": served["latency_ms"], "classes": served["classes"],
+                "agreement": served["agree"], "logits_rel": serve_logits_rel,
+                "kernel6_calls": serve_kernel_rels, "e2e_ms": frame_ms, "profile": profiles},
+         eval=modes, launches=launches, seconds=time.perf_counter() - t0)
+    if bad:
+        raise RuntimeError(f"flagship: {bad}")
     return launches
 
 
@@ -2230,6 +2547,9 @@ def main():
     launches["dropout_u8"] += phase_trainer(dev)
     torch.cuda.empty_cache()
     for k, n in phase_eval(dev).items():
+        launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    for k, n in phase_flagship(dev).items():
         launches[k] = launches.get(k, 0) + n
     torch.cuda.empty_cache()
     results["stem_conv3x3_s2"] = phase_train_stem(dev)

@@ -1,6 +1,6 @@
 """Per-dataset label specs — the port's own copy of mds_tpu/data/labels.py
-`get_spec` (:31-98): class count, normalization mean/std and the id→trainId
-lookup tables, read from this package's `label_specs.json` (a copy of the
+`get_spec` (:31-98): class count, normalization mean/std, the id→trainId
+lookup tables and the class names by trainId, read from this package's `label_specs.json` (a copy of the
 JAX package's table)."""
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ import dataclasses
 import functools
 import json
 import os
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -31,6 +31,7 @@ class DatasetSpec:
     std: np.ndarray        # (3,)
     lut_eval: np.ndarray   # (256,) uint8 id → trainId
     lut_train: np.ndarray  # (256,) uint8, trainId 255/-1 → n_cats
+    class_names: Tuple[str, ...] = ()  # by trainId: the first name of each
 
     @property
     def ignore_label(self) -> int:
@@ -45,12 +46,16 @@ def get_spec(name: str) -> DatasetSpec:
     n_cats = int(spec["n_cats"])
     lut_eval = np.arange(256, dtype=np.uint8)
     lut_train = np.arange(256, dtype=np.uint8)
+    names = [""] * n_cats
     for el in spec["labels_info"]:
         # id -1 and trainId -1 wrap to 255, as a uint8 index does in torch
         tid = el["trainId"]
         lut_eval[el["id"]] = np.uint8(tid & 0xFF)
         lut_train[el["id"]] = np.uint8(n_cats if tid in (255, -1) else tid & 0xFF)
+        if 0 <= tid < n_cats and not names[tid]:
+            names[tid] = el["name"]
     return DatasetSpec(name=name, n_cats=n_cats,
                        mean=np.asarray(spec["mean"], np.float32),
                        std=np.asarray(spec["std"], np.float32),
-                       lut_eval=lut_eval, lut_train=lut_train)
+                       lut_eval=lut_eval, lut_train=lut_train,
+                       class_names=tuple(names))

@@ -179,12 +179,18 @@ class EvalLoader:
                           dataset_ids=np.zeros(len(batch), np.int32))
 
 
-def get_data_loader(configer, mode: str = "train", rank: int = 0, world: int = 1):
+def get_data_loader(configer, mode: str = "train", rank: int = 0, world: int = 1,
+                    stage=None, batch_multiplier: int = 1):
     """From the config: one MultiDatasetTrainLoader over every dataset for
     mode 'train', a list of per-dataset EvalLoaders otherwise. The train
     loader's `pipeline` says whether the native augment or numpy runs, and
-    the choice is logged. JAX's `stage` and `batch_multiplier` arguments
-    come with their caller, the flagship trainer (ROADMAP queue 1, item 6)."""
+    the choice is logged. JAX's `stage` (the curriculum ann lists) and
+    `batch_multiplier` (a batch per local device) wait: ROADMAP queue 1,
+    item 6b."""
+    if stage is not None or batch_multiplier != 1:
+        raise NotImplementedError(
+            "the loader's stage and batch_multiplier: ROADMAP queue 1, item 6b "
+            "(the flagship's waiting features)")
     import mds_tpu_torch.data.base  # noqa: F401 — fills DATASETS
     from mds_tpu_torch.data import native
     from mds_tpu_torch.data.fast_transforms import NativeTransformationTrain

@@ -7,7 +7,9 @@ mds_tpu/deploy/torch_import.py: for BiSeNetV2 `_CONVBN_BLOCKS`,
 (:654-710), where only the per-dataset affine of `bisenetv2_origin` is split
 further, into one BatchNorm2d(affine=True) per dataset; for BiSeNetV1 the
 inverse of `resnet18_torchvision_to_resnet` (:499-528) and
-`bisenetv1_from_torch` (:766-820). BatchNorm2d's `num_batches_tracked` may
+`bisenetv1_from_torch` (:766-820); for snp_rn18 the inverse of
+`swiftnet_backbone_from_torch` (:283) and `semseg_from_torch` (:343), and
+the BGNN's parameters in JAX's own names. BatchNorm2d's `num_batches_tracked` may
 be absent: a state_dict without torch's version metadata loads strictly
 without it.
 """
@@ -252,3 +254,117 @@ def train_state_from_jax(params: Mapping, batch_stats: Mapping, opt_state,
     return {"model": model,
             "optimizer": {"count": int(np.asarray(opt_state.count)), "state": momentum},
             "step": int(np.asarray(step))}
+
+
+def _dump_slots(out: Dict, params: Mapping, stats: Mapping, ours: str, theirs: str,
+                levels: bool):
+    """A SharedListBN's (n_slots, C) variables → BatchNorm2d keys: one per
+    slot under `theirs.{slot}` (levels), else slot 0 under `theirs`."""
+    scale, bias = _get(params, f"{ours}/scale"), _get(params, f"{ours}/bias")
+    mean, var = _get(stats, f"{ours}/mean"), _get(stats, f"{ours}/var")
+    for i in range(scale.shape[0] if levels else 1):
+        t = f"{theirs}.{i}" if levels else theirs
+        out[f"{t}.weight"], out[f"{t}.bias"] = scale[i], bias[i]
+        out[f"{t}.running_mean"], out[f"{t}.running_var"] = mean[i], var[i]
+
+
+def swiftnet_to_torch(params: Mapping, stats: Mapping,
+                      prefix: str = "backbone.") -> Dict[str, np.ndarray]:
+    """JAX SwiftNetPyramid (params, batch_stats) subtrees → reference-layout
+    arrays: the inverse of mds_tpu/deploy/torch_import.py
+    `swiftnet_backbone_from_torch` (:283)."""
+    out: Dict[str, np.ndarray] = {f"{prefix}conv1.weight": _oihw(_get(params, "conv1/kernel"))}
+    _dump_slots(out, params, stats, "bn1", f"{prefix}bn1", True)
+    for li in range(1, 5):
+        b = 0
+        while f"layer{li}_{b}" in params:
+            o, t = f"layer{li}_{b}", f"{prefix}layer{li}.{b}"
+            for i in (1, 2):
+                out[f"{t}.conv{i}.weight"] = _oihw(_get(params, f"{o}/conv{i}/kernel"))
+                _dump_slots(out, params, stats, f"{o}/bn{i}", f"{t}.bn{i}", True)
+            if "downsample_conv" in params[o]:
+                out[f"{t}.downsample.0.weight"] = _oihw(
+                    _get(params, f"{o}/downsample_conv/kernel"))
+                _dump_slots(out, params, stats, f"{o}/downsample_bn",
+                            f"{t}.downsample.1", False)
+            b += 1
+    for j in range(4):
+        out[f"{prefix}upsample_bottlenecks.{j}.weight"] = _oihw(_get(params, f"bneck{j}/kernel"))
+    i = 0
+    while f"blend{i}" in params:
+        t = f"{prefix}upsample_blends.{i}.blend_conv"
+        out[f"{t}.conv.weight"] = _oihw(_get(params, f"blend{i}/conv/kernel"))
+        _dump_slots(out, params, stats, f"blend{i}/bn", f"{t}.norm", False)
+        i += 1
+    return out
+
+
+def semseg_to_torch(params: Mapping, stats: Mapping,
+                    buffers: Mapping) -> Dict[str, np.ndarray]:
+    """JAX SemsegModel (snp_rn18) variables → reference-layout arrays: the
+    inverse of mds_tpu/deploy/torch_import.py `semseg_from_torch` (:343)."""
+    out = swiftnet_to_torch(params["backbone"], stats["backbone"])
+    _dump_slots(out, params, stats, "logits_bn", "logits.norm", False)
+    out["logits.conv.weight"] = _oihw(_get(params, "logits_conv/kernel"))
+    out["logits.conv.bias"] = _get(params, "logits_conv/bias")
+    out["unify_prototype"] = _get(params, "unify_prototype")
+    i = 0
+    while f"aux_prototype_{i}" in params:
+        out[f"aux_prototype.{i}"] = _get(params, f"aux_prototype_{i}")
+        i += 1
+    for i in range(len(buffers)):
+        out[f"bipartite_graphs.{i}"] = _get(buffers, f"bi_graph_{i}")
+    return out
+
+
+def semseg_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                               buffers: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX SemsegModel variables (numpy arrays, nested dicts) → the port's
+    state_dict, for load_state_dict(strict=True)."""
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in semseg_to_torch(params, batch_stats, buffers).items()}
+
+
+def bgnn_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX LearnableTopologyBGNN params → the port's state_dict: the Dense
+    kernels transposed into nn.Linear weights, the GCN/GSAGE layers'
+    (in, out) weights as they are."""
+    out: Dict[str, np.ndarray] = {}
+    for name in ("linear_before", "linear1"):
+        out[f"{name}.weight"] = _get(params, f"{name}/kernel").T
+        out[f"{name}.bias"] = _get(params, f"{name}/bias")
+    i = 0
+    while f"gcn_layers_{i}" in params:
+        out[f"gcn_layers.{i}.weight"] = _get(params, f"gcn_layers_{i}/weight")
+        out[f"gcn_layers.{i}.bias"] = _get(params, f"gcn_layers_{i}/bias")
+        i += 1
+    for name in ("unify_node_features", "adj_matrix"):
+        out[name] = _get(params, name)
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+
+
+def _adamw_state(mu: Dict[str, torch.Tensor], nu: Dict[str, torch.Tensor],
+                 count) -> Dict:
+    """Port AdamW state (engine/optim.py `optimizer_state`) from two state
+    dicts of moments, the running stats left out."""
+    keep = [k for k in mu if not k.endswith(("running_mean", "running_var"))
+            and not k.startswith("bipartite_graphs.")]
+    return {"count": int(np.asarray(count)),
+            "state": {k: {"mu": mu[k], "nu": nu[k]} for k in keep}}
+
+
+def alternating_state_from_jax(seg_params: Mapping, batch_stats: Mapping,
+                               buffers: Mapping, seg_opt_state, gnn_params: Mapping,
+                               gnn_opt_state) -> Dict:
+    """JAX AlternatingTrainer states (numpy trees; each `opt_state` optax
+    adamw's, whose first entry holds count, mu and nu) → the port's: the
+    seg model's state_dict, the GNN's, and both AdamW states with their
+    step counts, as engine/gnn_trainer.py's `load_states` takes them."""
+    sa, ga = seg_opt_state[0], gnn_opt_state[0]
+    seg = semseg_state_dict_from_jax(seg_params, batch_stats, buffers)
+    return {"seg": seg, "gnn": bgnn_state_dict_from_jax(gnn_params),
+            "seg_optimizer": _adamw_state(
+                semseg_state_dict_from_jax(sa.mu, batch_stats, buffers),
+                semseg_state_dict_from_jax(sa.nu, batch_stats, buffers), sa.count),
+            "gnn_optimizer": _adamw_state(bgnn_state_dict_from_jax(ga.mu),
+                                          bgnn_state_dict_from_jax(ga.nu), ga.count)}

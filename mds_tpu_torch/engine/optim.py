@@ -95,7 +95,9 @@ class AdamW(torch.optim.Optimizer):
     update: eps outside the root, decay decoupled from the moments and on
     every parameter, no per-group multiplier. The bias corrections are
     rounded to f32 as optax computes them. A parameter without a gradient
-    takes a zero one, as JAX's gradient of an unused parameter is."""
+    takes a zero one, as JAX's gradient of an unused parameter is.
+    `update_scale` multiplies each final update, as the flagship's GNN step
+    scales its optax updates at a decayed re-entry (1.0: no multiply)."""
 
     def __init__(self, params, schedule: Callable[[int], float], b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4):
@@ -103,6 +105,7 @@ class AdamW(torch.optim.Optimizer):
         self.schedule = schedule
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
         self.count = 0
+        self.update_scale = 1.0
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -124,7 +127,8 @@ class AdamW(torch.optim.Optimizer):
                 mu.copy_(g * (1 - self.b1) + mu * self.b1)
                 nu.copy_(g * g * (1 - self.b2) + nu * self.b2)
                 upd = (mu / bc1) / ((nu / bc2).sqrt() + self.eps)
-                p.sub_((upd + p * self.weight_decay) * lr)
+                upd = (upd + p * self.weight_decay) * lr
+                p.sub_(upd if self.update_scale == 1.0 else upd * self.update_scale)
         self.count += 1
 
 

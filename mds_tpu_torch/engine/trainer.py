@@ -54,11 +54,13 @@ from mds_tpu_torch.utils.meters import AvgMeter, TimeMeter
 from mds_tpu_torch.utils.metrics_writer import MetricsWriter
 
 TRAINABLE = ("bisenetv2", "bisenetv2_origin")
+# the models built from n_classes; the rest from the config (`configer=`)
+_BY_CLASSES = ("bisenetv2", "bisenetv2_origin", "bisenetv1")
 
 # finetune_from: the layouts whose models the port does not have yet
 _LAYOUT_ITEMS = {
     "bisenetv1": "ROADMAP queue 1, item 5 (BiSeNetV1's train step)",
-    "semseg": "ROADMAP queue 1, item 6 (snp_rn18)",
+    "semseg": "the alternating trainer takes it (tools/train_torch.py --gnn)",
     "resnet18": "ROADMAP queue 1, items 5 and 6 (BiSeNetV1 and SwiftNet trunks)",
     "bisenetv2_contrast": "ROADMAP queue 1, item 7 (the contrast family)",
     "hrnet_ref": "ROADMAP queue 1, item 8 (HRNet)",
@@ -67,13 +69,22 @@ _LAYOUT_ITEMS = {
 }
 
 
-def build_model(configer: Configer, dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+def build_model(configer: Configer, dtype: torch.dtype = torch.bfloat16,
+                aux: Optional[bool] = None) -> nn.Module:
+    """The config's model (mds_tpu/engine/trainer.py:41-51): BiSeNetV2 and
+    V1 from the class counts (`aux`, when given, for their aux heads),
+    every other model from the config through its `configer=` factory
+    (snp_rn18)."""
     import mds_tpu_torch.models  # noqa: F401 — fills MODELS
     from mds_tpu_torch.registry import MODELS
 
     name = configer.get("model_name", default="bisenetv2")
     n = configer.n_datasets
     kwargs = dict(configer.get("model_kwargs", default={}) or {})
+    if name not in _BY_CLASSES:
+        return MODELS[name](configer=configer, dtype=dtype, **kwargs)
+    if aux is not None:
+        kwargs["aux"] = aux
     return MODELS[name](n_classes=tuple(configer.n_cats(i) for i in range(n)),
                         n_bn=n, dtype=dtype, **kwargs)
 
@@ -112,8 +123,10 @@ class Trainer:
         name = configer.get("model_name", default="bisenetv2")
         if name not in TRAINABLE:
             raise NotImplementedError(
-                f"the port trains {TRAINABLE}, not {name!r}: BiSeNetV1's train "
-                "step is ROADMAP queue 1, item 5; the other models items 6-8")
+                f"the supervised trainer trains {TRAINABLE}, not {name!r}: "
+                "BiSeNetV1's train step is ROADMAP queue 1, item 5; snp_rn18 "
+                "trains through the alternating trainer (--gnn, train.mode "
+                "alternate/seg/gnn); the other models are items 7 and 8")
         self.seed = int(configer.get("seed", default=0) or 0)
         self.max_iter = int(configer.get("lr", "max_iter", default=1000))
         self.schedule = warmup_poly_lr(
@@ -244,24 +257,39 @@ class Trainer:
         return self
 
 
-NOT_PORTED = ("the {} trainer is not in the port yet: ROADMAP queue 1, items 6 "
-              "(the flagship's alternating SEG/GNN trainer) and 7 (the contrast family)")
+NOT_PORTED = {
+    "clip": "the clip trainer waits: ROADMAP queue 1, item 6b (the flagship's "
+            "waiting features: train.mode 'clip', set_clip_prototypes)",
+    "contrast": "the contrast trainer is not in the port yet: ROADMAP queue 1, "
+                "item 7 (the contrast family)",
+}
 
 
 def train_from_config(config_path: str, overrides: Optional[List[str]] = None,
                       work_dir: str = "./res", max_iter: Optional[int] = None,
-                      device="cuda", finetune_from: Optional[str] = None) -> Trainer:
+                      device="cuda", finetune_from: Optional[str] = None,
+                      gnn: bool = False, compute_dtype: Optional[torch.dtype] = None):
     """Train as the config and its dotted overrides ask: load the
     `finetune_from` weights, then resume from the latest checkpoint under
-    `work_dir` if there is one. The trainers of `train.mode` alternate,
-    gnn, clip and contrast raise NotImplementedError."""
+    `work_dir` if there is one. `gnn` or `train.mode` alternate, seg or gnn
+    run the alternating SEG/GNN trainer (engine/gnn_trainer.py, f32 unless
+    `compute_dtype`) and return it; otherwise the supervised Trainer (bf16
+    unless `compute_dtype`). train.mode clip and contrast raise
+    NotImplementedError."""
     configer = Configer(config_file=config_path, args_parser=overrides or [])
     if max_iter is not None:
         configer.update(["lr", "max_iter"], max_iter)
     mode = configer.get("train", "mode", default=None)
-    if mode in ("alternate", "gnn", "clip", "contrast"):
-        raise NotImplementedError(NOT_PORTED.format(mode))
-    t = Trainer(configer, work_dir=work_dir, device=device)
+    if mode in NOT_PORTED:
+        raise NotImplementedError(NOT_PORTED[mode])
+    if gnn or mode in ("alternate", "seg", "gnn"):
+        from mds_tpu_torch.engine.gnn_trainer import train_alternating
+
+        return train_alternating(configer, work_dir=work_dir, device=device,
+                                 finetune_from=finetune_from,
+                                 compute_dtype=compute_dtype or torch.float32)
+    t = Trainer(configer, work_dir=work_dir, device=device,
+                compute_dtype=compute_dtype or torch.bfloat16)
     if finetune_from:
         t.finetune_from(finetune_from)
     t.restore_if_available()

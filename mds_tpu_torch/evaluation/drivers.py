@@ -5,10 +5,12 @@ mds_tpu/evaluation/drivers.py (`build_eval_bundle` :29,
 The model comes from the trainer's `build_model` and its weights from the
 latest checkpoint the port's `Trainer` wrote (`<ckpt>/<step>.pt`), so any
 checkpoint the train CLI writes is evaluable; BiSeNetV1 checkpoints load
-too. The label-usage audit (`_unified_hist`, `find_unuse_label`,
+too. The flagship (snp_rn18, or `train.mode` alternate, seg or gnn) comes
+from the alternating trainer and its checkpoint (`<ckpt>`, else
+`<work_dir>/ckpt_gnn`): the seg state with its bipartite graphs. The
+label-usage audit (`_unified_hist`, `find_unuse_label`,
 `eval_find_use_and_unuse_label`, `_slot_buckets`, `find_label_relation`,
-:169-297) reads the flagship's unified logits and bipartite graphs and
-comes with it (ROADMAP queue 1, item 6).
+:169-297) waits (ROADMAP queue 1, item 6b).
 """
 
 from __future__ import annotations
@@ -22,21 +24,30 @@ from torch import nn
 from mds_tpu_torch.evaluation.evaluator import eval_model
 
 _MODE_ITEMS = {
-    "alternate": "ROADMAP queue 1, item 6 (the flagship's alternating SEG/GNN trainer)",
-    "gnn": "ROADMAP queue 1, item 6 (the flagship's alternating SEG/GNN trainer)",
-    "clip": "ROADMAP queue 1, item 6 (the flagship's alternating SEG/GNN trainer)",
+    "clip": "ROADMAP queue 1, item 6b (the flagship's waiting features: train.mode 'clip')",
     "contrast": "ROADMAP queue 1, item 7 (the contrast family)",
 }
+ALTERNATING = ("alternate", "seg", "gnn")
 DSG_ITEM = ("eval mode 'dsg' scores the stage-2 train lists, which need the "
-            "loader's `stage` option: ROADMAP queue 1, item 6")
+            "loader's `stage` option: ROADMAP queue 1, item 6b")
+
+
+def is_alternating(configer) -> bool:
+    """Whether the config trains through the alternating trainer."""
+    return (configer.get("train", "mode", default=None) in ALTERNATING
+            or configer.get("model_name", default=None) == "snp_rn18")
 
 
 def build_eval_bundle(configer, ckpt: Optional[str] = None, work_dir: str = "./res",
                       device="cuda") -> nn.Module:
     """The model for `eval_model`, in eval mode on `device`: the config's
-    model (bf16 compute) at its seeded init, then the latest checkpoint of `ckpt` (else of
-    `<work_dir>/ckpt`) when there is one. The checkpoints of `train.mode`
-    alternate, gnn, clip and contrast raise NotImplementedError."""
+    model (bf16 compute) at its seeded init, then the latest checkpoint of
+    `ckpt` (else of `<work_dir>/ckpt`) when there is one. The flagship: the
+    alternating trainer's seg model (bf16, JAX's identity graphs at init)
+    restored from the latest checkpoint of `ckpt` (else of
+    `<work_dir>/ckpt_gnn`), its graphs included (mds_tpu/evaluation/
+    drivers.py:46-58). The checkpoints of `train.mode` clip and contrast
+    raise NotImplementedError."""
     from mds_tpu_torch.engine.checkpoints import CheckpointManager, load_train_state
     from mds_tpu_torch.engine.trainer import build_model
 
@@ -44,6 +55,14 @@ def build_eval_bundle(configer, ckpt: Optional[str] = None, work_dir: str = "./r
     if mode in _MODE_ITEMS:
         raise NotImplementedError(
             f"evaluating a train.mode {mode!r} checkpoint: {_MODE_ITEMS[mode]}")
+    if is_alternating(configer):
+        from mds_tpu_torch.engine.gnn_trainer import AlternatingTrainer
+
+        tr = AlternatingTrainer(configer, compute_dtype=torch.bfloat16, device=device)
+        directory = os.path.abspath(ckpt) if ckpt else os.path.join(work_dir, "ckpt_gnn")
+        if tr.latest_step(directory) is not None:
+            tr.restore(directory)
+        return tr.seg_model.eval()
     model = build_model(configer)
     seed = int(configer.get("seed", default=0) or 0)
     model.init_weights(torch.Generator().manual_seed(seed))
@@ -73,7 +92,10 @@ def recompute_bn_stats(configer, model: nn.Module, n_batches: int,
     def forward(model, batch):
         ims = [torch.from_numpy(x).to(device) for x in batch["ims"]]
         xs = normalize_images(ims, means, stds, compute_dtype)
-        model(xs, generator=torch.Generator().manual_seed(0))
+        if hasattr(model, "bipartite_graphs"):  # snp_rn18: no dropout
+            model.features(xs)
+        else:
+            model(xs, generator=torch.Generator().manual_seed(0))
 
     def batches():
         for _ in range(n_batches):

@@ -28,7 +28,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from mds_tpu_torch.models.layers import resize_bilinear_ac
 
 
 def get_round_size(size: Sequence[int], divisor: int = 32) -> Tuple[int, int]:
@@ -55,16 +56,6 @@ def compute_ious(hist):
     with np.errstate(divide="ignore", invalid="ignore"):
         ious = np.diag(hist) / denom
     return ious, float(np.nanmean(ious))
-
-
-def resize_bilinear_ac(x: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize with align_corners=True of an NCHW tensor, on an f32
-    copy; x itself when it already has the size
-    (mds_tpu/models/layers.py:573-602)."""
-    if tuple(x.shape[-2:]) == tuple(size_hw):
-        return x
-    return F.interpolate(x.float(), size=tuple(size_hw), mode="bilinear",
-                         align_corners=True)
 
 
 def _zeros(n, c, h, w, device) -> torch.Tensor:
@@ -314,10 +305,10 @@ EVAL_MODES = (
     "unseen", "clip", "emb", "aux", "unlabel",
 )
 
-# the modes whose model method no ported model has, and where it comes
+# the modes that run a model method of their own, and which model has it
 MODE_METHODS = {
-    "unseen": ("unseen_pred_logits", "ROADMAP queue 1, item 6 (the flagship snp_rn18)"),
-    "clip": ("clip_logits", "ROADMAP queue 1, item 6 (the flagship snp_rn18)"),
+    "unseen": ("unseen_pred_logits", "the flagship snp_rn18 has it (ROADMAP queue 1, item 6)"),
+    "clip": ("clip_logits", "the flagship snp_rn18 has it (ROADMAP queue 1, item 6)"),
     "emb": ("emb_logits", "ROADMAP queue 1, item 7 (the contrast family)"),
 }
 
@@ -365,7 +356,7 @@ def eval_model(configer, model, loaders, mode: str = "ss") -> List[float]:
     """Per-dataset mIoU of `model` (put in eval mode, on its own device)
     over the per-dataset `loaders`, under the mode's protocol. The modes
     unseen, clip and emb raise NotImplementedError when the model lacks
-    their method."""
+    their method (unseen and clip: every model but snp_rn18)."""
     from mds_tpu_torch.engine.trainer import dataset_stats
 
     ev = _make_evaluator(configer, mode)

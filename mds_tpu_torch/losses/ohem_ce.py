@@ -26,8 +26,9 @@ from torch import nn
 def cross_entropy_per_pixel(logits: torch.Tensor, labels: torch.Tensor,
                             ignore: int = 255) -> Tuple[torch.Tensor, torch.Tensor]:
     """(per-pixel CE, valid mask): logsumexp − true logit in f32, 0 where
-    the label is `ignore` (mds_tpu/losses/ohem_ce.py:33)."""
-    logits = logits.float()
+    the label is `ignore` (mds_tpu/losses/ohem_ce.py:33); f64 logits stay
+    f64."""
+    logits = logits if logits.dtype == torch.float64 else logits.float()
     valid = labels != ignore
     safe = torch.where(valid, labels, 0).long()
     logz = torch.logsumexp(logits, dim=1)
@@ -100,7 +101,8 @@ def cross_entropy_upsampled(logits: torch.Tensor, labels: torch.Tensor,
 def ohem_mean(losses: torch.Tensor, valid: torch.Tensor, thresh: float,
               n_min_ratio: int = 16) -> torch.Tensor:
     """Mean over the OHEM-kept pixels; `thresh` is the −log(p) loss floor."""
-    losses = losses.reshape(-1).float()
+    losses = losses.reshape(-1)
+    losses = losses if losses.dtype == torch.float64 else losses.float()
     valid = valid.reshape(-1)
     n = losses.numel()
     k = max(n // n_min_ratio, 1)  # n_min never exceeds it
@@ -110,7 +112,7 @@ def ohem_mean(losses: torch.Tensor, valid: torch.Tensor, thresh: float,
         kth = masked.topk(k).values.gather(0, (n_min - 1).clamp(0, k - 1).reshape(1))
         n_above = (masked > thresh).sum()
         cutoff = torch.where(n_above >= n_min, thresh, kth[0])
-        keep = (valid & ((losses > thresh) | (losses >= cutoff))).float()
+        keep = (valid & ((losses > thresh) | (losses >= cutoff))).to(losses.dtype)
     return (losses * keep).sum() / keep.sum().clamp_min(1.0)
 
 

@@ -139,6 +139,12 @@ def get_pred_impl() -> str:
     return _PRED_IMPL
 
 
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """t in f32, or in f64 where it is f64 (the f64 reference runs that the
+    flagship's parity tests measure f32 rounding against)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _c(v: torch.Tensor) -> torch.Tensor:
     """A per-channel vector shaped to broadcast over NCHW."""
     return v.reshape(1, -1, 1, 1)
@@ -538,13 +544,25 @@ def upsample(x: torch.Tensor, factor: int, method: str = "nearest") -> torch.Ten
 
 
 def resize_bilinear(x: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize to a target size (align_corners=False), in f32; a
-    shrinking axis is antialiased as jax.image.resize does."""
+    """Bilinear resize to a target size (align_corners=False), in f32, cast
+    back: jax.image.resize(..., "linear"), whose upsample is half-pixel
+    bilinear with the edges clamped; a shrinking axis is antialiased as
+    jax.image.resize does."""
     h, w = x.shape[-2:]
-    out = F.interpolate(x.float(), size=tuple(size_hw), mode="bilinear",
+    out = F.interpolate(wide(x), size=tuple(size_hw), mode="bilinear",
                         align_corners=False,
                         antialias=size_hw[0] < h or size_hw[1] < w)
     return out.to(x.dtype)
+
+
+def resize_bilinear_ac(x: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize with align_corners=True of an NCHW tensor, on an f32
+    copy; x itself when it already has the size
+    (mds_tpu/models/layers.py:573-602)."""
+    if tuple(x.shape[-2:]) == tuple(size_hw):
+        return x
+    return F.interpolate(wide(x), size=tuple(size_hw), mode="bilinear",
+                         align_corners=True)
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:

@@ -54,8 +54,8 @@ def test_build_eval_bundle_restores_and_refuses(trained, tmp_path):
     again = build_eval_bundle(cfg, work_dir=str(tmp_path), device="cpu")
     assert not os.path.exists(tmp_path / "ckpt")
     assert all(torch.equal(again.state_dict()[k], v) for k, v in fresh.state_dict().items())
-    for mode, item in (("alternate", "item 6"), ("gnn", "item 6"), ("clip", "item 6"),
-                       ("contrast", "item 7")):
+    # alternate/gnn/seg checkpoints: tests/test_torch_gnn_trainer.py
+    for mode, item in (("clip", "item 6b"), ("contrast", "item 7")):
         bad = Configer(config_file=CFG, args_parser=["train.mode", mode])
         with pytest.raises(NotImplementedError, match=item):
             build_eval_bundle(bad, device="cpu")

@@ -195,9 +195,10 @@ def test_serve_torch_requires_cuda(monkeypatch):
 
 
 def test_every_module_and_converter_import_no_mds_tpu(tmp_path):
-    """Every module of mds_tpu_torch, build_e2e and the weight converter
-    (fed a JAX variables tree as plain numpy) run in a process where neither
-    jax nor mds_tpu gets imported."""
+    """Every module of mds_tpu_torch (the flagship's among them), build_e2e
+    (BiSeNetV2 and snp_rn18) and the weight converter (fed a JAX variables
+    tree as plain numpy) run in a process where neither jax nor mds_tpu
+    gets imported."""
     import jax
 
     from mds_tpu.models.bisenetv2 import BiSeNetV2
@@ -218,9 +219,15 @@ def test_every_module_and_converter_import_no_mds_tpu(tmp_path):
         "assert 'mds_tpu_torch.ops.conv3x3' in mods, mods\n"
         "assert {'mds_tpu_torch.engine.trainer', 'mds_tpu_torch.data.loader',\n"
         "        'mds_tpu_torch.utils.metrics_writer'} <= set(mods), mods\n"
+        "assert {'mds_tpu_torch.models.swiftnet', 'mds_tpu_torch.models.semseg',\n"
+        "        'mds_tpu_torch.models.gnn', 'mds_tpu_torch.ops.sinkhorn',\n"
+        "        'mds_tpu_torch.ops.uot_match', 'mds_tpu_torch.data.node_features',\n"
+        "        'mds_tpu_torch.losses.cross_datasets',\n"
+        "        'mds_tpu_torch.engine.gnn_trainer'} <= set(mods), mods\n"
         "sys.path.insert(0, 'tools')\n"
         "import serve_torch, train_torch\n"
         "serve_torch.build_e2e('configs/bisenetv2_city.json', device='cpu')\n"
+        "serve_torch.build_e2e('configs/ltbgnn_3_datasets_snp.json', device='cpu')\n"
         "from mds_tpu_torch import MODELS\n"
         "from mds_tpu_torch.deploy.weights import bisenetv2_state_dict_from_jax\n"
         f"v = pickle.load(open({str(tmp_path / 'v.pkl')!r}, 'rb'))\n"

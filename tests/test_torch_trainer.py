@@ -285,8 +285,9 @@ def test_metrics_writer_sets_the_tensorboard_switch_only_while_it_builds(tmp_pat
 
 def test_trainer_refusals(tmp_path, monkeypatch):
     """No CUDA device and no device='cpu'; a model the port cannot train; a
-    trainer the port lacks; finetune_from a layout the port has no model
-    for."""
+    trainer the port lacks (clip, contrast; --gnn and train.mode alternate
+    run the alternating trainer, tests/test_torch_gnn_trainer.py);
+    finetune_from a layout the supervised trainer has no model for."""
     monkeypatch.syspath_prepend(os.path.join(ROOT, "tools"))
     import train_torch
 
@@ -297,13 +298,14 @@ def test_trainer_refusals(tmp_path, monkeypatch):
     v1 = Configer(config_file=os.path.join(ROOT, "configs", "bisenetv1_city.json"))
     with pytest.raises(NotImplementedError, match="item 5"):
         Trainer(v1, work_dir=str(tmp_path), device="cpu")
-    for args in (["--gnn"], ["train.mode", "contrast"], ["train.mode", "alternate"]):
-        with pytest.raises(NotImplementedError, match="items 6"):
+    for args, item in ((["train.mode", "contrast"], "item 7"),
+                       (["train.mode", "clip"], "item 6b")):
+        with pytest.raises(NotImplementedError, match=item):
             train_torch.main(["--config", CFG, "--device", "cpu",
                               "--work-dir", str(tmp_path)] + args)
     t = Trainer(cfg, work_dir=str(tmp_path), device="cpu")
     for sd, item in (({"backbone.conv1.weight": torch.zeros(1), "unify_prototype": torch.zeros(1)},
-                      "item 6"),
+                      "--gnn"),
                      ({"transition1.0.0.weight": torch.zeros(1)}, "item 8"),
                      ({"cp.resnet.conv1.weight": torch.zeros(1)}, "item 5")):
         torch.save(sd, tmp_path / "w.pth")

@@ -6,11 +6,16 @@ mds_tpu_torch/deploy/server.py for the protocol).
       [--weights W.npz|W.pt] [--seed 0] [--size 1024 2048] [--port 8000] \
       [--name NAME] [--instances 2]
   python tools/serve_torch.py --config configs/bisenetv1_city.json
+  python tools/serve_torch.py --config configs/ltbgnn_3_datasets_snp.json
 
 The config's `model_name` picks the model (bisenetv2, bisenetv2_origin,
-bisenetv1); --name, the name in the URL, defaults to it. --weights takes an
-.npz of reference-layout keys (mds_tpu_torch/deploy/weights.py) or a
-torch.save'd state dict; without it the weights are a seeded random init.
+bisenetv1, snp_rn18), built by the trainer's `build_model`; --name, the
+name in the URL, defaults to it. --weights takes an .npz of
+reference-layout keys (mds_tpu_torch/deploy/weights.py) or a torch.save'd
+state dict; without it the weights are a seeded random init, and
+snp_rn18's bipartite graphs the identity graphs the alternating trainer
+starts from (so that its labels are not all zero). snp_rn18 serves its
+first dataset's label space.
 --instances bounds how many requests run the model at once.
 The model runs in bf16 with the deploy kernels on, always on CUDA:
 set_stem_impl("kernel") (the RGB stems of either model),
@@ -18,8 +23,9 @@ set_detail_fuse(True) (BiSeNetV2's fused DetailBranch head and StemBlock),
 set_detail_tail(True) (the DetailBranch's last five convs as one more
 kernel), set_depthwise_impl("kernel") (BiSeNetV2's 16 depthwise 3×3 convs)
 and set_pred_impl("fused") (BiSeNetV2's ×8 upsample + argmax as one pass).
-BiSeNetV1 has no DetailBranch, no depthwise conv and no fused tail, so the
-last four leave it as it is.
+BiSeNetV1 and snp_rn18 have no DetailBranch, no depthwise conv and no
+fused tail, so the last four leave them as they are; snp_rn18's 7×7 stem
+runs as kernel 6 at each of its 3 pyramid levels.
 """
 
 import argparse
@@ -34,18 +40,19 @@ def build_e2e(config: str, weights=None, seed: int = 0, device: str = "cuda"):
     import numpy as np
     import torch
 
-    from mds_tpu_torch import MODELS
     from mds_tpu_torch.config import Configer
     from mds_tpu_torch.data.labels import get_spec
     from mds_tpu_torch.deploy.e2e import E2EModel
     from mds_tpu_torch.deploy.weights import load_reference_weights
+    from mds_tpu_torch.engine.trainer import build_model
+    from mds_tpu_torch.ops.uot_match import pretrain_bipartite_graphs
 
     cfg = Configer(config_file=config)
-    n = cfg.n_datasets
-    model = MODELS[cfg.get("model_name", default="bisenetv2")](
-        n_classes=tuple(cfg.n_cats(i) for i in range(n)), n_bn=n, aux=False,
-        dtype=torch.bfloat16)
+    model = build_model(cfg, torch.bfloat16, aux=False)
     model.init_weights(torch.Generator().manual_seed(seed))
+    if hasattr(model, "set_bipartite_graphs"):
+        model.set_bipartite_graphs(pretrain_bipartite_graphs(
+            model.datasets_cats, model.max_num_unify_class))
     if weights:
         if weights.endswith(".npz"):
             with np.load(weights) as z:

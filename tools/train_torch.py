@@ -5,13 +5,18 @@ of tools/train.py (the JAX package's entry point).
   python tools/train_torch.py --config configs/bisenetv2_city.json \\
       [--work-dir res] [--max-iter N] [--finetune-from PATH] \\
       [--device cuda|cpu] [key.path value ...]
+  python tools/train_torch.py --config configs/ltbgnn_3_datasets_snp.json --gnn
 
 Dotted overrides set config keys (`lr.max_iter 6`, `train.fused_up_loss
-True`, `dataset1.data_reader Synthetic`). The run resumes from the latest
-checkpoint under `<work-dir>/ckpt` when there is one. It runs on the CUDA
-card; without one it exits non-zero unless `--device cpu` is given. The
-alternating SEG/GNN trainer (`--gnn`, `train.mode` alternate/gnn/clip) and
-the contrast trainer (`train.mode` contrast) are not in the port yet.
+True`, `dataset1.data_reader Synthetic`). `--gnn`, or `train.mode`
+alternate, seg or gnn, runs the flagship's alternating SEG/GNN trainer
+(snp_rn18 + BGNN), which resumes from `<work-dir>/ckpt_gnn`; otherwise the
+supervised trainer, which resumes from `<work-dir>/ckpt`. The compute dtype
+is each trainer's own, as in JAX: f32 for the alternating trainer, bf16 for
+the supervised one. It runs on the CUDA card; without one it exits non-zero
+unless `--device cpu` is given.
+The clip and contrast trainers (`train.mode` clip, contrast) are not in the
+port yet.
 """
 
 import argparse
@@ -33,21 +38,19 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Run the training the arguments ask for; returns the Trainer."""
+    """Run the training the arguments ask for; returns the trainer."""
     args = parse_args(argv)
 
     import torch
 
-    from mds_tpu_torch.engine.trainer import NOT_PORTED, train_from_config
+    from mds_tpu_torch.engine.trainer import train_from_config
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_torch needs a CUDA device; pass --device cpu "
                            "to train on the CPU")
-    if args.gnn:
-        raise NotImplementedError(NOT_PORTED.format("gnn"))
     return train_from_config(args.config, args.overrides, work_dir=args.work_dir,
                              max_iter=args.max_iter, device=args.device,
-                             finetune_from=args.finetune_from)
+                             finetune_from=args.finetune_from, gnn=args.gnn)
 
 
 if __name__ == "__main__":
