@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Drive the PyTorch port's serving paths, train step, trainer and evaluation
-once on one CUDA card.
+"""Drive the PyTorch port's serving paths, train steps, trainers and
+evaluation once on one CUDA card.
 
   python3 chip_smoke.py
 
@@ -189,7 +189,39 @@ before the last line:
               GNN steps after the first), the SEG step's (median of the 5
               alone; the loop's one warm SEG step printed beside it), SEG
               images/s, the UOT switch ms and peak memory.
-11. train_stem — the same train step with set_stem_impl("kernel"): the two
+11. contrast — configs/bisenetv2_contrast_3ds.json (BiSeNetV2Contrast: 46
+              unified classes, proj_dim 256, a bank of 46 × 64 × 256, the
+              EMA teacher) at full width in bf16, each dataset on the
+              Synthetic reader at 1024×2048 with its own class count (19,
+              11, 36), the config's crops of 512×1024, 1 + 1 + 2:
+              tools/train_torch.py's main for 6 steps (checkpoints at 3
+              and 6), a fresh trainer restoring step 6 exactly (student,
+              SGD state, teacher, bank), --max-iter 8 resuming to 8;
+              exactly 30 dropout launches a step (5 heads × 3 datasets,
+              forward and backward) and no other kernel's; step ms (CUDA
+              events, median after the first), images/s, the teacher's
+              (EMA and forward) and the bank pushes' ms, peak memory; then
+              the step on one fixed batch of those crops (5 timed after 2
+              warm, one under torch.profiler: idle share, launches). One
+              f32 step at 4 crops of 64×128 a dataset on the card and on
+              the CPU (TF32 off, same init, generator seed and anchor
+              noise): loss rel < 1e-4, per-group gradient cosine > 0.9999,
+              parameters, teacher (per group) and bank rel < 1e-4.
+              tools/evaluate_torch.py on the checkpoint in contrast and
+              emb, 2 Synthetic frames a dataset, routed (kernels 4, 5, 7
+              once and 9 16 times a forward) and plain, gated as the eval
+              phase gates them (the labels' agreement printed, not gated:
+              the random model ties on the frames' flat blocks).
+12. v1_train — BiSeNetV1's train step (configs/bisenetv1_city.json: bs16
+              512×1024, bf16, aux heads, SGD) on a fixed batch, plain and
+              train.fused_up_loss in turns (plain, fused, fused, plain; 5
+              timed steps each): step ms, images/s, peak memory, launches
+              (none: kernel 6 is eval-only), one profiled step of each
+              route (idle share); one f32 step (4, 64, 128) on
+              the card against the CPU (loss rel < 1e-4, per-group gradient
+              cosine > 0.9999, parameters < 1e-4) and precise BN over 2
+              batches of (4, 3, 128, 256), card against CPU (< 1e-4).
+13. train_stem — the same train step with set_stem_impl("kernel"): the two
               RGB stems' convs (DetailBranch S1_1, StemBlock conv) run
               stem_conv3x3_s2 (kernel 1 forward, the library conv's
               gradients backward). From one set of weights and one batch, a
@@ -202,7 +234,7 @@ before the last line:
               cold and by the profiler's device time, beside its plain
               version, f32 F.conv2d (TF32 off: the same function) and bf16
               F.conv2d.
-12. parity  — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
+14. parity  — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
               on the card (dropout kernel) and on the CPU (its plain
               version), same weights and generator seed: loss rel < 1e-4,
               per-group gradient cosine > 0.9999, parameters after the step
@@ -1527,9 +1559,11 @@ def largest_call_rels(calls, routes, names):
                 seen = {n: stack.enter_context(captured(
                     depthwise if n == "depthwise3x3" else stem, n)) for n in names}
                 got = fn(im, dataset)
-        # logits at the input's size, or at its quarter (snp_rn18's heads)
+        # logits at the input's size, at its quarter (snp_rn18's heads) or
+        # at its eighth (the contrast model's emb_logits)
         if (got.shape != ref.shape or got.shape[0] != im.shape[0]
-                or got.shape[2:] not in (im.shape[2:], (im.shape[2] // 4, im.shape[3] // 4))
+                or got.shape[2:] not in (im.shape[2:], (im.shape[2] // 4, im.shape[3] // 4),
+                                         (im.shape[2] // 8, im.shape[3] // 8))
                 or not (torch.isfinite(got.float()).all()
                         and torch.isfinite(ref.float()).all())):
             raise RuntimeError(f"bad logits {got.shape} {ref.shape} of {im.shape}")
@@ -1792,24 +1826,29 @@ def step_launches(records):
         gnn_trainer.AlternatingTrainer.step = real
 
 
+def same_state(a, b):
+    """Whether two nested dicts and lists of tensors and values are equal,
+    tensors bit for bit wherever they lie."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_state(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(same_state(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
 def trainer_state_equal(a, b):
     """Whether two AlternatingTrainers hold the same state: both nets, both
     AdamW states, βs, UOT graphs and the stage machine."""
     from mds_tpu_torch.engine.optim import optimizer_state
 
-    def same(x, y):
-        if isinstance(x, dict):
-            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
-        if torch.is_tensor(x):
-            return torch.equal(x.cpu(), y.cpu())
-        return x == y
-
-    out = {"seg": same(a.seg_model.state_dict(), b.seg_model.state_dict()),
-           "gnn": same(a.gnn_model.state_dict(), b.gnn_model.state_dict()),
-           "seg_optimizer": same(optimizer_state(a.seg_model, a.seg_opt),
-                                 optimizer_state(b.seg_model, b.seg_opt)),
-           "gnn_optimizer": same(optimizer_state(a.gnn_model, a.gnn_opt),
-                                 optimizer_state(b.gnn_model, b.gnn_opt)),
+    out = {"seg": same_state(a.seg_model.state_dict(), b.seg_model.state_dict()),
+           "gnn": same_state(a.gnn_model.state_dict(), b.gnn_model.state_dict()),
+           "seg_optimizer": same_state(optimizer_state(a.seg_model, a.seg_opt),
+                                       optimizer_state(b.seg_model, b.seg_opt)),
+           "gnn_optimizer": same_state(optimizer_state(a.gnn_model, a.gnn_opt),
+                                       optimizer_state(b.gnn_model, b.gnn_opt)),
            "betas": all(np.array_equal(x, y) for x, y in zip(a.betas, b.betas)),
            "graphs": all(np.array_equal(x, y) for x, y in zip(a.uot_bi, b.uot_bi))}
     out["meta"] = all(getattr(a, k) == getattr(b, k) for k in (
@@ -2149,6 +2188,37 @@ def profile_idle_share(fn, kernels_of_interest=()):
             "top_device_ms": [[n[:80], ms] for n, ms in top], "kernel_device_ms": named}
 
 
+def step_record(model, opt, loss):
+    """One train step's loss, gradients (each parameter's .grad), groups
+    and parameters after it, on the CPU."""
+    groups = {id(p): g["name"] for g in opt.param_groups for p in g["params"]}
+    named = dict(model.named_parameters())
+    return {"loss": loss, "grads": {k: p.grad.cpu().double() for k, p in named.items()},
+            "group": {k: groups[id(p)] for k, p in named.items()},
+            "params": {k: p.detach().cpu() for k, p in named.items()}}
+
+
+def group_agreement(a, b, tensors="params"):
+    """Two steps' records (the card's `a`, the CPU's `b`): the gradient
+    cosine of each param group, and the worst group's max-diff of
+    `tensors` over the group's largest magnitude. Per group: a
+    zero-initialized bias whose gradient a train-mode BN cancels moves by
+    rounding noise alone, so no tensor stands alone."""
+    cos = {}
+    for g in sorted(set(a["group"].values())):
+        ks = [k for k in a["grads"] if a["group"][k] == g]
+        va = torch.cat([a["grads"][k].flatten() for k in ks])
+        vb = torch.cat([b["grads"][k].flatten() for k in ks])
+        cos[g] = (va @ vb / (va.norm() * vb.norm())).item()
+    by_group = {}
+    for k in b[tensors]:
+        by_group.setdefault(a["group"].get(k, k.rsplit(".", 1)[-1]), []).append(k)
+    rels = {g: max((a[tensors][k] - b[tensors][k]).abs().max().item() for k in ks)
+            / max(max(b[tensors][k].abs().max().item() for k in ks), 1e-30)
+            for g, ks in by_group.items()}
+    return cos, rels
+
+
 def phase_parity(dev):
     """One f32 train step with dropout on, on the card and on the CPU, from
     the same weights and generator seed: the card's kernels and library ops
@@ -2171,27 +2241,12 @@ def phase_parity(dev):
         reset_counts()
         loss = step([torch.from_numpy(im).to(d)], [torch.from_numpy(lb).to(d)],
                     torch.Generator().manual_seed(5))["loss"].item()
-        groups = {id(p): g["name"] for g in opt.param_groups for p in g["params"]}
-        named = dict(model.named_parameters())  # .grad: the step's gradient
-        runs[name] = {"loss": loss, "launches": read_counts()["dropout_u8"],
-                      "grads": {k: p.grad.cpu().double() for k, p in named.items()},
-                      "group": {k: groups[id(p)] for k, p in named.items()},
-                      "params": {k: p.detach().cpu() for k, p in named.items()}}
+        runs[name] = dict(step_record(model, opt, loss),
+                          launches=read_counts()["dropout_u8"])
     a, b = runs["cuda"], runs["cpu"]
     loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
-    cos = {}
-    for g in ("wd", "nowd", "head_wd", "head_nowd"):
-        ks = [k for k in a["grads"] if a["group"][k] == g]
-        va = torch.cat([a["grads"][k].flatten() for k in ks])
-        vb = torch.cat([b["grads"][k].flatten() for k in ks])
-        cos[g] = (va @ vb / (va.norm() * vb.norm())).item()
-    # per group: a zero-initialized bias whose gradient a train-mode BN
-    # cancels moves by rounding noise alone, so no tensor stands alone
-    param_rel = max(
-        max((a["params"][k] - b["params"][k]).abs().max().item() for k in ks)
-        / max(b["params"][k].abs().max().item() for k in ks)
-        for ks in ([k for k in a["params"] if a["group"][k] == g]
-                   for g in ("wd", "nowd", "head_wd", "head_nowd")))
+    cos, rels = group_agreement(a, b)
+    param_rel = max(rels.values())
     pool = avg_pool_backward_check(dev)
     emit(phase="parity", loss_cuda=a["loss"], loss_cpu=b["loss"], loss_rel=loss_rel,
          grad_cosine=cos, param_rel=param_rel,
@@ -2497,6 +2552,412 @@ def phase_v1_slice(dev):
     return launches
 
 
+CONTRAST_CONFIG = os.path.join(ROOT, "configs", "bisenetv2_contrast_3ds.json")
+CONTRAST_CATS = (19, 11, 36)  # Cityscapes, CamVid, A2D2 (46 unified classes)
+
+
+def contrast_readers(length, eval_batch=False):
+    """Each dataset of the contrast config on the Synthetic reader at
+    1024×2048 with its own class count; its spec, crop and batch stay the
+    config's."""
+    out = []
+    for i, n in enumerate(CONTRAST_CATS, 1):
+        out += [f"dataset{i}.data_reader", "Synthetic", f"dataset{i}.reader_kwargs",
+                f"{{'n_cats': {n}, 'size': [{H}, {W}], 'length': {length}, 'seed': {i}}}"]
+        if eval_batch:
+            out += [f"dataset{i}.eval_ims_per_gpu", "1"]
+    return out
+
+
+CONTRAST_OVERRIDES = contrast_readers(8) + [
+    "lr.max_iter", "6", "train.ckpt_interval", "3", "train.log_interval", "1"]
+
+
+def contrast_valid_share(lbs_by_dataset):
+    """Each dataset's share of labelled pixels that the single-mapping LUT
+    keeps (a class mapped to several unified ids becomes ignore) and the
+    share of all pixels it keeps; `lbs_by_dataset` holds uint8 label maps."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.data.class_remap import ClassRemap
+
+    remap = ClassRemap(Configer(config_file=CONTRAST_CONFIG))
+    out = []
+    for i, lbs in enumerate(lbs_by_dataset):
+        lut = remap.single_lut(i).numpy()
+        kept = sum(int((lut[lb] != remap.ignore_index).sum()) for lb in lbs)
+        labelled = sum(int((lb != remap.ignore_index).sum()) for lb in lbs)
+        out.append({"of_labelled": kept / labelled,
+                    "of_pixels": kept / sum(lb.size for lb in lbs)})
+    return out
+
+
+def synthetic_valid_share(length):
+    """contrast_valid_share over the `length` raw frames of each dataset's
+    Synthetic reader as CONTRAST_OVERRIDES sets it (before crop and scale)."""
+    from mds_tpu_torch.data.base import SyntheticDataset
+
+    return contrast_valid_share(
+        [[SyntheticDataset(n_cats=n, size=(H, W), length=length, seed=i).read(k)["lb"]
+          for k in range(length)] for i, n in enumerate(CONTRAST_CATS, 1)])
+
+
+def contrast_state(t):
+    """A ContrastTrainer's whole state on the CPU: student, SGD state,
+    teacher, bank, step."""
+    from mds_tpu_torch.engine.optim import optimizer_state
+
+    cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
+    return {"model": cpu(t.model.state_dict()), "teacher": cpu(t.teacher.state_dict()),
+            "optimizer": optimizer_state(t.model, t.optimizer),
+            "bank": [x.cpu() for x in (t.bank.feats, t.bank.ptr, t.bank.count)],
+            "step": t.step_count}
+
+
+# the card-against-CPU step's teacher momentum: at the config's 0.999 the
+# teacher after one step is init plus 1e-3 of the student's move, and a wrong
+# or skipped EMA would hide under the gate
+CARD_VS_CPU_EMA = 0.9
+# the EMA residual's gate: about 8 f32 roundings of the teacher, which the
+# EMA as written stays within; tests/test_torch_contrast_ema_gate.py holds
+# that a skipped EMA, one without the parameters and one a tenth off in
+# momentum land above it
+EMA_RESIDUAL_GATE = 1e-6
+
+
+def contrast_parity_batch():
+    """4 crops of 64×128 a dataset, each image of its own brightness and
+    contrast."""
+    rng = np.random.default_rng(12)
+    batch = {"ims": [], "lbs": []}
+    for n in CONTRAST_CATS:
+        im, lb = seg_batch(rng, 4, 64, 128, n)
+        gain = np.asarray([0.3, 0.55, 0.8, 1.0]).reshape(4, 1, 1, 1)
+        batch["ims"].append((im * gain + (1 - gain) * 96).astype(np.uint8))
+        batch["lbs"].append(lb)
+    return batch
+
+
+def contrast_step_record(dev, batch, work):
+    """One f32 contrast step from the config's seeded init on `dev` at
+    teacher momentum CARD_VS_CPU_EMA: step_record's loss, gradients, groups
+    and parameters, the contrast loss, dropout launches, the bank, and the
+    teacher's float state after the step and its change in the step (f64)."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.contrast_trainer import ContrastTrainer
+
+    cfg = Configer(config_file=CONTRAST_CONFIG,
+                   args_parser=["contrast.ema_momentum", str(CARD_VS_CPU_EMA)])
+    t = ContrastTrainer(cfg, work_dir=work, compute_dtype=torch.float32, device=dev)
+
+    def teacher():
+        return {k: v.detach().cpu().clone() for k, v in t.teacher.state_dict().items()
+                if v.is_floating_point()}
+
+    before = teacher()
+    reset_counts()
+    m = t.step(batch, generator=torch.Generator().manual_seed(5))
+    after = teacher()
+    rec = dict(step_record(t.model, t.optimizer, m["loss"].item()),
+               contrast_loss=m["contrast_loss"].item(),
+               launches=read_counts()["dropout_u8"], bank=t.bank.feats.cpu(), teacher=after)
+    # the EMA on this device against its formula over this device's own
+    # states, in f64: a few f32 roundings of the teacher where it ran as
+    # written, a tenth of the student's move in the step where it did not
+    student = t.model.state_dict()
+    by_group = {}
+    for k, v in after.items():
+        want = (CARD_VS_CPU_EMA * before[k].double()
+                + (1 - CARD_VS_CPU_EMA) * student[k].detach().cpu().double())
+        g = rec["group"].get(k, k.rsplit(".", 1)[-1])
+        err, mag = by_group.get(g, (0.0, 0.0))
+        by_group[g] = (max(err, (v.double() - want).abs().max().item()),
+                       max(mag, v.abs().max().item()))
+    rec["ema_residual"] = {g: err / max(mag, 1e-30) for g, (err, mag) in by_group.items()}
+    return rec
+
+
+def contrast_card_vs_cpu(dev):
+    """One f32 contrast step (configs/bisenetv2_contrast_3ds.json at full
+    width: 46 classes, proj 256, bank 46 × 64 × 256, teacher on at momentum
+    CARD_VS_CPU_EMA) at 4 crops of 64×128 a dataset, TF32 off, dropout on,
+    on the card and on the CPU from the same seeded init, generator seed and
+    anchor noise (drawn on the CPU from that seed): loss rel, per-group
+    gradient cosine, parameters, teacher and bank rel, and each side's EMA
+    residual (EMA_RESIDUAL_GATE). Teacher tensors go by the student's
+    groups, the running means and variances as two more groups (the running
+    mean of a 1×1 conv over BN-centred inputs is rounding noise alone).
+    The teacher's change in one step is too close to the f32 rounding of
+    its stored values to be compared across devices at 1e-4: the residual,
+    on each side's own states, is what resolves the EMA."""
+    batch = contrast_parity_batch()
+    with tempfile.TemporaryDirectory() as work:
+        a, b = (contrast_step_record(d, batch, work) for d in (dev, "cpu"))
+    cos, rels = group_agreement(a, b)
+    _, teacher_rel = group_agreement(a, b, "teacher")
+    worst_teacher = max(teacher_rel, key=teacher_rel.get)
+    return {"loss_cuda": a["loss"], "loss_cpu": b["loss"],
+            "loss_rel": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "contrast_loss_rel": abs(a["contrast_loss"] - b["contrast_loss"])
+            / abs(b["contrast_loss"]),
+            "grad_cosine": cos, "param_rel": max(rels.values()),
+            "ema_momentum": CARD_VS_CPU_EMA,
+            "teacher_rel": teacher_rel[worst_teacher], "teacher_worst": worst_teacher,
+            "ema_residual": {"cuda": a["ema_residual"], "cpu": b["ema_residual"]},
+            "bank_rel": rel(a["bank"], b["bank"]),
+            "dropout_launches": {"cuda": a["launches"], "cpu": b["launches"]}}
+
+
+def contrast_fixed_batch(trainer, dev):
+    """The contrast step on one fixed batch of the config's crops (no loader
+    beside it: the bench's `contrast_train` cell): 5 timed steps after 2
+    warm ones (CUDA events; the trainer's split into the step to the
+    optimizer, the teacher and the pushes), then one under torch.profiler
+    (idle share, launches, the dropout kernel's device time)."""
+    rng = np.random.default_rng(15)
+    h, w = trainer.configer.get("train", "cropsize")
+    batch = {"ims": [], "lbs": []}
+    for i, n in enumerate(CONTRAST_CATS):
+        b = int(trainer.configer.dataset_cfg(i)["ims_per_gpu"])
+        im, lb = seg_batch(rng, b, h, w, n)
+        batch["ims"].append(torch.from_numpy(im).to(dev))
+        batch["lbs"].append(torch.from_numpy(lb).to(dev))
+    for _ in range(2):
+        trainer.step(batch)
+    trainer.timings.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(5):
+        trainer.step(batch)
+    recs = trainer.read_timings()
+    out = {k: [r[k] for r in recs] for k in ("step_ms", "teacher_ms", "push_ms")}
+    out["median_step_ms"] = float(np.median(out["step_ms"]))
+    out["images_per_s"] = sum(x.shape[0] for x in batch["ims"]) / out["median_step_ms"] * 1e3
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["profile"] = profile_idle_share(lambda: trainer.step(batch), ("dropout_bf16_kernel",))
+    out["valid_label_share"] = contrast_valid_share([[lb.cpu().numpy()] for lb in batch["lbs"]])
+    return out
+
+
+def phase_contrast(dev):
+    """The contrast trainer (configs/bisenetv2_contrast_3ds.json at full
+    width, bf16) through tools/train_torch.py's main: 6 steps, checkpoints
+    at 3 and 6, a fresh trainer restoring step 6 exactly, --max-iter 8
+    resuming to 8; 30 dropout launches a step (15 forward, 15 backward) and
+    no other kernel's; the f32 step on the card against the CPU's;
+    tools/evaluate_torch.py on the checkpoint in contrast and emb, routed
+    (kernels 4, 5, 7, 9) and plain."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import train_torch
+
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.contrast_trainer import ContrastTrainer
+    from mds_tpu_torch.utils.metrics_writer import read_metrics
+
+    t0 = time.perf_counter()
+    bad, launches = [], {}
+    with tempfile.TemporaryDirectory() as work:
+        args = ["--config", CONTRAST_CONFIG, "--work-dir", work] + CONTRAST_OVERRIDES
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t1 = time.perf_counter()
+        run = train_torch.main(args)
+        wall_s = time.perf_counter() - t1
+        train_launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        saved = run.ckpt.all_steps()
+        fresh = ContrastTrainer(Configer(config_file=CONTRAST_CONFIG,
+                                         args_parser=CONTRAST_OVERRIDES),
+                                work_dir=work, device=dev)
+        fresh.restore()
+        restored = same_state(contrast_state(fresh), contrast_state(run))
+        bank_filled = int(run.bank.count.sum())
+        del fresh
+        reset_counts()
+        resumed = train_torch.main(args + ["--max-iter", "8"])
+        resume_launches = read_counts()
+        resumed_saved, resumed_step = resumed.ckpt.all_steps(), resumed.step_count
+        fixed = contrast_fixed_batch(resumed, dev)
+        timings, cfg = run.timings, run.configer
+        del run, resumed
+        torch.cuda.empty_cache()
+        want = {k: 0 for k in train_launches}
+        # 5 heads × 3 datasets forward, as many backward
+        want["dropout_u8"] = 30 * 6
+        if train_launches != want or resume_launches != dict(want, dropout_u8=30 * 2):
+            bad.append(f"train launches {train_launches}, resumed {resume_launches}")
+        if saved != [3, 6] or resumed_saved != [3, 6, 8] or resumed_step != 8:
+            bad.append(f"checkpoints {saved}, {resumed_saved}, resumed to {resumed_step}")
+        if not restored:
+            bad.append("a fresh trainer did not restore step 6 exactly")
+        losses = [r["loss"] for r in read_metrics(os.path.join(work, "runs"))]
+        # ---- evaluation: tools/evaluate_torch.py on the checkpoint
+        modes = []
+        eval_launches = {}
+        ckpt = os.path.join(work, "ckpt_contrast")
+        for mode in ("contrast", "emb"):
+            rec, fail, got = eval_pair(
+                CONTRAST_CONFIG, ckpt, mode, 2, EVAL_ROUTES, EVAL_PER_FORWARD, 1,
+                overrides=contrast_readers(2, eval_batch=True), datasets=3, argmax_gate=None)
+            modes.append(rec)
+            bad += [f"eval {mode}: {f}" for f in fail]
+            for k, n in got.items():
+                eval_launches[k] = eval_launches.get(k, 0) + n
+    steps = [r["step_ms"] for r in timings]
+    b = sum(int(cfg.dataset_cfg(i)["ims_per_gpu"]) for i in range(cfg.n_datasets))
+    step_ms = float(np.median(steps[1:]))
+    parity = contrast_card_vs_cpu(dev)
+    if (parity["loss_rel"] >= F32_GATE or min(parity["grad_cosine"].values()) <= 0.9999
+            or max(parity["param_rel"], parity["teacher_rel"], parity["bank_rel"]) >= F32_GATE):
+        bad.append(f"card vs CPU: {parity}")
+    if max(max(r.values()) for r in parity["ema_residual"].values()) >= EMA_RESIDUAL_GATE:
+        bad.append(f"card vs CPU: the teacher's EMA {parity['ema_residual']}")
+    if parity["dropout_launches"] != {"cuda": 30, "cpu": 0}:
+        bad.append(f"card vs CPU: dropout launches {parity['dropout_launches']}")
+    for k, n in train_launches.items():
+        launches[k] = n + resume_launches[k] + eval_launches.get(k, 0)
+    emit(phase="contrast", config=os.path.relpath(CONTRAST_CONFIG, ROOT), dtype="bfloat16",
+         batch=b, crop=cfg.get("train", "cropsize"),
+         losses=losses, valid_label_share=synthetic_valid_share(8),
+         step_ms=steps, median_step_ms=step_ms,
+         images_per_s=b / step_ms * 1e3,
+         teacher_ms=[r["teacher_ms"] for r in timings],
+         median_teacher_ms=float(np.median([r["teacher_ms"] for r in timings[1:]])),
+         push_ms=[r["push_ms"] for r in timings],
+         median_push_ms=float(np.median([r["push_ms"] for r in timings[1:]])),
+         loader_wait_ms=[r["loader_ms"] for r in timings], run_wall_s=wall_s,
+         max_memory_allocated=peak, checkpoints=saved, restored=restored,
+         bank_entries=bank_filled, resumed_checkpoints=resumed_saved,
+         train_launches=train_launches, launches_per_step=sum(train_launches.values()) / 6,
+         dropout_launches_per_step=train_launches["dropout_u8"] / 6,
+         resume_launches=resume_launches, fixed_batch=fixed, card_vs_cpu=parity, eval=modes,
+         launches=launches, seconds=time.perf_counter() - t0)
+    if bad:
+        raise RuntimeError(f"contrast: {bad}")
+    return launches
+
+
+def v1_card_vs_cpu(dev):
+    """One f32 BiSeNetV1 train step (aux heads, the config's SGD) at (4, 64,
+    128), each image of its own brightness and contrast, TF32 off, on the
+    card and on the CPU from the same seeded init: loss rel, per-group
+    gradient cosine, parameters rel; then precise BN over 2 such batches of
+    128×256, the card's recomputed stats against the CPU's."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.precise_bn import update_bn_stats
+
+    cfg = Configer(config_file=V1_CONFIG)
+    rng = np.random.default_rng(13)
+    gain = np.asarray([0.3, 0.55, 0.8, 1.0]).reshape(4, 1, 1, 1)
+    im, lb = seg_batch(rng, 4, 64, 128, 19)
+    im = (im * gain + (1 - gain) * 96).astype(np.uint8)
+    runs = {}
+    for d in ("cpu", dev):
+        model = v1_init(torch.float32).to(d)
+        step, opt = train_step_for(cfg, model, torch.float32)
+        loss = step([torch.from_numpy(im).to(d)], [torch.from_numpy(lb).to(d)])["loss"].item()
+        runs[d] = step_record(model, opt, loss)
+    a, b = runs[dev], runs["cpu"]
+    cos, rels = group_agreement(a, b)
+    param_rel = max(rels.values())
+    if set(a["group"].values()) != {"wd", "nowd"}:
+        raise RuntimeError(f"v1 groups {set(a['group'].values())}: V1 has no head group")
+    # precise BN, card against CPU
+    batches = []
+    for _ in range(2):
+        x, _ = seg_batch(rng, 4, 128, 256, 19)
+        x = (x * gain + (1 - gain) * 96) / 255.0
+        batches.append(torch.from_numpy(((x - 0.5) / 0.25).astype(np.float32)))
+    stats = {}
+    for d in ("cpu", dev):
+        model = v1_init(torch.float32).to(d)
+        before = {k: v.double().cpu() for k, v in model.state_dict().items() if "running" in k}
+        update_bn_stats(model, [x.to(d).permute(0, 3, 1, 2) for x in batches],
+                        lambda m, x: m([x]))
+        stats[d] = {k: v.double().cpu() for k, v in model.state_dict().items() if "running" in k}
+    pbn = {k: ((stats[dev][k] - v).abs().max() / max(v.abs().max(), before[k].abs().max())).item()
+           for k, v in stats["cpu"].items()}
+    worst = max(pbn, key=pbn.get)
+    return {"loss_cuda": a["loss"], "loss_cpu": b["loss"],
+            "loss_rel": abs(a["loss"] - b["loss"]) / abs(b["loss"]), "grad_cosine": cos,
+            "param_rel": param_rel,
+            "precise_bn": {"tensors": len(pbn), "max_rel": pbn[worst], "worst": worst}}
+
+
+def v1_init(dtype=torch.bfloat16):
+    """BiSeNetV1 of the config (19 classes, aux heads) computing in `dtype`
+    at its seeded init with random BN stats."""
+    from mds_tpu_torch import MODELS
+
+    model = MODELS["bisenetv1"](n_classes=(19,), n_bn=1, aux=True, dtype=dtype)
+    model.init_weights(torch.Generator().manual_seed(V1_WEIGHT_SEED))
+    randomize_bn(model, V1_WEIGHT_SEED + 1)
+    return model
+
+
+def phase_v1_train(dev):
+    """BiSeNetV1's train step (configs/bisenetv1_city.json: bs16 512×1024,
+    bf16, aux heads, SGD) on a fixed batch, plain and with fused_up_loss in
+    turns (plain, fused, fused, plain; 5 timed steps each after a warm
+    one); the f32 step and precise BN on the card against the CPU."""
+    from mds_tpu_torch.config import Configer
+
+    cfg = Configer(config_file=V1_CONFIG)
+    b = int(cfg.dataset_cfg(0)["ims_per_gpu"])
+    h, w = cfg.get("train", "cropsize")
+    init = v1_init()
+    im, lb = seg_batch(np.random.default_rng(14), b, h, w, 19)
+    ims, lbs = [torch.from_numpy(im).to(dev)], [torch.from_numpy(lb).to(dev)]
+    routes = {}
+    first = {}
+    for name, fused in (("plain", False), ("fused", True)):
+        model = copy.deepcopy(init).to(dev)
+        step, opt = train_step_for(cfg, model, torch.bfloat16, fused_up_loss=fused)
+        first[name] = step(ims, lbs)["loss"].item()  # warm: cuDNN's first calls
+        routes[name] = (model, step, opt)
+    turns, bad = [], []
+    for name in ("plain", "fused", "fused", "plain"):
+        model, step, opt = routes[name]
+        p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        times, losses = [], []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(step(ims, lbs)["loss"])
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        launches = read_counts()
+        moved = sum(not torch.equal(p0[k], v) for k, v in model.named_parameters())
+        losses = [x.item() for x in losses]
+        ms = float(np.median(times))
+        turns.append({"route": name, "step_ms": times, "median_step_ms": ms,
+                      "images_per_s": b / ms * 1e3, "losses": losses,
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                      "launches": launches, "params_moved": f"{moved}/{len(p0)}"})
+        if not np.isfinite(losses).all() or moved < 0.9 * len(p0) or any(launches.values()):
+            bad.append(f"{name}: losses {losses}, moved {moved}/{len(p0)}, launches {launches}")
+    profiles = {name: profile_idle_share(lambda: step(ims, lbs))
+                for name, (_, step, _) in routes.items()}
+    del routes
+    torch.cuda.empty_cache()
+    loss_rel = abs(first["fused"] - first["plain"]) / abs(first["plain"])
+    if loss_rel >= 1e-2:
+        bad.append(f"fused_up_loss first loss {first['fused']} vs plain {first['plain']}")
+    parity = v1_card_vs_cpu(dev)
+    if (parity["loss_rel"] >= F32_GATE or min(parity["grad_cosine"].values()) <= 0.9999
+            or parity["param_rel"] >= F32_GATE or parity["precise_bn"]["max_rel"] >= F32_GATE):
+        bad.append(f"card vs CPU: {parity}")
+    emit(phase="v1_train", config=os.path.relpath(V1_CONFIG, ROOT), batch=[b, h, w],
+         dtype="bfloat16", first_loss=first, fused_first_loss_rel=loss_rel, turns=turns,
+         profile=profiles, card_vs_cpu=parity)
+    if bad:
+        raise RuntimeError(f"v1_train: {bad}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2551,6 +3012,11 @@ def main():
     torch.cuda.empty_cache()
     for k, n in phase_flagship(dev).items():
         launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    for k, n in phase_contrast(dev).items():
+        launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    phase_v1_train(dev)
     torch.cuda.empty_cache()
     results["stem_conv3x3_s2"] = phase_train_stem(dev)
     launches["stem_conv3x3_s2"] = results["stem_conv3x3_s2"]["launches"]

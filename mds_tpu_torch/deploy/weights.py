@@ -9,13 +9,16 @@ further, into one BatchNorm2d(affine=True) per dataset; for BiSeNetV1 the
 inverse of `resnet18_torchvision_to_resnet` (:499-528) and
 `bisenetv1_from_torch` (:766-820); for snp_rn18 the inverse of
 `swiftnet_backbone_from_torch` (:283) and `semseg_from_torch` (:343), and
-the BGNN's parameters in JAX's own names. BatchNorm2d's `num_batches_tracked` may
+the BGNN's parameters in JAX's own names; for BiSeNetV2Contrast the
+inverse of `bisenetv2_contrast_from_torch` (:184), and that importer
+itself (`load_contrast_reference`). BatchNorm2d's `num_batches_tracked` may
 be absent: a state_dict without torch's version metadata loads strictly
 without it.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -82,24 +85,24 @@ def _oihw(k: np.ndarray) -> np.ndarray:
     return np.asarray(k).transpose(3, 2, 0, 1)  # HWIO → OIHW
 
 
-def bisenetv2_to_torch(params: Mapping, stats: Mapping) -> Dict[str, np.ndarray]:
-    """JAX BiSeNetV2 (params, batch_stats) trees → reference-layout arrays."""
-    out: Dict[str, np.ndarray] = {}
+def _dump_convbn(out: Dict, params: Mapping, stats: Mapping, ours: str, theirs: str):
+    """A JAX ConvBNReLU (shared affine, stacked per-dataset stats) →
+    reference-layout keys."""
+    out[f"{theirs}.conv.weight"] = _oihw(_get(params, f"{ours}/conv/kernel"))
+    out[f"{theirs}.affine_weight"] = _get(params, f"{ours}/bn/scale")
+    out[f"{theirs}.affine_bias"] = _get(params, f"{ours}/bn/bias")
+    mean, var = _get(stats, f"{ours}/bn/mean"), _get(stats, f"{ours}/bn/var")
+    for i in range(mean.shape[0]):
+        out[f"{theirs}.bn.{i}.running_mean"] = mean[i]
+        out[f"{theirs}.bn.{i}.running_var"] = var[i]
 
-    def dump_convbn(ours, theirs):
-        out[f"{theirs}.conv.weight"] = _oihw(_get(params, f"{ours}/conv/kernel"))
-        out[f"{theirs}.affine_weight"] = _get(params, f"{ours}/bn/scale")
-        out[f"{theirs}.affine_bias"] = _get(params, f"{ours}/bn/bias")
-        mean, var = _get(stats, f"{ours}/bn/mean"), _get(stats, f"{ours}/bn/var")
-        for i in range(mean.shape[0]):
-            out[f"{theirs}.bn.{i}.running_mean"] = mean[i]
-            out[f"{theirs}.bn.{i}.running_var"] = var[i]
 
+def _trunk_to_torch(params: Mapping, stats: Mapping, out: Dict) -> None:
+    """BiSeNetV2's DetailBranch, SegmentBranch and BGALayer."""
     for ours, theirs in _CONVBN_BLOCKS.items():
-        dump_convbn(ours, theirs)
+        _dump_convbn(out, params, stats, ours, theirs)
     for ours, theirs in _PLAIN_CONVS.items():
         out[f"{theirs}.weight"] = _oihw(_get(params, f"{ours}/kernel"))
-
     mean, var = _get(stats, "segment/S5_5/bn/mean"), _get(stats, "segment/S5_5/bn/var")
     scale, bias = _get(params, "segment/S5_5/bn/scale"), _get(params, "segment/S5_5/bn/bias")
     for i in range(mean.shape[0]):
@@ -108,13 +111,43 @@ def bisenetv2_to_torch(params: Mapping, stats: Mapping) -> Dict[str, np.ndarray]
         out[f"segment.S5_5.bn.{i}.weight"] = scale[i]
         out[f"segment.S5_5.bn.{i}.bias"] = bias[i]
 
+
+def bisenetv2_to_torch(params: Mapping, stats: Mapping) -> Dict[str, np.ndarray]:
+    """JAX BiSeNetV2 (params, batch_stats) trees → reference-layout arrays."""
+    out: Dict[str, np.ndarray] = {}
+    _trunk_to_torch(params, stats, out)
     n_heads = sum(1 for k in params if k.startswith("head_"))
     for (ours, kind), theirs in _head_blocks(n_heads, "aux2_0" in params).items():
         if kind == "conv_b":
             out[f"{theirs}.weight"] = _oihw(_get(params, f"{ours}/kernel"))
             out[f"{theirs}.bias"] = _get(params, f"{ours}/bias")
         else:
-            dump_convbn(ours, theirs)
+            _dump_convbn(out, params, stats, ours, theirs)
+    return out
+
+
+def bisenetv2_contrast_to_torch(params: Mapping, stats: Mapping) -> Dict[str, np.ndarray]:
+    """JAX BiSeNetV2Contrast (params, batch_stats) trees → reference-layout
+    arrays (the inverse of mds_tpu/deploy/torch_import.py
+    `bisenetv2_contrast_from_torch` :184): the trunk, the unified head
+    `head.conv` + `head.proj.conv` (ConvNorm's bias-free 1×1), the aux heads
+    with their `conv1`, `projHead.conv1` + `projHead.conv_last` and the
+    per-dataset aux heads `dataset_aux_head.{i}` where the tree has them."""
+    out: Dict[str, np.ndarray] = {}
+    _trunk_to_torch(params, stats, out)
+    heads = {h: h for h in ("head", "aux2", "aux3", "aux4", "aux5_4") if h in params}
+    i = 0
+    while f"dataset_aux_head_{i}" in params:
+        heads[f"dataset_aux_head_{i}"] = f"dataset_aux_head.{i}"
+        i += 1
+    for ours, theirs in heads.items():
+        for block in ("conv", "conv1"):
+            if block in params[ours]:
+                _dump_convbn(out, params, stats, f"{ours}/{block}", f"{theirs}.{block}")
+        out[f"{theirs}.proj.conv.weight"] = _oihw(_get(params, f"{ours}/conv_out/kernel"))
+    _dump_convbn(out, params, stats, "proj_head/conv1", "projHead.conv1")
+    out["projHead.conv_last.weight"] = _oihw(_get(params, "proj_head/conv_out/kernel"))
+    out["projHead.conv_last.bias"] = _get(params, "proj_head/conv_out/bias")
     return out
 
 
@@ -239,21 +272,93 @@ def load_reference_weights(model: nn.Module, state: Mapping) -> nn.Module:
     return model
 
 
-def train_state_from_jax(params: Mapping, batch_stats: Mapping, opt_state,
-                         step: int) -> Dict:
-    """A JAX BiSeNetV2 train state (numpy trees; `opt_state` the JAX
-    package's `SGDGroupsState`, with `count` and the momentum `trace`) →
-    the port's checkpoint state (engine/checkpoints.py `train_state`): the
-    model's state_dict, GroupSGD's momentum buffers by parameter name with
-    the step count, and the step. A run of the JAX package resumes in the
-    port from it."""
-    model = bisenetv2_state_dict_from_jax(params, batch_stats)
-    trace = bisenetv2_state_dict_from_jax(opt_state.trace, batch_stats)
+def _tensors(arrays: Mapping) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in arrays.items()}
+
+
+def bisenetv2_contrast_state_dict_from_jax(params: Mapping,
+                                           batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX BiSeNetV2Contrast variables (numpy arrays, nested dicts) → the
+    port's state_dict, for load_state_dict(strict=True)."""
+    return _tensors(bisenetv2_contrast_to_torch(params, batch_stats))
+
+
+def _sgd_train_state(to_state_dict, params: Mapping, batch_stats: Mapping, opt_state,
+                     step) -> Dict:
+    """A JAX train state of SGD groups (`opt_state` the JAX package's
+    `SGDGroupsState`, with `count` and the momentum `trace`) → the port's
+    checkpoint state (engine/checkpoints.py `train_state`), through
+    `to_state_dict(params, batch_stats)`."""
+    model = to_state_dict(params, batch_stats)
+    trace = to_state_dict(opt_state.trace, batch_stats)
     momentum = {k: {"momentum_buffer": v} for k, v in trace.items()
                 if not k.endswith(("running_mean", "running_var"))}
     return {"model": model,
             "optimizer": {"count": int(np.asarray(opt_state.count)), "state": momentum},
             "step": int(np.asarray(step))}
+
+
+def train_state_from_jax(params: Mapping, batch_stats: Mapping, opt_state,
+                         step: int) -> Dict:
+    """A JAX BiSeNetV2 train state (numpy trees; `opt_state` the JAX
+    package's `SGDGroupsState`) → the port's checkpoint state: the model's
+    state_dict, GroupSGD's momentum buffers by parameter name with the step
+    count, and the step. A run of the JAX package resumes in the port from
+    it."""
+    return _sgd_train_state(bisenetv2_state_dict_from_jax, params, batch_stats,
+                            opt_state, step)
+
+
+def contrast_state_from_jax(params: Mapping, batch_stats: Mapping, opt_state, step,
+                            bank, teacher: Mapping = None):
+    """A JAX ContrastTrainer's state (numpy trees; `bank` its MemoryBank,
+    `teacher` its {"params", "batch_stats"} or None) → (state, extras) as
+    the port's ContrastTrainer checkpoint holds them (its `load`)."""
+    state = _sgd_train_state(bisenetv2_contrast_state_dict_from_jax, params, batch_stats,
+                             opt_state, step)
+    extras = {"bank_feats": torch.from_numpy(np.array(bank.feats, np.float32)),
+              "bank_ptr": torch.from_numpy(np.array(bank.ptr, np.int32)),
+              "bank_count": torch.from_numpy(np.array(bank.count, np.int32))}
+    if teacher is not None:
+        extras["teacher"] = bisenetv2_contrast_state_dict_from_jax(
+            teacher["params"], teacher["batch_stats"])
+    return state, extras
+
+
+_PROJ_WEIGHT = re.compile(r"^(.*\.proj)\.weight$")
+# the bias-free ConvNorm's bias (a plain-1×1 projection's) and the dead
+# conv1 block the reference builds in an aux=False head
+_DROPPED = re.compile(r"^(.*\.proj\.bias|head\.conv1\..*|dataset_aux_head\.\d+\.conv1\..*)$")
+
+
+def load_contrast_reference(model: nn.Module, state: Mapping) -> Dict[str, np.ndarray]:
+    """Load a reference contrast-family state_dict (BiSeNetV2_Contrast,
+    _WN, _BN; the port's copy of mds_tpu/deploy/torch_import.py
+    `bisenetv2_contrast_from_torch` :184) into a BiSeNetV2Contrast: the
+    names are the port's own, a plain `<head>.proj.weight` goes to
+    `<head>.proj.conv.weight`, a `proj.bias` and an aux=False head's dead
+    `conv1` are dropped, keys the model lacks are ignored. Every model key
+    outside the aux heads (and BN's num_batches_tracked) must be there.
+    Returns the extras: the (U, P, D) `prototypes` buffer where present."""
+    extras: Dict[str, np.ndarray] = {}
+    own = model.state_dict()
+    sd = {}
+    for k, v in state.items():
+        if k == "prototypes":
+            extras["prototypes"] = np.asarray(v)
+            continue
+        if _DROPPED.match(k):
+            continue
+        m = _PROJ_WEIGHT.match(k)
+        k = f"{m.group(1)}.conv.weight" if m else k
+        if k in own:
+            sd[k] = torch.as_tensor(np.array(v))
+    missing = [k for k in own if k not in sd and not k.endswith("num_batches_tracked")
+               and not k.startswith(_AUX_HEADS + ("dataset_aux_head.",))]
+    if missing:
+        raise KeyError(f"contrast state_dict lacks {missing[:5]} ({len(missing)} keys)")
+    model.load_state_dict(sd, strict=False)
+    return extras
 
 
 def _dump_slots(out: Dict, params: Mapping, stats: Mapping, ours: str, theirs: str,

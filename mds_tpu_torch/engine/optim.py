@@ -6,9 +6,12 @@ SGD runs over the reference's 4 param groups.
 
 Groups (tools/train_amp.py:138-166 of the reference): weight decay on conv
 and linear weights (ndim ≥ 2), none on 1-d params (BN affine, biases); lr ×
-`lr_mul` for everything under a head (`head.`, `aux2.`, `aux3.`, `aux4.`,
-`aux5_4.`). The update is torch SGD's, v ← m·v + (g + wd·p), p ← p − lr·v,
-at lr = schedule(count) × the group's multiplier, count starting at 0. As in
+`lr_mul` for a parameter any of whose name's parts starts with `head`,
+`aux2`, `aux3`, `aux4`, `aux5_4`, `classifier` or `projHead` (JAX's
+`proj_head`; mds_tpu/engine/optim.py:28-41): BiSeNetV2's heads, the
+contrast model's heads and projection, not BiSeNetV1's `conv_out*`. The
+update is torch SGD's, v ← m·v + (g + wd·p), p ← p − lr·v, at lr =
+schedule(count) × the group's multiplier, count starting at 0. As in
 the JAX optimizer, a parameter whose gradient is None or identically zero
 was unused this step: its momentum is kept, it gets no weight decay and does
 not move. The zero test runs on the device (`torch.where`), with no host
@@ -23,7 +26,12 @@ import numpy as np
 import torch
 from torch import nn
 
-HEAD_PREFIXES = ("head", "aux2", "aux3", "aux4", "aux5_4")
+HEAD_PREFIXES = ("head", "aux2", "aux3", "aux4", "aux5_4", "classifier", "projHead")
+
+
+def is_head(name: str) -> bool:
+    """Whether parameter `name` takes the head learning rate."""
+    return any(part.startswith(HEAD_PREFIXES) for part in name.split("."))
 
 
 def param_groups(model: nn.Module, weight_decay: float,
@@ -35,7 +43,7 @@ def param_groups(model: nn.Module, weight_decay: float,
     for name, p in model.named_parameters():
         if not p.requires_grad:
             continue
-        head = name.split(".")[0] in HEAD_PREFIXES
+        head = is_head(name)
         decay = p.ndim >= 2
         groups[("head_" if head else "") + ("wd" if decay else "nowd")].append(p)
     return [{"name": k, "params": ps,

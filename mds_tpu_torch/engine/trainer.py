@@ -3,16 +3,20 @@ mds_tpu/engine/trainer.py (`build_model` :41, `dataset_stats` :54,
 `Trainer` :69, `train_from_config` :338).
 
 One run: config → data loader (host threads) → the device feed → the
-BiSeNetV2 train step (plain, or `train.fused_up_loss`) → the log line and
-metrics.jsonl → checkpoints every `train.ckpt_interval` steps and at the
-end → restore and resume from the latest checkpoint.
+BiSeNetV2 or BiSeNetV1 train step (plain, or `train.fused_up_loss`) → the
+log line and metrics.jsonl → checkpoints every `train.ckpt_interval` steps
+and at the end → restore and resume from the latest checkpoint.
+`train_from_config` also dispatches to the alternating trainer
+(engine/gnn_trainer.py) and the contrast trainer
+(engine/contrast_trainer.py).
 
 - The device is explicit and defaults to CUDA; without a card the trainer
   refuses to start unless the caller asks for the CPU.
 - Each step's dropout generator is a CPU `torch.Generator` derived from
   (seed, step) (`step_generator`), as JAX folds the step into
   PRNGKey(seed): a resumed run draws the masks an unbroken one draws. On
-  the card each step launches the dropout kernel 10 times.
+  the card each BiSeNetV2 step launches the dropout kernel 10 times;
+  BiSeNetV1 has no dropout.
 - `use_sync_bn`: the port trains on one card in one process, where the
   batch's own moments are both the local and the global ones, so either
   value gives the same step. JAX's `local_bn` shard_map and SyncBN across
@@ -53,20 +57,22 @@ from mds_tpu_torch.utils.logger import print_log_msg, setup_logger
 from mds_tpu_torch.utils.meters import AvgMeter, TimeMeter
 from mds_tpu_torch.utils.metrics_writer import MetricsWriter
 
-TRAINABLE = ("bisenetv2", "bisenetv2_origin")
+TRAINABLE = ("bisenetv2", "bisenetv2_origin", "bisenetv1")
 # the models built from n_classes; the rest from the config (`configer=`)
 _BY_CLASSES = ("bisenetv2", "bisenetv2_origin", "bisenetv1")
 
-# finetune_from: the layouts whose models the port does not have yet
+# finetune_from: the layouts of models this trainer does not train
 _LAYOUT_ITEMS = {
-    "bisenetv1": "ROADMAP queue 1, item 5 (BiSeNetV1's train step)",
     "semseg": "the alternating trainer takes it (tools/train_torch.py --gnn)",
-    "resnet18": "ROADMAP queue 1, items 5 and 6 (BiSeNetV1 and SwiftNet trunks)",
-    "bisenetv2_contrast": "ROADMAP queue 1, item 7 (the contrast family)",
+    "bisenetv2_contrast": "the contrast trainer takes it (train.mode contrast)",
     "hrnet_ref": "ROADMAP queue 1, item 8 (HRNet)",
     "hrnet_imagenet": "ROADMAP queue 1, item 8 (HRNet)",
     "swin": "ROADMAP queue 1, item 8 (Swin)",
 }
+# the layouts each trainable model loads: its own, and BiSeNetV1's
+# torchvision ResNet18 trunk under cp.resnet (mds_tpu/engine/trainer.py:214-232)
+_MODEL_LAYOUTS = {"bisenetv2": ("bisenetv2",), "bisenetv2_origin": ("bisenetv2",),
+                  "bisenetv1": ("bisenetv1", "resnet18")}
 
 
 def build_model(configer: Configer, dtype: torch.dtype = torch.bfloat16,
@@ -124,9 +130,9 @@ class Trainer:
         if name not in TRAINABLE:
             raise NotImplementedError(
                 f"the supervised trainer trains {TRAINABLE}, not {name!r}: "
-                "BiSeNetV1's train step is ROADMAP queue 1, item 5; snp_rn18 "
-                "trains through the alternating trainer (--gnn, train.mode "
-                "alternate/seg/gnn); the other models are items 7 and 8")
+                "snp_rn18 trains through the alternating trainer (--gnn, "
+                "train.mode alternate/seg/gnn), the contrast family through "
+                "train.mode contrast; HRNet and Swin are ROADMAP queue 1, item 8")
         self.seed = int(configer.get("seed", default=0) or 0)
         self.max_iter = int(configer.get("lr", "max_iter", default=1000))
         self.schedule = warmup_poly_lr(
@@ -165,10 +171,13 @@ class Trainer:
         self.logger.info(f"restored checkpoint at step {self.step}")
 
     def finetune_from(self, path: str) -> None:
-        """Load weights only: a `.pth`/`.pt` BiSeNetV2 state_dict in the
-        reference's torch layout, or a checkpoint directory of the port's
-        own (its latest step). A state_dict of a model the port cannot
-        train yet raises, naming its ROADMAP item."""
+        """Load weights only: a `.pth`/`.pt` state_dict in the reference's
+        torch layout (BiSeNetV2's, or BiSeNetV1's; for V1 also a
+        torchvision ResNet18 into its ContextPath's trunk), or a checkpoint
+        directory of the port's own (its latest step). A state_dict of a
+        model another trainer takes, or the port lacks, raises
+        NotImplementedError naming it; one that does not fit this model,
+        ValueError."""
         from mds_tpu_torch.deploy.weights import detect_torch_layout, load_reference_weights
 
         if path.endswith((".pth", ".pt")):
@@ -179,7 +188,17 @@ class Trainer:
             if layout in _LAYOUT_ITEMS:
                 raise NotImplementedError(
                     f"finetune_from a {layout!r} state_dict: {_LAYOUT_ITEMS[layout]}")
-            load_reference_weights(self.model, sd)
+            name = self.configer.get("model_name", default="bisenetv2")
+            if layout not in _MODEL_LAYOUTS[name]:
+                raise ValueError(f"a {layout!r} state_dict does not fit {name!r}")
+            if layout == "resnet18":
+                trunk = {f"cp.resnet.{k}": v for k, v in sd.items()
+                         if not k.startswith("fc.")}
+                unexpected = self.model.load_state_dict(trunk, strict=False).unexpected_keys
+                if unexpected:
+                    raise ValueError(f"not a ResNet18 trunk: {unexpected[:5]}")
+            else:
+                load_reference_weights(self.model, sd)
         else:
             state, _ = CheckpointManager(path).restore()
             load_train_state(self.model, None, state)
@@ -260,8 +279,6 @@ class Trainer:
 NOT_PORTED = {
     "clip": "the clip trainer waits: ROADMAP queue 1, item 6b (the flagship's "
             "waiting features: train.mode 'clip', set_clip_prototypes)",
-    "contrast": "the contrast trainer is not in the port yet: ROADMAP queue 1, "
-                "item 7 (the contrast family)",
 }
 
 
@@ -273,9 +290,10 @@ def train_from_config(config_path: str, overrides: Optional[List[str]] = None,
     `finetune_from` weights, then resume from the latest checkpoint under
     `work_dir` if there is one. `gnn` or `train.mode` alternate, seg or gnn
     run the alternating SEG/GNN trainer (engine/gnn_trainer.py, f32 unless
-    `compute_dtype`) and return it; otherwise the supervised Trainer (bf16
-    unless `compute_dtype`). train.mode clip and contrast raise
-    NotImplementedError."""
+    `compute_dtype`) and return it; train.mode contrast the contrast
+    trainer (engine/contrast_trainer.py, bf16 unless `compute_dtype`);
+    otherwise the supervised Trainer (bf16 unless `compute_dtype`).
+    train.mode clip raises NotImplementedError."""
     configer = Configer(config_file=config_path, args_parser=overrides or [])
     if max_iter is not None:
         configer.update(["lr", "max_iter"], max_iter)
@@ -288,6 +306,12 @@ def train_from_config(config_path: str, overrides: Optional[List[str]] = None,
         return train_alternating(configer, work_dir=work_dir, device=device,
                                  finetune_from=finetune_from,
                                  compute_dtype=compute_dtype or torch.float32)
+    if mode == "contrast":
+        from mds_tpu_torch.engine.contrast_trainer import train_contrast
+
+        return train_contrast(configer, work_dir=work_dir, device=device,
+                              finetune_from=finetune_from,
+                              compute_dtype=compute_dtype or torch.bfloat16)
     t = Trainer(configer, work_dir=work_dir, device=device,
                 compute_dtype=compute_dtype or torch.bfloat16)
     if finetune_from:

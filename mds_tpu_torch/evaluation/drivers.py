@@ -8,6 +8,9 @@ checkpoint the train CLI writes is evaluable; BiSeNetV1 checkpoints load
 too. The flagship (snp_rn18, or `train.mode` alternate, seg or gnn) comes
 from the alternating trainer and its checkpoint (`<ckpt>`, else
 `<work_dir>/ckpt_gnn`): the seg state with its bipartite graphs. The
+contrast family (`train.mode` contrast) comes from the contrast trainer
+and its checkpoint (`<ckpt>`, else `<work_dir>/ckpt_contrast`), with the
+memory bank's class means as the `emb` mode's prototypes. The
 label-usage audit (`_unified_hist`, `find_unuse_label`,
 `eval_find_use_and_unuse_label`, `_slot_buckets`, `find_label_relation`,
 :169-297) waits (ROADMAP queue 1, item 6b).
@@ -25,7 +28,6 @@ from mds_tpu_torch.evaluation.evaluator import eval_model
 
 _MODE_ITEMS = {
     "clip": "ROADMAP queue 1, item 6b (the flagship's waiting features: train.mode 'clip')",
-    "contrast": "ROADMAP queue 1, item 7 (the contrast family)",
 }
 ALTERNATING = ("alternate", "seg", "gnn")
 DSG_ITEM = ("eval mode 'dsg' scores the stage-2 train lists, which need the "
@@ -46,8 +48,11 @@ def build_eval_bundle(configer, ckpt: Optional[str] = None, work_dir: str = "./r
     alternating trainer's seg model (bf16, JAX's identity graphs at init)
     restored from the latest checkpoint of `ckpt` (else of
     `<work_dir>/ckpt_gnn`), its graphs included (mds_tpu/evaluation/
-    drivers.py:46-58). The checkpoints of `train.mode` clip and contrast
-    raise NotImplementedError."""
+    drivers.py:46-58). `train.mode` contrast: the contrast trainer's
+    model (bf16) restored from the latest checkpoint of `ckpt` (else of
+    `<work_dir>/ckpt_contrast`), its `prototypes` the (U, 1, D) class means
+    of the memory bank, `feats.mean(axis=1, keepdims=True)` (:58-76). The
+    checkpoints of `train.mode` clip raise NotImplementedError."""
     from mds_tpu_torch.engine.checkpoints import CheckpointManager, load_train_state
     from mds_tpu_torch.engine.trainer import build_model
 
@@ -63,6 +68,15 @@ def build_eval_bundle(configer, ckpt: Optional[str] = None, work_dir: str = "./r
         if tr.latest_step(directory) is not None:
             tr.restore(directory)
         return tr.seg_model.eval()
+    if mode == "contrast":
+        from mds_tpu_torch.engine.contrast_trainer import ContrastTrainer
+
+        tr = ContrastTrainer(configer, work_dir=work_dir, device=device)
+        directory = os.path.abspath(ckpt) if ckpt else tr.ckpt.directory
+        if os.path.isdir(directory) and CheckpointManager(directory).latest_step() is not None:
+            tr.restore(directory)
+        tr.model.prototypes = tr.bank.feats.mean(dim=1, keepdim=True)
+        return tr.model.eval()
     model = build_model(configer)
     seed = int(configer.get("seed", default=0) or 0)
     model.init_weights(torch.Generator().manual_seed(seed))

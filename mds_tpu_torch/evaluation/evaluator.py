@@ -309,7 +309,8 @@ EVAL_MODES = (
 MODE_METHODS = {
     "unseen": ("unseen_pred_logits", "the flagship snp_rn18 has it (ROADMAP queue 1, item 6)"),
     "clip": ("clip_logits", "the flagship snp_rn18 has it (ROADMAP queue 1, item 6)"),
-    "emb": ("emb_logits", "ROADMAP queue 1, item 7 (the contrast family)"),
+    "emb": ("emb_logits", "the contrast family bisenetv2_contrast has it (ROADMAP queue 1, "
+                          "item 7)"),
 }
 
 
@@ -356,7 +357,8 @@ def eval_model(configer, model, loaders, mode: str = "ss") -> List[float]:
     """Per-dataset mIoU of `model` (put in eval mode, on its own device)
     over the per-dataset `loaders`, under the mode's protocol. The modes
     unseen, clip and emb raise NotImplementedError when the model lacks
-    their method (unseen and clip: every model but snp_rn18)."""
+    their method (unseen and clip: every model but snp_rn18; emb: every
+    model but the contrast family's, whose `prototypes` it reads)."""
     from mds_tpu_torch.engine.trainer import dataset_stats
 
     ev = _make_evaluator(configer, mode)

@@ -6,16 +6,18 @@ SpatialPath, a feature fusion module and BiSeNetOutput heads (1 main, ×8;
 (mds_tpu/deploy/torch_import.py:766-820: `cp.resnet.*`, `cp.arm16.conv.conv`,
 `sp.conv1.bn`, `ffm.convblk`, `conv_out.conv_out`, ...), so a reference
 checkpoint loads strictly. Every BN is a plain BatchNorm2d evaluated in
-flax's order and rounding (layers.bn_eval); bf16 elementwise steps (the ARM
+flax's order and rounding (layers.bn_eval: in train mode flax's batch moments and
+biased running variance at momentum 0.9); bf16 elementwise steps (the ARM
 and FFM gates) round where JAX's bf16 graph does. With
 set_stem_impl("kernel") the two bf16 7×7 RGB stems (ResNet18 conv1, the
-SpatialPath's conv1) run as one CUDA kernel each. Eval only: train mode
-raises (ROADMAP queue 1, item 5).
+SpatialPath's conv1) run as one CUDA kernel each in eval; in train mode
+they take the library conv with the BN unfolded, as JAX's do
+(mds_tpu/models/bisenetv1.py:43).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -33,11 +35,6 @@ from mds_tpu_torch.models.layers import (
 )
 from mds_tpu_torch.models.resnet import Resnet18
 from mds_tpu_torch.registry import MODELS
-
-_TRAIN_NOT_PORTED = (
-    "BiSeNetV1 train mode is not ported yet: it needs flax's BN semantics "
-    "(biased running variance, momentum 0.9); ROADMAP queue 1, item 5")
-
 
 class ConvBNReLU1(nn.Module):
     """conv → single BN → ReLU (mds_tpu/models/bisenetv1.py:25-65); a 7×7
@@ -178,29 +175,35 @@ class BiSeNetV1(nn.Module):
         self.aux = aux
         self.dtype = dtype
 
-    def _features(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(_TRAIN_NOT_PORTED)
+    def _features(self, x: torch.Tensor):
+        """(fused feature, ContextPath's x8, its x16)."""
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
-        feat_cp8, _ = self.cp(x)
-        return self.ffm(self.sp(x), feat_cp8)
+        feat_cp8, feat_cp16 = self.cp(x)
+        return self.ffm(self.sp(x), feat_cp8), feat_cp8, feat_cp16
 
-    def forward(self, xs, up: bool = True) -> Dict:
-        """The list-form call of the JAX model in eval (xs = [x]): the main
-        logits under "logits"; with up=False they stay at 1/8 and
-        "up_factors" = (main factor, [aux factors]) is added. Train mode
-        raises: the aux heads run only there."""
+    def forward(self, xs, up: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict:
+        """The list-form call of the JAX model (xs = [x];
+        mds_tpu/models/bisenetv1.py:212-232): the main logits under
+        "logits"; in train mode with aux heads the two aux heads' under
+        "aux" as [[x8 head], [x16 head]]. up=False leaves every head at 1/8
+        or 1/16 and adds "up_factors" = (main factor, [aux factors]).
+        `generator` is taken for the trainers' common call: V1 has no
+        dropout."""
         x = xs[0] if isinstance(xs, (list, tuple)) else xs
-        out = {"logits": [self.conv_out(self._features(x), up)]}
+        feat, feat_cp8, feat_cp16 = self._features(x)
+        out = {"logits": [self.conv_out(feat, up)]}
         if not up:
             out["up_factors"] = (self.conv_out.up_factor,
                                  [self.conv_out16.up_factor, self.conv_out32.up_factor]
                                  if self.aux else [])
+        if self.aux and self.training:
+            out["aux"] = [[self.conv_out16(feat_cp8, up)], [self.conv_out32(feat_cp16, up)]]
         return out
 
     def eval_logits(self, x: torch.Tensor, dataset: int = 0) -> torch.Tensor:
         """Main logits (B, C, H, W) in f32 at input resolution."""
-        return self.conv_out(self._features(x))
+        return self.conv_out(self._features(x)[0])
 
     def pred(self, x: torch.Tensor, dataset: int = 0) -> torch.Tensor:
         """Argmax label map (B, H, W)."""

@@ -330,28 +330,37 @@ def bn_fold(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def bn_eval(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax nn.BatchNorm(use_running_average=True) in its order and rounding:
-    y = (x − mean)·(rsqrt(var + ε)·γ) + β in f32, cast to `dtype`.
+    """flax nn.BatchNorm(use_running_average=not bn.training, momentum=0.9)
+    in its order and rounding, out in `dtype`.
 
-    Eval only. In train mode flax updates the running variance with the
-    biased batch variance at momentum 0.9, BatchNorm2d with the unbiased one
-    at 0.1; that train BN is not ported yet (ROADMAP queue 1, item 5), so a
-    module in train mode raises here instead of training with torch's
-    semantics."""
+    Eval: y = (x − mean)·(rsqrt(var + ε)·γ) + β in f32 with the running
+    stats. Train (flax's `_compute_stats` and `_normalize`): the f32 batch
+    mean m and the fast biased variance v = max(E[x²] − m², 0) over N, H, W
+    normalize, the gradient flowing through both; the running stats move in
+    place to 0.9·running + 0.1·batch, the variance's with the biased v.
+    BatchNorm2d's own train mode (unbiased running variance) never runs."""
     if bn.training:
-        raise NotImplementedError(
-            "single-BN train mode (flax BN semantics) is not ported yet: "
-            "ROADMAP queue 1, item 5 (BiSeNetV1 train step)")
-    mul = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
-    y = (x.float() - _c(bn.running_mean.float())) * _c(mul) + _c(bn.bias.float())
+        xf = x.float()
+        m = xf.mean(dim=(0, 2, 3))
+        v = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - m.square(), min=0.0)
+        with torch.no_grad():
+            bn.running_mean.copy_(0.9 * bn.running_mean + 0.1 * m)
+            bn.running_var.copy_(0.9 * bn.running_var + 0.1 * v)
+        mean = m
+        mul = torch.rsqrt(v + bn.eps) * bn.weight.float()
+    else:
+        mean = bn.running_mean.float()
+        mul = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
+    y = (x.float() - _c(mean)) * _c(mul) + _c(bn.bias.float())
     return y.to(dtype)
 
 
 def conv_bn_relu(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
                  dtype: torch.dtype, packs: Optional[PackCache] = None) -> torch.Tensor:
-    """conv → plain single BN (bn_eval) → ReLU in `dtype`. A 7×7 s2 p3 conv
-    (ResNet18's conv1, the SpatialPath's conv1) in eval with
-    set_stem_impl("kernel") on a bf16 3-channel input of even H and W runs
+    """conv → plain single BN (bn_eval, in the BN's mode) → ReLU in
+    `dtype`. A 7×7 s2 p3 conv (ResNet18's conv1, the SpatialPath's conv1)
+    in eval with set_stem_impl("kernel") on a bf16 3-channel input of even
+    H and W runs
     as the 7×7 stem kernel with the BN folded in (ops/stem.py
     stem7_conv_bn_relu_s2; mds_tpu/models/resnet.py:58-79 and
     bisenetv1.py:42-58, without JAX's W ≥ 512 Mosaic guard); any other

@@ -2,10 +2,11 @@
 
 Single-BN, torchvision layout (`conv1`, `bn1`, `layer{1..4}.{0,1}.conv1/bn1/
 conv2/bn2`, `downsample.0/1`), so a torchvision or reference checkpoint
-loads strictly. Every BN is a plain BatchNorm2d evaluated in flax's order
-and rounding (layers.bn_eval); eval only. With set_stem_impl("kernel") the
-bf16 7×7 stem conv1 + bn1 + ReLU runs as one CUDA kernel, its fold and
-packed weight kept once per parameter version (a PackCache).
+loads strictly. Every BN is a plain BatchNorm2d run in flax's order and
+rounding, in train mode with flax's semantics (layers.bn_eval). In eval
+with set_stem_impl("kernel") the bf16 7×7 stem conv1 + bn1 + ReLU runs as
+one CUDA kernel, its fold and packed weight kept once per parameter
+version (a PackCache).
 """
 
 from __future__ import annotations

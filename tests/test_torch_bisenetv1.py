@@ -127,9 +127,14 @@ def test_bn_fold_and_eval_match_flax():
             assert rel_err(nhwc(got), want) <= 1e-6
         else:  # one rounding of the same f32 value
             assert (nhwc(got) == _f32(want)).mean() > 0.999
+    # train mode: flax's batch moments (tests/test_torch_bisenetv1_train.py
+    # holds the running-stat updates and the gradient)
     bn.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.bn_eval(bn, nchw(x), torch.float32)
+    want, _ = fnn.BatchNorm(use_running_average=False, momentum=0.9).apply(
+        var, jnp.asarray(x), mutable=["batch_stats"])
+    with torch.no_grad():
+        got = tl.bn_eval(bn, nchw(x), torch.float32)
+    assert rel_err(nhwc(got), want) <= 1e-5
 
 
 # ---------------------------------------------------- Resnet18 and BiSeNetV1
@@ -210,12 +215,19 @@ def test_weights_round_trip_and_strict_load(v1_f32):
 
 
 def test_train_mode_raises():
+    """Train mode runs since BiSeNetV1's train step was ported (its parity:
+    tests/test_torch_bisenetv1_train.py): the aux heads' logits come out,
+    Resnet18 gives its three features. What still raises is a
+    multi-dataset BiSeNetV1, which the reference does not have."""
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(0))
     tm = MODELS["bisenetv1"](n_classes=(19,), aux=True).train()
-    x = torch.zeros(1, 3, 32, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        tm([x])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Resnet18().train()(x)
+    with torch.no_grad():
+        out = tm([x])
+    assert [tuple(t.shape) for t in [out["logits"][0]] + [a[0] for a in out["aux"]]] == [
+        (2, 19, 64, 64)] * 3
+    with torch.no_grad():
+        feats = Resnet18().train()(x)
+    assert [tuple(f.shape[2:]) for f in feats] == [(8, 8), (4, 4), (2, 2)]
     with pytest.raises(ValueError):
         MODELS["bisenetv1"](n_classes=(19, 7), n_bn=2)
 

@@ -284,10 +284,13 @@ def test_metrics_writer_sets_the_tensorboard_switch_only_while_it_builds(tmp_pat
 
 
 def test_trainer_refusals(tmp_path, monkeypatch):
-    """No CUDA device and no device='cpu'; a model the port cannot train; a
-    trainer the port lacks (clip, contrast; --gnn and train.mode alternate
-    run the alternating trainer, tests/test_torch_gnn_trainer.py);
-    finetune_from a layout the supervised trainer has no model for."""
+    """No CUDA device and no device='cpu'; a model the supervised trainer
+    does not train (snp_rn18: --gnn, tests/test_torch_gnn_trainer.py); a
+    trainer the port lacks (clip; --gnn and train.mode alternate run the
+    alternating trainer, contrast the contrast trainer,
+    tests/test_torch_contrast_trainer.py); finetune_from a layout another
+    trainer takes or the port lacks, and one that does not fit the model
+    (BiSeNetV1's on BiSeNetV2)."""
     monkeypatch.syspath_prepend(os.path.join(ROOT, "tools"))
     import train_torch
 
@@ -295,22 +298,23 @@ def test_trainer_refusals(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(cfg, work_dir=str(tmp_path))
-    v1 = Configer(config_file=os.path.join(ROOT, "configs", "bisenetv1_city.json"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Trainer(v1, work_dir=str(tmp_path), device="cpu")
-    for args, item in ((["train.mode", "contrast"], "item 7"),
-                       (["train.mode", "clip"], "item 6b")):
-        with pytest.raises(NotImplementedError, match=item):
-            train_torch.main(["--config", CFG, "--device", "cpu",
-                              "--work-dir", str(tmp_path)] + args)
+    snp = Configer(config_file=os.path.join(ROOT, "configs", "ltbgnn_3_datasets_snp.json"))
+    with pytest.raises(NotImplementedError, match="--gnn"):
+        Trainer(snp, work_dir=str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        train_torch.main(["--config", CFG, "--device", "cpu",
+                          "--work-dir", str(tmp_path), "train.mode", "clip"])
     t = Trainer(cfg, work_dir=str(tmp_path), device="cpu")
     for sd, item in (({"backbone.conv1.weight": torch.zeros(1), "unify_prototype": torch.zeros(1)},
                       "--gnn"),
                      ({"transition1.0.0.weight": torch.zeros(1)}, "item 8"),
-                     ({"cp.resnet.conv1.weight": torch.zeros(1)}, "item 5")):
+                     ({"projHead.conv_last.weight": torch.zeros(1)}, "contrast")):
         torch.save(sd, tmp_path / "w.pth")
         with pytest.raises(NotImplementedError, match=item):
             t.finetune_from(str(tmp_path / "w.pth"))
+    torch.save({"cp.resnet.conv1.weight": torch.zeros(1)}, tmp_path / "w.pth")
+    with pytest.raises(ValueError, match="does not fit"):
+        t.finetune_from(str(tmp_path / "w.pth"))
 
 
 def test_finetune_from_reference_weights_and_a_checkpoint(tmp_path, monkeypatch):

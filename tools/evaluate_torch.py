@@ -6,9 +6,10 @@
       [--precise-bn N] [--device cuda|cpu] [key.path value ...]
 
 The model is the config's, its weights the latest checkpoint the port's
-trainer wrote under DIR (else under `<work-dir>/ckpt`, or `<work-dir>/
-ckpt_gnn` for the flagship snp_rn18 and the alternating trainer's modes;
-with none, the seeded init). `--precise-bn N` first recomputes the BN running stats over
+trainer wrote under DIR (else under `<work-dir>/ckpt`, `<work-dir>/
+ckpt_gnn` for the flagship snp_rn18 and the alternating trainer's modes,
+or `<work-dir>/ckpt_contrast` for train.mode contrast; with none, the
+seeded init). `--precise-bn N` first recomputes the BN running stats over
 N train batches. It prints one `dataset{i} mIoU ({mode}): x` line per
 dataset. It runs on the CUDA card; without one it exits non-zero unless
 `--device cpu` is given. It sets no route switch: a caller that wants the
@@ -16,8 +17,9 @@ deploy kernels sets `models/layers.py`'s switches around `main`, as
 bench.py does.
 
 Modes: ss, ssc, msf, mscf, aux, contrast, uni, label_link and unlabel;
-unseen and clip on the flagship (snp_rn18). emb comes with the contrast
-family (ROADMAP queue 1, item 7), dsg with the loader's `stage` (item 6b).
+unseen and clip on the flagship (snp_rn18); emb on the contrast family
+(configs/bisenetv2_contrast_3ds.json: the memory bank's class means as
+prototypes). dsg waits for the loader's `stage` (ROADMAP queue 1, item 6b).
 """
 
 import argparse

@@ -1,22 +1,26 @@
 #!/usr/bin/env python
-"""Train with the PyTorch port: the counterpart of the supervised seg branch
-of tools/train.py (the JAX package's entry point).
+"""Train with the PyTorch port: the counterpart of tools/train.py (the JAX
+package's entry point).
 
   python tools/train_torch.py --config configs/bisenetv2_city.json \\
       [--work-dir res] [--max-iter N] [--finetune-from PATH] \\
       [--device cuda|cpu] [key.path value ...]
+  python tools/train_torch.py --config configs/bisenetv1_city.json
   python tools/train_torch.py --config configs/ltbgnn_3_datasets_snp.json --gnn
+  python tools/train_torch.py --config configs/bisenetv2_contrast_3ds.json
 
 Dotted overrides set config keys (`lr.max_iter 6`, `train.fused_up_loss
 True`, `dataset1.data_reader Synthetic`). `--gnn`, or `train.mode`
 alternate, seg or gnn, runs the flagship's alternating SEG/GNN trainer
-(snp_rn18 + BGNN), which resumes from `<work-dir>/ckpt_gnn`; otherwise the
-supervised trainer, which resumes from `<work-dir>/ckpt`. The compute dtype
-is each trainer's own, as in JAX: f32 for the alternating trainer, bf16 for
-the supervised one. It runs on the CUDA card; without one it exits non-zero
-unless `--device cpu` is given.
-The clip and contrast trainers (`train.mode` clip, contrast) are not in the
-port yet.
+(snp_rn18 + BGNN), which resumes from `<work-dir>/ckpt_gnn`; `train.mode`
+contrast the pixel-contrast trainer (BiSeNetV2Contrast, memory bank, EMA
+teacher; log line every `train.log_interval` steps with the contrast
+loss), which resumes from `<work-dir>/ckpt_contrast`; otherwise the
+supervised trainer (BiSeNetV2, BiSeNetV1), which resumes from
+`<work-dir>/ckpt`. The compute dtype is each trainer's own, as in JAX: f32
+for the alternating trainer, bf16 for the others. It runs on the CUDA
+card; without one it exits non-zero unless `--device cpu` is given.
+The clip trainer (`train.mode` clip) is not in the port yet.
 """
 
 import argparse
