@@ -189,7 +189,43 @@ before the last line:
               GNN steps after the first), the SEG step's (median of the 5
               alone; the loop's one warm SEG step printed beside it), SEG
               images/s, the UOT switch ms and peak memory.
-11. contrast — configs/bisenetv2_contrast_3ds.json (BiSeNetV2Contrast: 46
+11. flagship7 — configs/ltbgnn_7_datasets_snp_train_tg.json (snp_rn18 +
+              the direct BGNN its GNN name builds; 7 datasets of 19, 64,
+              37, 19, 26, 150 and 133 classes, M = 358) at full width in
+              bf16, the config's 4 crops of 768×768 a dataset of Synthetic
+              1024×2048 frames, kernel 6 on: train_from_config with
+              gnn=True takes GNN, GNN, the UOT switch, SEG, SEG (a
+              checkpoint at 4): finite losses, 21 kernel-6 launches a GNN
+              step (7 datasets × 3 levels) and none a SEG step, each UOT
+              graph (c, 358) one row a column and a column a row, a fresh
+              trainer restoring step 4 exactly; one GNN step's frozen
+              features routed against plain (rel < 2e-2) and its 21 kernel-6
+              calls against their plain version (rel < 1e-2); the GNN and
+              the SEG step alone on one fixed batch (3 timed after a warm
+              one, CUDA events), SEG images/s, the switch ms, peak memory.
+12. graph_forks — at full width in bf16 through train_from_config (GNN,
+              the switch, SEG; the config's crops, Synthetic frames, kernel
+              6 on): configs/ltbgnn_3_datasets_gat.json's BGAT (512×1024,
+              64 + 51 nodes) and configs/ltbgnn_3_datasets_snp.json with
+              one override a run: the cosine BGNN, GNN.mse_or_adv adv,
+              GNN.GumbelSoftmax, GNN.use_km, the sfg fork; 9 kernel-6
+              launches in the GNN step and none in the SEG step, valid
+              graphs (KM leaves the βs), each fork's options. Then one f32
+              GNN step of the cosine, BGAT, direct_full, adv and Gumbel
+              forks at test width (TEST_WIDTH) on the card and on the CPU
+              from the same init, generator and Gumbel noise (drawn on the
+              CPU), dropout 0, TF32 off: loss rel < 1e-4, per-group
+              gradient cosine > 0.9999, parameters after the step rel < 1e-4.
+13. clip    — configs/clip_5_datasets.json (train.mode clip: 5 datasets,
+              M = 90) at full width in bf16, the config's 2 crops of
+              512×1024 a dataset: train_from_config takes 4 SEG steps
+              against the frozen text prototypes (each its seeded value
+              times Π(1 − lr_t·wd) within f32 rounding, PROTO_GATE; the
+              backbone moves; no kernel launch); tools/evaluate_torch.py
+              --mode clip on its checkpoint, routed (kernel 6 three times a
+              forward, the largest calls' logits and kernel calls against
+              plain) and plain, 2 frames a dataset; SEG step ms, peak memory.
+14. contrast — configs/bisenetv2_contrast_3ds.json (BiSeNetV2Contrast: 46
               unified classes, proj_dim 256, a bank of 46 × 64 × 256, the
               EMA teacher) at full width in bf16, each dataset on the
               Synthetic reader at 1024×2048 with its own class count (19,
@@ -212,7 +248,7 @@ before the last line:
               once and 9 16 times a forward) and plain, gated as the eval
               phase gates them (the labels' agreement printed, not gated:
               the random model ties on the frames' flat blocks).
-12. v1_train — BiSeNetV1's train step (configs/bisenetv1_city.json: bs16
+15. v1_train — BiSeNetV1's train step (configs/bisenetv1_city.json: bs16
               512×1024, bf16, aux heads, SGD) on a fixed batch, plain and
               train.fused_up_loss in turns (plain, fused, fused, plain; 5
               timed steps each): step ms, images/s, peak memory, launches
@@ -221,7 +257,7 @@ before the last line:
               the card against the CPU (loss rel < 1e-4, per-group gradient
               cosine > 0.9999, parameters < 1e-4) and precise BN over 2
               batches of (4, 3, 128, 256), card against CPU (< 1e-4).
-13. train_stem — the same train step with set_stem_impl("kernel"): the two
+16. train_stem — the same train step with set_stem_impl("kernel"): the two
               RGB stems' convs (DetailBranch S1_1, StemBlock conv) run
               stem_conv3x3_s2 (kernel 1 forward, the library conv's
               gradients backward). From one set of weights and one batch, a
@@ -234,7 +270,7 @@ before the last line:
               cold and by the profiler's device time, beside its plain
               version, f32 F.conv2d (TF32 off: the same function) and bf16
               F.conv2d.
-14. parity  — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
+17. parity  — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
               on the card (dropout kernel) and on the CPU (its plain
               version), same weights and generator seed: loss rel < 1e-4,
               per-group gradient cosine > 0.9999, parameters after the step
@@ -242,8 +278,9 @@ before the last line:
               channels_last input, card against CPU, raw and through the
               port's pool (which must agree to 1e-5).
 
-Then a {"kernels": [...]} line, the nvidia-smi name/power-limit line, and as
-the last line {"ok": true, "device": {...}}.
+Then a {"phase_seconds": {...}} line (each phase's wall seconds), a
+{"kernels": [...]} line, the nvidia-smi name/power-limit line, and as the
+last line {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -1785,12 +1822,12 @@ FLAGSHIP_LENGTH = 8
 FLAGSHIP_STEPS = ["GNN", "GNN", "SEG", "SEG", "GNN", "GNN"]
 
 
-def flagship_readers(length, eval_batch=False):
-    """Each dataset of the flagship config on the Synthetic reader at
-    1024×2048 with its own class count; its spec (normalization, class
-    names for the hashed node features), crop and batch stay the config's."""
+def synthetic_readers(cats, length, eval_batch=False):
+    """Each dataset on the Synthetic reader at H×W with its own class count
+    (`cats`, in the config's order); its spec, crop and batch stay the
+    config's."""
     out = []
-    for i, n in enumerate(FLAGSHIP_CATS, 1):
+    for i, n in enumerate(cats, 1):
         out += [f"dataset{i}.data_reader", "Synthetic", f"dataset{i}.reader_kwargs",
                 f"{{'n_cats': {n}, 'size': [{H}, {W}], 'length': {length}, 'seed': {i}}}"]
         if eval_batch:
@@ -1798,15 +1835,15 @@ def flagship_readers(length, eval_batch=False):
     return out
 
 
-FLAGSHIP_OVERRIDES = flagship_readers(FLAGSHIP_LENGTH) + [
+FLAGSHIP_OVERRIDES = synthetic_readers(FLAGSHIP_CATS, FLAGSHIP_LENGTH) + [
     "train.gnn_iters", "2", "train.seg_iters", "2", "lr.max_iter", "6",
     "train.ckpt_interval", "3", "train.log_interval", "1"]
 
 
 @contextlib.contextmanager
 def step_launches(records):
-    """Each AlternatingTrainer.step in the block: the trainer, its stage
-    after the step and the kernel-6 launches the step made."""
+    """Each AlternatingTrainer.step in the block: its stage after the step,
+    the kernel-6 launches the step made and its metrics' names."""
     from mds_tpu_torch.engine import gnn_trainer
     from mds_tpu_torch.ops import stem
 
@@ -1816,7 +1853,8 @@ def step_launches(records):
         before = stem.stem7_conv_bn_relu_s2.launches
         out = real(self, batch, generator)
         records.append({"stage": self.stage,
-                        "stem7": stem.stem7_conv_bn_relu_s2.launches - before})
+                        "stem7": stem.stem7_conv_bn_relu_s2.launches - before,
+                        "metrics": sorted(out)})
         return out
 
     gnn_trainer.AlternatingTrainer.step = step
@@ -1874,16 +1912,33 @@ def stem7_calls_rels(calls):
     return out
 
 
-def flagship_batch(rng, dev, crop=768, b=4, ignore=0.05):
-    """uint8 crops and label maps (5% ignored) of each flagship dataset on
-    the card."""
+def flagship_batch(rng, dev, cats=FLAGSHIP_CATS, crop=(768, 768), b=4, ignore=0.05):
+    """uint8 crops and label maps (5% ignored) of each dataset (its class
+    count in `cats`) on the card."""
     ims, lbs = [], []
-    for n in FLAGSHIP_CATS:
-        lb = rng.integers(0, n, (b, crop, crop))
+    for n in cats:
+        lb = rng.integers(0, n, (b, *crop))
         lb[rng.random(lb.shape) < ignore] = 255
-        ims.append(torch.from_numpy(rng.integers(0, 256, (b, crop, crop, 3), dtype=np.uint8)).to(dev))
+        ims.append(torch.from_numpy(rng.integers(0, 256, (b, *crop, 3), dtype=np.uint8)).to(dev))
         lbs.append(torch.from_numpy(lb.astype(np.uint8)).to(dev))
     return ims, lbs
+
+
+def alone_ms(step, n=3):
+    """`step()` once warm, then `n` timed (CUDA events): their ms and the
+    peak memory of the timed ones."""
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out, torch.cuda.max_memory_allocated()
 
 
 def phase_flagship(dev):
@@ -1964,18 +2019,7 @@ def phase_flagship(dev):
             bad.append(f"kernel 6 bit-equal share {kernel_rels}")
 
         # the SEG step alone on the fixed batch: a warm step, then 5 timed
-        fresh.seg_step(ims, lbs)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        seg_alone_ms = []
-        for _ in range(5):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fresh.seg_step(ims, lbs)
-            end.record()
-            torch.cuda.synchronize()
-            seg_alone_ms.append(start.elapsed_time(end))
-        seg_alone_peak = torch.cuda.max_memory_allocated()
+        seg_alone_ms, seg_alone_peak = alone_ms(lambda: fresh.seg_step(ims, lbs), n=5)
         del fresh, ims, lbs, xs
 
         # ---- serving: build_e2e on the checkpoint's seg weights
@@ -2029,7 +2073,7 @@ def phase_flagship(dev):
             rec, fail, got = eval_pair(
                 FLAGSHIP_CONFIG, os.path.join(work, "ckpt_gnn"), mode, 2,
                 {"stem_impl": "kernel"}, {"stem7_conv_bn_relu_s2": 3}, 1,
-                overrides=flagship_readers(2, eval_batch=True), datasets=3,
+                overrides=synthetic_readers(FLAGSHIP_CATS, 2, eval_batch=True), datasets=3,
                 argmax_gate=None)
             modes.append(rec)
             bad += [f"eval {mode}: {f}" for f in fail]
@@ -2059,6 +2103,380 @@ def phase_flagship(dev):
     if bad:
         raise RuntimeError(f"flagship: {bad}")
     return launches
+
+
+# ------------------------------------------------ the flagship's graph layer
+FLAGSHIP7_CONFIG = os.path.join(ROOT, "configs", "ltbgnn_7_datasets_snp_train_tg.json")
+FLAGSHIP7_STEPS = ["GNN", "GNN", "SEG", "SEG"]
+GAT_CONFIG = os.path.join(ROOT, "configs", "ltbgnn_3_datasets_gat.json")
+CLIP_CONFIG = os.path.join(ROOT, "configs", "clip_5_datasets.json")
+STEM7_LEVELS = 3  # snp_rn18's pyramid levels: kernel 6 once each a dataset
+# a frozen prototype after 4 AdamW steps against its seeded value times the
+# decay: 4 f32 roundings of p − lr·wd·p (4 × 2⁻²⁴ ≈ 2.4e-7); an unfrozen one
+# moves by about lr = 1e-3
+PROTO_GATE = 1e-6
+# one GNN → switch → SEG run of each graph net a config names or an option
+# sets: (config, overrides)
+FORK_RUNS = {
+    "bgat": (GAT_CONFIG, []),
+    "cosine": (FLAGSHIP_CONFIG, ["GNN.model_name", "learnable_topology_BGNN"]),
+    "adv": (FLAGSHIP_CONFIG, ["GNN.mse_or_adv", "adv"]),
+    "gumbel": (FLAGSHIP_CONFIG, ["GNN.GumbelSoftmax", "True"]),
+    "km": (FLAGSHIP_CONFIG, ["GNN.use_km", "True"]),
+    "sfg": (FLAGSHIP_CONFIG, ["GNN.model_name", "learnable_topology_BGNN_sfg"]),
+}
+# the card-vs-CPU f32 GNN step of each fork at test width: its GNN options
+FORK_PARITY = {"cosine": {"model_name": "learnable_topology_BGNN"},
+               "bgat": {"model_name": "learnable_topology_BGAT"},
+               "direct_full": {"model_name": "learnable_topology_BGNN_adj3"},
+               "adv": {"mse_or_adv": "adv"},
+               "gumbel": {"GumbelSoftmax": True}}
+# the test width of tests/torch_flagship_parity.py: ResNet layers [1, 1, 1,
+# 1], planes [64, 16, 24, 32], 16 features, nfeat 32, 2 datasets, M = 5
+TEST_WIDTH = {
+    "model_name": "snp_rn18", "n_datasets": 2, "seed": 0, "network": {"efficient": False},
+    "backbone": {"layers": [1, 1, 1, 1], "planes": [64, 16, 24, 32], "num_features": 16},
+    "dataset1": {"n_cats": 3, "ims_per_gpu": 2}, "dataset2": {"n_cats": 4, "ims_per_gpu": 2},
+    "GNN": {"model_name": "learnable_topology_BGNN_adj", "nfeat": 32, "nfeat_out": 16,
+            "nfeat_adj": 16, "output_feat_dim": 16, "unify_ratio": 0.8, "dropout_rate": 0.0,
+            "GNN_type": "GSAGE", "mse_or_adv": "None", "output_max_adj": True,
+            "output_softmax_and_max_adj": True, "with_orth": True, "uot_ratio": 1.0},
+    "loss": {"with_datasets_aux": True, "aux_weight": 0.2, "ignore_index": 255},
+    "lr": {"seg_lr_start": 1e-3, "gnn_lr_start": 1e-3, "weight_decay": 1e-5,
+           "max_iter": 20, "warmup_iters": 0, "init_iter": 0},
+    "train": {"seg_iters": 2, "gnn_iters": 2, "cropsize": [64, 64]},
+}
+
+
+def config_cats(config):
+    from mds_tpu_torch.config import Configer
+
+    cfg = Configer(config_file=config)
+    return tuple(cfg.n_cats(i) for i in range(cfg.n_datasets))
+
+
+def node_features_file(config, path):
+    """The hashed node features with one row for each class the config
+    declares, saved to `path` for GNN.node_features_path: a spec that names
+    fewer classes (CamVid's 11 against configs/clip_5_datasets.json's 12)
+    is padded with dataset{i}_class{j} names, as a user gives the trainer
+    Σ n_cats rows of CLIP features."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.data.node_features import class_names_of, gen_graph_node_features
+
+    cfg = Configer(config_file=config)
+    names = [ns + [f"dataset{i}_class{j}" for j in range(len(ns), cfg.n_cats(i))]
+             for i, ns in enumerate(class_names_of(cfg))]
+    np.save(path, gen_graph_node_features(class_names=names, nfeat=int(cfg.get("GNN", "nfeat"))))
+    return path
+
+
+def graphs_ok(graphs, cats, M):
+    """Each dataset's 0/1 graph (n_cats, M): one row a column and at least
+    one column a row."""
+    return len(graphs) == len(cats) and all(
+        g.shape == (n, M) and (g.sum(axis=0) == 1).all() and (g.sum(axis=1) >= 1).all()
+        for g, n in zip(graphs, cats))
+
+
+def train_alternating_run(config, overrides, work, dev, steps):
+    """train_from_config (what tools/train_torch.py calls) in bf16 with
+    kernel 6 on: the trainer with its timings read back, the run's
+    launches and peak memory; `steps` gets each step's stage, kernel-6
+    launches and metric names."""
+    from mds_tpu_torch.engine.trainer import train_from_config
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with route(stem_impl="kernel"), step_launches(steps):
+        run = train_from_config(config, overrides, work_dir=work, device=dev, gnn=True,
+                                compute_dtype=torch.bfloat16)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    run.read_timings()
+    return run, launches, peak
+
+
+def phase_flagship7(dev):
+    """The 7-dataset flagship (configs/ltbgnn_7_datasets_snp_train_tg.json:
+    snp_rn18 + the direct BGNN its GNN name builds; 19, 64, 37, 19, 26,
+    150 and 133 classes, M = 358) at full width in bf16, the config's 4
+    crops of 768×768 a dataset of Synthetic 1024×2048 frames, kernel 6 on:
+    train_from_config with gnn=True takes GNN, GNN, the UOT switch, SEG,
+    SEG (a checkpoint at 4): 21 kernel-6 launches a GNN step and none a
+    SEG step, the UOT graphs, a fresh trainer restoring step 4 exactly;
+    one GNN step's frozen features routed against plain and its 21
+    kernel-6 calls against their plain version; the GNN and the SEG step
+    alone on one fixed batch (3 timed after a warm one each) and their
+    peak memory."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.gnn_trainer import AlternatingTrainer
+    from mds_tpu_torch.engine.trainer import step_generator
+    from mds_tpu_torch.engine.train_step import normalize_images
+    from mds_tpu_torch.ops import stem
+
+    t0 = time.perf_counter()
+    cats = config_cats(FLAGSHIP7_CONFIG)
+    a_step = STEM7_LEVELS * len(cats)
+    overrides = synthetic_readers(cats, 4) + [
+        "train.gnn_iters", "2", "train.seg_iters", "2", "lr.max_iter", "4",
+        "train.ckpt_interval", "4", "train.log_interval", "1"]
+    cfg = Configer(config_file=FLAGSHIP7_CONFIG, args_parser=overrides)
+    bad, steps = [], []
+    with tempfile.TemporaryDirectory() as work:
+        run, train_launches, train_peak = train_alternating_run(
+            FLAGSHIP7_CONFIG, overrides, work, dev, steps)
+        M, timings = run.M, run.timings
+        stages = [r["stage"] for r in timings]
+        losses = [r["loss"] for r in timings]
+        per_step = [r["stem7"] for r in steps]
+        want = {k: 0 for k in train_launches}
+        want["stem7_conv_bn_relu_s2"] = a_step * FLAGSHIP7_STEPS.count("GNN")
+        if stages != FLAGSHIP7_STEPS or not np.isfinite(losses).all():
+            bad.append(f"train: stages {stages}, losses {losses}")
+        if per_step != [a_step if s == "GNN" else 0 for s in FLAGSHIP7_STEPS]:
+            bad.append(f"train: kernel-6 launches a step {per_step}")
+        if train_launches != want:
+            bad.append(f"train launches {train_launches}, expected {want}")
+        # each dataset class's fewest and most unified columns
+        graph_columns = [[int(g.sum(axis=1).min()), int(g.sum(axis=1).max())]
+                         for g in run.uot_bi or []]
+        if not graphs_ok(run.uot_bi or [], cats, M):
+            bad.append("UOT graphs: not one row a column and a column a row")
+        fresh = AlternatingTrainer(cfg, compute_dtype=torch.bfloat16, device=dev)
+        fresh.restore(os.path.join(work, "ckpt_gnn"))
+        restored = trainer_state_equal(run, fresh)
+        saved = run.latest_step(os.path.join(work, "ckpt_gnn"))
+        if saved != 4 or not all(restored.values()):
+            bad.append(f"restore of step {saved}: {restored}")
+    del run
+
+    # one GNN step's frozen features: routed against plain, and every
+    # kernel-6 call of that forward against its plain version
+    ims, lbs = flagship_batch(np.random.default_rng(17), dev, cats,
+                              tuple(cfg.get("train", "cropsize")),
+                              int(cfg.dataset_cfg(0)["ims_per_gpu"]))
+    xs = normalize_images(ims, fresh.means, fresh.stds, torch.bfloat16)
+    fresh.seg_model.eval()
+    with torch.no_grad():
+        plain_feats = fresh.seg_model.features(xs)
+        with route(stem_impl="kernel"), captured(stem, "stem7_conv_bn_relu_s2") as calls:
+            routed_feats = fresh.seg_model.features(xs)
+    feats_rel = [rel(a, b) for a, b in zip(routed_feats, plain_feats)]
+    kernel_rels = stem7_calls_rels(calls)
+    del plain_feats, routed_feats, calls, xs
+    if len(kernel_rels) != a_step or max(feats_rel) >= LOGITS_GATE:
+        bad.append(f"features routed vs plain: rel {feats_rel}, {len(kernel_rels)} calls")
+    if max(k["rel"] for k in kernel_rels) >= KERNEL_GATE:
+        bad.append(f"kernel-6 calls against their plain version: {kernel_rels}")
+    with route(stem_impl="kernel"):
+        gnn_ms, gnn_peak = alone_ms(lambda: fresh.gnn_step(
+            ims, lbs, step_generator(fresh.seed, fresh.gnn_steps), max_rate=0.5))
+    seg_ms, seg_peak = alone_ms(lambda: fresh.seg_step(ims, lbs))
+    images = sum(x.shape[0] for x in ims)
+    del fresh, ims, lbs
+    emit(phase="flagship7", config=os.path.relpath(FLAGSHIP7_CONFIG, ROOT), dtype="bfloat16",
+         cats=list(cats), unified=M, images_a_step=images, crop=cfg.get("train", "cropsize"),
+         stages=stages, losses=losses, kernel6_launches_per_step=per_step,
+         train_launches=train_launches, step_ms=[r["step_ms"] for r in timings],
+         uot_switch_ms=[r["switch_ms"] for r in timings if "switch_ms" in r],
+         train_max_memory_allocated=train_peak, uot_graph_columns=graph_columns,
+         restored=restored, features_rel=feats_rel, kernel6_calls=kernel_rels,
+         gnn_step_alone_ms=gnn_ms, gnn_step_ms=float(np.median(gnn_ms)),
+         gnn_step_max_memory_allocated=gnn_peak,
+         seg_step_alone_ms=seg_ms, seg_step_ms=float(np.median(seg_ms)),
+         seg_images_per_s=images / float(np.median(seg_ms)) * 1e3,
+         seg_step_max_memory_allocated=seg_peak, seconds=time.perf_counter() - t0)
+    if bad:
+        raise RuntimeError(f"flagship7: {bad}")
+    return {"stem7_conv_bn_relu_s2": train_launches["stem7_conv_bn_relu_s2"]}
+
+
+def fork_run(name, dev):
+    """FORK_RUNS[name] through train_from_config at full width in bf16, the
+    config's crops and batch of Synthetic frames, kernel 6 on: one GNN
+    step, the switch, one SEG step; its record and its faults."""
+    config, extra = FORK_RUNS[name]
+    cats = config_cats(config)
+    overrides = synthetic_readers(cats, 2) + [
+        "train.gnn_iters", "1", "train.seg_iters", "1", "lr.max_iter", "2",
+        "train.ckpt_interval", "100", "train.log_interval", "1"] + extra
+    steps = []
+    with tempfile.TemporaryDirectory() as work:
+        run, launches, peak = train_alternating_run(config, overrides, work, dev, steps)
+    # the matching again on the same block: the switch's host cost without
+    # its first calls (the KM run's first imports scipy.optimize)
+    t0 = time.perf_counter()
+    run.optimal_matching()
+    rematch_ms = (time.perf_counter() - t0) * 1e3
+    g = run.gnn_model
+    rec = {"config": os.path.relpath(config, ROOT), "overrides": extra,
+           "adj_mode": g.adj_mode, "gnn_type": g.gnn_type, "layers": len(g.gcn_layers),
+           "mse_or_adv": g.mse_or_adv, "gumbel": run.gumbel, "km": run.use_km,
+           "nodes": g.total_nodes + g.max_num_unify_class,
+           "stages": [r["stage"] for r in run.timings],
+           "losses": [r["loss"] for r in run.timings],
+           "step_ms": [r["step_ms"] for r in run.timings],
+           "switch_ms": [r["switch_ms"] for r in run.timings if "switch_ms" in r],
+           "rematch_ms": rematch_ms,
+           "kernel6_launches_per_step": [r["stem7"] for r in steps],
+           "gnn_metrics": steps[0]["metrics"], "max_memory_allocated": peak,
+           "crops": [int(run.configer.dataset_cfg(i)["ims_per_gpu"]) for i in range(len(cats))]}
+    bad = []
+    if rec["stages"] != ["GNN", "SEG"] or not np.isfinite(rec["losses"]).all():
+        bad.append(f"stages {rec['stages']}, losses {rec['losses']}")
+    if rec["kernel6_launches_per_step"] != [STEM7_LEVELS * len(cats), 0] or (
+            launches["stem7_conv_bn_relu_s2"] != STEM7_LEVELS * len(cats)):
+        bad.append(f"kernel-6 launches {rec['kernel6_launches_per_step']}, {launches}")
+    if not graphs_ok(run.uot_bi or [], cats, run.M):
+        bad.append("graphs: not one row a column and a column a row")
+    want = {"bgat": ("cosine", "GAT"), "cosine": ("cosine", "GSAGE"),
+            "sfg": ("direct_full", "GSAGE")}.get(name, ("direct", "GSAGE"))
+    if (g.adj_mode, g.gnn_type) != want or (name == "sfg") != (rec["layers"] == 3):
+        bad.append(f"graph net {g.adj_mode}, {g.gnn_type}, {rec['layers']} layers")
+    if (name == "adv") != ("adv_loss" in rec["gnn_metrics"]):
+        bad.append(f"GNN step metrics {rec['gnn_metrics']}")
+    if name == "km" and not all(np.allclose(b, 1.0 / c) for b, c in zip(run.betas, cats)):
+        bad.append("KM moved the UOT βs")
+    return rec, bad, launches["stem7_conv_bn_relu_s2"]
+
+
+def fork_step_record(dev, gnn, batch):
+    """One f32 GNN step (test width, dropout 0, TF32 off) of the fork with
+    GNN options `gnn` on `dev` from the seeded init: loss, gradients,
+    groups (a parameter's module), parameters after it. Gumbel noise is
+    drawn on the CPU from the step's generator, so both devices draw the
+    same."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.gnn_trainer import AlternatingTrainer
+
+    cfg = copy.deepcopy(TEST_WIDTH)
+    cfg["GNN"].update(gnn)
+    t = AlternatingTrainer(Configer(configs=cfg), device=dev)
+    ims = [torch.from_numpy(x).to(dev) for x in batch["ims"]]
+    lbs = [torch.from_numpy(x).to(dev) for x in batch["lbs"]]
+    metrics = t.gnn_step(ims, lbs, torch.Generator().manual_seed(5), max_rate=0.5, tau=1.0)
+    named = dict(t.gnn_model.named_parameters())
+    # an unused parameter (the last discriminator's) has no gradient: zero
+    return {"loss": float(metrics["loss"].detach()),
+            "grads": {k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu().double()
+                      for k, p in named.items()},
+            "group": {k: k.split(".")[0] for k in named},
+            "params": {k: p.detach().cpu() for k, p in named.items()}}
+
+
+def phase_graph_forks(dev):
+    """Each graph net and option the flagship's configs name or set, at full
+    width in bf16 through train_from_config (GNN, the switch, SEG):
+    configs/ltbgnn_3_datasets_gat.json's BGAT (3 datasets, 512×1024, 64 +
+    51 nodes), and configs/ltbgnn_3_datasets_snp.json with the cosine
+    BGNN, the adversarial GNN, Gumbel graphs, KM matching and the sfg fork
+    (one override each): 9 kernel-6 launches in the GNN step, none in the
+    SEG step, valid graphs. Then one f32 GNN step of the cosine, BGAT,
+    direct_full, adversarial and Gumbel forks at test width on the card and
+    on the CPU from the same init, generator and Gumbel noise: loss rel,
+    per-group gradient cosine, parameters after the step."""
+    t0 = time.perf_counter()
+    bad, runs, launches = [], {}, 0
+    for name in FORK_RUNS:
+        rec, fail, n = fork_run(name, dev)
+        runs[name] = rec
+        bad += [f"{name}: {f}" for f in fail]
+        launches += n
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(19)
+    batch = {"ims": [], "lbs": []}
+    for n in (3, 4):
+        im, lb = seg_batch(rng, 2, 64, 64, n)
+        batch["ims"].append(im)
+        batch["lbs"].append(lb)
+    parity = {}
+    for name, gnn in FORK_PARITY.items():
+        with route(stem_impl="kernel"):  # f32: the plain stem on both devices
+            a, b = (fork_step_record(d, gnn, batch) for d in (dev, "cpu"))
+        cos, rels = group_agreement(a, b)
+        parity[name] = {"loss_cuda": a["loss"], "loss_cpu": b["loss"],
+                        "loss_rel": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                        "grad_cosine": cos, "param_rel": max(rels.values())}
+        p = parity[name]
+        if (p["loss_rel"] >= F32_GATE or min(cos.values()) <= 0.9999
+                or p["param_rel"] >= F32_GATE):
+            bad.append(f"card vs CPU {name}: {p}")
+    emit(phase="graph_forks", dtype="bfloat16", runs=runs, card_vs_cpu=parity,
+         seconds=time.perf_counter() - t0)
+    if bad:
+        raise RuntimeError(f"graph_forks: {bad}")
+    return {"stem7_conv_bn_relu_s2": launches}
+
+
+def phase_clip(dev):
+    """train.mode clip (configs/clip_5_datasets.json: snp_rn18, 5 datasets
+    of 19, 12, 37, 19 and 26 classes, M = 90) at full width in bf16, the
+    config's 2 crops of 512×1024 a dataset of Synthetic frames, the hashed
+    node features padded to the config's 113 classes (`node_features_file`):
+    train_from_config takes 4 SEG steps against the node features' text
+    prototypes, frozen (each prototype its seeded value times Π(1 −
+    lr_t·wd) within f32 rounding; the backbone moves), no kernel-6
+    launch (train mode); the SEG step alone on one fixed batch (3 timed
+    after a warm one); then tools/evaluate_torch.py --mode clip on its
+    checkpoint, routed (kernel 6 three times a forward, its largest calls
+    against plain) and plain."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.gnn_trainer import AlternatingTrainer
+
+    t0 = time.perf_counter()
+    cats = config_cats(CLIP_CONFIG)
+    bad, steps = [], []
+    with tempfile.TemporaryDirectory() as work:
+        features = ["GNN.node_features_path",
+                    node_features_file(CLIP_CONFIG, os.path.join(work, "node_features.npy"))]
+        overrides = synthetic_readers(cats, 4) + features + [
+            "lr.max_iter", "4", "train.ckpt_interval", "4", "train.log_interval", "1"]
+        cfg = Configer(config_file=CLIP_CONFIG, args_parser=overrides)
+        run, train_launches, peak = train_alternating_run(CLIP_CONFIG, overrides, work, dev,
+                                                          steps)
+        stages = [r["stage"] for r in run.timings]
+        losses = [r["loss"] for r in run.timings]
+        if stages != ["SEG"] * 4 or not np.isfinite(losses).all() or any(train_launches.values()):
+            bad.append(f"train: stages {stages}, losses {losses}, launches {train_launches}")
+        seeded = AlternatingTrainer(cfg, compute_dtype=torch.bfloat16, device=dev)
+        shrink = float(np.prod([1 - run.seg_schedule(t) * run.weight_decay for t in range(4)]))
+        got, init = run.seg_model.state_dict(), seeded.seg_model.state_dict()
+        proto_rel = {k: rel(got[k].double(), init[k].double() * shrink)
+                     for k in got if "prototype" in k}
+        if max(proto_rel.values()) > PROTO_GATE:
+            bad.append(f"prototypes not frozen: {proto_rel}")
+        moved = not torch.equal(got["backbone.conv1.weight"], init["backbone.conv1.weight"])
+        if not moved:
+            bad.append("the backbone did not move")
+        timings = run.timings
+        ims, lbs = flagship_batch(np.random.default_rng(23), dev, cats,
+                                  tuple(cfg.get("train", "cropsize")),
+                                  int(cfg.dataset_cfg(0)["ims_per_gpu"]))
+        seg_ms, seg_peak = alone_ms(lambda: run.seg_step(ims, lbs))
+        del run, seeded, got, init, ims, lbs
+        torch.cuda.empty_cache()
+        rec, fail, eval_launches = eval_pair(
+            CLIP_CONFIG, os.path.join(work, "ckpt_gnn"), "clip", 2, {"stem_impl": "kernel"},
+            {"stem7_conv_bn_relu_s2": STEM7_LEVELS}, 1,
+            overrides=synthetic_readers(cats, 2, eval_batch=True) + features, datasets=len(cats),
+            argmax_gate=None)
+        bad += [f"eval clip: {f}" for f in fail]
+    loop_ms = [r["step_ms"] for r in timings]
+    images = sum(int(cfg.dataset_cfg(i)["ims_per_gpu"]) for i in range(len(cats)))
+    emit(phase="clip", config=os.path.relpath(CLIP_CONFIG, ROOT), dtype="bfloat16",
+         cats=list(cats), images_a_step=images, crop=cfg.get("train", "cropsize"),
+         stages=stages, losses=losses, step_ms=loop_ms,
+         seg_step_in_loop_ms=float(np.median(loop_ms[1:])), seg_step_alone_ms=seg_ms,
+         seg_step_ms=float(np.median(seg_ms)),
+         seg_images_per_s=images / float(np.median(seg_ms)) * 1e3,
+         train_max_memory_allocated=peak, seg_step_max_memory_allocated=seg_peak, weight_decay_shrink=shrink,
+         prototype_rel=proto_rel, backbone_moved=moved, eval=rec,
+         seconds=time.perf_counter() - t0)
+    if bad:
+        raise RuntimeError(f"clip: {bad}")
+    return {"stem7_conv_bn_relu_s2": eval_launches["stem7_conv_bn_relu_s2"]}
 
 
 def phase_train_stem(dev):
@@ -2556,20 +2974,7 @@ CONTRAST_CONFIG = os.path.join(ROOT, "configs", "bisenetv2_contrast_3ds.json")
 CONTRAST_CATS = (19, 11, 36)  # Cityscapes, CamVid, A2D2 (46 unified classes)
 
 
-def contrast_readers(length, eval_batch=False):
-    """Each dataset of the contrast config on the Synthetic reader at
-    1024×2048 with its own class count; its spec, crop and batch stay the
-    config's."""
-    out = []
-    for i, n in enumerate(CONTRAST_CATS, 1):
-        out += [f"dataset{i}.data_reader", "Synthetic", f"dataset{i}.reader_kwargs",
-                f"{{'n_cats': {n}, 'size': [{H}, {W}], 'length': {length}, 'seed': {i}}}"]
-        if eval_batch:
-            out += [f"dataset{i}.eval_ims_per_gpu", "1"]
-    return out
-
-
-CONTRAST_OVERRIDES = contrast_readers(8) + [
+CONTRAST_OVERRIDES = synthetic_readers(CONTRAST_CATS, 8) + [
     "lr.max_iter", "6", "train.ckpt_interval", "3", "train.log_interval", "1"]
 
 
@@ -2798,7 +3203,7 @@ def phase_contrast(dev):
         for mode in ("contrast", "emb"):
             rec, fail, got = eval_pair(
                 CONTRAST_CONFIG, ckpt, mode, 2, EVAL_ROUTES, EVAL_PER_FORWARD, 1,
-                overrides=contrast_readers(2, eval_batch=True), datasets=3, argmax_gate=None)
+                overrides=synthetic_readers(CONTRAST_CATS, 2, eval_batch=True), datasets=3, argmax_gate=None)
             modes.append(rec)
             bad += [f"eval {mode}: {f}" for f in fail]
             for k, n in got.items():
@@ -2972,6 +3377,15 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     emit(phase="device", name=name, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    seconds = {}
+
+    def timed(phase, *args):
+        """phase(*args), its seconds kept under its name."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__.replace("phase_", "")] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
 
     t0 = time.perf_counter()
     lib = build.build()
@@ -2982,7 +3396,8 @@ def main():
     # the plain references run cuDNN convs in full f32 (TF32 off)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    results = phase_kernels(dev)
+    results = timed(phase_kernels, dev)
+    t0 = time.perf_counter()
     e2e, frames = v2_model(dev)
     dw_calls, ua_calls, tail_calls, c3_calls = main_path_inputs(e2e, frames[0])
     counts = [len(c) for c in (dw_calls, ua_calls, tail_calls, c3_calls)]
@@ -2997,31 +3412,22 @@ def main():
     del dw_calls, ua_calls, tail_calls, c3_calls
     emit(phase="kernels", ragged=new_kernels_ragged(dev))
     emit(phase="kernels", ragged=conv_kernels_ragged(dev))
-    results["dropout_u8"] = phase_dropout(dev)
-    torch.cuda.empty_cache()
-    launches = phase_slice(dev, e2e, frames)
+    seconds["main_path_kernels"] = time.perf_counter() - t0
+    results["dropout_u8"] = timed(phase_dropout, dev)
+    launches = timed(phase_slice, dev, e2e, frames)
     del e2e
-    launches["stem7_conv_bn_relu_s2"] = phase_v1_slice(dev)["stem7_conv_bn_relu_s2"]
-    torch.cuda.empty_cache()
-    launches["dropout_u8"] = phase_train(dev)["dropout_u8"]
-    torch.cuda.empty_cache()
-    launches["dropout_u8"] += phase_trainer(dev)
-    torch.cuda.empty_cache()
-    for k, n in phase_eval(dev).items():
-        launches[k] = launches.get(k, 0) + n
-    torch.cuda.empty_cache()
-    for k, n in phase_flagship(dev).items():
-        launches[k] = launches.get(k, 0) + n
-    torch.cuda.empty_cache()
-    for k, n in phase_contrast(dev).items():
-        launches[k] = launches.get(k, 0) + n
-    torch.cuda.empty_cache()
-    phase_v1_train(dev)
-    torch.cuda.empty_cache()
-    results["stem_conv3x3_s2"] = phase_train_stem(dev)
+    launches["stem7_conv_bn_relu_s2"] = timed(phase_v1_slice, dev)["stem7_conv_bn_relu_s2"]
+    launches["dropout_u8"] = timed(phase_train, dev)["dropout_u8"]
+    launches["dropout_u8"] += timed(phase_trainer, dev)
+    for phase in (phase_eval, phase_flagship, phase_flagship7, phase_graph_forks,
+                  phase_clip, phase_contrast):
+        for k, n in timed(phase, dev).items():
+            launches[k] = launches.get(k, 0) + n
+    timed(phase_v1_train, dev)
+    results["stem_conv3x3_s2"] = timed(phase_train_stem, dev)
     launches["stem_conv3x3_s2"] = results["stem_conv3x3_s2"]["launches"]
-    torch.cuda.empty_cache()
-    phase_parity(dev)
+    timed(phase_parity, dev)
+    emit(phase_seconds=seconds)
     emit(kernels=[{
         "name": k, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[k], "max_abs_err": results[k]["max_abs_err"],

@@ -9,7 +9,7 @@ further, into one BatchNorm2d(affine=True) per dataset; for BiSeNetV1 the
 inverse of `resnet18_torchvision_to_resnet` (:499-528) and
 `bisenetv1_from_torch` (:766-820); for snp_rn18 the inverse of
 `swiftnet_backbone_from_torch` (:283) and `semseg_from_torch` (:343), and
-the BGNN's parameters in JAX's own names; for BiSeNetV2Contrast the
+the graph nets' parameters in JAX's own names; for BiSeNetV2Contrast the
 inverse of `bisenetv2_contrast_from_torch` (:184), and that importer
 itself (`load_contrast_reference`). BatchNorm2d's `num_batches_tracked` may
 be absent: a state_dict without torch's version metadata loads strictly
@@ -430,21 +430,40 @@ def semseg_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
             for k, v in semseg_to_torch(params, batch_stats, buffers).items()}
 
 
+# JAX graph-net module paths → the port's
+_GRAPH_NAMES = ((r"^gcn_layers_(\d+)/", r"gcn_layers.\1/"), (r"^att1_(\d+)/", r"att1.\1/"),
+                (r"^netD_(\d+)/Dense_0/", r"netD.\1.hidden/"),
+                (r"^netD_(\d+)/Dense_1/", r"netD.\1.out/"))
+
+
 def bgnn_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX LearnableTopologyBGNN params → the port's state_dict: the Dense
-    kernels transposed into nn.Linear weights, the GCN/GSAGE layers'
-    (in, out) weights as they are."""
+    """JAX graph-net params → the port's state_dict, for every net of
+    mds_tpu/models/gnn.py: LearnableTopologyBGNN in each fork (linear_adj,
+    unlabel_node_features, the (T, M) or (T+M)² adjacency, GAT's `weight`
+    and `attn`, each `netD_i`'s two Dense layers), SelfAttentionGNN and
+    LearnableTopologyGAT. Dense kernels are transposed into nn.Linear
+    weights; every other leaf (the GCN/GSAGE/GAT (in, out) weights, node
+    features, adjacency) is kept as it is. A leaf that is not an array
+    (optax's MaskedNode in a multi_transform's moments) is left out."""
     out: Dict[str, np.ndarray] = {}
-    for name in ("linear_before", "linear1"):
-        out[f"{name}.weight"] = _get(params, f"{name}/kernel").T
-        out[f"{name}.bias"] = _get(params, f"{name}/bias")
-    i = 0
-    while f"gcn_layers_{i}" in params:
-        out[f"gcn_layers.{i}.weight"] = _get(params, f"gcn_layers_{i}/weight")
-        out[f"gcn_layers.{i}.bias"] = _get(params, f"gcn_layers_{i}/bias")
-        i += 1
-    for name in ("unify_node_features", "adj_matrix"):
-        out[name] = _get(params, name)
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, f"{path}{k}/")
+            return
+        if not hasattr(node, "shape"):
+            return
+        key = path
+        for pat, rep in _GRAPH_NAMES:
+            key = re.sub(pat, rep, key)
+        key = key.rstrip("/").replace("/", ".")
+        if key.endswith(".kernel"):
+            out[key[:-len("kernel")] + "weight"] = np.asarray(node).T
+        else:
+            out[key] = np.asarray(node)
+
+    walk(params, "")
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
 
 
@@ -462,14 +481,29 @@ def alternating_state_from_jax(seg_params: Mapping, batch_stats: Mapping,
                                buffers: Mapping, seg_opt_state, gnn_params: Mapping,
                                gnn_opt_state) -> Dict:
     """JAX AlternatingTrainer states (numpy trees; each `opt_state` optax
-    adamw's, whose first entry holds count, mu and nu) → the port's: the
+    adamw's, whose first entry holds count, mu and nu, or in adv mode the
+    GNN's multi_transform of two) → the port's: the
     seg model's state_dict, the GNN's, and both AdamW states with their
     step counts, as engine/gnn_trainer.py's `load_states` takes them."""
-    sa, ga = seg_opt_state[0], gnn_opt_state[0]
+    sa = seg_opt_state[0]
     seg = semseg_state_dict_from_jax(seg_params, batch_stats, buffers)
     return {"seg": seg, "gnn": bgnn_state_dict_from_jax(gnn_params),
             "seg_optimizer": _adamw_state(
                 semseg_state_dict_from_jax(sa.mu, batch_stats, buffers),
                 semseg_state_dict_from_jax(sa.nu, batch_stats, buffers), sa.count),
-            "gnn_optimizer": _adamw_state(bgnn_state_dict_from_jax(ga.mu),
-                                          bgnn_state_dict_from_jax(ga.nu), ga.count)}
+            "gnn_optimizer": gnn_optimizer_state_from_jax(gnn_opt_state)}
+
+
+def gnn_optimizer_state_from_jax(opt_state) -> Dict:
+    """The graph net's AdamW state from optax adamw's, or from the
+    multi_transform of the adversarial GNN (JAX's `_make_gnn_tx`: one adamw
+    for the discriminators `netD_*`, one for the rest), merged by name."""
+    if hasattr(opt_state, "inner_states"):
+        adams = [s.inner_state[0] for s in opt_state.inner_states.values()]
+    else:
+        adams = [opt_state[0]]
+    mu, nu = {}, {}
+    for a in adams:
+        mu.update(bgnn_state_dict_from_jax(a.mu))
+        nu.update(bgnn_state_dict_from_jax(a.nu))
+    return _adamw_state(mu, nu, adams[0].count)

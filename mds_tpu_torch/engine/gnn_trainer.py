@@ -7,17 +7,31 @@ The stage machine:
   no_grad and its features feed the loss; the graph net trains (AdamW,
   warmup-poly power 1.2 over gnn_iters) on the annealed max/softmax remap
   CE, `max_rate = alter_iter/gnn_iters`, its updates scaled by
-  `gnn_lr_scale`;
+  `gnn_lr_scale`. The max graphs are the block's column maxima, or with
+  GNN.GumbelSoftmax Gumbel-softmax samples at τ = max(0.01,
+  gumbel_tau0·e^(−2e-5·alter_iter)) (differentiable; the noise drawn on
+  the CPU from the step's generator). With GNN.mse_or_adv "adv" the loss
+  and the discriminators' loss go through one backward, and the
+  discriminators (`netD.*`) take their own AdamW group: weight decay 0,
+  the same power-1.2 schedule at lr.optimD_lr (mds_tpu/engine/
+  gnn_trainer.py:438-457);
 - GNN→SEG switch: the GNN's prototypes and the UOT graphs of its block
-  (host numpy f32, ops/uot_match.py) go into the seg model, the seg
-  optimizer starts afresh;
+  (host numpy f32, ops/uot_match.py; KM graphs with GNN.use_km) go into
+  the seg model, the seg optimizer starts afresh;
 - SEG stage (alter_iter < seg_iters): the seg net trains against the fixed
   graphs (AdamW, warmup-poly power 0.9 over max_iter; every seg parameter
   moves, the prototypes too; the graphs are buffers), its BN stats move;
 - SEG→GNN re-entry: gnn_lr_scale = max(0.1, 1 − gnn steps/max_iter) and
   fresh GNN moments.
 `train.mode` seg or gnn pins the stage; `lr.init_iter` > 0 first distils
-the GNN toward the identity graphs and the seg prototypes.
+the GNN toward the identity graphs and the seg prototypes. `train.mode`
+clip pins SEG with the prototypes set from the node features' text half
+(`set_clip_prototypes`) and frozen as JAX freezes them: their gradient is
+zero, and AdamW's decoupled weight decay still shrinks them by
+(1 − lr·wd) a step. The graph net is built as JAX's trainer builds it,
+`LearnableTopologyBGNN.from_configer` (a name outside its table is the
+cosine BGNN); the unlabel fork raises ValueError, as JAX's step fails on
+it.
 
 - Compute dtype f32 by default, as JAX's; bf16 through `compute_dtype`
   (params stay f32); f64 (params too) for the tests' reference runs.
@@ -33,8 +47,6 @@ the GNN toward the identity graphs and the seg prototypes.
 - Checkpoints (`save`, `restore`) hold the seg train state and, as extras,
   the GNN's, the βs, the UOT graphs and the stage machine, under the global
   iteration.
-Waiting (ROADMAP queue 1, item 6b): train.mode clip and
-set_clip_prototypes, Gumbel graphs, KM matching, mse_or_adv "adv".
 """
 
 from __future__ import annotations
@@ -52,13 +64,31 @@ from mds_tpu_torch.engine.optim import AdamW, load_optimizer_state
 from mds_tpu_torch.engine.train_step import normalize_images
 from mds_tpu_torch.engine.trainer import dataset_stats, step_generator
 from mds_tpu_torch.losses.cross_datasets import CrossDatasetsCELossAdvGNN
-from mds_tpu_torch.models.gnn import build_gnn, gumbel_softmax_decay, max_mask_graphs
+from mds_tpu_torch.models.gnn import (
+    LearnableTopologyBGNN,
+    gumbel_max_graphs,
+    gumbel_noise,
+    gumbel_softmax_decay,
+    max_mask_graphs,
+)
 from mds_tpu_torch.models.semseg import SemsegModel, proto_logits
-from mds_tpu_torch.ops.uot_match import pretrain_bipartite_graphs, sep_bipartite_graphs_by_uot
+from mds_tpu_torch.ops.uot_match import (
+    pretrain_bipartite_graphs,
+    sep_bipartite_graphs_by_km,
+    sep_bipartite_graphs_by_uot,
+)
 
 SEG, GNN = "SEG", "GNN"
-MODES = ("alternate", "seg", "gnn")
-WAITING = "ROADMAP queue 1, item 6b (the flagship's waiting features: {})"
+# the train.mode values this trainer runs (train_from_config and the eval
+# drivers route them here)
+MODES = ("alternate", "seg", "gnn", "clip")
+# JAX's alternating trainer fails on this fork at its first GNN step
+# (mds_tpu/engine/gnn_trainer.py:220-226,400-405)
+UNLABEL = ("the unlabel BGNN fork (GNN.model_name learnable_topology_BGNN_unlabel) "
+           "does not train in JAX's alternating trainer either: its graph block has "
+           "n_cats + 1 rows a dataset, which the GNN step's max graphs and the UOT "
+           "switch split by n_cats; the model itself is "
+           "LearnableTopologyBGNN(with_unlabel=True)")
 
 
 class AlternatingTrainer:
@@ -72,20 +102,29 @@ class AlternatingTrainer:
                                "to train on the CPU")
         g = lambda *k, d=None: configer.get(*k, default=d)
         self.mode = g("train", "mode", d="alternate") or "alternate"
-        if self.mode == "clip":
-            raise NotImplementedError(WAITING.format("train.mode 'clip', set_clip_prototypes"))
         if self.mode not in MODES:
             raise ValueError(f"train.mode {self.mode!r} is not one of {MODES}")
-        if g("GNN", "GumbelSoftmax", d=False):
-            raise NotImplementedError(WAITING.format("Gumbel graphs (GNN.GumbelSoftmax)"))
-        if g("GNN", "use_km", d=False):
-            raise NotImplementedError(WAITING.format("KM matching (GNN.use_km)"))
+        # the graph net as JAX's trainer builds it (gnn_trainer.py:75)
+        self.gnn_model = LearnableTopologyBGNN.from_configer(configer)
+        if self.gnn_model.with_unlabel:
+            raise ValueError(UNLABEL)
+        self.gumbel = bool(g("GNN", "GumbelSoftmax", d=False))
+        self.gumbel_tau0 = float(g("GNN", "gumbel_tau0", d=10.0))
+        self.use_km = bool(g("GNN", "use_km", d=False))
         self.configer = configer
         self.n = configer.n_datasets
         self.dataset_cats = tuple(configer.n_cats(i) for i in range(self.n))
         self.total_cats = sum(self.dataset_cats)
         self.compute_dtype = compute_dtype
         self.seed = int(g("seed", d=0) or 0)
+        if node_features is None:
+            node_features = gen_graph_node_features(configer, nfeat=self.gnn_model.nfeat)
+        if len(node_features) != self.total_cats:
+            raise ValueError(
+                f"{len(node_features)} node-feature rows for {self.total_cats} dataset "
+                "classes: a dataset's spec names fewer classes than its n_cats (CamVid's "
+                "names 11 where configs/clip_5_datasets.json gives 12); give "
+                "GNN.node_features_path a (Σ n_cats, nfeat) file")
 
         # f32 params, or f64 for an f64 reference run
         wide = torch.float64 if compute_dtype == torch.float64 else torch.float32
@@ -93,13 +132,10 @@ class AlternatingTrainer:
         self.seg_model = SemsegModel.from_configer(configer, dtype=compute_dtype)
         self.seg_model.init_weights(torch.Generator().manual_seed(self.seed)).to(
             self.device, wide)
-        self.gnn_model = build_gnn(configer)
         self.gnn_model.init_weights(torch.Generator().manual_seed(self.seed + 1)).to(
             self.device, wide)
         self.criterion = CrossDatasetsCELossAdvGNN(configer)
         self.M = self.seg_model.max_num_unify_class
-        if node_features is None:
-            node_features = gen_graph_node_features(configer, nfeat=self.gnn_model.nfeat)
         self.node_features = torch.tensor(np.asarray(node_features, np.float32),
                                           device=self.device, dtype=wide)
 
@@ -110,11 +146,12 @@ class AlternatingTrainer:
         warmup = int(g("lr", "warmup_iters", d=10))
         self.seg_schedule = warmup_poly_lr(float(g("lr", "seg_lr_start", d=1e-3)), 0.9,
                                            self.max_iter, warmup_iter=warmup)
-        self.gnn_schedule = warmup_poly_lr(float(g("lr", "gnn_lr_start", d=1e-3)), 1.2,
-                                           self.gnn_iters,
-                                           warmup_iter=min(warmup, self.gnn_iters // 2))
+        self._gnn_schedule = lambda lr: warmup_poly_lr(
+            lr, 1.2, self.gnn_iters, warmup_iter=min(warmup, self.gnn_iters // 2))
+        self.gnn_lr = float(g("lr", "gnn_lr_start", d=1e-3))
+        self.optimD_lr = float(g("lr", "optimD_lr", d=self.gnn_lr))
         self.seg_opt = self._adamw(self.seg_model, self.seg_schedule)
-        self.gnn_opt = self._adamw(self.gnn_model, self.gnn_schedule)
+        self.gnn_opt = self._gnn_adamw()
         self.gnn_lr_scale = 1.0
         self.means, self.stds = dataset_stats(configer)
         self.uot_ratio = float(g("GNN", "uot_ratio", d=1.0))
@@ -127,11 +164,41 @@ class AlternatingTrainer:
         self._pretrain_graphs = [torch.from_numpy(a).to(self.device, wide) for a in
                                  pretrain_bipartite_graphs(self.dataset_cats, self.M)]
         self.seg_model.set_bipartite_graphs(self._pretrain_graphs)
+        if self.mode == "clip":
+            self.set_clip_prototypes()
         self.timings: List[Dict] = []
         self._pending: List = []  # (record, loss, start, end) not yet read back
 
     def _adamw(self, model, schedule) -> AdamW:
         return AdamW(list(model.parameters()), schedule, weight_decay=self.weight_decay)
+
+    def _gnn_adamw(self) -> AdamW:
+        """The graph net's AdamW; in adv mode the discriminators' group
+        takes weight decay 0 and the schedule at lr.optimD_lr (JAX's
+        optax.multi_transform, gnn_trainer.py:438-457)."""
+        schedule = self._gnn_schedule(self.gnn_lr)
+        if self.gnn_model.mse_or_adv != "adv":
+            return self._adamw(self.gnn_model, schedule)
+        d_ratio = self.optimD_lr / max(self.gnn_lr, 1e-12)
+        named = list(self.gnn_model.named_parameters())
+        return AdamW([{"params": [p for n, p in named if not n.startswith("netD.")]},
+                      {"params": [p for n, p in named if n.startswith("netD.")],
+                       "weight_decay": 0.0,
+                       "schedule": self._gnn_schedule(self.gnn_lr * d_ratio)}],
+                     schedule, weight_decay=self.weight_decay)
+
+    @torch.no_grad()
+    def set_clip_prototypes(self) -> None:
+        """Each unified slot j takes class j's text embedding, the first
+        output_feat_dim entries of its node features (gnn_trainer.py:368-389);
+        with aux prototypes every class's text rows come first."""
+        D = self.seg_model.output_feat_dim
+        text = self.node_features[:, :D].float()
+        uni = text.new_zeros(self.M, D)
+        n_copy = min(self.M, text.shape[0])
+        uni[:n_copy] = text[:n_copy]
+        self.seg_model.set_unify_prototype(
+            torch.cat([text, uni]) if self.seg_model.with_datasets_aux else uni)
 
     # ------------------------------------------------------------------ steps
     def _features(self, ims) -> List:
@@ -140,22 +207,42 @@ class AlternatingTrainer:
             normalize_images(ims, self.means, self.stds, self.compute_dtype))
 
     def gnn_step(self, ims, lbs, generator: Optional[torch.Generator] = None,
-                 max_rate: float = 0.0) -> Dict:
+                 max_rate: float = 0.0, tau: Optional[float] = None) -> Dict:
         """One GNN-stage step (gnn_trainer.py:198-273): the frozen seg net's
-        eval features, the GNN forward with dropout, the loss over the 2n
-        graphs [max0, soft0, ...] (max graphs detached), AdamW with the
-        update scaled by gnn_lr_scale."""
+        eval features, then `gnn_update`."""
         self.seg_model.eval()
-        self.gnn_model.train()
         with torch.no_grad():
             feats = self._features(ims)
+        return self.gnn_update(feats, lbs, generator, max_rate, tau)
+
+    def gnn_update(self, feats, lbs, generator: Optional[torch.Generator] = None,
+                   max_rate: float = 0.0, tau: Optional[float] = None,
+                   noise: Optional[List[torch.Tensor]] = None) -> Dict:
+        """The GNN forward with dropout on the seg features `feats`, the loss
+        over the 2n graphs [max0, soft0, ...] (max graphs detached, or
+        Gumbel-softmax samples at `tau` of `noise`, drawn from `generator`
+        after the dropout masks when not given), plus in adv mode the
+        discriminators' loss, one backward, AdamW with the update scaled by
+        gnn_lr_scale. `tau` defaults to the schedule's at alter_iter."""
+        self.gnn_model.train()
         out = self.gnn_model(self.node_features, generator)
-        maxg = [m.detach() for m in max_mask_graphs(out["adj_block"], self.dataset_cats)]
+        if self.gumbel:
+            if tau is None:
+                tau = gumbel_softmax_decay(self.alter_iter, 2e-5, self.gumbel_tau0, 0.01)
+            if noise is None:
+                noise = gumbel_noise(self.dataset_cats, self.M, generator)
+            maxg = gumbel_max_graphs(out["adj_block"], self.dataset_cats, tau, noise)
+        else:
+            maxg = [m.detach() for m in max_mask_graphs(out["adj_block"], self.dataset_cats)]
         graphs = [g for pair in zip(maxg, out["bi_graphs"]) for g in pair]
         preds = {"seg": feats, "unify_prototype": out["unify_prototype"],
                  "bi_graphs": graphs, "adv_pairs": out["adv_pairs"],
                  "adj_block": out["adj_block"]}
+        if "adv_out" in out:
+            preds["adv_out"] = out["adv_out"]
         loss, metrics = self.criterion(preds, lbs, is_adv=True, max_rate=max_rate)
+        if "adv_out" in out:  # one backward steps both groups (gnn_trainer.py:240-250)
+            loss = loss + metrics["adv_loss"]
         self.gnn_opt.zero_grad(set_to_none=True)
         loss.backward()
         self.gnn_opt.update_scale = self.gnn_lr_scale
@@ -166,7 +253,8 @@ class AlternatingTrainer:
     def seg_step(self, ims, lbs) -> Dict:
         """One SEG-stage step (gnn_trainer.py:277-318): train-mode features
         (BN stats move), the aux logits, the loss with the model's own (M, D)
-        prototype folded into its graphs, AdamW."""
+        prototype folded into its graphs, AdamW; in clip mode the
+        prototypes' gradients are zeroed first (JAX's stop_gradient)."""
         model = self.seg_model
         model.train()
         feats = self._features(ims)
@@ -177,6 +265,10 @@ class AlternatingTrainer:
         loss, metrics = self.criterion(preds, lbs, is_adv=False)
         self.seg_opt.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mode == "clip":
+            for name, p in model.named_parameters():
+                if "prototype" in name and p.grad is not None:
+                    p.grad.zero_()
         self.seg_opt.step()
         self.seg_steps += 1
         return metrics
@@ -204,13 +296,16 @@ class AlternatingTrainer:
 
     # ------------------------------------------------------------ transitions
     def optimal_matching(self):
-        """→ (the GNN's prototypes, the UOT graphs of its block); the βs
-        move (gnn_trainer.py:392-409)."""
+        """→ (the GNN's prototypes, the UOT graphs of its block, or its KM
+        graphs with GNN.use_km); UOT moves the βs (gnn_trainer.py:392-409)."""
         with torch.no_grad():
             proto, block = self.gnn_model.infer_prototypes(self.node_features)
-        graphs, self.betas = sep_bipartite_graphs_by_uot(
-            block.float().cpu().numpy(), self.dataset_cats, self.betas,
-            uot_ratio=self.uot_ratio)
+        block = block.float().cpu().numpy()
+        if self.use_km:
+            graphs = sep_bipartite_graphs_by_km(block, self.dataset_cats)
+        else:
+            graphs, self.betas = sep_bipartite_graphs_by_uot(
+                block, self.dataset_cats, self.betas, uot_ratio=self.uot_ratio)
         self.uot_bi = graphs
         return proto.detach(), graphs
 
@@ -223,7 +318,7 @@ class AlternatingTrainer:
 
     def switch_to_gnn(self) -> None:
         self.gnn_lr_scale = max(0.1, 1.0 - self.gnn_steps / max(self.max_iter, 1))
-        self.gnn_opt = self._adamw(self.gnn_model, self.gnn_schedule)
+        self.gnn_opt = self._gnn_adamw()
         self.stage, self.alter_iter = GNN, 0
 
     def finetune_from(self, path: str) -> None:
@@ -316,7 +411,7 @@ class AlternatingTrainer:
             rec["stage"] = "init"
             self.timings.append(rec)
             return metrics
-        if self.mode == "seg":
+        if self.mode in ("seg", "clip"):
             self.stage = SEG
         elif self.mode == "gnn":
             self.stage = GNN
@@ -336,12 +431,11 @@ class AlternatingTrainer:
             start.record()
         t0 = time.perf_counter()
         if self.stage == GNN:
-            # the Gumbel τ of the reference's schedule, computed as JAX does
-            # every GNN step; no graph of the port's uses it
-            rec["tau"] = gumbel_softmax_decay(self.alter_iter, 2e-5, 10.0, 0.01)
+            # the Gumbel τ of this step (gnn_trainer.py:621-627)
+            rec["tau"] = gumbel_softmax_decay(self.alter_iter, 2e-5, self.gumbel_tau0, 0.01)
             metrics = self.gnn_step(
                 ims, lbs, generator or step_generator(self.seed, self.gnn_steps),
-                max_rate=self.alter_iter / max(self.gnn_iters, 1))
+                max_rate=self.alter_iter / max(self.gnn_iters, 1), tau=rec["tau"])
         else:
             metrics = self.seg_step(ims, lbs)
         if cuda:

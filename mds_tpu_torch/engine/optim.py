@@ -105,7 +105,10 @@ class AdamW(torch.optim.Optimizer):
     rounded to f32 as optax computes them. A parameter without a gradient
     takes a zero one, as JAX's gradient of an unused parameter is.
     `update_scale` multiplies each final update, as the flagship's GNN step
-    scales its optax updates at a decayed re-entry (1.0: no multiply)."""
+    scales its optax updates at a decayed re-entry (1.0: no multiply). A
+    param group may carry its own `schedule` and `weight_decay`, as an
+    optax.multi_transform of two adamw does (the adversarial GNN's
+    discriminators); the step count is shared."""
 
     def __init__(self, params, schedule: Callable[[int], float], b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4):
@@ -119,12 +122,12 @@ class AdamW(torch.optim.Optimizer):
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("AdamW takes no closure")
-        lr = self.schedule(self.count)
         t = np.float32(self.count + 1)
         bc1 = float(np.float32(1) - np.float32(self.b1) ** t)
         bc2 = float(np.float32(1) - np.float32(self.b2) ** t)
         for group in self.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr = group.get("schedule", self.schedule)(self.count)
+            wd = group.get("weight_decay", self.weight_decay)
             for p in group["params"]:
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
                 state = self.state[p]
@@ -135,7 +138,7 @@ class AdamW(torch.optim.Optimizer):
                 mu.copy_(g * (1 - self.b1) + mu * self.b1)
                 nu.copy_(g * g * (1 - self.b2) + nu * self.b2)
                 upd = (mu / bc1) / ((nu / bc2).sqrt() + self.eps)
-                upd = (upd + p * self.weight_decay) * lr
+                upd = (upd + p * wd) * lr
                 p.sub_(upd if self.update_scale == 1.0 else upd * self.update_scale)
         self.count += 1
 

@@ -276,33 +276,26 @@ class Trainer:
         return self
 
 
-NOT_PORTED = {
-    "clip": "the clip trainer waits: ROADMAP queue 1, item 6b (the flagship's "
-            "waiting features: train.mode 'clip', set_clip_prototypes)",
-}
-
-
 def train_from_config(config_path: str, overrides: Optional[List[str]] = None,
                       work_dir: str = "./res", max_iter: Optional[int] = None,
                       device="cuda", finetune_from: Optional[str] = None,
                       gnn: bool = False, compute_dtype: Optional[torch.dtype] = None):
     """Train as the config and its dotted overrides ask: load the
     `finetune_from` weights, then resume from the latest checkpoint under
-    `work_dir` if there is one. `gnn` or `train.mode` alternate, seg or gnn
-    run the alternating SEG/GNN trainer (engine/gnn_trainer.py, f32 unless
-    `compute_dtype`) and return it; train.mode contrast the contrast
-    trainer (engine/contrast_trainer.py, bf16 unless `compute_dtype`);
-    otherwise the supervised Trainer (bf16 unless `compute_dtype`).
-    train.mode clip raises NotImplementedError."""
+    `work_dir` if there is one. `gnn` or `train.mode` alternate, seg, gnn or
+    clip run the alternating SEG/GNN trainer (engine/gnn_trainer.py, f32
+    unless `compute_dtype`; clip trains SEG against the frozen node-feature
+    prototypes) and return it, as tools/train.py:81 routes them; train.mode
+    contrast the contrast trainer (engine/contrast_trainer.py, bf16 unless
+    `compute_dtype`); otherwise the supervised Trainer (bf16 unless
+    `compute_dtype`)."""
     configer = Configer(config_file=config_path, args_parser=overrides or [])
     if max_iter is not None:
         configer.update(["lr", "max_iter"], max_iter)
     mode = configer.get("train", "mode", default=None)
-    if mode in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED[mode])
-    if gnn or mode in ("alternate", "seg", "gnn"):
-        from mds_tpu_torch.engine.gnn_trainer import train_alternating
+    from mds_tpu_torch.engine.gnn_trainer import MODES, train_alternating
 
+    if gnn or mode in MODES:
         return train_alternating(configer, work_dir=work_dir, device=device,
                                  finetune_from=finetune_from,
                                  compute_dtype=compute_dtype or torch.float32)

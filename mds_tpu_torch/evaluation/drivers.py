@@ -5,7 +5,7 @@ mds_tpu/evaluation/drivers.py (`build_eval_bundle` :29,
 The model comes from the trainer's `build_model` and its weights from the
 latest checkpoint the port's `Trainer` wrote (`<ckpt>/<step>.pt`), so any
 checkpoint the train CLI writes is evaluable; BiSeNetV1 checkpoints load
-too. The flagship (snp_rn18, or `train.mode` alternate, seg or gnn) comes
+too. The flagship (snp_rn18, or `train.mode` alternate, seg, gnn or clip) comes
 from the alternating trainer and its checkpoint (`<ckpt>`, else
 `<work_dir>/ckpt_gnn`): the seg state with its bipartite graphs. The
 contrast family (`train.mode` contrast) comes from the contrast trainer
@@ -26,17 +26,15 @@ from torch import nn
 
 from mds_tpu_torch.evaluation.evaluator import eval_model
 
-_MODE_ITEMS = {
-    "clip": "ROADMAP queue 1, item 6b (the flagship's waiting features: train.mode 'clip')",
-}
-ALTERNATING = ("alternate", "seg", "gnn")
 DSG_ITEM = ("eval mode 'dsg' scores the stage-2 train lists, which need the "
             "loader's `stage` option: ROADMAP queue 1, item 6b")
 
 
 def is_alternating(configer) -> bool:
     """Whether the config trains through the alternating trainer."""
-    return (configer.get("train", "mode", default=None) in ALTERNATING
+    from mds_tpu_torch.engine.gnn_trainer import MODES
+
+    return (configer.get("train", "mode", default=None) in MODES
             or configer.get("model_name", default=None) == "snp_rn18")
 
 
@@ -45,21 +43,18 @@ def build_eval_bundle(configer, ckpt: Optional[str] = None, work_dir: str = "./r
     """The model for `eval_model`, in eval mode on `device`: the config's
     model (bf16 compute) at its seeded init, then the latest checkpoint of
     `ckpt` (else of `<work_dir>/ckpt`) when there is one. The flagship: the
-    alternating trainer's seg model (bf16, JAX's identity graphs at init)
-    restored from the latest checkpoint of `ckpt` (else of
+    alternating trainer's seg model (bf16, JAX's identity graphs at init,
+    and in clip mode the node features' text prototypes) restored from
+    the latest checkpoint of `ckpt` (else of
     `<work_dir>/ckpt_gnn`), its graphs included (mds_tpu/evaluation/
     drivers.py:46-58). `train.mode` contrast: the contrast trainer's
     model (bf16) restored from the latest checkpoint of `ckpt` (else of
     `<work_dir>/ckpt_contrast`), its `prototypes` the (U, 1, D) class means
-    of the memory bank, `feats.mean(axis=1, keepdims=True)` (:58-76). The
-    checkpoints of `train.mode` clip raise NotImplementedError."""
+    of the memory bank, `feats.mean(axis=1, keepdims=True)` (:58-76)."""
     from mds_tpu_torch.engine.checkpoints import CheckpointManager, load_train_state
     from mds_tpu_torch.engine.trainer import build_model
 
     mode = configer.get("train", "mode", default=None)
-    if mode in _MODE_ITEMS:
-        raise NotImplementedError(
-            f"evaluating a train.mode {mode!r} checkpoint: {_MODE_ITEMS[mode]}")
     if is_alternating(configer):
         from mds_tpu_torch.engine.gnn_trainer import AlternatingTrainer
 

@@ -15,8 +15,11 @@ Terms, as JAX reproduces the reference's CrossDatasetsCELoss_AdvGNN:
 - aux: each dataset's aux-prototype logits, ×4 up, OHEM at 0.7, × aux_weight;
 - init stage: graph MSE ×10 to the identity graphs, prototype MSE ×10·n to
   the frozen seg prototypes;
-- `mse`: the squared differences of the first 3 consecutive GCN layers.
-`mse_or_adv="adv"` waits (ROADMAP queue 1, item 6b).
+- `mse`: the squared differences of the first 3 consecutive GCN layers;
+  `adv`: the generator's BCE of the first 3 discriminators on the live
+  fake features (target 0) × adv_loss_weight into the loss, and the
+  discriminators' BCE (real → 0, detached fake → 1) as metrics["adv_loss"],
+  which the trainer adds before its one backward.
 
 Per-dataset tensors arrive as lists (None for an absent dataset): features
 (B, D, h, w) in the compute dtype, labels (B, H, W) at the crop's
@@ -45,6 +48,12 @@ def similarity_dsb(proto_vecs: torch.Tensor, temperature: float = 0.07,
     return -h.mean() if reduce == "mean" else -h.sum()
 
 
+def _bce(p: torch.Tensor, y: float, eps: float = 1e-7) -> torch.Tensor:
+    """Mean binary cross-entropy of probabilities `p` against the constant
+    label `y` (cross_datasets.py:290-292)."""
+    return -(y * torch.log(p + eps) + (1 - y) * torch.log(1 - p + eps)).mean()
+
+
 class CrossDatasetsCELossAdvGNN:
     def __init__(self, configer):
         g = lambda *k, d=None: configer.get(*k, default=d)
@@ -63,10 +72,6 @@ class CrossDatasetsCELossAdvGNN:
         self.adv_loss_weight = float(g("loss", "adv_loss_weight", d=1.0))
         self.adj_loss_weight = float(g("loss", "adj_loss_weight", d=1.0))
         self.mse_or_adv = g("GNN", "mse_or_adv", d="None")
-        if self.mse_or_adv == "adv":
-            raise NotImplementedError(
-                "ROADMAP queue 1, item 6b (the flagship's waiting features: "
-                "mse_or_adv='adv', the BCE term)")
         self.with_softmax_and_max = bool(g("GNN", "output_softmax_and_max_adj", d=False))
         self.with_max_adj = bool(g("GNN", "output_max_adj", d=False))
         self.ohem = OhemCELoss(0.7)
@@ -107,7 +112,7 @@ class CrossDatasetsCELossAdvGNN:
                  max_rate: float = 0.0, second_stage: bool = False):
         """preds: "seg" the per-dataset features; "unify_prototype" (Σ n_cats
         + M, D), (M, D) or None; "bi_graphs" n or 2n graphs; "aux",
-        "adv_pairs", "adj_block", "pretrain_bipart_graph", "seg_prototype",
+        "adv_pairs", "adv_out", "adj_block", "pretrain_bipart_graph", "seg_prototype",
         "target_bi_graph" where the stage has them. → (loss, metrics)."""
         n = self.n_datasets
         feats = preds["seg"]
@@ -192,6 +197,13 @@ class CrossDatasetsCELossAdvGNN:
             adv = sum((fake - real).square().mean() for real, fake in preds["adv_pairs"][:3])
             loss = loss + self.adv_loss_weight * adv
             metrics["adv_loss"] = adv
+        elif is_adv and self.mse_or_adv == "adv" and "adv_out" in preds:
+            d = preds["adv_out"]
+            g_fake = sum(_bce(d[f"ADV{k}"][2], 0.0) for k in (1, 2, 3))
+            d_loss = sum(_bce(d[f"ADV{k}"][0], 0.0) + _bce(d[f"ADV{k}"][1], 1.0)
+                         for k in (1, 2, 3))
+            loss = loss + self.adv_loss_weight * g_fake
+            metrics["adv_loss"] = d_loss  # the discriminators' loss
 
         metrics["loss"] = loss
         return loss, metrics

@@ -1,5 +1,8 @@
-"""POT's unbalanced Sinkhorn — counterpart of mds_tpu/ops/sinkhorn.py
-`sinkhorn_knopp_unbalanced` (:72), on the host in numpy f32.
+"""Optimal transport — counterpart of mds_tpu/ops/sinkhorn.py: POT's
+unbalanced Sinkhorn (`sinkhorn_knopp_unbalanced` :72) on the host in numpy
+f32, and the balanced log-domain solvers (`log_sinkhorn_iterations` :20,
+`log_optimal_transport` :36, `solve_optimal_transport` :46) in torch, which
+no trainer calls (in JAX neither).
 
 It runs once per GNN→SEG stage switch on a (M, n_cats) cost per dataset:
 about a thousand tiny matvecs with a data-dependent stop, each of which
@@ -8,13 +11,61 @@ does this copy. The 1e-38 floor on K·v and Kᵀ·u (subnormal in f32, where
 XLA's CPU flushes subnormals to zero and numpy does not) is never reached
 on the flagship's costs: a softmax block's entries lie in [0, 1], so a cost
 (1 − a + 1e-8)/2 is at most about 0.5 and K = exp(−cost/0.01) ≥ e⁻⁵⁰ ≈
-1.9e-22, and the sums stay far above it. The balanced solvers of that file
-(:20-70) are not ported yet (ROADMAP queue 1, item 6b).
+1.9e-22, and the sums stay far above it.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Dict
+
 import numpy as np
+import torch
+
+
+def log_sinkhorn_iterations(Z: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
+                            iters: int) -> torch.Tensor:
+    """Balanced Sinkhorn normalization in log space of Z (b, m, n) to the
+    marginals log_mu (b, m) and log_nu (b, n), `iters` rounds from u = v =
+    0."""
+    u, v = torch.zeros_like(log_mu), torch.zeros_like(log_nu)
+    for _ in range(iters):
+        u = log_mu - torch.logsumexp(Z + v[:, None, :], dim=2)
+        v = log_nu - torch.logsumexp(Z + u[:, :, None], dim=1)
+    return Z + u[:, :, None] + v[:, None, :]
+
+
+def log_optimal_transport(scores: torch.Tensor, iters: int) -> torch.Tensor:
+    """The log plan of uniform marginals 1/(m + n) over scores (b, m, n),
+    scaled back by m + n."""
+    b, m, n = scores.shape
+    norm = -math.log(m + n)
+    log_mu = scores.new_full((b, m), norm)
+    log_nu = scores.new_full((b, n), norm)
+    return log_sinkhorn_iterations(scores, log_mu, log_nu, iters) - norm
+
+
+def solve_optimal_transport(scores: torch.Tensor, iters: int,
+                            match_threshold: float) -> Dict[str, torch.Tensor]:
+    """Mutual-max matches of the plan: matches0 (b, m) and matches1 (b, n)
+    (−1 unmatched, or a match whose exp(log plan) is at most the
+    threshold) and their scores."""
+    Z = log_optimal_transport(scores, iters)
+    _, m, n = Z.shape
+    max0, indices0 = Z.max(dim=2)
+    indices1 = Z.argmax(dim=1)
+    ar0 = torch.arange(m, device=Z.device)[None, :]
+    ar1 = torch.arange(n, device=Z.device)[None, :]
+    mutual0 = ar0 == torch.gather(indices1, 1, indices0)
+    mutual1 = ar1 == torch.gather(indices0, 1, indices1)
+    mscores0 = torch.where(mutual0, max0.exp(), torch.zeros_like(max0))
+    mscores1 = torch.where(mutual1, torch.gather(mscores0, 1, indices1),
+                           torch.zeros_like(indices1, dtype=Z.dtype))
+    valid0 = mutual0 & (mscores0 > match_threshold)
+    valid1 = mutual1 & torch.gather(valid0, 1, indices1)
+    return {"matches0": torch.where(valid0, indices0, -1),
+            "matches1": torch.where(valid1, indices1, -1),
+            "matching_scores0": mscores0, "matching_scores1": mscores1}
 
 
 def sinkhorn_knopp_unbalanced(a, b, M, reg: float, reg_m: float,

@@ -1,6 +1,7 @@
 """Discrete bipartite matching from a learned affinity block by unbalanced
-optimal transport — the port's copy of mds_tpu/ops/uot_match.py
+optimal transport, or by KM — the port's copy of mds_tpu/ops/uot_match.py
 (`uot_bipartite_match` :30, `sep_bipartite_graphs_by_uot` :78,
+`km_bipartite_match` :97, `sep_bipartite_graphs_by_km` :119,
 `pretrain_bipartite_graphs` :131), host numpy at the stage switch.
 
 Per dataset: cost = (1 − affinity + 1e-8)/2 as (M, n_cats); the UOT plan
@@ -9,7 +10,9 @@ argmax dataset class; repair A gives every dataset class at least one
 column (an empty row takes the lowest-confidence column of a row with
 more than one), repair B drops an over-mapped row's columns below
 uot_ratio/(M·n_cats), keeping its best; β ← 0.7·β + 0.3·(Q's column sums).
-KM matching waits (ROADMAP queue 1, item 6b).
+KM (GNN.use_km): the Hungarian assignment of largest total affinity
+(scipy's linear_sum_assignment), every column it leaves uncovered to its
+argmax dataset class.
 """
 
 from __future__ import annotations
@@ -73,10 +76,30 @@ def sep_bipartite_graphs_by_uot(adj: np.ndarray, dataset_cats: Sequence[int],
     return graphs, new_betas
 
 
-def sep_bipartite_graphs_by_km(*args, **kw):
-    raise NotImplementedError(
-        "ROADMAP queue 1, item 6b (the flagship's waiting features: KM matching, "
-        "sep_bipartite_graphs_by_km)")
+def km_bipartite_match(affinity: np.ndarray) -> np.ndarray:
+    """One dataset's (n_cats, M) affinity block → its 0/1 KM graph: each
+    dataset class keeps the column the assignment gave it, and no column
+    is left without a class."""
+    from scipy.optimize import linear_sum_assignment
+
+    n_cats, M = affinity.shape
+    rows, cols = linear_sum_assignment(-np.asarray(affinity, np.float64))
+    out = np.zeros((n_cats, M), np.float32)
+    out[rows, cols] = 1.0
+    covered = np.zeros(M, bool)
+    covered[cols] = True
+    for j in np.flatnonzero(~covered):
+        out[int(np.argmax(affinity[:, j])), j] = 1.0
+    return out
+
+
+def sep_bipartite_graphs_by_km(adj: np.ndarray, dataset_cats: Sequence[int]) -> List[np.ndarray]:
+    """Every dataset's KM graph over the (Σ n_cats, M) affinity block."""
+    graphs, cur = [], 0
+    for c in dataset_cats:
+        graphs.append(km_bipartite_match(np.asarray(adj[cur:cur + c])))
+        cur += c
+    return graphs
 
 
 def pretrain_bipartite_graphs(dataset_cats: Sequence[int], M: int) -> List[np.ndarray]:

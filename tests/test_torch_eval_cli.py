@@ -55,10 +55,18 @@ def test_build_eval_bundle_restores_and_refuses(trained, tmp_path):
     assert not os.path.exists(tmp_path / "ckpt")
     assert all(torch.equal(again.state_dict()[k], v) for k, v in fresh.state_dict().items())
     # alternate/gnn/seg checkpoints: tests/test_torch_gnn_trainer.py;
-    # contrast ones: tests/test_torch_contrast_trainer.py
-    bad = Configer(config_file=CFG, args_parser=["train.mode", "clip"])
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        build_eval_bundle(bad, device="cpu")
+    # contrast ones: tests/test_torch_contrast_trainer.py; a clip one (its
+    # training: tests/test_torch_clip_trainer.py) is the alternating
+    # trainer's snp_rn18 with the node features' text prototypes
+    clip = Configer(config_file="configs/test_synthetic_gnn.json", args_parser=[
+        "backbone.layers", "[1, 1, 1, 1]", "backbone.planes", "[64, 16, 24, 32]",
+        "backbone.num_features", "16", "train.mode", "clip"])
+    model = build_eval_bundle(clip, work_dir=str(tmp_path), device="cpu")
+    assert type(model).__name__ == "SemsegModel" and not model.training
+    from mds_tpu_torch.data.node_features import gen_graph_node_features
+
+    text = torch.from_numpy(gen_graph_node_features(clip, nfeat=32)[:, :16])
+    assert torch.equal(model.unify_prototype, text[:7])
 
 
 LINE = re.compile(r"^dataset(\d) mIoU \((\w+)\): (\d\.\d{4})$")

@@ -129,8 +129,18 @@ def test_port_only_modes(weights):
 @pytest.mark.parametrize("mode,item", [("unseen", "item 6"), ("clip", "item 6"),
                                        ("emb", "item 7"), ("dsg", "item 6")])
 def test_waiting_modes_raise(weights, mode, item):
+    """The modes a BiSeNetV2 has no method for (unseen, clip: the flagship
+    snp_rn18's; emb: the contrast family's) and dsg, which waits, raise;
+    clip also runs, on a train.mode clip checkpoint's bundle (the
+    alternating trainer's snp_rn18, configs/test_synthetic_gnn.json shrunk)."""
     from mds_tpu_torch.evaluation.drivers import run_evaluation
 
+    if mode == "clip":
+        small = Configer(config_file="configs/test_synthetic_gnn.json", args_parser=[
+            "backbone.layers", "[1, 1, 1, 1]", "backbone.planes", "[64, 16, 24, 32]",
+            "backbone.num_features", "16", "train.mode", "clip"])
+        mious = run_evaluation(small, mode="clip", work_dir="/nonexistent", device="cpu")
+        assert len(mious) == 2 and all(0.0 <= m <= 1.0 for m in mious)
     cfg = configs(Configer)
     with pytest.raises(NotImplementedError, match=item):
         if mode == "dsg":

@@ -4,8 +4,11 @@ ops/uot_match.py, data/node_features.py) against JAX's on the CPU.
 Gates: the BGNN's forward (eval, no dropout) and its parameter gradients
 rel ≤ 1e-5 at f32; max_mask_graphs, normalize_adj, gumbel_softmax_decay
 and the identity graphs exact; the unbalanced Sinkhorn plan rtol 1e-4
-against JAX's f32 solve; the UOT graphs equal and the βs rel 1e-5 on
-blocks with clear column maxima; the hashed node features bit for bit.
+against JAX's f32 solve; the UOT and KM graphs equal and the βs rel 1e-5
+on blocks with clear column maxima; the hashed node features bit for bit;
+every MODELS name of the graph nets builds JAX's class and options and
+holds JAX's parameters. The forks' forward and gradients against JAX's:
+tests/test_torch_gnn_forks.py.
 The dropout masks cannot equal flax's: its keep rate, 1/(1 − p) scale and
 reproducibility from a seeded generator are checked on their own.
 """
@@ -133,8 +136,12 @@ def test_uot_graphs_and_betas_match_jax():
             assert g.shape == (c, M) and (g.sum(0) == 1).all() and (g.sum(1) >= 1).all()
         for b, w in zip(betas_t, betas_j):
             np.testing.assert_allclose(b, w, rtol=1e-5, atol=0)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tu.sep_bipartite_graphs_by_km(adj, cats)
+    # KM on the same block: JAX's graphs exactly, every class its column
+    from mds_tpu.ops.uot_match import sep_bipartite_graphs_by_km as jkm
+
+    for g, w, c in zip(tu.sep_bipartite_graphs_by_km(adj, cats), jkm(adj, cats), cats):
+        np.testing.assert_array_equal(g, np.asarray(w))
+        assert g.shape == (c, M) and (g.sum(0) == 1).all() and (g.sum(1) >= 1).all()
 
 
 def test_hashed_node_features_bit_equal(monkeypatch):
@@ -195,9 +202,25 @@ def test_dropout_rate_scale_and_seed():
                                   "learnable_topology_BGAT", "self_attention_GNN",
                                   "learnable_topology_GAT"])
 def test_waiting_forks_raise(name):
-    _, tc = configers(tiny(GNN={"model_name": name}))
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tg.build_gnn(tc)
-    _, tc = configers(tiny(GNN={"mse_or_adv": "adv"}))
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tg.build_gnn(tc)
+    """Once waiting, now ported: the MODELS name builds JAX's class with
+    JAX's options, and holds the parameters of JAX's init (their shapes,
+    from jax.eval_shape) under strict loading; so does the adversarial
+    option."""
+    import mds_tpu.models.gnn  # noqa: F401 — fills JAX's MODELS
+    from mds_tpu.registry import MODELS as JMODELS
+    from mds_tpu_torch import MODELS
+    from mds_tpu_torch.deploy.weights import bgnn_state_dict_from_jax
+
+    for cfg in (tiny(GNN={"model_name": name}), tiny(GNN={"mse_or_adv": "adv"})):
+        jc, tc = configers(cfg)
+        jm = JMODELS[cfg["GNN"]["model_name"]](configer=jc)
+        tm = MODELS[cfg["GNN"]["model_name"]](configer=tc)
+        assert type(tm).__name__ == type(jm).__name__
+        for k in ("adj_mode", "gnn_type", "with_unlabel", "mse_or_adv", "max_num_unify_class"):
+            if hasattr(jm, k):  # the layer counts and widths: the strict load
+                assert getattr(tm, k) == getattr(jm, k), k
+        nf = jnp.zeros((sum(CATS), cfg["GNN"]["nfeat"]), jnp.float32)
+        shapes = jax.eval_shape(lambda key: jm.init(key, nf, train=False),
+                                jax.random.PRNGKey(0))["params"]
+        zeros = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+        tm.load_state_dict(bgnn_state_dict_from_jax(zeros), strict=True)

@@ -6,8 +6,10 @@ resume and a fresh trainer's exact restore; train.mode seg and gnn; the
 stage-switch eval; tools/evaluate_torch.py and build_eval_bundle on its
 checkpoint in the modes contrast, ss, uni, unseen and clip;
 tools/serve_torch.py's build_e2e for snp_rn18 with and without weights;
-`finetune_from` a reference-layout .pth; and the features that wait,
-each raising NotImplementedError that names ROADMAP queue 1, item 6b.
+`finetune_from` a reference-layout .pth; the options this slice ported
+(clip, Gumbel graphs, KM, adv, BGAT) through the CLI; and the features
+that wait, each raising NotImplementedError that names ROADMAP queue 1,
+item 6b.
 The step against JAX's is tests/test_torch_gnn_trainer.py.
 """
 
@@ -203,16 +205,31 @@ def test_init_phase_and_the_device_default():
     ([], "dsg"),
     ([], "loader"),
 ])
-def test_waiting_features_raise(extra, where):
+def test_waiting_features_raise(extra, where, tmp_path):
+    """What still waits raises NotImplementedError naming item 6b; the
+    trainer's options that waited until this slice (clip, Gumbel graphs,
+    KM matching, the adversarial GNN, the BGAT) now train through the CLI
+    (their steps against JAX's: tests/test_torch_gnn_forks.py,
+    test_torch_gnn_options.py, test_torch_clip_trainer.py)."""
     from mds_tpu_torch.data.loader import get_data_loader
-    from mds_tpu_torch.engine.gnn_trainer import AlternatingTrainer
     from mds_tpu_torch.engine.trainer import build_model
     from mds_tpu_torch.evaluation.drivers import run_evaluation
 
+    if where == "trainer":
+        t = _train(tmp_path, "lr.max_iter", "3", "train.eval_at_switch", "False", *extra)
+        clip = extra == ["train.mode", "clip"]
+        assert [r["stage"] for r in t.timings] == (["SEG"] * 3 if clip else STAGES[:3])
+        assert all(np.isfinite(r["loss"]) for r in t.timings)
+        assert (t.gumbel, t.use_km, t.gnn_model.mse_or_adv, t.gnn_model.gnn_type) == (
+            extra[0] == "GNN.GumbelSoftmax", extra[0] == "GNN.use_km",
+            "adv" if extra[1:] == ["adv"] else "None",
+            "GAT" if extra[1:] == ["learnable_topology_BGAT"] else "GSAGE")
+        if not clip:
+            for g, c in zip(t.uot_bi, (3, 4)):
+                assert g.shape == (c, 7) and (g.sum(0) == 1).all() and (g.sum(1) >= 1).all()
+        return
     with pytest.raises(NotImplementedError, match="item 6b"):
-        if where == "trainer":
-            AlternatingTrainer(_configer(*extra), device="cpu")
-        elif where == "model":
+        if where == "model":
             build_model(_configer(*extra))
         elif where == "dsg":
             run_evaluation(_configer(), mode="dsg", device="cpu")

@@ -286,11 +286,11 @@ def test_metrics_writer_sets_the_tensorboard_switch_only_while_it_builds(tmp_pat
 def test_trainer_refusals(tmp_path, monkeypatch):
     """No CUDA device and no device='cpu'; a model the supervised trainer
     does not train (snp_rn18: --gnn, tests/test_torch_gnn_trainer.py); a
-    trainer the port lacks (clip; --gnn and train.mode alternate run the
-    alternating trainer, contrast the contrast trainer,
-    tests/test_torch_contrast_trainer.py); finetune_from a layout another
-    trainer takes or the port lacks, and one that does not fit the model
-    (BiSeNetV1's on BiSeNetV2)."""
+    mode the supervised trainer does not run (clip runs the alternating
+    trainer; --gnn and train.mode alternate run it too, contrast the
+    contrast trainer, tests/test_torch_contrast_trainer.py); finetune_from
+    a layout another trainer takes or the port lacks, and one that does
+    not fit the model (BiSeNetV1's on BiSeNetV2)."""
     monkeypatch.syspath_prepend(os.path.join(ROOT, "tools"))
     import train_torch
 
@@ -301,9 +301,15 @@ def test_trainer_refusals(tmp_path, monkeypatch):
     snp = Configer(config_file=os.path.join(ROOT, "configs", "ltbgnn_3_datasets_snp.json"))
     with pytest.raises(NotImplementedError, match="--gnn"):
         Trainer(snp, work_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        train_torch.main(["--config", CFG, "--device", "cpu",
-                          "--work-dir", str(tmp_path), "train.mode", "clip"])
+    # train.mode clip runs the alternating trainer in its clip mode
+    # (tests/test_torch_clip_trainer.py), as tools/train.py:81 routes it
+    clip = train_torch.main([
+        "--config", os.path.join(ROOT, "configs", "test_synthetic_gnn.json"), "--device", "cpu",
+        "--work-dir", str(tmp_path / "clip"), "--max-iter", "1", "train.mode", "clip",
+        "backbone.layers", "[1, 1, 1, 1]", "backbone.planes", "[64, 16, 24, 32]",
+        "backbone.num_features", "16", "train.eval_at_switch", "False"])
+    assert type(clip).__name__ == "AlternatingTrainer" and clip.mode == "clip"
+    assert [r["stage"] for r in clip.timings] == ["SEG"]
     t = Trainer(cfg, work_dir=str(tmp_path), device="cpu")
     for sd, item in (({"backbone.conv1.weight": torch.zeros(1), "unify_prototype": torch.zeros(1)},
                       "--gnn"),

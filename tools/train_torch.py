@@ -8,11 +8,13 @@ package's entry point).
   python tools/train_torch.py --config configs/bisenetv1_city.json
   python tools/train_torch.py --config configs/ltbgnn_3_datasets_snp.json --gnn
   python tools/train_torch.py --config configs/bisenetv2_contrast_3ds.json
+  python tools/train_torch.py --config configs/clip_5_datasets.json
 
 Dotted overrides set config keys (`lr.max_iter 6`, `train.fused_up_loss
 True`, `dataset1.data_reader Synthetic`). `--gnn`, or `train.mode`
-alternate, seg or gnn, runs the flagship's alternating SEG/GNN trainer
-(snp_rn18 + BGNN), which resumes from `<work-dir>/ckpt_gnn`; `train.mode`
+alternate, seg, gnn or clip, runs the flagship's alternating SEG/GNN
+trainer (snp_rn18 + BGNN; clip: SEG steps against prototypes frozen at the
+node features' text half), which resumes from `<work-dir>/ckpt_gnn`; `train.mode`
 contrast the pixel-contrast trainer (BiSeNetV2Contrast, memory bank, EMA
 teacher; log line every `train.log_interval` steps with the contrast
 loss), which resumes from `<work-dir>/ckpt_contrast`; otherwise the
@@ -20,7 +22,6 @@ supervised trainer (BiSeNetV2, BiSeNetV1), which resumes from
 `<work-dir>/ckpt`. The compute dtype is each trainer's own, as in JAX: f32
 for the alternating trainer, bf16 for the others. It runs on the CUDA
 card; without one it exits non-zero unless `--device cpu` is given.
-The clip trainer (`train.mode` clip) is not in the port yet.
 """
 
 import argparse
