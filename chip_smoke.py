@@ -248,7 +248,50 @@ before the last line:
               once and 9 16 times a forward) and plain, gated as the eval
               phase gates them (the labels' agreement printed, not gated:
               the random model ties on the frames' flat blocks).
-15. v1_train — BiSeNetV1's train step (configs/bisenetv1_city.json: bs16
+15. mulbn   — snp_rn18_mulbn (configs/ltbgnn_3_datasets_snp.json with
+              model_name snp_rn18_mulbn: a BN stat set and affine for each
+              dataset) at full width in bf16, the config's 4 crops of
+              768×768 a dataset of Synthetic 1024×2048 frames, kernel 6 on:
+              train_from_config with gnn=True takes a GNN step, the UOT
+              switch and a SEG step (the checkpoint at 2): 9 kernel-6
+              launches in the GNN step, none in the SEG step, valid graphs;
+              one GNN step's frozen features routed against plain and its 9
+              kernel-6 calls (each dataset's input with its own set's fold,
+              cached per (level, dataset)) against their plain version (rel
+              < 1e-2, bit-equal share >= 0.999); the GNN and the SEG step
+              alone on one fixed batch (3 timed after a warm one) and their
+              peak memory; a served frame (3 kernel-6 launches) with its
+              logits and kernel calls against plain; tools/evaluate_torch.py
+              --mode uni on the checkpoint, routed and plain; one f32 SEG
+              step at test width on the card and on the CPU: loss rel <
+              1e-4, per-group gradient cosine > 0.9999, parameters and the
+              running stats of every (level or set, dataset) rel < 1e-4.
+16. audit   — tools/find_unuse_torch.py on mulbn's checkpoint over 2
+              Synthetic frames a dataset with kernel 6 on (3 launches a
+              forward, two passes): each dataset's used slots, the audit's
+              seconds, the .npz whose target_bipart_i is (n_cats_i, 52)
+              with entries in {0, 1, 255}; tools/print_bigraph_torch.py on
+              the same checkpoint: valid graphs.
+17. contrast_multiproto — configs/bisenetv2_contrast_3ds.json with
+              contrast.num_prototype 4 and lr.warmup_iters 2, at full width
+              in bf16, crops of 512×1024, 1 + 1 + 2: tools/train_torch.py's
+              main for 6 steps (the OHEM seg loss in steps 0-1,
+              seg_mul_loss from step 2): 30 dropout launches in a warmup
+              step, 18 after (the aux heads' losses leave the backward),
+              step and prototype_learning ms (CUDA events), peak memory, a
+              fresh trainer restoring step 6 and its prototypes exactly;
+              every dropout call of one more step against its plain
+              version bit for bit; one f32 step after the warmup on the
+              card and on the CPU (same init, prototypes, generator: the
+              dropout seeds, then the Gumbel noise drawn on the CPU):
+              loss rel < 1e-4, per-group gradient cosine > 0.9999,
+              parameters, teacher, bank and prototypes rel < 1e-4, each
+              side's EMA residual < 1e-6; tools/evaluate_torch.py --mode
+              dsg and emb on the checkpoint, routed (kernels 4, 5, 7 once
+              and 9 16 times a forward) and plain. The Synthetic reader has
+              no ann lists, so dsg's stage-2 lists are checked on the CPU
+              (tests/test_torch_data_stage.py).
+18. v1_train — BiSeNetV1's train step (configs/bisenetv1_city.json: bs16
               512×1024, bf16, aux heads, SGD) on a fixed batch, plain and
               train.fused_up_loss in turns (plain, fused, fused, plain; 5
               timed steps each): step ms, images/s, peak memory, launches
@@ -257,7 +300,7 @@ before the last line:
               the card against the CPU (loss rel < 1e-4, per-group gradient
               cosine > 0.9999, parameters < 1e-4) and precise BN over 2
               batches of (4, 3, 128, 256), card against CPU (< 1e-4).
-16. train_stem — the same train step with set_stem_impl("kernel"): the two
+19. train_stem — the same train step with set_stem_impl("kernel"): the two
               RGB stems' convs (DetailBranch S1_1, StemBlock conv) run
               stem_conv3x3_s2 (kernel 1 forward, the library conv's
               gradients backward). From one set of weights and one batch, a
@@ -270,7 +313,7 @@ before the last line:
               cold and by the profiler's device time, beside its plain
               version, f32 F.conv2d (TF32 off: the same function) and bf16
               F.conv2d.
-17. parity  — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
+20. parity  — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
               on the card (dropout kernel) and on the CPU (its plain
               version), same weights and generator seed: loss rel < 1e-4,
               per-group gradient cosine > 0.9999, parameters after the step
@@ -285,6 +328,7 @@ last line {"ok": true, "device": {...}}.
 
 import contextlib
 import copy
+import io
 import json
 import os
 import re
@@ -305,6 +349,12 @@ V1_CONFIG = os.path.join(ROOT, "configs", "bisenetv1_city.json")
 KERNEL_GATE = 1e-2     # rel max-diff, kernel vs its plain version
 ARGMAX_GATE = 0.995    # bench.py:296-297
 LOGITS_GATE = 2e-2
+# Where the logits are cosines (the contrast family's, snp_rn18's clip
+# head), both bf16 paths sit 0.011-0.020 from the model in f32 on the H100:
+# the route is gated on its distance from f32 over the plain path's. The
+# readings (20 calls of clip, 24 of the contrast family's dsg and emb) put
+# it at 0.66-1.16 of the plain path's.
+F32_RATIO_GATE = 1.25
 # A random model's argmax agreement between two bf16 paths depends on how
 # many of its pixels sit within rounding noise of a tie between classes.
 # Measured on an H100 (700 W) at 1024×2048 over init seeds 0-7 (BN seed =
@@ -1547,10 +1597,11 @@ def _to_cpu(a):
 @contextlib.contextmanager
 def largest_calls(evaluator, keep=4):
     """The first `keep` calls, made in the block, of the evaluator's logits
-    functions whose input is the largest: (logits_fn, image, dataset). ss's
-    four frames; msf's 1792×3584 frame and its flip, of two frames; mscf's
-    25 windows of 512×1024 and their flip, of two frames. The inputs are
-    held, not copied: they add to the run's peak memory."""
+    functions whose input is the largest: (logits_fn, image, dataset, the
+    make_logits_fn arguments that made it). ss's four frames; msf's
+    1792×3584 frame and its flip, of two frames; mscf's 25 windows of
+    512×1024 and their flip, of two frames. The inputs are held, not
+    copied: they add to the run's peak memory."""
     real, out = evaluator.make_logits_fn, []
 
     def make(*args, **kw):
@@ -1560,7 +1611,7 @@ def largest_calls(evaluator, keep=4):
             if out and im.numel() > out[0][1].numel():
                 out.clear()
             if len(out) < keep and (not out or im.numel() == out[0][1].numel()):
-                out.append((fn, im, dataset))
+                out.append((fn, im, dataset, (args, kw)))
             return fn(im, dataset)
 
         return logits_fn
@@ -1578,17 +1629,37 @@ EVAL_KERNEL_ARGS = {"detail_s1s2_fused": 10, "stemblock_fused": 13, "detail_tail
                     "depthwise3x3": 3, "stem7_conv_bn_relu_s2": 4}
 
 
-def largest_call_rels(calls, routes, names):
+def f32_copy(model):
+    """The model in f32: its parameters, buffers and compute dtype."""
+    m32 = copy.deepcopy(model).float()
+    for m in m32.modules():
+        if getattr(m, "dtype", None) == torch.bfloat16:
+            m.dtype = torch.float32
+    return m32
+
+
+def largest_call_rels(calls, routes, names, f32_model=None):
     """Each captured call's logits on the route against the plain path, on
     the same model and input: rel max-diff over the batch, and the worst of
     its images' own; every logits tensor checked for shape and finiteness.
     Then each call the routed forward made of the kernels `names`, again
     against its plain version on the same arguments (KERNEL_GATE). Returns
-    the records and the failures."""
+    the records and the failures.
+
+    With `f32_model` (the model in f32), both bf16 paths are also measured
+    against its logits of the same input, and the route's gate is its
+    distance from f32 over the plain path's (F32_RATIO_GATE) in place of its
+    distance from the plain path: a model whose logits are cosines (the
+    contrast family's ConvNorm, snp_rn18's clip_logits) holds them in bf16,
+    and each bf16 path is about LOGITS_GATE from f32 on its own (on the
+    H100, the contrast family: the route 0.0111-0.0155, the plain path
+    0.0130-0.0186; clip: the route 0.0153-0.0197, the plain path
+    0.0160-0.0196, the two paths 0.0135-0.0206 apart)."""
+    from mds_tpu_torch.evaluation import evaluator
     from mds_tpu_torch.ops import depthwise, stem
 
     out, bad = [], []
-    for fn, im, dataset in calls:
+    for fn, im, dataset, (make_args, make_kw) in calls:
         with torch.inference_mode():
             ref = fn(im, dataset)
             with contextlib.ExitStack() as stack:
@@ -1606,10 +1677,18 @@ def largest_call_rels(calls, routes, names):
             raise RuntimeError(f"bad logits {got.shape} {ref.shape} of {im.shape}")
         rec = {"input": list(im.shape), "rel": rel(got, ref),
                "worst_image_rel": max(rel(g, r) for g, r in zip(got, ref)), "kernels": {}}
+        gate = max(rec["rel"], rec["worst_image_rel"]) >= LOGITS_GATE
+        if f32_model is not None:
+            with torch.inference_mode():
+                exact = evaluator.make_logits_fn(f32_model, *make_args[1:], **make_kw)(
+                    im, dataset)
+            rec["f32"] = {"routed": rel(got, exact), "plain": rel(ref, exact)}
+            gate = rec["f32"]["routed"] > F32_RATIO_GATE * rec["f32"]["plain"]
+            del exact
         del got, ref
-        if max(rec["rel"], rec["worst_image_rel"]) >= LOGITS_GATE:
+        if gate:
             bad.append(f"logits of {rec['input']}: rel {rec['rel']}, "
-                       f"worst image {rec['worst_image_rel']}")
+                       f"worst image {rec['worst_image_rel']}, {rec.get('f32', '')}")
         for n, args_seen in seen.items():
             mod = depthwise if n == "depthwise3x3" else stem
             kernel, plain = getattr(mod, n), getattr(mod, n + "_plain")
@@ -1665,7 +1744,7 @@ def eval_run(config, ckpt, mode, n_frames, routes, extra=(), overrides=None):
 
 
 def eval_pair(config, ckpt, mode, n_frames, routes, per_forward, forwards,
-              overrides=None, datasets=1, argmax_gate=ARGMAX_GATE):
+              overrides=None, datasets=1, argmax_gate=ARGMAX_GATE, f32_gate=False):
     """One mode on the routed and the plain path in turns (routed, plain):
     the share of pixels on which they agree (each frame's beside), exact
     launch counts on both, times; then, on the routed run's largest calls,
@@ -1675,7 +1754,8 @@ def eval_pair(config, ckpt, mode, n_frames, routes, per_forward, forwards,
     on the later windows of a batch moves these where the argmax, summed
     over 12 softmaxes, may not move. `datasets`: how many datasets the
     `overrides` give n_frames each. `argmax_gate` None: the agreement is
-    printed, not gated."""
+    printed, not gated. `f32_gate`: the largest calls' logits are gated on
+    their distance from the model in f32 (largest_call_rels' `f32_model`)."""
     routed = eval_run(config, ckpt, mode, n_frames, routes, overrides=overrides)
     plain = eval_run(config, ckpt, mode, n_frames, {}, overrides=overrides)
     n_frames *= datasets
@@ -1700,8 +1780,9 @@ def eval_pair(config, ckpt, mode, n_frames, routes, per_forward, forwards,
                                     "plain": plain["max_memory_allocated"]},
            "wall_s": {"routed": routed["wall_s"], "plain": plain["wall_s"]},
            "launches": routed["launches"]}
-    rec["largest_calls"], bad = largest_call_rels(routed["largest_calls"], routes,
-                                                  tuple(per_forward))
+    rec["largest_calls"], bad = largest_call_rels(
+        routed["largest_calls"], routes, tuple(per_forward),
+        f32_copy(routed["model"]) if f32_gate else None)
     del routed["largest_calls"]
     if routed["launches"] != want:
         bad.append(f"routed launches {routed['launches']}, expected {want}")
@@ -2421,7 +2502,9 @@ def phase_clip(dev):
     launch (train mode); the SEG step alone on one fixed batch (3 timed
     after a warm one); then tools/evaluate_torch.py --mode clip on its
     checkpoint, routed (kernel 6 three times a forward, its largest calls
-    against plain) and plain."""
+    against plain) and plain. clip's logits are cosines against the
+    prototype rows, so the largest calls' logits are gated against the
+    model in f32 (eval_pair's `f32_gate`), as the contrast family's are."""
     from mds_tpu_torch.config import Configer
     from mds_tpu_torch.engine.gnn_trainer import AlternatingTrainer
 
@@ -2461,7 +2544,7 @@ def phase_clip(dev):
             CLIP_CONFIG, os.path.join(work, "ckpt_gnn"), "clip", 2, {"stem_impl": "kernel"},
             {"stem7_conv_bn_relu_s2": STEM7_LEVELS}, 1,
             overrides=synthetic_readers(cats, 2, eval_batch=True) + features, datasets=len(cats),
-            argmax_gate=None)
+            argmax_gate=None, f32_gate=True)
         bad += [f"eval clip: {f}" for f in fail]
     loop_ms = [r["step_ms"] for r in timings]
     images = sum(int(cfg.dataset_cfg(i)["ims_per_gpu"]) for i in range(len(cats)))
@@ -3042,16 +3125,17 @@ def contrast_parity_batch():
     return batch
 
 
-def contrast_step_record(dev, batch, work):
-    """One f32 contrast step from the config's seeded init on `dev` at
-    teacher momentum CARD_VS_CPU_EMA: step_record's loss, gradients, groups
-    and parameters, the contrast loss, dropout launches, the bank, and the
+def contrast_step_record(dev, batch, work, extra=()):
+    """One f32 contrast step from the config's seeded init (and the
+    overrides `extra`) on `dev` at teacher momentum CARD_VS_CPU_EMA:
+    step_record's loss, gradients, groups and parameters, the contrast
+    loss, dropout launches, the bank, the prototypes (P > 1), and the
     teacher's float state after the step and its change in the step (f64)."""
     from mds_tpu_torch.config import Configer
     from mds_tpu_torch.engine.contrast_trainer import ContrastTrainer
 
     cfg = Configer(config_file=CONTRAST_CONFIG,
-                   args_parser=["contrast.ema_momentum", str(CARD_VS_CPU_EMA)])
+                   args_parser=["contrast.ema_momentum", str(CARD_VS_CPU_EMA), *extra])
     t = ContrastTrainer(cfg, work_dir=work, compute_dtype=torch.float32, device=dev)
 
     def teacher():
@@ -3062,9 +3146,16 @@ def contrast_step_record(dev, batch, work):
     reset_counts()
     m = t.step(batch, generator=torch.Generator().manual_seed(5))
     after = teacher()
+    if t.P > 1:
+        # past the warmup seg_mul_loss takes over from the aux heads' OHEM,
+        # so their parameters leave the backward: their gradient is zero
+        for k, p in t.model.named_parameters():
+            if p.grad is None and k.split(".")[0] in CONTRAST_AUX_HEADS:
+                p.grad = torch.zeros_like(p)
     rec = dict(step_record(t.model, t.optimizer, m["loss"].item()),
                contrast_loss=m["contrast_loss"].item(),
-               launches=read_counts()["dropout_u8"], bank=t.bank.feats.cpu(), teacher=after)
+               launches=read_counts()["dropout_u8"], bank=t.bank.feats.cpu(), teacher=after,
+               prototypes=None if t.prototypes is None else t.prototypes.cpu())
     # the EMA on this device against its formula over this device's own
     # states, in f64: a few f32 roundings of the teacher where it ran as
     # written, a tenth of the student's move in the step where it did not
@@ -3363,6 +3454,473 @@ def phase_v1_train(dev):
         raise RuntimeError(f"v1_train: {bad}")
 
 
+# ------------------------------------------------ the two trainers completed
+# snp_rn18_mulbn: the flagship config with a BN set for each dataset
+MULBN_OVERRIDES = synthetic_readers(FLAGSHIP_CATS, 4) + [
+    "train.gnn_iters", "1", "train.seg_iters", "2", "lr.max_iter", "2",
+    "train.ckpt_interval", "2", "train.log_interval", "1", "train.eval_at_switch", "False"]
+MULBN_STEPS = ["GNN", "SEG"]
+AUDIT_FRAMES = 2  # Synthetic frames a dataset in each audit pass
+MULTIPROTO_P = 4
+CONTRAST_AUX_HEADS = ("aux2", "aux3", "aux4", "aux5_4")
+# 2 OHEM steps, then seg_mul_loss takes over for the last 4
+MULTIPROTO_OVERRIDES = synthetic_readers(CONTRAST_CATS, 8) + [
+    "contrast.num_prototype", str(MULTIPROTO_P), "lr.warmup_iters", "2", "lr.max_iter", "6",
+    "train.ckpt_interval", "6", "train.log_interval", "1"]
+MULTIPROTO_STEPS = 6
+MULTIPROTO_WARMUP = 2
+# dropout launches a step: 5 heads × 3 datasets forward and as many
+# backward while the OHEM seg loss holds; once seg_mul_loss takes over, the
+# aux heads' losses leave the backward and only the main head's 3 run back
+DROPOUT_WARM, DROPOUT_MUL = 30, 18
+
+
+def mulbn_config(work):
+    """configs/ltbgnn_3_datasets_snp.json with model_name snp_rn18_mulbn,
+    written into `work` (the serving and eval tools take a config file)."""
+    with open(FLAGSHIP_CONFIG) as f:
+        cfg = json.load(f)
+    cfg["model_name"] = "snp_rn18_mulbn"
+    path = os.path.join(work, "ltbgnn_3_datasets_snp_mulbn.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def mulbn_seg_record(dev, batch):
+    """One f32 SEG step of snp_rn18_mulbn at TEST_WIDTH (its seeded init,
+    TF32 off) on `dev`: step_record's loss, gradients, groups (a
+    parameter's top module) and parameters after it, and the running
+    stats, grouped by (set kind, level, dataset)."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.gnn_trainer import AlternatingTrainer
+
+    cfg = copy.deepcopy(TEST_WIDTH)
+    cfg["model_name"] = "snp_rn18_mulbn"
+    t = AlternatingTrainer(Configer(configs=cfg), device=dev)
+    ims = [torch.from_numpy(x).to(dev) for x in batch["ims"]]
+    lbs = [torch.from_numpy(x).to(dev) for x in batch["lbs"]]
+    metrics = t.seg_step(ims, lbs)
+    named = dict(t.seg_model.named_parameters())
+    stats, groups = {}, {}
+    for k, v in t.seg_model.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            stats[k] = v.detach().cpu()
+            # a level's set …bn{1,2}.{level}.{dataset}.running_*, else
+            # a single set's …{dataset}.running_*
+            m = re.search(r"\.bn[12]\.(\d+)\.(\d+)\.(running_\w+)$", k)
+            g = (f"level{m[1]}.dataset{m[2]}.{m[3]}" if m else
+                 re.sub(r"^.*\.(\d+)\.(running_\w+)$", r"set.dataset\1.\2", k))
+            groups.setdefault(g, []).append(k)
+    return {"loss": float(metrics["loss"].detach()),
+            "grads": {k: p.grad.cpu().double() for k, p in named.items()},
+            "group": {k: k.split(".")[0] for k in named},
+            "params": {k: p.detach().cpu() for k, p in named.items()},
+            "stats": stats, "stat_groups": groups}
+
+
+def mulbn_card_vs_cpu(dev):
+    """mulbn_seg_record on the card and on the CPU from the same init and
+    batch (2 crops of 64×64 a dataset): loss rel, per-group gradient
+    cosine, parameters rel, and every (level or set, dataset) group of
+    running stats rel."""
+    rng = np.random.default_rng(23)
+    batch = {"ims": [], "lbs": []}
+    for n in (3, 4):
+        im, lb = seg_batch(rng, 2, 64, 64, n)
+        batch["ims"].append(im)
+        batch["lbs"].append(lb)
+    with route(stem_impl="kernel"):  # f32: the plain stem on both devices
+        a, b = (mulbn_seg_record(d, batch) for d in (dev, "cpu"))
+    cos, rels = group_agreement(a, b)
+    stat_rels = {g: max((a["stats"][k] - b["stats"][k]).abs().max().item() for k in ks)
+                 / max(max(b["stats"][k].abs().max().item() for k in ks), 1e-30)
+                 for g, ks in a["stat_groups"].items()}
+    return {"loss_cuda": a["loss"], "loss_cpu": b["loss"],
+            "loss_rel": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "grad_cosine": cos, "param_rel": max(rels.values()),
+            "stats_groups": len(stat_rels), "stats_rel": max(stat_rels.values())}
+
+
+def phase_mulbn(dev, work):
+    """snp_rn18_mulbn (configs/ltbgnn_3_datasets_snp.json with model_name
+    snp_rn18_mulbn: a BN set for each dataset) at full width in bf16, the
+    config's 4 crops of 768×768 a dataset of Synthetic 1024×2048 frames,
+    kernel 6 on, each dataset's input folding its own set: train_from_config
+    with gnn=True takes a GNN step, the UOT switch and a SEG step (the
+    checkpoint at 2, in `work` for the audit phase); one GNN step's frozen
+    features routed against plain and its 9 kernel-6 calls against their
+    plain version; the GNN and SEG steps alone (CUDA events) and their peak
+    memory; a served frame (3 kernel-6 launches) and tools/evaluate_torch.py
+    --mode uni on the checkpoint, routed against plain; one f32 SEG step at
+    test width on the card against the CPU."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from serve_torch import build_e2e
+
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.trainer import step_generator
+    from mds_tpu_torch.engine.train_step import normalize_images
+    from mds_tpu_torch.ops import stem
+
+    t0 = time.perf_counter()
+    config = mulbn_config(work)
+    cfg = Configer(config_file=config, args_parser=MULBN_OVERRIDES)
+    a_step = STEM7_LEVELS * len(FLAGSHIP_CATS)
+    bad, steps = [], []
+    run, train_launches, train_peak = train_alternating_run(
+        config, MULBN_OVERRIDES, work, dev, steps)
+    timings = run.timings
+    stages = [r["stage"] for r in timings]
+    losses = [r["loss"] for r in timings]
+    per_step = [r["stem7"] for r in steps]
+    want = {k: 0 for k in train_launches}
+    want["stem7_conv_bn_relu_s2"] = a_step * MULBN_STEPS.count("GNN")
+    if not (run.mulbn and run.seg_model.mulbn and len(run.seg_model.logits.norm) == 3):
+        bad.append("the trainer did not build snp_rn18_mulbn")
+    if stages != MULBN_STEPS or not np.isfinite(losses).all():
+        bad.append(f"train: stages {stages}, losses {losses}")
+    if per_step != [a_step if s == "GNN" else 0 for s in MULBN_STEPS]:
+        bad.append(f"train: kernel-6 launches a step {per_step}")
+    if train_launches != want:
+        bad.append(f"train launches {train_launches}, expected {want}")
+    if not graphs_ok(run.uot_bi or [], FLAGSHIP_CATS, run.M):
+        bad.append("UOT graphs: not one row a column and a column a row")
+    saved = run.latest_step(os.path.join(work, "ckpt_gnn"))
+    if saved != 2:
+        bad.append(f"checkpoint at {saved}, expected 2")
+
+    # the GNN step's frozen features: routed against plain, each kernel-6
+    # call (dataset i's input with dataset i's fold) against its plain version
+    ims, lbs = flagship_batch(np.random.default_rng(21), dev)
+    xs = normalize_images(ims, run.means, run.stds, torch.bfloat16)
+    run.seg_model.eval()
+    with torch.no_grad():
+        plain_feats = run.seg_model.features(xs)
+        with route(stem_impl="kernel"), captured(stem, "stem7_conv_bn_relu_s2") as calls:
+            routed_feats = run.seg_model.features(xs)
+    feats_rel = [rel(a, b) for a, b in zip(routed_feats, plain_feats)]
+    kernel_rels = stem7_calls_rels(calls)
+    folds = sorted(k for k in run.seg_model.backbone._packs._entries if k.startswith("fold/"))
+    del plain_feats, routed_feats, calls, xs
+    if len(kernel_rels) != a_step or max(feats_rel) >= LOGITS_GATE:
+        bad.append(f"features routed vs plain: rel {feats_rel}, {len(kernel_rels)} calls")
+    if (max(k["rel"] for k in kernel_rels) >= KERNEL_GATE
+            or min(k["bit_equal"] for k in kernel_rels) < BIT_EQUAL_GATE):
+        bad.append(f"kernel-6 calls against their plain version: {kernel_rels}")
+    if folds != [f"fold/{lv}/{d}" for lv in range(STEM7_LEVELS)
+                 for d in range(len(FLAGSHIP_CATS))]:
+        bad.append(f"kernel-6 folds cached as {folds}")
+    with route(stem_impl="kernel"):
+        gnn_ms, gnn_peak = alone_ms(lambda: run.gnn_step(
+            ims, lbs, step_generator(run.seed, run.gnn_steps), max_rate=0.5))
+    seg_ms, seg_peak = alone_ms(lambda: run.seg_step(ims, lbs))
+    images = sum(x.shape[0] for x in ims)
+    del ims, lbs
+
+    # ---- serving: build_e2e on the checkpoint's seg weights, dataset 0
+    weights = os.path.join(work, "snp_rn18_mulbn.pt")
+    torch.save({k: v.cpu() for k, v in run.seg_model.state_dict().items()}, weights)
+    del run
+    torch.cuda.empty_cache()
+    e2e = build_e2e(config, weights=weights, device=dev)
+    frames = np.random.default_rng(22).integers(0, 256, (1, 1, H, W, 3)).astype(np.uint8)
+    served = serve_and_check(e2e, "snp_rn18_mulbn", frames, FLAGSHIP_CATS[0],
+                             stem_impl="kernel")
+    want = {k: 0 for k in served["launches"]}
+    want["stem7_conv_bn_relu_s2"] = STEM7_LEVELS * len(frames)
+    if served["launches"] != want:
+        bad.append(f"served launches {served['launches']}, expected {want}")
+    x = normalized(e2e, frames[0])
+    with torch.inference_mode():
+        ref = e2e.model.eval_logits(x)
+        with route(stem_impl="kernel"), captured(stem, "stem7_conv_bn_relu_s2") as calls:
+            got = e2e.model.eval_logits(x)
+    serve_logits_rel = rel(got, ref)
+    serve_kernel_rels = stem7_calls_rels(calls)
+    if (got.shape != (1, FLAGSHIP_CATS[0], H // 4, W // 4) or not torch.isfinite(got).all()
+            or serve_logits_rel >= LOGITS_GATE or len(serve_kernel_rels) != STEM7_LEVELS
+            or max(k["rel"] for k in serve_kernel_rels) >= KERNEL_GATE):
+        bad.append(f"served logits {tuple(got.shape)} rel {serve_logits_rel}, "
+                   f"kernel-6 calls {serve_kernel_rels}")
+    del calls, got, ref, e2e
+
+    # ---- evaluation: tools/evaluate_torch.py --mode uni on the checkpoint
+    rec, fail, eval_launches = eval_pair(
+        config, os.path.join(work, "ckpt_gnn"), "uni", 2, {"stem_impl": "kernel"},
+        {"stem7_conv_bn_relu_s2": STEM7_LEVELS}, 1,
+        overrides=synthetic_readers(FLAGSHIP_CATS, 2, eval_batch=True), datasets=3,
+        argmax_gate=None)
+    bad += [f"eval uni: {f}" for f in fail]
+
+    parity = mulbn_card_vs_cpu(dev)
+    if (parity["loss_rel"] >= F32_GATE or min(parity["grad_cosine"].values()) <= 0.9999
+            or parity["param_rel"] >= F32_GATE or parity["stats_rel"] >= F32_GATE):
+        bad.append(f"card vs CPU: {parity}")
+    launches = {"stem7_conv_bn_relu_s2": train_launches["stem7_conv_bn_relu_s2"]
+                + served["launches"]["stem7_conv_bn_relu_s2"]
+                + eval_launches["stem7_conv_bn_relu_s2"]}
+    emit(phase="mulbn", config=os.path.relpath(FLAGSHIP_CONFIG, ROOT),
+         model_name="snp_rn18_mulbn", dtype="bfloat16", images_a_step=images,
+         crop=cfg.get("train", "cropsize"), stages=stages, losses=losses,
+         kernel6_launches_per_step=per_step, train_launches=train_launches,
+         step_ms=[r["step_ms"] for r in timings],
+         uot_switch_ms=[r["switch_ms"] for r in timings if "switch_ms" in r],
+         train_max_memory_allocated=train_peak, features_rel=feats_rel,
+         kernel6_calls=kernel_rels, kernel6_folds=folds,
+         gnn_step_alone_ms=gnn_ms, gnn_step_ms=float(np.median(gnn_ms)),
+         gnn_step_max_memory_allocated=gnn_peak,
+         seg_step_alone_ms=seg_ms, seg_step_ms=float(np.median(seg_ms)),
+         seg_images_per_s=images / float(np.median(seg_ms)) * 1e3,
+         seg_step_max_memory_allocated=seg_peak,
+         serve={"latency_ms": served["latency_ms"], "classes": served["classes"],
+                "agreement": served["agree"], "logits_rel": serve_logits_rel,
+                "kernel6_calls": serve_kernel_rels},
+         eval=rec, card_vs_cpu=parity, launches=launches, seconds=time.perf_counter() - t0)
+    if bad:
+        raise RuntimeError(f"mulbn: {bad}")
+    return launches
+
+
+def phase_audit(dev, work):
+    """The label-usage audit on the checkpoint phase_mulbn wrote:
+    tools/find_unuse_torch.py (each dataset's used slots per class, the
+    use/unuse targets into an .npz: each `target_bipart_i` (n_cats_i, M)
+    with entries in {0, 1, 255}) over AUDIT_FRAMES Synthetic frames a
+    dataset, its forwards on kernel 6 (3 launches each); then
+    tools/print_bigraph_torch.py, the restored trainer's UOT graphs."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import find_unuse_torch
+    import print_bigraph_torch
+
+    t0 = time.perf_counter()
+    bad = []
+    config = mulbn_config(work)
+    ckpt = os.path.join(work, "ckpt_gnn")
+    out = os.path.join(work, "target_bipart.npz")
+    overrides = synthetic_readers(FLAGSHIP_CATS, AUDIT_FRAMES, eval_batch=True)
+    reset_counts()
+    with route(stem_impl="kernel"), contextlib.redirect_stdout(io.StringIO()) as text:
+        used, target_bipart, audit_s = find_unuse_torch.main(
+            ["--config", config, "--ckpt", ckpt, "--out", out, *overrides])
+    launches = read_counts()
+    forwards = 2 * AUDIT_FRAMES * len(FLAGSHIP_CATS)  # two passes over each dataset
+    want = {k: 0 for k in launches}
+    want["stem7_conv_bn_relu_s2"] = STEM7_LEVELS * forwards
+    if launches != want:
+        bad.append(f"audit launches {launches}, expected {want}")
+    saved = np.load(out)
+    M = int(0.8 * sum(FLAGSHIP_CATS))
+    shapes, values = [], set()
+    for i, n in enumerate(FLAGSHIP_CATS):
+        t = saved[f"target_bipart_{i}"]
+        shapes.append(list(t.shape))
+        values |= set(np.unique(t).tolist())
+        if t.shape != (n, M) or not np.array_equal(t, target_bipart[i]):
+            bad.append(f"target_bipart_{i}: {t.shape}")
+    if not values <= {0.0, 1.0, 255.0}:
+        bad.append(f"target_bipart values {sorted(values)}")
+    if text.getvalue().count("used slots per class:") != len(FLAGSHIP_CATS):
+        bad.append("the audit printed no used slots")
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        graphs = print_bigraph_torch.main(["--config", config, "--ckpt", ckpt, *overrides])
+    if not graphs_ok(graphs, FLAGSHIP_CATS, M) or "== dataset 2 (36 classes" not in printed.getvalue():
+        bad.append("print_bigraph: graphs not one row a column and a column a row")
+    emit(phase="audit", config=os.path.relpath(FLAGSHIP_CONFIG, ROOT),
+         model_name="snp_rn18_mulbn", frames_a_dataset=AUDIT_FRAMES,
+         used_slots=[{str(k): v for k, v in sorted(u.items())} for u in used],
+         target_bipart_shapes=shapes, target_bipart_values=sorted(values),
+         target_bipart_counts=[{str(v): int((t == v).sum()) for v in (0.0, 1.0, 255.0)}
+                               for t in target_bipart],
+         audit_seconds=audit_s, launches=launches, seconds=time.perf_counter() - t0)
+    if bad:
+        raise RuntimeError(f"audit: {bad}")
+    return {"stem7_conv_bn_relu_s2": launches["stem7_conv_bn_relu_s2"]}
+
+
+@contextlib.contextmanager
+def proto_timer(records):
+    """Each prototype_learning call of the contrast trainer in the block:
+    its ms (CUDA events)."""
+    from mds_tpu_torch.engine import contrast_trainer
+
+    real = contrast_trainer.prototype_learning
+
+    def timed(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*a, **kw)
+        end.record()
+        records.append((start, end))
+        return out
+
+    contrast_trainer.prototype_learning = timed
+    try:
+        yield
+    finally:
+        contrast_trainer.prototype_learning = real
+
+
+@contextlib.contextmanager
+def contrast_metrics(records):
+    """Each ContrastTrainer.step's metrics in the block, as floats."""
+    from mds_tpu_torch.engine.contrast_trainer import ContrastTrainer
+
+    real = ContrastTrainer.step
+
+    def step(self, *a, **kw):
+        out = real(self, *a, **kw)
+        records.append({k: float(v) for k, v in out.items()})
+        return out
+
+    ContrastTrainer.step = step
+    try:
+        yield
+    finally:
+        ContrastTrainer.step = real
+
+
+def multiproto_card_vs_cpu(dev):
+    """contrast_step_record with P = MULTIPROTO_P and the warmup over (so
+    seg_mul_loss and the multi-label contrast term both run): the card
+    against the CPU from the same init, generator (dropout seeds, then the
+    Gumbel noise, drawn on the CPU) and prototypes; the prototypes after
+    the step rel."""
+    batch = contrast_parity_batch()
+    extra = ["contrast.num_prototype", str(MULTIPROTO_P), "lr.warmup_iters", "0"]
+    with tempfile.TemporaryDirectory() as work:
+        a, b = (contrast_step_record(d, batch, work, extra) for d in (dev, "cpu"))
+    cos, rels = group_agreement(a, b)
+    _, teacher_rel = group_agreement(a, b, "teacher")
+    return {"loss_cuda": a["loss"], "loss_cpu": b["loss"],
+            "loss_rel": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "contrast_loss_rel": abs(a["contrast_loss"] - b["contrast_loss"])
+            / abs(b["contrast_loss"]),
+            "grad_cosine": cos, "param_rel": max(rels.values()),
+            "teacher_rel": max(teacher_rel.values()), "bank_rel": rel(a["bank"], b["bank"]),
+            "prototypes_rel": rel(a["prototypes"], b["prototypes"]),
+            "ema_residual": {"cuda": a["ema_residual"], "cpu": b["ema_residual"]},
+            "dropout_launches": {"cuda": a["launches"], "cpu": b["launches"]}}
+
+
+def phase_contrast_multiproto(dev):
+    """The contrast trainer's multi-prototype path
+    (configs/bisenetv2_contrast_3ds.json with contrast.num_prototype 4 and
+    lr.warmup_iters 2: steps 0-1 OHEM, steps 2-5 seg_mul_loss) at full
+    width in bf16, the config's 512×1024 crops, 1 + 1 + 2 a step, through
+    tools/train_torch.py's main: 6 steps (30 dropout launches in each OHEM
+    step, 18 once seg_mul_loss takes over), the step and
+    prototype_learning ms, peak memory, a fresh trainer restoring step 6
+    with its prototypes; every dropout call of one more step against its
+    plain version bit for bit; the f32 step on the card against the CPU's;
+    then tools/evaluate_torch.py --mode dsg and emb on the checkpoint,
+    routed (kernels 4, 5, 7, 9) and plain."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import train_torch
+
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.contrast_trainer import ContrastTrainer
+    from mds_tpu_torch.ops import dropout
+
+    t0 = time.perf_counter()
+    bad, launches, protos_ms, metrics = [], {}, [], []
+    with tempfile.TemporaryDirectory() as work:
+        args = ["--config", CONTRAST_CONFIG, "--work-dir", work] + MULTIPROTO_OVERRIDES
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with proto_timer(protos_ms), contrast_metrics(metrics):
+            run = train_torch.main(args)
+        train_launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        protos_ms = [s.elapsed_time(e) for s, e in protos_ms]
+        timings = [dict(r) for r in run.read_timings()]
+        fresh = ContrastTrainer(Configer(config_file=CONTRAST_CONFIG,
+                                         args_parser=MULTIPROTO_OVERRIDES),
+                                work_dir=work, device=dev)
+        fresh.restore()
+        restored = (torch.equal(fresh.prototypes, run.prototypes)
+                    and same_state(contrast_state(fresh), contrast_state(run)))
+        # the momentum mix of two unit rows: not renormalized, as JAX's
+        proto_norm = torch.linalg.norm(run.prototypes.float(), dim=-1)
+        del fresh
+        # every dropout call of one more step: the kernel against its plain
+        # version, bit for bit
+        rng = np.random.default_rng(25)
+        h, w = run.configer.get("train", "cropsize")
+        batch = {"ims": [], "lbs": []}
+        for i, n in enumerate(CONTRAST_CATS):
+            im, lb = seg_batch(rng, int(run.configer.dataset_cfg(i)["ims_per_gpu"]), h, w, n)
+            batch["ims"].append(torch.from_numpy(im).to(dev))
+            batch["lbs"].append(torch.from_numpy(lb).to(dev))
+        reset_counts()
+        with captured(dropout, "dropout_u8", keep=lambda a: a) as calls:
+            run.step(batch)
+        n_drop = read_counts()["dropout_u8"]
+        # the comparison's own launches are not counted
+        drop_ok = [torch.equal(dropout.dropout_u8(x, k0, k1, d).view(torch.int16),
+                               dropout.dropout_u8_plain(x, k0, k1, d).view(torch.int16))
+                   for x, k0, k1, d in calls]
+        del calls, batch, run
+        torch.cuda.empty_cache()
+        want = {k: 0 for k in train_launches}
+        want["dropout_u8"] = (DROPOUT_WARM * MULTIPROTO_WARMUP
+                              + DROPOUT_MUL * (MULTIPROTO_STEPS - MULTIPROTO_WARMUP))
+        if train_launches != want:
+            bad.append(f"train launches {train_launches}, expected {want}")
+        if n_drop != DROPOUT_MUL or len(drop_ok) != n_drop or not all(drop_ok):
+            bad.append(f"dropout calls of a step against plain: {n_drop} calls, {drop_ok}")
+        if not restored:
+            bad.append("a fresh trainer did not restore step 6 and its prototypes exactly")
+        if not (torch.isfinite(proto_norm).all() and proto_norm.max().item() <= 1 + 1e-5
+                and proto_norm.min().item() > 0.5):
+            bad.append(f"prototype norms in [{proto_norm.min().item()}, "
+                       f"{proto_norm.max().item()}]")
+        mul = [m["seg_loss"] == m["seg_mul_loss"] for m in metrics]
+        if (len(metrics) != MULTIPROTO_STEPS
+                or mul != [k >= MULTIPROTO_WARMUP for k in range(MULTIPROTO_STEPS)]):
+            bad.append(f"seg_mul_loss took over at steps {mul}")
+        if not all(np.isfinite(list(m.values())).all() for m in metrics):
+            bad.append(f"losses {metrics}")
+        if len(protos_ms) != MULTIPROTO_STEPS:
+            bad.append(f"{len(protos_ms)} prototype_learning calls")
+        # ---- evaluation: tools/evaluate_torch.py on the checkpoint
+        modes, eval_launches = [], {}
+        ckpt = os.path.join(work, "ckpt_contrast")
+        for mode in ("dsg", "emb"):
+            rec, fail, got = eval_pair(
+                CONTRAST_CONFIG, ckpt, mode, 2, EVAL_ROUTES, EVAL_PER_FORWARD, 1,
+                overrides=synthetic_readers(CONTRAST_CATS, 2, eval_batch=True)
+                + ["contrast.num_prototype", str(MULTIPROTO_P)], datasets=3, argmax_gate=None,
+                f32_gate=True)
+            modes.append(rec)
+            bad += [f"eval {mode}: {f}" for f in fail]
+            for k, n in got.items():
+                eval_launches[k] = eval_launches.get(k, 0) + n
+    parity = multiproto_card_vs_cpu(dev)
+    if (parity["loss_rel"] >= F32_GATE or min(parity["grad_cosine"].values()) <= 0.9999
+            or max(parity["param_rel"], parity["teacher_rel"], parity["bank_rel"],
+                   parity["prototypes_rel"]) >= F32_GATE):
+        bad.append(f"card vs CPU: {parity}")
+    if max(max(r.values()) for r in parity["ema_residual"].values()) >= EMA_RESIDUAL_GATE:
+        bad.append(f"card vs CPU: the teacher's EMA {parity['ema_residual']}")
+    if parity["dropout_launches"] != {"cuda": DROPOUT_MUL, "cpu": 0}:
+        bad.append(f"card vs CPU: dropout launches {parity['dropout_launches']}")
+    for k, n in train_launches.items():
+        launches[k] = n + eval_launches.get(k, 0) + (n_drop if k == "dropout_u8" else 0)
+    steps = [r["step_ms"] for r in timings]
+    emit(phase="contrast_multiproto", config=os.path.relpath(CONTRAST_CONFIG, ROOT),
+         num_prototype=MULTIPROTO_P, dtype="bfloat16", metrics=metrics, step_ms=steps,
+         median_step_ms=float(np.median(steps[1:])), prototype_learning_ms=protos_ms,
+         median_prototype_learning_ms=float(np.median(protos_ms[1:])),
+         max_memory_allocated=peak, restored=restored, train_launches=train_launches,
+         prototype_norm=[proto_norm.min().item(), proto_norm.max().item()],
+         dropout_calls_bit_equal=f"{sum(drop_ok)}/{n_drop}", card_vs_cpu=parity,
+         eval=modes, launches=launches, seconds=time.perf_counter() - t0)
+    if bad:
+        raise RuntimeError(f"contrast_multiproto: {bad}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3423,6 +3981,12 @@ def main():
                   phase_clip, phase_contrast):
         for k, n in timed(phase, dev).items():
             launches[k] = launches.get(k, 0) + n
+    with tempfile.TemporaryDirectory() as work:  # the mulbn checkpoint the audit reads
+        for phase in (phase_mulbn, phase_audit):
+            for k, n in timed(phase, dev, work).items():
+                launches[k] = launches.get(k, 0) + n
+    for k, n in timed(phase_contrast_multiproto, dev).items():
+        launches[k] = launches.get(k, 0) + n
     timed(phase_v1_train, dev)
     results["stem_conv3x3_s2"] = timed(phase_train_stem, dev)
     launches["stem_conv3x3_s2"] = results["stem_conv3x3_s2"]["launches"]

@@ -180,18 +180,17 @@ class EvalLoader:
 
 
 def get_data_loader(configer, mode: str = "train", rank: int = 0, world: int = 1,
-                    stage=None, batch_multiplier: int = 1):
+                    stage: Optional[int] = None, batch_multiplier: int = 1):
     """From the config: one MultiDatasetTrainLoader over every dataset for
     mode 'train', a list of per-dataset EvalLoaders otherwise. The train
     loader's `pipeline` says whether the native augment or numpy runs, and
-    the choice is logged. JAX's `stage` (the curriculum ann lists) and
-    `batch_multiplier` (a batch per local device) wait: ROADMAP queue 1,
-    item 6b."""
-    if stage is not None or batch_multiplier != 1:
-        raise NotImplementedError(
-            "the loader's stage and batch_multiplier: ROADMAP queue 1, item 6b "
-            "(the flagship's waiting features)")
+    the choice is logged. `stage` reads the curriculum train lists
+    (`train_im_anns` with `.txt` → `_{stage}.txt`) in either mode: the eval
+    mode dsg scores the stage-2 train lists with the eval transform
+    (mds_tpu/data/loader.py:234-244). `batch_multiplier` scales each
+    dataset's `ims_per_gpu` (:264)."""
     import mds_tpu_torch.data.base  # noqa: F401 — fills DATASETS
+    import mds_tpu_torch.data.multiset  # noqa: F401 — fills DATASETS
     from mds_tpu_torch.data import native
     from mds_tpu_torch.data.fast_transforms import NativeTransformationTrain
     from mds_tpu_torch.data.transforms import TransformationTrain, TransformationVal
@@ -206,7 +205,10 @@ def get_data_loader(configer, mode: str = "train", rank: int = 0, world: int = 1
     for i in range(configer.n_datasets):
         dcfg = configer.dataset_cfg(i)
         reader_cls = DATASETS[dcfg["data_reader"]]
-        ann = dcfg.get("train_im_anns" if mode == "train" else "val_im_anns")
+        ann = dcfg.get("train_im_anns" if mode == "train" or stage is not None
+                       else "val_im_anns")
+        if stage is not None and ann:
+            ann = ann.replace(".txt", f"_{stage}.txt")
         if mode != "train":
             trans = TransformationVal()
         elif use_native:
@@ -218,7 +220,7 @@ def get_data_loader(configer, mode: str = "train", rank: int = 0, world: int = 1
         if use_native and hasattr(ds, "lb_map"):
             trans.set_label_lut(ds.lb_map)
         datasets.append(ds)
-        batch_sizes.append(int(dcfg.get("ims_per_gpu", 1)))
+        batch_sizes.append(int(dcfg.get("ims_per_gpu", 1)) * batch_multiplier)
     if mode != "train":
         return [EvalLoader(ds, rank=rank, world=world) for ds in datasets]
     num_threads = int(configer.get("train", "num_workers", default=8))

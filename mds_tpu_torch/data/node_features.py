@@ -6,7 +6,8 @@ Resolution order: the configured or given cache file (`.npy`, or a torch
 tensor saved with torch.save), else a deterministic fallback, bit for bit
 JAX's: each class name's sha256 seeds a numpy normal vector of `nfeat`,
 unit-normalized. JAX tries local CLIP text features in between; the port
-waits for CLIP weights in the repo (ROADMAP queue 1, item 6b).
+has no CLIP weights to compute them from (the repo holds none), so it takes
+them from the cache file only.
 """
 
 from __future__ import annotations

@@ -310,9 +310,10 @@ def train_state_from_jax(params: Mapping, batch_stats: Mapping, opt_state,
 
 
 def contrast_state_from_jax(params: Mapping, batch_stats: Mapping, opt_state, step,
-                            bank, teacher: Mapping = None):
+                            bank, teacher: Mapping = None, prototypes=None):
     """A JAX ContrastTrainer's state (numpy trees; `bank` its MemoryBank,
-    `teacher` its {"params", "batch_stats"} or None) → (state, extras) as
+    `teacher` its {"params", "batch_stats"} or None, `prototypes` its
+    (U, P, D) slots with num_prototype > 1, else None) → (state, extras) as
     the port's ContrastTrainer checkpoint holds them (its `load`)."""
     state = _sgd_train_state(bisenetv2_contrast_state_dict_from_jax, params, batch_stats,
                              opt_state, step)
@@ -322,6 +323,8 @@ def contrast_state_from_jax(params: Mapping, batch_stats: Mapping, opt_state, st
     if teacher is not None:
         extras["teacher"] = bisenetv2_contrast_state_dict_from_jax(
             teacher["params"], teacher["batch_stats"])
+    if prototypes is not None:
+        extras["prototypes"] = torch.from_numpy(np.array(prototypes, np.float32))
     return state, extras
 
 
@@ -364,13 +367,18 @@ def load_contrast_reference(model: nn.Module, state: Mapping) -> Dict[str, np.nd
 def _dump_slots(out: Dict, params: Mapping, stats: Mapping, ours: str, theirs: str,
                 levels: bool):
     """A SharedListBN's (n_slots, C) variables → BatchNorm2d keys: one per
-    slot under `theirs.{slot}` (levels), else slot 0 under `theirs`."""
+    slot under `theirs.{slot}` (levels), else slot 0 under `theirs`. Its
+    per-dataset mode's (n_slots, n_datasets, C) → one per (slot, dataset)
+    under `theirs.{slot}.{dataset}`, else `theirs.{dataset}`."""
     scale, bias = _get(params, f"{ours}/scale"), _get(params, f"{ours}/bias")
     mean, var = _get(stats, f"{ours}/mean"), _get(stats, f"{ours}/var")
     for i in range(scale.shape[0] if levels else 1):
         t = f"{theirs}.{i}" if levels else theirs
-        out[f"{t}.weight"], out[f"{t}.bias"] = scale[i], bias[i]
-        out[f"{t}.running_mean"], out[f"{t}.running_var"] = mean[i], var[i]
+        sets = [(t, (i,))] if scale.ndim == 2 else [
+            (f"{t}.{d}", (i, d)) for d in range(scale.shape[1])]
+        for name, at in sets:
+            out[f"{name}.weight"], out[f"{name}.bias"] = scale[at], bias[at]
+            out[f"{name}.running_mean"], out[f"{name}.running_var"] = mean[at], var[at]
 
 
 def swiftnet_to_torch(params: Mapping, stats: Mapping,

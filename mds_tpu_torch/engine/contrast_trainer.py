@@ -29,9 +29,25 @@ One step, as JAX's:
   forward) and the bank pushes' (CUDA events on the card, the host clock on
   the CPU), and the host ms waited on the loader.
 - Checkpoints (`<work_dir>/ckpt_contrast/<step>.pt`) hold the train state
-  and, as extras, the bank (feats, ptr, count) and the teacher's state.
-- `contrast.num_prototype > 1` (the sinkhorn prototype path) raises
-  NotImplementedError: ROADMAP queue 1, item 7b.
+  and, as extras, the bank (feats, ptr, count), the teacher's state and,
+  with P > 1, the prototypes.
+
+With `contrast.num_prototype` P > 1 (mds_tpu/engine/contrast_trainer.py:
+67-85, 179-240) the contrast term is the multi-prototype one:
+- (U, P, D) prototype slots, unit-norm at init, moved by momentum
+  `contrast.coefficient` through `ops/prototype_learning.py` over the
+  whole multi-dataset batch (its Gumbel noise drawn from the step's
+  generator after the dropout seeds, or passed as `proto_noise`);
+- each dataset's `ClassRemapOneHotLabel.ContrastRemapping` of its labels
+  against the slot logits, whose multi-hot positives (with the pixel's
+  assigned slot) feed `multi_label_cross_entropy` at logits / temperature;
+- `seg_mul_loss`, the `weighted_nll_plus_loss` of each dataset's logits
+  under its remap's seg mask, which takes over from the OHEM seg loss once
+  the warmup gate opens.
+JAX draws the initial slots from PRNGKey(42), which no torch generator
+reproduces: these come from a generator seeded 42 by the same recipe
+(truncated normal × 0.02, rows normalized), and `deploy/weights.py
+contrast_state_from_jax` carries JAX's across.
 """
 
 from __future__ import annotations
@@ -44,7 +60,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from mds_tpu_torch.config import Configer
-from mds_tpu_torch.data.class_remap import ClassRemap
+from mds_tpu_torch.data.class_remap import ClassRemap, ClassRemapOneHotLabel
 from mds_tpu_torch.engine.checkpoints import CheckpointManager, load_train_state, train_state
 from mds_tpu_torch.engine.ema import ema_update
 from mds_tpu_torch.engine.lr_schedule import warmup_poly_lr
@@ -57,11 +73,11 @@ from mds_tpu_torch.losses.contrast import (
     anchor_noise,
     memory_bank_push,
 )
+from mds_tpu_torch.losses.helpers import multi_label_cross_entropy, weighted_nll_plus_loss
 from mds_tpu_torch.losses.ohem_ce import OhemCELoss
 from mds_tpu_torch.models.bisenetv2_contrast import BiSeNetV2Contrast
-
-MULTI_PROTOTYPE_ITEM = ("contrast.num_prototype > 1 (sinkhorn prototype learning, "
-                        "ClassRemapOneHotLabel) is not ported yet: ROADMAP queue 1, item 7b")
+from mds_tpu_torch.models.layers import wide
+from mds_tpu_torch.ops.prototype_learning import gumbel_noise, prototype_learning
 
 
 class _Clock:
@@ -88,9 +104,20 @@ class _Clock:
         return [(b - a) * 1e3 for a, b in zip(m, m[1:])]
 
 
+def init_prototypes(U: int, P: int, D: int, device="cpu") -> torch.Tensor:
+    """(U, P, D) slots: a normal truncated at ±2 times 0.02, each row
+    normalized, from seed 42 (JAX's recipe; its PRNGKey(42) draw is not
+    reproduced)."""
+    g = torch.Generator().manual_seed(42)
+    protos = torch.nn.init.trunc_normal_(torch.empty(U, P, D), 0.0, 1.0, -2.0, 2.0,
+                                         generator=g) * 0.02
+    return (protos / torch.linalg.norm(protos, dim=-1, keepdim=True).clamp_min(1e-12)
+            ).to(device)
+
+
 class ContrastTrainer:
-    """train.mode 'contrast' with one prototype a class (the config sets no
-    `contrast.num_prototype`)."""
+    """train.mode 'contrast', with one prototype a class or P > 1
+    (`contrast.num_prototype`)."""
 
     def __init__(self, configer: Configer, work_dir: str = "./res",
                  compute_dtype: torch.dtype = torch.bfloat16, device="cuda"):
@@ -102,8 +129,6 @@ class ContrastTrainer:
         def g(*k, d=None):
             return configer.get(*k, default=d)
 
-        if int(g("contrast", "num_prototype", d=1)) > 1:
-            raise NotImplementedError(MULTI_PROTOTYPE_ITEM)
         self.configer = configer
         self.work_dir = work_dir
         self.n = configer.n_datasets
@@ -124,6 +149,13 @@ class ContrastTrainer:
         U, D = self.model.num_unify_classes, self.model.proj_dim
         self.bank = MemoryBank.create(U, int(g("contrast", "memory_bank_size", d=64)), D,
                                       self.device)
+        self.P = int(g("contrast", "num_prototype", d=1))
+        self.coefficient = float(g("contrast", "coefficient", d=0.999))
+        self.temperature = float(g("contrast", "temperature", d=0.07))
+        self.prototypes = None
+        if self.P > 1:
+            self.remap_onehot = ClassRemapOneHotLabel(configer)
+            self.prototypes = init_prototypes(U, self.P, D, device=self.device)
         self.schedule = warmup_poly_lr(
             float(g("lr", "lr_start", d=5e-3)), float(g("lr", "lr_power", d=0.9)),
             self.max_iter, warmup_iter=self.warmup_iters,
@@ -156,12 +188,15 @@ class ContrastTrainer:
 
     def step(self, batch, it: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
-             noise: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+             noise: Optional[Sequence[torch.Tensor]] = None,
+             proto_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One train step on batch {"ims", "lbs"} (uint8 NHWC images and
         labels per dataset, numpy or tensors). `it` gates the contrast term
-        (default: the step count); `noise`: each dataset's (U, B·h·w) anchor
-        noise in place of the generator's. Returns the metrics as tensors:
-        loss, seg_loss, contrast_loss."""
+        and anneals the remap's keep share (default: the step count);
+        `noise`: each dataset's (U, B·h·w) anchor noise in place of the
+        generator's; `proto_noise`: with P > 1, the (Σ B·h·w, P) Gumbel
+        noise of the slot assignment. Returns the metrics as tensors:
+        loss, seg_loss, contrast_loss, and with P > 1 seg_mul_loss."""
         it = self.step_count if it is None else it
         gen = step_generator(self.seed, self.step_count) if generator is None else generator
         cw = self.loss_weight if it >= self.warmup_iters else 0.0
@@ -173,7 +208,7 @@ class ContrastTrainer:
         out = model(xs, generator=gen)
         bank = self.bank  # the loss reads it frozen
         seg_total = c_total = 0.0
-        lb_smalls = []
+        lb_smalls, preds = [], []
         for i in range(self.n):
             seg, embed = out["seg"][i], out["embed"][i]
             lb_uni = self.luts[i][lbs[i].long()]
@@ -183,10 +218,20 @@ class ContrastTrainer:
             f = seg.shape[2] // embed.shape[2]
             lb_small = lb_uni[:, ::f, ::f]
             pred_small = seg.detach()[:, :, ::f, ::f].argmax(dim=1)
-            nz = noise[i] if noise is not None else anchor_noise(
-                self.model.num_unify_classes, lb_small.numel(), gen, self.device)
-            c_total = c_total + self.contrast(embed.float(), lb_small, pred_small, bank, nz)
+            if self.P == 1:
+                nz = noise[i] if noise is not None else anchor_noise(
+                    self.model.num_unify_classes, lb_small.numel(), gen, self.device)
+                c_total = c_total + self.contrast(embed.float(), lb_small, pred_small,
+                                                  bank, nz)
             lb_smalls.append(lb_small)
+            preds.append(pred_small)
+        metrics = {}
+        if self.P > 1:
+            c_total, seg_mul = self._multi_prototype(out, lbs, lb_smalls, preds, it, gen,
+                                                     proto_noise)
+            metrics["seg_mul_loss"] = seg_mul.detach()
+            if cw != 0.0:  # the warmup keeps the OHEM seg loss
+                seg_total = seg_mul
         loss = seg_total + cw * c_total
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -207,7 +252,41 @@ class ContrastTrainer:
         self.step_count += 1
         self.timings.append({"step": self.step_count, "_clock": clock})
         return {"loss": loss.detach(), "seg_loss": seg_total.detach(),
-                "contrast_loss": torch.as_tensor(c_total).detach()}
+                "contrast_loss": torch.as_tensor(c_total).detach(), **metrics}
+
+    def _multi_prototype(self, out, lbs, lb_smalls, preds, it, gen, proto_noise):
+        """The P > 1 terms (mds_tpu/engine/contrast_trainer.py:179-240): the
+        slot assignment and momentum update over the whole batch (the new
+        slots kept in `self.prototypes`), then per dataset the remap's
+        multi-hot contrast CE and its seg mask's weighted NLL. → (contrast
+        loss, seg_mul_loss)."""
+        U, P = self.model.num_unify_classes, self.P
+        embeds = out["embed"]
+        D = embeds[0].shape[1]
+        emb_all = torch.cat([wide(e).permute(0, 2, 3, 1).reshape(-1, D) for e in embeds])
+        gt_all = torch.cat([lb.reshape(-1) for lb in lb_smalls])
+        correct = torch.cat([(p == lb).reshape(-1) for p, lb in zip(preds, lb_smalls)])
+        if proto_noise is None:
+            proto_noise = gumbel_noise((emb_all.shape[0], P), gen, self.device)
+        res = prototype_learning(self.prototypes, emb_all, gt_all, correct,
+                                 coefficient=self.coefficient, noise=proto_noise)
+        self.prototypes = res.prototypes
+        slots = torch.arange(U * P, device=gt_all.device)
+        target_1h = (res.proto_target[:, None] == slots[None, :]) & (gt_all < U)[:, None]
+        c_total = seg_mul = 0.0
+        off = 0
+        for i, e in enumerate(embeds):
+            b, _, h, w = e.shape
+            n_i = b * h * w
+            sim = res.proto_logits[off:off + n_i]
+            cm, seg_mask = self.remap_onehot.ContrastRemapping(
+                lbs[i], sim.detach().reshape(b, h, w, U * P), i, cur_iter=it)
+            pos = cm.reshape(-1, U * P) | target_1h[off:off + n_i]
+            off += n_i
+            c_total = c_total + multi_label_cross_entropy(sim / self.temperature, pos)
+            seg_mul = seg_mul + weighted_nll_plus_loss(out["seg"][i],
+                                                       seg_mask.permute(0, 3, 1, 2))
+        return c_total, seg_mul
 
     def read_timings(self) -> List[Dict]:
         """`timings` with each pending step's ms read back: `step_ms`
@@ -238,7 +317,12 @@ class ContrastTrainer:
             if layout != "bisenetv2_contrast":
                 raise ValueError("train.mode contrast finetunes from a contrast-layout "
                                  f"checkpoint, got {layout!r}")
-            load_contrast_reference(self.model, sd)
+            extras = load_contrast_reference(self.model, sd)
+            protos = extras.get("prototypes")
+            if self.prototypes is not None and protos is not None and (
+                    tuple(protos.shape) == tuple(self.prototypes.shape)):
+                self.prototypes = torch.as_tensor(protos, dtype=torch.float32,
+                                                  device=self.device)
         else:
             state, _ = CheckpointManager(path).restore()
             load_train_state(self.model, None, state)
@@ -255,15 +339,20 @@ class ContrastTrainer:
         if self.teacher is not None:
             out["teacher"] = {k: v.detach().cpu().clone()
                               for k, v in self.teacher.state_dict().items()}
+        if self.prototypes is not None:
+            out["prototypes"] = self.prototypes.detach().cpu().clone()
         return out
 
     def load(self, state: Dict, extras: Dict) -> None:
-        """Take a checkpoint's train state and extras (bank, teacher)."""
+        """Take a checkpoint's train state and extras (bank, teacher,
+        prototypes)."""
         self.step_count = load_train_state(self.model, self.optimizer, state)
         self.bank = MemoryBank(extras["bank_feats"], extras["bank_ptr"],
                                extras["bank_count"]).to(self.device)
         if self.teacher is not None:
             self.teacher.load_state_dict(extras["teacher"], strict=True)
+        if self.prototypes is not None:
+            self.prototypes = extras["prototypes"].to(self.device, self.prototypes.dtype)
 
     def maybe_save(self, force: bool = False) -> bool:
         """A checkpoint at every train.ckpt_interval steps, or `force`."""

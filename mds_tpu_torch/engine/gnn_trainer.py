@@ -31,7 +31,9 @@ zero, and AdamW's decoupled weight decay still shrinks them by
 (1 − lr·wd) a step. The graph net is built as JAX's trainer builds it,
 `LearnableTopologyBGNN.from_configer` (a name outside its table is the
 cosine BGNN); the unlabel fork raises ValueError, as JAX's step fails on
-it.
+it. The seg net is snp_rn18, or snp_rn18_mulbn (a BN set for each
+dataset) where the config's model_name says so; JAX's trainer builds
+snp_rn18 whatever the name.
 
 - Compute dtype f32 by default, as JAX's; bf16 through `compute_dtype`
   (params stay f32); f64 (params too) for the tests' reference runs.
@@ -128,8 +130,11 @@ class AlternatingTrainer:
 
         # f32 params, or f64 for an f64 reference run
         wide = torch.float64 if compute_dtype == torch.float64 else torch.float32
-        # snp_rn18 whatever the config's model_name, as JAX's trainer
-        self.seg_model = SemsegModel.from_configer(configer, dtype=compute_dtype)
+        # snp_rn18, or snp_rn18_mulbn where the config names it (JAX's
+        # trainer builds snp_rn18 whatever the model_name, gnn_trainer.py:74)
+        self.mulbn = g("model_name") == "snp_rn18_mulbn"
+        self.seg_model = SemsegModel.from_configer(configer, dtype=compute_dtype,
+                                                   mulbn=self.mulbn)
         self.seg_model.init_weights(torch.Generator().manual_seed(self.seed)).to(
             self.device, wide)
         self.gnn_model.init_weights(torch.Generator().manual_seed(self.seed + 1)).to(

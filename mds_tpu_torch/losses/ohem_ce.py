@@ -1,6 +1,7 @@
 """OHEM cross-entropy losses — counterparts of mds_tpu/losses/ohem_ce.py
 (`cross_entropy_per_pixel` :33, `_phase_taps` :46, `cross_entropy_upsampled`
-:60, `OhemCELoss` :125 with `upsampled` :140, `MdsOhemCELoss` :152).
+:60, `OhemCELoss` :125 with `upsampled` :140, `MdsOhemCELoss` :152,
+`MdsOhemNLLPlusLoss` :182).
 
 Logits are NCHW (class axis 1, as the port's models return them); labels are
 (B, H, W) integer maps with ignore=255. Per-pixel CE is f32 whatever the
@@ -151,3 +152,28 @@ class MdsOhemCELoss(OhemCELoss):
         ce = torch.cat([c.reshape(-1) for c, _ in pairs])
         valid = torch.cat([v.reshape(-1) for _, v in pairs])
         return ohem_mean(ce, valid, self.thresh, self.n_min_ratio)
+
+
+class MdsOhemNLLPlusLoss(nn.Module):
+    """Graph-aware multi-dataset OHEM (mds_tpu/losses/ohem_ce.py:182): each
+    dataset's `adj_nll_plus_loss` through its (n_cats, C) graph, one
+    hard-pixel pool over all of them. The keep rule is the exact one, which
+    JAX takes with `exact=True`; JAX's default is its histogram top-k."""
+
+    def __init__(self, thresh: float = 0.4, ignore_lb: int = 255,
+                 n_min_ratio: int = 16):
+        super().__init__()
+        self.thresh = -math.log(thresh)
+        self.ignore_lb = ignore_lb
+        self.n_min_ratio = n_min_ratio
+
+    def forward(self, logits_list: Sequence[Optional[torch.Tensor]],
+                adjs: Sequence[torch.Tensor],
+                labels_list: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+        from mds_tpu_torch.losses.helpers import adj_nll_plus_loss
+
+        pairs = [adj_nll_plus_loss(lg, adj, lb, self.ignore_lb)
+                 for lg, adj, lb in zip(logits_list, adjs, labels_list) if lg is not None]
+        nll = torch.cat([c.reshape(-1) for c, _ in pairs])
+        valid = torch.cat([v.reshape(-1) for _, v in pairs])
+        return ohem_mean(nll, valid, self.thresh, self.n_min_ratio)

@@ -1,7 +1,8 @@
 """SemsegModel ("snp_rn18"): a unified-prototype classifier over the
 SwiftNet pyramid — counterpart of mds_tpu/models/semseg.py (`proto_logits`
 :36, `remap_logits` :45, `SemsegModel` :54, `set_bipartite_graphs` :228,
-`set_unify_prototype` :246, the `snp_rn18` factory :270).
+`set_unify_prototype` :246, the `snp_rn18` factory :270 and `snp_rn18_mulbn`
+:274).
 
 - SwiftNet pyramid → 128-d features at 1/4 → `logits` head (BN, ReLU, 1×1
   conv with bias to `output_feat_dim`) → per-pixel logits against the
@@ -13,6 +14,9 @@ SwiftNet pyramid — counterpart of mds_tpu/models/semseg.py (`proto_logits`
   mds_tpu/deploy/torch_import.py `semseg_from_torch` :343): `backbone.*`,
   `logits.{norm,conv}`, `unify_prototype`, `aux_prototype.{i}`,
   `bipartite_graphs.{i}`.
+- `mulbn` (snp_rn18_mulbn, semseg.py:274-278): every BN of the backbone
+  and the head's (`logits.norm.{dataset}`) keeps a stat set and an affine
+  for each dataset (models/swiftnet.py `DatasetListBN`).
 - Logits are NCHW. The prototype products take the features in the compute
   dtype and sum in f32 (JAX's preferred_element_type=f32): they run on f32
   copies of the bf16 values (f64 in an f64 model, layers.wide).
@@ -87,15 +91,20 @@ class SemsegModel(nn.Module):
                  dtype: torch.dtype = torch.float32, remat: bool = False,
                  backbone_layers: Sequence[int] = (2, 2, 2, 2),
                  backbone_planes: Sequence[int] = (64, 128, 256, 512),
-                 backbone_features: int = 128, pyramid_levels: int = 3):
+                 backbone_features: int = 128, pyramid_levels: int = 3,
+                 mulbn: bool = False):
         super().__init__()
         self.datasets_cats = tuple(int(c) for c in datasets_cats)
         self.output_feat_dim = int(output_feat_dim)
         self.with_datasets_aux = bool(with_datasets_aux)
         self.dtype = dtype
+        self.mulbn = bool(mulbn)
+        nd = len(self.datasets_cats)
         self.backbone = SwiftNetPyramid(backbone_layers, backbone_features,
-                                        pyramid_levels, backbone_planes, dtype, remat)
-        self.logits = _BNReluConv(backbone_features, output_feat_dim, 1, True, dtype)
+                                        pyramid_levels, backbone_planes, dtype, remat,
+                                        self.mulbn, nd)
+        self.logits = _BNReluConv(backbone_features, output_feat_dim, 1, True, dtype,
+                                  self.mulbn, nd)
         M, D = int(unify_ratio * sum(self.datasets_cats)), self.output_feat_dim
         self.unify_prototype = nn.Parameter(torch.zeros(M, D))
         if self.with_datasets_aux:
@@ -233,6 +242,5 @@ def snp_rn18(configer=None, dtype: torch.dtype = torch.float32, **kw):
 
 @MODELS.register("snp_rn18_mulbn")
 def snp_rn18_mulbn(configer=None, dtype: torch.dtype = torch.float32, **kw):
-    raise NotImplementedError(
-        "ROADMAP queue 1, item 6b (the flagship's waiting features: "
-        "snp_rn18_mulbn, SharedListBN per dataset)")
+    """Per-dataset BN (mds_tpu/models/semseg.py:274)."""
+    return SemsegModel.from_configer(configer, dtype=dtype, mulbn=True, **kw)

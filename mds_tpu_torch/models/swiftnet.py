@@ -1,6 +1,7 @@
 """SwiftNet-pyramid ResNet18 backbone ("snp") — counterpart of
-mds_tpu/models/swiftnet.py (`SharedListBN` :44, `BasicBlock` :186,
-`bicubic_downsample` :255, `UpsampleBlend` :266, `SwiftNetPyramid` :292).
+mds_tpu/models/swiftnet.py (`SharedListBN` :44 with its per-dataset mode
+:128, `BasicBlock` :186, `bicubic_downsample` :255, `UpsampleBlend` :266,
+`SwiftNetPyramid` :292).
 
 - The ResNet18 trunk runs once per image-pyramid level (1, 1/2, 1/4 of the
   input, bicubic) with one BN stat set per level; each pass gives 4 skips
@@ -9,7 +10,11 @@ mds_tpu/models/swiftnet.py (`SharedListBN` :44, `BasicBlock` :186,
   upsample-add-BN-ReLU-conv3×3 blends decodes them to 1/4 resolution.
 - Activations flow as per-dataset lists where an absent dataset is None.
   Every BN normalizes with the joint moments of the whole list (the
-  reference's BN on the stacked batch), not per dataset.
+  reference's BN on the stacked batch), not per dataset. With `mulbn`
+  (snp_rn18_mulbn, the reference's ResNet_mulbn) each BN set is
+  `DatasetListBN` instead: a stat set and an affine of its own for each
+  dataset, named `{set}.{dataset}` (`bn1.{level}.{dataset}`,
+  `downsample.1.{dataset}`, `blend_conv.norm.{dataset}`).
 - Module and buffer names are the reference torch layout (the inverse of
   mds_tpu/deploy/torch_import.py `swiftnet_backbone_from_torch` :283):
   `conv1`, `bn1.{level}`, `layer{1..4}.{b}.{conv1,bn1.{level},conv2,
@@ -25,7 +30,10 @@ mds_tpu/models/swiftnet.py (`SharedListBN` :44, `BasicBlock` :186,
   where the level's H and W are even (JAX's `fuse7` at :314-334, without
   its W ≥ 512 Mosaic guard). The fold and the packed weight are cached per
   level (`PackCache` entries "fold/{level}" and "stem7/{level}") until the
-  conv weight or one of that level's BN tensors changes.
+  conv weight or one of that level's BN tensors changes. Under `mulbn`
+  dataset i's input takes dataset i's set of the level, cached under
+  "fold/{level}/{i}" and "stem7/{level}/{i}"; JAX turns its fused stem off
+  there (:316) only because its fold reads the shared statistics.
 """
 
 from __future__ import annotations
@@ -112,9 +120,63 @@ class SharedListBN(nn.BatchNorm2d):
         return lmap(norm, xs)
 
 
-def _levels(features: int, n: int, dtype: torch.dtype) -> nn.ModuleList:
-    """One SharedListBN per pyramid level (the reference's ModuleList)."""
-    return nn.ModuleList(SharedListBN(features, dtype) for _ in range(n))
+class DatasetListBN(nn.ModuleList):
+    """A stat set and an affine for each dataset: one BatchNorm2d each
+    (mds_tpu/models/swiftnet.py:128-176, `SharedListBN(per_dataset=True)`).
+    The list must hold one entry a dataset, None for an absent one.
+
+    Train: each dataset's own moments, two-pass as JAX's, m = mean(x),
+    v = mean((x − m)²) in f32; its running mean and variance move by
+    momentum 0.1, the variance with the unbiased v·N/max(N − 1, 1), N its
+    own pixel count. Eval: its running stats. Both: y = ((x − m)·rsqrt(v +
+    eps))·scale + bias in f32, cast to `dtype`."""
+
+    def __init__(self, features: int, n_datasets: int,
+                 dtype: torch.dtype = torch.float32, eps: float = 1e-5):
+        super().__init__(nn.BatchNorm2d(features, eps=eps, momentum=0.1)
+                         for _ in range(n_datasets))
+        self.dtype = dtype
+
+    def reset_parameters(self) -> None:
+        for bn in self:
+            bn.reset_parameters()
+
+    def forward(self, xs: MultiX) -> List[Optional[torch.Tensor]]:
+        if len(xs) != len(self):
+            raise ValueError(f"DatasetListBN of {len(self)} datasets got {len(xs)} inputs")
+        outs: List[Optional[torch.Tensor]] = []
+        for bn, x in zip(self, xs):
+            if x is None:
+                outs.append(None)
+                continue
+            xf = wide(x)
+            if self.training:
+                m = xf.mean(dim=(0, 2, 3))
+                v = (xf - _c(m)).square().mean(dim=(0, 2, 3))
+                if not _STATS_FROZEN:
+                    cnt = x.numel() // x.shape[1]
+                    mom = bn.momentum
+                    with torch.no_grad():
+                        bn.running_mean.copy_((1 - mom) * bn.running_mean + mom * m)
+                        bn.running_var.copy_((1 - mom) * bn.running_var
+                                             + mom * (v * (cnt / max(cnt - 1, 1))))
+            else:
+                m, v = bn.running_mean, bn.running_var
+            y = (xf - _c(m)) * _c(torch.rsqrt(v + bn.eps))
+            outs.append((y * _c(bn.weight) + _c(bn.bias)).to(self.dtype))
+        return outs
+
+
+def list_bn(features: int, dtype: torch.dtype, mulbn: bool = False,
+            n_datasets: int = 1) -> nn.Module:
+    """The list BN of one set: shared, or one a dataset under `mulbn`."""
+    return DatasetListBN(features, n_datasets, dtype) if mulbn else SharedListBN(features, dtype)
+
+
+def _levels(features: int, n: int, dtype: torch.dtype, mulbn: bool = False,
+            n_datasets: int = 1) -> nn.ModuleList:
+    """One list BN per pyramid level (the reference's ModuleList)."""
+    return nn.ModuleList(list_bn(features, dtype, mulbn, n_datasets) for _ in range(n))
 
 
 def _relu(xs: MultiX) -> List[Optional[torch.Tensor]]:
@@ -128,17 +190,18 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_chan: int, planes: int, stride: int = 1,
                  use_downsample: bool = False, levels: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mulbn: bool = False,
+                 n_datasets: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(in_chan, planes, 3, stride, 1, bias=False)
-        self.bn1 = _levels(planes, levels, dtype)
+        self.bn1 = _levels(planes, levels, dtype, mulbn, n_datasets)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = _levels(planes, levels, dtype)
+        self.bn2 = _levels(planes, levels, dtype, mulbn, n_datasets)
         self.downsample = None
         if use_downsample:
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_chan, planes, 1, stride, bias=False),
-                SharedListBN(planes, dtype))
+                list_bn(planes, dtype, mulbn, n_datasets))
         self.dtype = dtype
 
     def forward(self, xs: MultiX, level: int):
@@ -171,9 +234,9 @@ class _BNReluConv(nn.Module):
     """BN → ReLU → conv (the reference's _BNReluConv order and names)."""
 
     def __init__(self, in_chan: int, out_chan: int, k: int, bias: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, mulbn: bool = False, n_datasets: int = 1):
         super().__init__()
-        self.norm = SharedListBN(in_chan, dtype)
+        self.norm = list_bn(in_chan, dtype, mulbn, n_datasets)
         self.conv = nn.Conv2d(in_chan, out_chan, k, 1, k // 2, bias=bias)
         self.dtype = dtype
 
@@ -185,9 +248,11 @@ class UpsampleBlend(nn.Module):
     """upsample to the skip's size → add the skip → BN-ReLU-conv3×3
     (mds_tpu/models/swiftnet.py:266-289)."""
 
-    def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, num_features: int, dtype: torch.dtype = torch.float32,
+                 mulbn: bool = False, n_datasets: int = 1):
         super().__init__()
-        self.blend_conv = _BNReluConv(num_features, num_features, 3, False, dtype)
+        self.blend_conv = _BNReluConv(num_features, num_features, 3, False, dtype,
+                                      mulbn, n_datasets)
 
     def forward(self, xs: MultiX, skips: MultiX) -> List[Optional[torch.Tensor]]:
         size = next(s.shape[-2:] for s in skips if s is not None)
@@ -201,25 +266,27 @@ class SwiftNetPyramid(nn.Module):
 
     def __init__(self, layers: Sequence[int] = (2, 2, 2, 2), num_features: int = 128,
                  pyramid_levels: int = 3, planes: Sequence[int] = (64, 128, 256, 512),
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 mulbn: bool = False, n_datasets: int = 1):
         super().__init__()
         lvls = pyramid_levels
         self.conv1 = nn.Conv2d(3, planes[0], 7, 2, 3, bias=False)
-        self.bn1 = _levels(planes[0], lvls, dtype)
+        self.bn1 = _levels(planes[0], lvls, dtype, mulbn, n_datasets)
         in_chan = planes[0]
         for li, (p, n) in enumerate(zip(planes, layers)):
             blocks = []
             for bi in range(n):
                 stride = 2 if (bi == 0 and li > 0) else 1
                 blocks.append(BasicBlock(in_chan, p, stride, li > 0 and bi == 0,
-                                         lvls, dtype))
+                                         lvls, dtype, mulbn, n_datasets))
                 in_chan = p
             setattr(self, f"layer{li + 1}", nn.ModuleList(blocks))
         self.upsample_bottlenecks = nn.ModuleList(
             nn.Conv2d(p, num_features, 1, bias=False) for p in reversed(planes))
         self.upsample_blends = nn.ModuleList(
-            UpsampleBlend(num_features, dtype) for _ in range(2 + lvls))
+            UpsampleBlend(num_features, dtype, mulbn, n_datasets) for _ in range(2 + lvls))
         self.pyramid_levels = lvls
+        self.mulbn = mulbn
         self.dtype = dtype
         self.remat = remat
         self._packs = PackCache()
@@ -234,23 +301,26 @@ class SwiftNetPyramid(nn.Module):
                 and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
                 and o % 8 == 0 and o <= 128)
 
-    def _stem7(self, x: torch.Tensor, level: int) -> torch.Tensor:
-        """Kernel 6 with level `level`'s BN folded in; the fold and the
-        packed weight (a CUDA input's only) cached per level."""
+    def _stem7(self, x: torch.Tensor, level: int, dataset: int = 0) -> torch.Tensor:
+        """Kernel 6 with level `level`'s BN folded in (under `mulbn`
+        dataset `dataset`'s set of it); the fold and the packed weight (a
+        CUDA input's only) cached per level, and per dataset under mulbn."""
         from mds_tpu_torch.ops.stem import pack_stem7, stem7_conv_bn_relu_s2
 
-        bn, conv = self.bn1[level], self.conv1
+        bn, conv, key = self.bn1[level], self.conv1, f"{level}"
+        if self.mulbn:
+            bn, key = bn[dataset], f"{level}/{dataset}"
         stats = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
-        scale, bias = self._packs.get(f"fold/{level}", stats, lambda: bn_fold(bn))
+        scale, bias = self._packs.get(f"fold/{key}", stats, lambda: bn_fold(bn))
         packed = None if x.device.type == "cpu" else self._packs.get(
-            f"stem7/{level}", (conv.weight, *stats),
+            f"stem7/{key}", (conv.weight, *stats),
             lambda: pack_stem7(conv.weight, scale, bias))
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         return stem7_conv_bn_relu_s2(x, conv.weight, scale, bias, packed=packed)
 
     def _stem(self, xs: MultiX, level: int) -> List[Optional[torch.Tensor]]:
         if all(x is None or self.stem_kernel_ok(x) for x in xs):
-            return [None if x is None else self._stem7(x, level) for x in xs]
+            return [None if x is None else self._stem7(x, level, i) for i, x in enumerate(xs)]
         xs = lmap(lambda x: conv2d(self.conv1, x, self.dtype), xs)
         return _relu(self.bn1[level](xs))
 
@@ -300,6 +370,6 @@ class SwiftNetPyramid(nn.Module):
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 conv_init(m.weight, generator)
-            elif isinstance(m, SharedListBN):
+            elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
         return self

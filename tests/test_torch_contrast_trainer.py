@@ -35,7 +35,8 @@ Each gate sits at about twice the larger of the two: losses rel <= 2e-7
 4e-5, teacher <= 2e-5, bank <= 1.5e-6; ptr and count exact.
 
 Save, restore, resume and the CLI: tests/test_torch_contrast_cli.py.
-`contrast.num_prototype > 1` raises, naming ROADMAP queue 1, item 7b.
+`contrast.num_prototype > 1` builds and steps here; its steps against
+JAX's: tests/test_torch_contrast_multiproto.py.
 """
 
 import contextlib
@@ -224,10 +225,19 @@ def test_steps_match_jax(jax_run, tmp_path):
 
 
 def test_multi_prototype_waits():
+    """`contrast.num_prototype` > 1, which waited, builds and steps: the
+    (U, P, D) unit slots, the remap, seg_mul_loss beside the losses (its
+    steps against JAX's: tests/test_torch_contrast_multiproto.py)."""
     cfg = tiny_contrast_config()
     cfg["contrast"]["num_prototype"] = 3
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        ContrastTrainer(Configer(configs=cfg), device="cpu")
+    tt = ContrastTrainer(Configer(configs=cfg), work_dir="/nonexistent-unused",
+                         compute_dtype=torch.float32, device="cpu")
+    assert tt.P == 3 and tuple(tt.prototypes.shape) == (U, 3, 16)
+    before = tt.prototypes.clone()
+    m = tt.step(batch(np.random.default_rng(0)))
+    assert set(m) == {"loss", "seg_loss", "seg_mul_loss", "contrast_loss"}
+    assert all(np.isfinite(float(v)) for v in m.values())
+    assert not torch.equal(tt.prototypes, before)
 
 
 if __name__ == "__main__":

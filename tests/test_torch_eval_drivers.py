@@ -20,7 +20,8 @@ LOGITS_GATE; measured 0.0064-0.0125 over the seeds), and the pixel share
 that agrees, averaged over the seeds, > 0.995 (bench.py:296-297). A
 random-weight bf16 model's argmax flips on near-ties at a rate the seed
 sets: the share was 0.9917-0.9995 a seed (mean 0.9965). Also aux,
-label_link, unlabel and ssc; the modes that wait raise.
+label_link, unlabel and ssc; the modes a model lacks raise, and dsg runs
+(against JAX's: tests/test_torch_data_stage.py).
 """
 
 import numpy as np
@@ -130,10 +131,12 @@ def test_port_only_modes(weights):
                                        ("emb", "item 7"), ("dsg", "item 6")])
 def test_waiting_modes_raise(weights, mode, item):
     """The modes a BiSeNetV2 has no method for (unseen, clip: the flagship
-    snp_rn18's; emb: the contrast family's) and dsg, which waits, raise;
-    clip also runs, on a train.mode clip checkpoint's bundle (the
-    alternating trainer's snp_rn18, configs/test_synthetic_gnn.json shrunk)."""
-    from mds_tpu_torch.evaluation.drivers import run_evaluation
+    snp_rn18's; emb: the contrast family's) raise; clip also runs, on a
+    train.mode clip checkpoint's bundle (the alternating trainer's
+    snp_rn18, configs/test_synthetic_gnn.json shrunk); dsg, which waited
+    for the loader's stage, runs: the contrast protocol over the stage-2
+    lists, which the Synthetic reader does not read."""
+    from mds_tpu_torch.evaluation.drivers import build_eval_bundle, run_evaluation
 
     if mode == "clip":
         small = Configer(config_file="configs/test_synthetic_gnn.json", args_parser=[
@@ -142,8 +145,11 @@ def test_waiting_modes_raise(weights, mode, item):
         mious = run_evaluation(small, mode="clip", work_dir="/nonexistent", device="cpu")
         assert len(mious) == 2 and all(0.0 <= m <= 1.0 for m in mious)
     cfg = configs(Configer)
+    if mode == "dsg":
+        mious = run_evaluation(cfg, mode=mode, device="cpu", work_dir="/nonexistent")
+        assert len(mious) == 2 and all(0.0 <= m <= 1.0 for m in mious)
+        assert mious == port_eval(build_eval_bundle(cfg, work_dir="/nonexistent",
+                                                    device="cpu"), "contrast", cfg)[0]
+        return
     with pytest.raises(NotImplementedError, match=item):
-        if mode == "dsg":
-            run_evaluation(cfg, mode=mode, device="cpu")
-        else:
-            tev.eval_model(cfg, port_model(weights), get_data_loader(cfg, "eval"), mode=mode)
+        tev.eval_model(cfg, port_model(weights), get_data_loader(cfg, "eval"), mode=mode)

@@ -8,9 +8,10 @@ checkpoint in the modes contrast, ss, uni, unseen and clip;
 tools/serve_torch.py's build_e2e for snp_rn18 with and without weights;
 `finetune_from` a reference-layout .pth; the options this slice ported
 (clip, Gumbel graphs, KM, adv, BGAT) through the CLI; and the features
-that wait, each raising NotImplementedError that names ROADMAP queue 1,
-item 6b.
-The step against JAX's is tests/test_torch_gnn_trainer.py.
+that waited until snp_rn18_mulbn came (the model through the CLI, the eval
+mode dsg, the loader's stage).
+The step against JAX's is tests/test_torch_gnn_trainer.py (and
+test_torch_mulbn.py for snp_rn18_mulbn).
 """
 
 import os
@@ -206,11 +207,13 @@ def test_init_phase_and_the_device_default():
     ([], "loader"),
 ])
 def test_waiting_features_raise(extra, where, tmp_path):
-    """What still waits raises NotImplementedError naming item 6b; the
-    trainer's options that waited until this slice (clip, Gumbel graphs,
-    KM matching, the adversarial GNN, the BGAT) now train through the CLI
-    (their steps against JAX's: tests/test_torch_gnn_forks.py,
-    test_torch_gnn_options.py, test_torch_clip_trainer.py)."""
+    """The features that waited now run: the trainer's options (clip,
+    Gumbel graphs, KM matching, the adversarial GNN, the BGAT) train
+    through the CLI (their steps against JAX's: tests/test_torch_gnn_forks.py,
+    test_torch_gnn_options.py, test_torch_clip_trainer.py); snp_rn18_mulbn
+    builds and trains through the CLI with a BN set a dataset; dsg
+    evaluates the stage-2 lists; the train loader takes `stage`. None
+    raises NotImplementedError any more."""
     from mds_tpu_torch.data.loader import get_data_loader
     from mds_tpu_torch.engine.trainer import build_model
     from mds_tpu_torch.evaluation.drivers import run_evaluation
@@ -228,10 +231,20 @@ def test_waiting_features_raise(extra, where, tmp_path):
             for g, c in zip(t.uot_bi, (3, 4)):
                 assert g.shape == (c, 7) and (g.sum(0) == 1).all() and (g.sum(1) >= 1).all()
         return
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        if where == "model":
-            build_model(_configer(*extra))
-        elif where == "dsg":
-            run_evaluation(_configer(), mode="dsg", device="cpu")
-        else:
-            get_data_loader(_configer(), "train", stage=2)
+    if where == "model":
+        m = build_model(_configer(*extra))
+        assert m.mulbn and len(m.backbone.bn1[0]) == 2 and len(m.logits.norm) == 2
+        t = _train(tmp_path, "lr.max_iter", "3", "train.eval_at_switch", "False", *extra)
+        assert t.mulbn and t.seg_model.mulbn
+        assert [r["stage"] for r in t.timings] == STAGES[:3]
+        assert all(np.isfinite(r["loss"]) for r in t.timings)
+    elif where == "dsg":
+        mious = run_evaluation(_configer(), mode="dsg", device="cpu",
+                               work_dir=str(tmp_path))
+        assert len(mious) == 2 and all(0.0 <= m <= 1.0 for m in mious)
+    else:
+        loader = get_data_loader(_configer(), "train", stage=2, batch_multiplier=2)
+        try:
+            assert [x.shape[0] for x in next(loader)["ims"]] == [2, 2]
+        finally:
+            loader.close()

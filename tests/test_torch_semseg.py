@@ -163,7 +163,8 @@ def test_snp_rn18_builds_from_the_config():
     """MODELS' configer= factory through the trainer's build_model, at the
     flagship config's widths: M = int(0.8 · 66) = 52 unified classes,
     512-d prototypes, 3 pyramid levels, remat on (network.efficient's
-    default)."""
+    default); snp_rn18_mulbn with a BN set a dataset (its parity:
+    tests/test_torch_mulbn.py)."""
     from mds_tpu_torch.config import Configer
     from mds_tpu_torch.engine.trainer import build_model
 
@@ -175,6 +176,7 @@ def test_snp_rn18_builds_from_the_config():
     assert [tuple(p.shape) for p in m.aux_prototype] == [(11, 512), (19, 512), (36, 512)]
     assert len(m.backbone.bn1) == 3 and m.backbone.remat
     assert m.backbone.conv1.out_channels == 64
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        build_model(Configer(configs={"model_name": "snp_rn18_mulbn", "n_datasets": 1,
-                                      "dataset1": {"n_cats": 3}}))
+    mul = build_model(Configer(configs={"model_name": "snp_rn18_mulbn", "n_datasets": 1,
+                                        "dataset1": {"n_cats": 3}}))
+    assert mul.mulbn and len(mul.backbone.bn1[2]) == 1
+    assert "backbone.layer1.0.bn2.1.0.running_var" in mul.state_dict()

@@ -17,9 +17,10 @@ deploy kernels sets `models/layers.py`'s switches around `main`, as
 bench.py does.
 
 Modes: ss, ssc, msf, mscf, aux, contrast, uni, label_link and unlabel;
-unseen and clip on the flagship (snp_rn18); emb on the contrast family
-(configs/bisenetv2_contrast_3ds.json: the memory bank's class means as
-prototypes). dsg waits for the loader's `stage` (ROADMAP queue 1, item 6b).
+unseen and clip on the flagship (snp_rn18, snp_rn18_mulbn); emb on the
+contrast family (configs/bisenetv2_contrast_3ds.json: the memory bank's
+class means as prototypes); dsg, the contrast protocol over each
+dataset's stage-2 train list (`train_im_anns` with `_2.txt`).
 """
 
 import argparse
