@@ -291,7 +291,74 @@ before the last line:
               and 9 16 times a forward) and plain. The Synthetic reader has
               no ann lists, so dsg's stage-2 lists are checked on the CPU
               (tests/test_torch_data_stage.py).
-18. v1_train — BiSeNetV1's train step (configs/bisenetv1_city.json: bs16
+18. hrnet   — HRNet-W48 (configs/hrnet_w48_city.json: 1 dataset, 19
+              classes, D = 720) at full width in bf16, seeded weights,
+              random BN statistics, the identity-start graphs of
+              pretrain_bipartite_graphs, built by tools/serve_torch.py's
+              build_e2e: behind the HTTP server with set_stem_impl("kernel")
+              3 requests of 1024×2048 uint8 frames, exactly one
+              stem_conv_bn_relu_s2 (kernel 1) launch each and no other
+              kernel's; the labels against the plain path (printed); one
+              frame's eval logits, routed and plain, each against the f32
+              model's: the route's distance at most F32_RATIO_GATE (1.25)
+              times the plain path's (not rel < 2e-2 against plain: on
+              random weights a 1-ulp change at the stem grows through ~100
+              bf16 layers to 0.0285 from plain, while from f32 the route is
+              no farther than plain; the argmax agreements are printed),
+              and its kernel-1 call against its plain version (rel < 1e-2,
+              bit-equal share >= 0.999);
+              E2EModel ms in turns (kernel, plain, plain, kernel), HTTP
+              ms, one profiled frame each way (idle share, launches), peak
+              memory. configs/gnn_city_cam_a2d2.json (hrnet_w48_gnn, 3
+              datasets of 19, 11, 36 classes, M = 52, D = 512): one frame a
+              dataset, each with one kernel-1 launch whose folded scale and
+              bias are that dataset's own. tools/evaluate_torch.py --mode
+              ss on a checkpoint of the served weights, 2 Synthetic frames,
+              routed (one kernel-1 launch a forward) and plain, the
+              largest call's logits under the same f32 ratio gate. One f32
+              train-mode forward and backward at test width
+              (HRNET_TEST_STAGES, 2 datasets, aux prototypes, 4 × 256² a
+              dataset) on the card and on the CPU: outputs and running
+              stats rel < 1e-4; each parameter's gradient cosine with the
+              CPU's > 0.9999, or else the card's f32 gradient within twice
+              the CPU's f32 distance (1 − cosine) from the CPU's f64 one.
+19. swin    — BiSeNetV1Swin (19 classes, no aux heads) in bf16 at
+              896×1792 (Swin-T wants multiples of 224), seeded weights,
+              random BN statistics, in an E2EModel with
+              set_stem_impl("kernel"): 3 frames, exactly one
+              stem7_conv_bn_relu_s2 (kernel 6: the SpatialPath's 7×7 stem)
+              launch each; labels against plain (printed), one frame's
+              logits against plain (< 2e-2, > 0.995) and its kernel-6 call
+              against its plain version (< 1e-2, bit-equal >= 0.999);
+              E2EModel ms in turns, one profiled frame, peak memory; one
+              f32 train-mode forward at 224×224 with the aux heads, card
+              against CPU: every output rel < 1e-4.
+20. loss_library — in f32 on the card against the CPU (value rel < 1e-4,
+              every gradient's cosine > 0.9999, or else the card's
+              gradient within twice the CPU's f32 distance from the CPU's
+              f64 one: AAF's edge weights sum ~2.5 M pairs with heavy
+              cancellation) and timed on the card (CUDA
+              events, value and gradient): rmi_loss, lovasz_softmax,
+              boundary_aware_focal_loss, AAFLoss (with its edge and
+              not-edge weights), fs_ce, FSCELoss, FSOhemCELoss, FSAuxCELoss,
+              FSRMILoss, FSAuxRMILoss, FSCELOVASZLoss and SegFixLoss on
+              logits of (8, 19, 128, 256) with 5% of the labels ignored;
+              pairwise_soft_dtw (64 × 19 sequences of 32 × 16); k-means,
+              euclidean and cosine, at N = 65536, D = 256, K = 19 from one
+              set of initial indices: one Lloyd iteration card against
+              CPU (centers rel < 1e-4, assignments agreeing on >= 0.999),
+              and the 20-iteration result's assignment the CPU's argmin of
+              the distances to its centers (>= 0.999: Lloyd's iterations
+              from random indices split clusters, whose points then sit
+              near ties, so the two devices' 20-iteration runs part); and
+              20 iterations from one index in each blob, where both
+              devices converge to the same centers, card against CPU
+              (centers rel < 1e-4, assignments equal);
+              CrossDatasetsCELossKMeans at
+              configs/bisenetv2_contrast_3ds.json's class counts (a warmup
+              call, then a main-phase one: loss, gradients, bank and
+              prototypes).
+21. v1_train — BiSeNetV1's train step (configs/bisenetv1_city.json: bs16
               512×1024, bf16, aux heads, SGD) on a fixed batch, plain and
               train.fused_up_loss in turns (plain, fused, fused, plain; 5
               timed steps each): step ms, images/s, peak memory, launches
@@ -300,7 +367,7 @@ before the last line:
               the card against the CPU (loss rel < 1e-4, per-group gradient
               cosine > 0.9999, parameters < 1e-4) and precise BN over 2
               batches of (4, 3, 128, 256), card against CPU (< 1e-4).
-19. train_stem — the same train step with set_stem_impl("kernel"): the two
+22. train_stem — the same train step with set_stem_impl("kernel"): the two
               RGB stems' convs (DetailBranch S1_1, StemBlock conv) run
               stem_conv3x3_s2 (kernel 1 forward, the library conv's
               gradients backward). From one set of weights and one batch, a
@@ -313,7 +380,7 @@ before the last line:
               cold and by the profiler's device time, beside its plain
               version, f32 F.conv2d (TF32 off: the same function) and bf16
               F.conv2d.
-20. parity  — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
+23. parity  — one f32 train step at (4, 64, 128) with dropout on, TF32 off,
               on the card (dropout kernel) and on the CPU (its plain
               version), same weights and generator seed: loss rel < 1e-4,
               per-group gradient cosine > 0.9999, parameters after the step
@@ -1626,7 +1693,8 @@ def largest_calls(evaluator, keep=4):
 # the positional arguments of each kernel of the evaluated forward that its
 # plain version takes (the wrapper's last, the model's pack, left out)
 EVAL_KERNEL_ARGS = {"detail_s1s2_fused": 10, "stemblock_fused": 13, "detail_tail_fused": 16,
-                    "depthwise3x3": 3, "stem7_conv_bn_relu_s2": 4}
+                    "depthwise3x3": 3, "stem7_conv_bn_relu_s2": 4,
+                    "stem_conv_bn_relu_s2": 5}
 
 
 def f32_copy(model):
@@ -1636,6 +1704,18 @@ def f32_copy(model):
         if getattr(m, "dtype", None) == torch.bfloat16:
             m.dtype = torch.float32
     return m32
+
+
+def logits_off(rec):
+    """Whether a record of the routed logits against the plain path fails:
+    bench.py:296-297's gate on its rel (and its worst image's, and its
+    argmax agreement, where recorded); with an f32 record, the route's
+    distance from the f32 model over the plain path's (F32_RATIO_GATE)
+    instead."""
+    if "f32" in rec:
+        return rec["f32"]["routed"] > F32_RATIO_GATE * rec["f32"]["plain"]
+    return (max(rec["rel"], rec.get("worst_image_rel", 0.0)) >= LOGITS_GATE
+            or rec.get("argmax_agreement", 1.0) <= ARGMAX_GATE)
 
 
 def largest_call_rels(calls, routes, names, f32_model=None):
@@ -1677,16 +1757,14 @@ def largest_call_rels(calls, routes, names, f32_model=None):
             raise RuntimeError(f"bad logits {got.shape} {ref.shape} of {im.shape}")
         rec = {"input": list(im.shape), "rel": rel(got, ref),
                "worst_image_rel": max(rel(g, r) for g, r in zip(got, ref)), "kernels": {}}
-        gate = max(rec["rel"], rec["worst_image_rel"]) >= LOGITS_GATE
         if f32_model is not None:
             with torch.inference_mode():
                 exact = evaluator.make_logits_fn(f32_model, *make_args[1:], **make_kw)(
                     im, dataset)
             rec["f32"] = {"routed": rel(got, exact), "plain": rel(ref, exact)}
-            gate = rec["f32"]["routed"] > F32_RATIO_GATE * rec["f32"]["plain"]
             del exact
         del got, ref
-        if gate:
+        if logits_off(rec):
             bad.append(f"logits of {rec['input']}: rel {rec['rel']}, "
                        f"worst image {rec['worst_image_rel']}, {rec.get('f32', '')}")
         for n, args_seen in seen.items():
@@ -3921,6 +3999,547 @@ def phase_contrast_multiproto(dev):
     return launches
 
 
+# ------------------------------------------------ the rest of the model zoo
+HRNET_CONFIG = os.path.join(ROOT, "configs", "hrnet_w48_city.json")
+HRNET_GNN_CONFIG = os.path.join(ROOT, "configs", "gnn_city_cam_a2d2.json")
+HRNET_SEED = 1
+# the card-vs-CPU train step's widths: every transition, branch, module and
+# fusion of the stage dicts at widths 4-32 (tests/test_hrnet.py's)
+HRNET_TEST_STAGES = {
+    "stage2": dict(num_modules=1, num_branches=2, num_blocks=(1, 1), num_channels=(4, 8)),
+    "stage3": dict(num_modules=1, num_branches=3, num_blocks=(1, 1, 1),
+                   num_channels=(4, 8, 16)),
+    "stage4": dict(num_modules=1, num_branches=4, num_blocks=(1, 1, 1, 1),
+                   num_channels=(4, 8, 16, 32)),
+}
+# Swin-T wants H and W multiples of 7·32 = 224: the largest such frame
+# within a Cityscapes frame
+SWIN_H, SWIN_W = 896, 1792
+SWIN_SEED = 1
+GRAD_COSINE_GATE = 0.9999
+LOSS_LOGITS = (8, 19, 128, 256)  # the loss library's logits
+KMEANS_SHAPE = (65536, 256, 19)  # k-means' N, D, K
+
+
+def stem1_calls_rels(calls):
+    """Each captured kernel-1 call (x, w, scale, bias, relu) against its
+    plain version: rel max-diff (KERNEL_GATE) and the bit-equal share."""
+    from mds_tpu_torch.ops import stem
+
+    out = []
+    for args in calls:
+        args = args[:EVAL_KERNEL_ARGS["stem_conv_bn_relu_s2"]]
+        with torch.inference_mode():
+            got, want, r = check_kernel_output(
+                "stem_conv_bn_relu_s2", stem.stem_conv_bn_relu_s2,
+                stem.stem_conv_bn_relu_s2_plain, args)
+        out.append({"input": list(args[0].shape), "rel": r,
+                    "bit_equal": share_equal(bits(got), bits(want))})
+    return out
+
+
+def logits_vs_plain(model, x, shape, kernel, dataset=0, f32_model=None):
+    """The model's eval logits of `x` on the stem route against the plain
+    path (rel max-diff, argmax agreement; bench.py:296-297's gate), with
+    the route's calls of `kernel` (a name in ops/stem.py) captured. With
+    `f32_model` (the model in f32), both bf16 paths' rel from its logits
+    too (largest_call_rels' f32 gate)."""
+    from mds_tpu_torch.ops import stem
+
+    with torch.inference_mode():
+        ref = model.eval_logits(x, dataset)
+        with route(stem_impl="kernel"), captured(stem, kernel) as calls:
+            got = model.eval_logits(x, dataset)
+    if tuple(got.shape) != shape or not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        raise RuntimeError(f"bad logits {tuple(got.shape)}, expected {shape}")
+    rec = {"rel": rel(got, ref), "argmax_agreement": share_equal(got.argmax(1), ref.argmax(1))}
+    if f32_model is not None:
+        with torch.inference_mode():
+            exact = f32_model.eval_logits(x.float(), dataset)
+        rec["f32"] = {"routed": rel(got, exact), "plain": rel(ref, exact),
+                      "routed_argmax": share_equal(got.argmax(1), exact.argmax(1)),
+                      "plain_argmax": share_equal(ref.argmax(1), exact.argmax(1))}
+    return rec, calls
+
+
+def logits_bad(name, rec):
+    return [f"{name}: logits {rec}"] if logits_off(rec) else []
+
+
+def kernel_calls_bad(name, rels, n):
+    if len(rels) != n or any(r["bit_equal"] < BIT_EQUAL_GATE for r in rels):
+        return [f"{name}: {len(rels)} kernel calls (expected {n}): {rels}"]
+    return []
+
+
+def _cosine(a, b):
+    a, b = a.double().cpu().flatten(), b.double().cpu().flatten()
+    return (a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item()
+
+
+def grad_cosines(a, b):
+    """Per-parameter gradient cosine of two models (same names)."""
+    gb = dict(b.named_parameters())
+    return {k: _cosine(p.grad, gb[k].grad) for k, p in a.named_parameters()}
+
+
+def hrnet_card_vs_cpu(dev):
+    """One train-mode forward and backward of HRNetW48 at test width
+    (HRNET_TEST_STAGES, 2 datasets, aux prototypes, 4 images of 256×256 a
+    dataset) from the same weights: in f32 on the card (TF32 off) and on
+    the CPU, and in f64 on the CPU. The outputs' and running stats' rel,
+    card against the CPU's f32; each parameter's gradient cosine with the
+    CPU's f32 one, and each f32 gradient's distance from the f64 one (1 −
+    cosine), the worst five beside."""
+    from mds_tpu_torch.models.hrnet import HRNetW48
+
+    rng = np.random.default_rng(12)
+    xs = [torch.from_numpy(rng.normal(0, 1, (4, 3, 256, 256)).astype(np.float32))
+          for _ in range(2)]
+    ws = None
+    runs = []
+    for d, dtype in (("cpu", torch.float32), (dev, torch.float32), ("cpu", torch.float64)):
+        m = HRNetW48((19, 11), 16, 0.8, True, n_bn=2, stages=HRNET_TEST_STAGES, dtype=dtype)
+        m.init_weights(torch.Generator().manual_seed(HRNET_SEED))
+        randomize_bn(m, HRNET_SEED + 1)
+        m.to(d, dtype).train()
+        out = m([x.to(d, dtype) for x in xs])
+        if ws is None:
+            g = torch.Generator().manual_seed(3)
+            ws = {k: [torch.randn(t.shape, generator=g) for t in ts] for k, ts in out.items()}
+        sum((t * w.to(d, dtype)).sum() for k in out for t, w in zip(out[k], ws[k])).backward()
+        runs.append((m, {k: [t.detach().cpu() for t in ts] for k, ts in out.items()}))
+    (cpu, ref), (card, got), (exact, _) = runs
+    out_rel = max(rel(a, b) for k in got for a, b in zip(got[k], ref[k]))
+    sd_c, sd_g = cpu.state_dict(), card.state_dict()
+    stats_rel = max(rel(sd_g[k].cpu(), v) for k, v in sd_c.items() if "running" in k)
+    cos, card_err, cpu_err = grad_cosines(card, cpu), grad_cosines(card, exact), grad_cosines(
+        cpu, exact)
+    bad = [k for k in cos if not (cos[k] > GRAD_COSINE_GATE
+                                  or 1 - card_err[k] <= 2 * max(1 - cpu_err[k], 1e-12))]
+    worst = sorted(cos, key=cos.get)[:5]
+    return {"outputs_rel": out_rel, "running_stats_rel": stats_rel, "params": len(cos),
+            "min_grad_cosine": cos[worst[0]],
+            "worst": {k: {"cosine": cos[k], "card_from_f64": 1 - card_err[k],
+                          "cpu_from_f64": 1 - cpu_err[k]} for k in worst},
+            "failing": bad}
+
+
+def phase_hrnet(dev):
+    """HRNet-W48 (configs/hrnet_w48_city.json: 1 dataset, 19 classes, D =
+    720) at full width in bf16, seeded weights with random BN statistics
+    and the identity-start graphs of pretrain_bipartite_graphs, built by
+    tools/serve_torch.py's build_e2e: 3 requests behind the HTTP server on
+    the stem route (one kernel-1 launch each), the logits and the kernel
+    call against the plain path, E2EModel and HTTP ms, idle share, peak
+    memory; one served frame per dataset of configs/gnn_city_cam_a2d2.json
+    (3 datasets), each kernel-1 call with its own dataset's fold;
+    tools/evaluate_torch.py --mode ss on a checkpoint the phase writes,
+    routed and plain; the f32 train step at test width, card against CPU.
+
+    The gates: each kernel-1 call within KERNEL_GATE of its plain version,
+    bit-equal on ≥ BIT_EQUAL_GATE of its outputs. The served and the eval
+    logits take the f32 ratio gate (the route's distance from the f32
+    model at most F32_RATIO_GATE times the plain path's), not bench.py's
+    2e-2 against plain: a 1-ulp change at the stem grows through ~100 bf16
+    layers of random weights, and on the H100 the route read 0.0285 from
+    plain (labels agreeing on 0.973-0.984) where, from f32, it was no
+    farther than plain (0.0207-0.0226 against 0.0215-0.0228); the label
+    agreement is printed. The train step: outputs and running stats
+    within F32_GATE; each parameter's gradient cosine with the CPU's above
+    GRAD_COSINE_GATE, or else the card's f32 gradient within twice the
+    CPU's f32 distance (1 − cosine) from the CPU's f64 one (at 2 × 128² a
+    dataset a fuse affine, whose BN sees 8 values a channel, read 0.99914;
+    at this step's 4 × 256² the cosines read ≥ 0.99990, thin above the
+    gate)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from serve_torch import build_e2e
+
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.checkpoints import CheckpointManager
+    from mds_tpu_torch.ops import stem
+
+    t0 = time.perf_counter()
+    bad, launches = [], {}
+    cfg = Configer(config_file=HRNET_CONFIG)
+    n_classes = cfg.n_cats(0)
+    e2e = build_e2e(HRNET_CONFIG, seed=HRNET_SEED, device=dev)
+    randomize_bn(e2e.model, HRNET_SEED + 1)
+    model = e2e.model
+    frames = np.random.default_rng(11).integers(0, 256, (3, 1, H, W, 3)).astype(np.uint8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    served = serve_and_check(e2e, "hrnet_w48", frames, n_classes, stem_impl="kernel")
+    serve_peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in served["launches"]}
+    want["stem_conv_bn_relu_s2"] = len(frames)
+    if served["launches"] != want:
+        bad.append(f"served launches {served['launches']}, expected {want}")
+    logits, calls = logits_vs_plain(model, normalized(e2e, frames[0]),
+                                    (1, n_classes, H // 4, W // 4), "stem_conv_bn_relu_s2",
+                                    f32_model=f32_copy(model))
+    bad += logits_bad("served", logits)
+    kernel_rels = stem1_calls_rels(calls)
+    bad += kernel_calls_bad("served", kernel_rels, 1)
+    del calls
+    frame_ms = {"kernel": [], "plain": []}
+    for k, kw in (("kernel", {"stem_impl": "kernel"}), ("plain", {}),
+                  ("plain", {}), ("kernel", {"stem_impl": "kernel"})):
+        frame_ms[k].append(e2e_ms(e2e, frames[1], **kw))
+    profiles = {}
+    for k, kw in (("kernel", {"stem_impl": "kernel"}), ("plain", {})):
+        with route(**kw):
+            profiles[k] = profile_idle_share(lambda: e2e(torch.from_numpy(frames[1])),
+                                             ("stem_kernel",))
+    served_launches = served["launches"]["stem_conv_bn_relu_s2"]
+
+    # ---- the 3-dataset config: each dataset's frame folds its own stats
+    gcfg = Configer(config_file=HRNET_GNN_CONFIG)
+    g = build_e2e(HRNET_GNN_CONFIG, seed=HRNET_SEED, device=dev)
+    randomize_bn(g.model, HRNET_SEED + 2)
+    cats = tuple(gcfg.n_cats(i) for i in range(gcfg.n_datasets))
+    M = int(float(gcfg.get("GNN", "unify_ratio")) * sum(cats))
+    if (g.model.max_num_unify_class, g.model.output_feat_dim, g.model.n_bn) != (M, 512, 3):
+        bad.append(f"gnn config: M {g.model.max_num_unify_class}, D "
+                   f"{g.model.output_feat_dim}, n_bn {g.model.n_bn}")
+    conv1 = g.model.backbone.conv1
+    per_dataset, folds = [], []
+    for ds, n in enumerate(cats):
+        g.dataset = ds
+        reset_counts()
+        with route(stem_impl="kernel"), captured(stem, "stem_conv_bn_relu_s2") as calls:
+            labels = g.infer(frames[2])
+        got = read_counts()["stem_conv_bn_relu_s2"]
+        s, b = conv1.bn.fold_at(ds, conv1._shared())
+        own = len(calls) == 1 and calls[0][4] is True and bool(
+            torch.equal(calls[0][2], s) and torch.equal(calls[0][3], b))
+        folds.append(s)
+        rels = stem1_calls_rels(calls)
+        per_dataset.append({"dataset": ds, "n_cats": n, "launches": got, "own_fold": own,
+                            "classes": int(np.unique(labels).size),
+                            "labels_in_range": bool(labels.min() >= 0 and labels.max() < n),
+                            "kernel": rels})
+        if got != 1 or not own or not per_dataset[-1]["labels_in_range"]:
+            bad.append(f"gnn config dataset {ds}: {per_dataset[-1]}")
+        bad += kernel_calls_bad(f"gnn config dataset {ds}", rels, 1)
+        launches["stem_conv_bn_relu_s2"] = launches.get("stem_conv_bn_relu_s2", 0) + got
+        del calls
+    if any(torch.equal(folds[0], f) for f in folds[1:]):
+        bad.append("gnn config: the datasets' folds are the same")
+    del g
+
+    # ---- evaluation: tools/evaluate_torch.py on a checkpoint of the served weights
+    with tempfile.TemporaryDirectory() as work:
+        ckpt = os.path.join(work, "ckpt")
+        CheckpointManager(ckpt).maybe_save(
+            {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+             "step": 0}, force=True)
+        del e2e, model
+        torch.cuda.empty_cache()
+        rec, fail, got = eval_pair(HRNET_CONFIG, ckpt, "ss", 2, {"stem_impl": "kernel"},
+                                   {"stem_conv_bn_relu_s2": 1}, 1, argmax_gate=None,
+                                   f32_gate=True)
+        bad += [f"eval ss: {f}" for f in fail]
+    launches["stem_conv_bn_relu_s2"] += served_launches + got["stem_conv_bn_relu_s2"]
+    card_vs_cpu = hrnet_card_vs_cpu(dev)
+    if not (card_vs_cpu["outputs_rel"] < F32_GATE and card_vs_cpu["running_stats_rel"] < F32_GATE
+            and not card_vs_cpu["failing"]):
+        bad.append(f"card vs CPU: {card_vs_cpu}")
+    emit(phase="hrnet", config=os.path.relpath(HRNET_CONFIG, ROOT), dtype="bfloat16",
+         requests=len(frames), latency_ms=served["latency_ms"],
+         classes_per_reply=served["classes"], argmax_agreement=served["agree"],
+         logits=logits, kernel1_calls=kernel_rels, e2e_ms=frame_ms, profile=profiles,
+         serve_max_memory_allocated=serve_peak, served_launches=served["launches"],
+         gnn_config={"config": os.path.relpath(HRNET_GNN_CONFIG, ROOT), "cats": cats, "M": M,
+                     "datasets": per_dataset},
+         eval=rec, card_vs_cpu=card_vs_cpu, launches=launches,
+         seconds=time.perf_counter() - t0)
+    if bad:
+        raise RuntimeError(f"hrnet: {bad}")
+    return launches
+
+
+def swin_card_vs_cpu(dev):
+    """One f32 train-mode forward of BiSeNetV1Swin (19 classes, aux heads)
+    at (1, 3, 224, 224), TF32 off, card against CPU from the same weights:
+    each output's rel."""
+    from mds_tpu_torch import MODELS
+
+    x = torch.from_numpy(np.random.default_rng(13).normal(0, 1, (1, 3, 224, 224))
+                         .astype(np.float32))
+    outs = []
+    for d in ("cpu", dev):
+        m = MODELS["bisenetv1_swin"](n_classes=(19,), aux=True, dtype=torch.float32)
+        m.init_weights(torch.Generator().manual_seed(SWIN_SEED))
+        randomize_bn(m, SWIN_SEED + 1)
+        with torch.no_grad():
+            out = m.to(d).train()([x.to(d)])
+        outs.append([out["logits"][0].cpu()] + [a[0].cpu() for a in out["aux"]])
+    return {"outputs": len(outs[0]), "max_rel": max(rel(a, b) for a, b in zip(outs[1], outs[0]))}
+
+
+def phase_swin(dev):
+    """BiSeNetV1Swin (19 classes, no aux heads) in bf16 at 896×1792, seeded
+    weights with random BN statistics, in an E2EModel on the stem route: 3
+    frames with one kernel-6 launch each (the SpatialPath's 7×7 stem), the
+    labels against the plain path, the logits and the kernel call against
+    plain; E2EModel ms in turns, peak memory; the f32 train forward at
+    224×224, card against CPU."""
+    from mds_tpu_torch import MODELS
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.data.labels import get_spec
+    from mds_tpu_torch.deploy.e2e import E2EModel
+
+    t0 = time.perf_counter()
+    bad = []
+    spec = get_spec(Configer(config_file=V1_CONFIG).dataset_cfg(0)["spec"])
+    model = MODELS["bisenetv1_swin"](n_classes=(19,), aux=False, dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(SWIN_SEED))
+    randomize_bn(model, SWIN_SEED + 1)
+    e2e = E2EModel(model, spec.mean, spec.std, device=dev)
+    frames = np.random.default_rng(14).integers(
+        0, 256, (3, 1, SWIN_H, SWIN_W, 3)).astype(np.uint8)
+    with route(stem_impl="kernel"):
+        e2e.infer(frames[0])  # cuDNN's algorithm choice, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        labels = [e2e.infer(fr) for fr in frames]
+        launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in launches}
+    want["stem7_conv_bn_relu_s2"] = len(frames)
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    plain = [e2e.infer(fr) for fr in frames]
+    agree = [share_equal(torch.from_numpy(a), torch.from_numpy(b))
+             for a, b in zip(labels, plain)]
+    classes = [int(np.unique(a).size) for a in labels]
+    if any(a.shape != (1, SWIN_H, SWIN_W) or a.min() < 0 or a.max() >= 19 for a in labels) \
+            or min(classes) < 2:
+        bad.append(f"labels: {[a.shape for a in labels]}, classes {classes}")
+    logits, calls = logits_vs_plain(model, normalized(e2e, frames[0]),
+                                    (1, 19, SWIN_H, SWIN_W), "stem7_conv_bn_relu_s2")
+    bad += logits_bad("swin", logits)
+    kernel_rels = stem7_calls_rels(calls)
+    bad += kernel_calls_bad("swin", kernel_rels, 1)
+    del calls
+    frame_ms = {"kernel": [], "plain": []}
+    for k, kw in (("kernel", {"stem_impl": "kernel"}), ("plain", {}),
+                  ("plain", {}), ("kernel", {"stem_impl": "kernel"})):
+        frame_ms[k].append(e2e_ms(e2e, frames[1], **kw))
+    with route(stem_impl="kernel"):
+        profile = profile_idle_share(lambda: e2e(torch.from_numpy(frames[1])),
+                                     ("stem7_kernel",))
+    del e2e, model
+    card_vs_cpu = swin_card_vs_cpu(dev)
+    if not card_vs_cpu["max_rel"] < F32_GATE:
+        bad.append(f"card vs CPU: {card_vs_cpu}")
+    emit(phase="swin", frame=[SWIN_H, SWIN_W], dtype="bfloat16", launches=launches,
+         argmax_agreement=agree, classes_per_frame=classes, logits=logits,
+         kernel6_calls=kernel_rels, e2e_ms=frame_ms, profile=profile,
+         max_memory_allocated=peak, card_vs_cpu=card_vs_cpu,
+         seconds=time.perf_counter() - t0)
+    if bad:
+        raise RuntimeError(f"swin: {bad}")
+    return {"stem7_conv_bn_relu_s2": launches["stem7_conv_bn_relu_s2"]}
+
+
+def card_vs_cpu_loss(name, fn, inputs, dev, grads=(0,)):
+    """fn(*inputs) on the CPU and on the card (each input copied there;
+    those at `grads` take a gradient): the value's rel, each gradient's
+    cosine, and the card's ms for value and gradient (CUDA events, median
+    of 5). A gradient whose cosine is not above GRAD_COSINE_GATE passes
+    where the card's is within twice the CPU's f32 distance (1 − cosine)
+    from the CPU's in f64 (the float inputs in f64): a sum with heavy
+    cancellation (AAF's weights, softmaxed over 3 sizes, each summed over
+    ~2.5 M pairs) is ill-conditioned in f32 on either device."""
+    def run(d, dtype=None):
+        xs = [x.to(d) if torch.is_tensor(x) else x for x in inputs]
+        if dtype is not None:
+            xs = [x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x
+                  for x in xs]
+        for i in grads:
+            xs[i] = xs[i].detach().clone().requires_grad_(True)
+        v = fn(*xs)
+        v.backward()
+        return v.detach().cpu(), [xs[i].grad.cpu() for i in grads], xs
+
+    (v_cpu, g_cpu, _), (v_card, g_card, xs) = run("cpu"), run(dev)
+
+    def step():
+        for i in grads:
+            xs[i].grad = None
+        fn(*xs).backward()
+
+    rec = {"name": name, "value": v_card.item(), "rel": rel(v_card, v_cpu),
+           "grad_cosine": [_cosine(a, b) for a, b in zip(g_card, g_cpu)],
+           "ms": cuda_ms(step, n=5)}
+    ok = [c > GRAD_COSINE_GATE for c in rec["grad_cosine"]]
+    if not all(ok):
+        _, g64, _ = run("cpu", torch.float64)
+        rec["card_from_f64"] = [1 - _cosine(a, b) for a, b in zip(g_card, g64)]
+        rec["cpu_from_f64"] = [1 - _cosine(a, b) for a, b in zip(g_cpu, g64)]
+        ok = [o or c <= 2 * max(p, 1e-15)
+              for o, c, p in zip(ok, rec["card_from_f64"], rec["cpu_from_f64"])]
+    return rec, rec["rel"] < F32_GATE and all(ok)
+
+
+def phase_loss_library(dev):
+    """Each function of the loss library (rmi, Lovász, the boundary-aware
+    focal loss, AAF with its weights, fs_ce and the FS wrappers, SegFix),
+    k-means and soft-DTW, and the k-means loss at
+    configs/bisenetv2_contrast_3ds.json's class counts, in f32 on the card
+    against the CPU: value rel < 1e-4, gradient cosine > 0.9999, the card's
+    ms. Logits (8, 19, 128, 256) with 5% of the labels ignored; k-means at
+    N = 65536, D = 256, K = 19 from one set of initial indices."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.losses import fs
+    from mds_tpu_torch.losses.aaf import AAFLoss
+    from mds_tpu_torch.losses.contrast import MemoryBank
+    from mds_tpu_torch.losses.cross_datasets_kmeans import CrossDatasetsCELossKMeans
+    from mds_tpu_torch.losses.lovasz import boundary_aware_focal_loss, lovasz_softmax
+    from mds_tpu_torch.losses.rmi import rmi_loss
+    from mds_tpu_torch.ops.kmeans import (
+        kmeans,
+        kmeans_assign,
+        kmeans_init_indices,
+        pairwise_soft_dtw,
+    )
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(15)
+    shape = LOSS_LOGITS
+    b, c, h, w = shape
+    logits = torch.from_numpy(rng.normal(0, 2, shape).astype(np.float32))
+    aux = torch.from_numpy(rng.normal(0, 2, shape).astype(np.float32))
+    lb = rng.integers(0, c, (b, h, w))
+    lb[rng.random(lb.shape) < 0.05] = 255
+    lb = torch.from_numpy(lb)
+    alphas = torch.from_numpy(np.where(lb.numpy() == 255, 0.0, rng.uniform(0, 2, lb.shape))
+                              .astype(np.float32))
+    we, wn = (torch.from_numpy(rng.normal(0, 1, (c, 3)).astype(np.float32)) for _ in range(2))
+    seg = lb.clone()
+    dist = torch.from_numpy(rng.uniform(0, 10, lb.shape).astype(np.float32))
+    ang = torch.from_numpy(rng.uniform(-180, 180, lb.shape).astype(np.float32))
+    masks = torch.from_numpy(rng.normal(0, 2, (b, 2, h, w)).astype(np.float32))
+    dirs = torch.from_numpy(rng.normal(0, 2, (b, 8, h, w)).astype(np.float32))
+    aaf = AAFLoss(c)
+    cases = [
+        ("rmi_loss", lambda x, y: rmi_loss(x, y, c), (logits, lb), (0,)),
+        ("lovasz_softmax", lambda x, y: lovasz_softmax(x, y), (logits, lb), (0,)),
+        ("boundary_aware_focal_loss", boundary_aware_focal_loss, (logits, lb, alphas), (0,)),
+        ("AAFLoss", lambda x, y, a, b: aaf(x, y, a, b), (logits, lb, we, wn), (0, 2, 3)),
+        ("fs_ce", lambda x, y: fs.fs_ce(x, y, [0.5 + 0.1 * i for i in range(c)]),
+         (logits, lb), (0,)),
+        ("FSCELoss", lambda x, a, y: fs.FSCELoss()([x, a], y, [1.0, 0.4]), (logits, aux, lb),
+         (0, 1)),
+        ("FSOhemCELoss", lambda x, y: fs.FSOhemCELoss()(x, y), (logits, lb), (0,)),
+        ("FSAuxCELoss", lambda x, a, y: fs.FSAuxCELoss()((a, x), y), (logits, aux, lb), (0, 1)),
+        ("FSRMILoss", lambda x, y: fs.FSRMILoss()(x, y), (logits, lb), (0,)),
+        ("FSAuxRMILoss", lambda x, a, y: fs.FSAuxRMILoss()((a, x), y), (logits, aux, lb),
+         (0, 1)),
+        ("FSCELOVASZLoss", lambda x, y: fs.FSCELOVASZLoss()(x, y), (logits, lb), (0,)),
+        ("SegFixLoss", lambda m, d, s, di, an: fs.SegFixLoss()((m, d), (s, di, an)),
+         (masks, dirs, seg, dist, ang), (0, 1)),
+        ("pairwise_soft_dtw", lambda x, c: pairwise_soft_dtw(x, c, 0.5).sum(),
+         (torch.from_numpy(rng.normal(0, 1, (64, 32, 16)).astype(np.float32)),
+          torch.from_numpy(rng.normal(0, 1, (19, 32, 16)).astype(np.float32))), (0, 1)),
+    ]
+    bad, records = [], []
+    for name, fn, inputs, grads in cases:
+        rec, ok = card_vs_cpu_loss(name, fn, inputs, dev, grads)
+        records.append(rec)
+        if not ok:
+            bad.append(rec)
+
+    # k-means: clustered points, the same initial indices on both sides.
+    # Lloyd's iterations from random indices split some clusters between
+    # two centers, whose points then sit near a tie: 20 iterations on two
+    # devices part there (in the first card run: centers 0.005 apart, 0.3%
+    # of the assignments). So from random indices one iteration is held
+    # card against CPU, and the card's 20-iteration result against the
+    # CPU's reading of it (its assignment is the argmin of the distances to
+    # its centers). From one index in each blob, both devices converge to
+    # the same centers, and the 20 iterations are held card against CPU:
+    # centers within F32_GATE, the same assignment.
+    n, d, k = KMEANS_SHAPE
+    centers = rng.normal(0, 1, (k, d)).astype(np.float32)
+    blob = rng.integers(0, k, n)
+    pts = centers[blob] + rng.normal(0, 0.3, (n, d))
+    x = torch.from_numpy(pts.astype(np.float32))
+    xd = x.to(dev)
+    idx = kmeans_init_indices(n, k, torch.Generator().manual_seed(0))
+    one_a_blob = torch.from_numpy(np.array([np.flatnonzero(blob == j)[0] for j in range(k)]))
+    for distance in ("euclidean", "cosine"):
+        c1_cpu, a1_cpu = kmeans(x, idx, n_iter=1, distance=distance)
+        c1_card, a1_card = kmeans(xd, idx, n_iter=1, distance=distance)
+        c_card, a_card = kmeans(xd, idx, distance=distance)
+        a_cpu_of_card = kmeans_assign(x, c_card.cpu(), distance)
+        cb_cpu, ab_cpu = kmeans(x, one_a_blob, distance=distance)
+        cb_card, ab_card = kmeans(xd, one_a_blob, distance=distance)
+        rec = {"name": f"kmeans_{distance}", "rel": rel(c1_card.cpu(), c1_cpu),
+               "assignment_agreement": share_equal(a1_card.cpu(), a1_cpu),
+               "final_assignment_vs_cpu_argmin": share_equal(a_card.cpu(), a_cpu_of_card),
+               "one_a_blob_rel": rel(cb_card.cpu(), cb_cpu),
+               "one_a_blob_assignment_equal": bool(torch.equal(ab_card.cpu(), ab_cpu)),
+               "finite": bool(torch.isfinite(c_card).all() and torch.isfinite(cb_card).all()),
+               "ms": cuda_ms(lambda: kmeans(xd, idx, distance=distance), n=3)}
+        records.append(rec)
+        if (rec["rel"] >= F32_GATE or rec["assignment_agreement"] < 0.999
+                or rec["final_assignment_vs_cpu_argmin"] < 0.999
+                or rec["one_a_blob_rel"] >= F32_GATE or not rec["one_a_blob_assignment_equal"]
+                or not rec["finite"]):
+            bad.append(rec)
+
+    # the k-means loss at the contrast config's class counts: warmup, then
+    # a main-phase step, from the same bank and prototypes
+    cfg = Configer(config_file=CONTRAST_CONFIG)
+    crit = CrossDatasetsCELossKMeans(cfg)
+    U, D = crit.U, int(cfg.get("contrast", "proj_dim"))
+    m_bank = int(cfg.get("contrast", "memory_bank_size"))
+    seg_l = [torch.from_numpy(rng.normal(0, 2, (2, U, h, w)).astype(np.float32))
+             for _ in CONTRAST_CATS]
+    emb = [torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(0, 1, (2, D, h // 8, w // 8)).astype(np.float32)), dim=1)
+        for _ in CONTRAST_CATS]
+    lbs = []
+    for n in CONTRAST_CATS:
+        lbl = rng.integers(0, n, (2, h, w))
+        lbl[rng.random(lbl.shape) < 0.05] = 255
+        lbs.append(torch.from_numpy(lbl))
+    protos = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(0, 1, (U, D)).astype(np.float32)), dim=1)
+
+    def kmeans_loss(d):
+        s = [t.to(d).clone().requires_grad_(True) for t in seg_l]
+        e = [t.to(d).clone().requires_grad_(True) for t in emb]
+        bank = MemoryBank.create(U, m_bank, D, device=d)
+        y = [t.to(d) for t in lbs]
+        _, _, bank, p = crit({"seg": s, "embed": e}, y, bank, protos.to(d), is_warmup=True)
+        loss, metrics, bank, p = crit({"seg": s, "embed": e}, y, bank, p, cur_iter=50000)
+        loss.backward()
+        return loss.detach().cpu(), [t.grad.cpu() for t in s + e], bank.to("cpu"), p.cpu()
+
+    l_cpu, g_cpu, b_cpu, p_cpu = kmeans_loss("cpu")
+    l_card, g_card, b_card, p_card = kmeans_loss(dev)
+    rec = {"name": "CrossDatasetsCELossKMeans", "value": l_card.item(), "rel": rel(l_card, l_cpu),
+           "grad_cosine": [_cosine(a, b) for a, b in zip(g_card, g_cpu)],
+           "bank_rel": rel(b_card.feats, b_cpu.feats),
+           "bank_ptr_equal": bool(torch.equal(b_card.ptr, b_cpu.ptr)),
+           "prototypes_rel": rel(p_card, p_cpu),
+           "ms": cuda_ms(lambda: kmeans_loss(dev), n=3)}
+    records.append(rec)
+    if not (rec["rel"] < F32_GATE and min(rec["grad_cosine"]) > GRAD_COSINE_GATE
+            and rec["bank_rel"] < F32_GATE and rec["bank_ptr_equal"]
+            and rec["prototypes_rel"] < F32_GATE):
+        bad.append(rec)
+    emit(phase="loss_library", logits=list(shape), functions=records,
+         seconds=time.perf_counter() - t0)
+    if bad:
+        raise RuntimeError(f"loss_library: {bad}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3987,6 +4606,10 @@ def main():
                 launches[k] = launches.get(k, 0) + n
     for k, n in timed(phase_contrast_multiproto, dev).items():
         launches[k] = launches.get(k, 0) + n
+    for phase in (phase_hrnet, phase_swin):
+        for k, n in timed(phase, dev).items():
+            launches[k] = launches.get(k, 0) + n
+    timed(phase_loss_library, dev)
     timed(phase_v1_train, dev)
     results["stem_conv3x3_s2"] = timed(phase_train_stem, dev)
     launches["stem_conv3x3_s2"] = results["stem_conv3x3_s2"]["launches"]

@@ -1,21 +1,21 @@
 """Config-driven per-dataset class → unified-class remapping — the part of
 mds_tpu/data/class_remap.py (`ClassRemap` :28-135, `ClassRemapOneHotLabel`
-:136-291) that the contrast trainer runs.
+:136-291) that the port's trainers and losses run.
 
 The config's `class_remap{i}` maps each class id of dataset i to one or
-more unified class ids. Every remap is a gather through a 256-row table
-built once from the config, on the labels' device:
-- `single_lut`: the unified id of a class mapped to exactly one, ignore
-  elsewhere (the single-prototype trainer's labels keep these classes only);
-- `ClassRemapOneHotLabel.ContrastRemapping` (the multi-prototype trainer),
-  which sharpens a multi-mapped pixel's admissible set to its most similar
-  prototype slot where the similarity clears `contrast.update_sim_thresh`
-  and the pixel is in its slot's top share, a share annealed over the
-  iterations. Masks there have the class on the last axis, as JAX's.
-
-The multi-alternative maps, the reverse remap, the remap and reweighting
-matrices and the k-means masks serve the cross-dataset k-means loss, which
-the port does not have yet.
+more unified class ids. Every remap is a gather through a table of 256
+rows (one per label byte) built once from the config and moved once to
+the labels' device:
+- `single_lut` / `SingleSegRemapping`: the unified id of a class mapped to
+  exactly one, ignore elsewhere;
+- `ClassRemapOneHotLabel`: bool (…, U) one-hots of the single-mapped
+  classes (`SingleSegRemappingOneHot`) and multi-hots of every mapping
+  (`SegRemappingOneHot`), which the k-means loss reads, and
+  `ContrastRemapping`, which sharpens a multi-mapped pixel's admissible set
+  to its most similar prototype slot where the similarity clears
+  `contrast.update_sim_thresh` and the pixel is in its slot's top share, a
+  share annealed over the iterations. Masks have the class on the last
+  axis, as JAX's.
 """
 
 from __future__ import annotations
@@ -24,10 +24,6 @@ from typing import Dict, List, Union
 
 import numpy as np
 import torch
-
-
-def _lut(table: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(table, device=device)
 
 
 class ClassRemap:
@@ -50,20 +46,32 @@ class ClassRemap:
                     single[k] = v[0]
             self.remapList.append(remap)
             self._single.append(single)
+        self._device_tables: Dict = {}
+
+    def _on(self, name: str, dataset_id: int, device) -> torch.Tensor:
+        """Table `name` of the dataset on `device`, moved there once."""
+        key = (name, dataset_id, str(device))
+        if key not in self._device_tables:
+            self._device_tables[key] = torch.as_tensor(getattr(self, name)[dataset_id],
+                                                       device=device)
+        return self._device_tables[key]
 
     def single_lut(self, dataset_id: int, device="cpu") -> torch.Tensor:
         """Dataset label id → unified id where the class maps to exactly
         one, ignore elsewhere: int64 (256,), on `device`; remap a label map
         by `lut[labels.long()]`."""
-        return _lut(self._single[dataset_id], device)
+        return self._on("_single", dataset_id, device)
+
+    def SingleSegRemapping(self, labels: torch.Tensor, dataset_id: int) -> torch.Tensor:
+        return self.single_lut(dataset_id, labels.device)[labels.long()]
 
 
 class ClassRemapOneHotLabel(ClassRemap):
     """Multi-hot supervision over the unified space (mds_tpu/data/
     class_remap.py:136): 256-row bool tables of each dataset's
-    single-mapped classes (`_single_onehot`), the multi-mapped rows'
-    admissible classes (`_multi_only_hot`) and which classes are
-    multi-mapped (`_is_multi`)."""
+    single-mapped classes (`_single_onehot`), every class's admissible
+    classes (`_multi_hot`), the multi-mapped rows' admissible classes
+    (`_multi_only_hot`) and which classes are multi-mapped (`_is_multi`)."""
 
     def __init__(self, configer):
         super().__init__(configer)
@@ -74,29 +82,37 @@ class ClassRemapOneHotLabel(ClassRemap):
         self.max_iter = int(g("lr", "max_iter", d=1))
         self.num_prototype = int(g("contrast", "num_prototype", d=1))
         U = self.num_unify_classes
-        self._single_onehot, self._multi_only_hot, self._is_multi = [], [], []
+        self._single_onehot, self._multi_hot, self._multi_only_hot, self._is_multi = [], [], [], []
         for remap in self.remapList:
             single = np.zeros((256, U), bool)
+            multi = np.zeros((256, U), bool)
             multi_only = np.zeros((256, U), bool)
             is_multi = np.zeros(256, bool)
             for k, v in remap.items():
+                multi[k, v] = True
                 if len(v) == 1:
                     single[k, v[0]] = True
                 else:
                     is_multi[k] = True
                     multi_only[k, v] = True
             self._single_onehot.append(single)
+            self._multi_hot.append(multi)
             self._multi_only_hot.append(multi_only)
             self._is_multi.append(is_multi)
-        self._device_luts: Dict = {}
 
     def _tables(self, dataset_id: int, device):
-        """The dataset's three tables on `device`, moved there once."""
-        key = (dataset_id, str(device))
-        if key not in self._device_luts:
-            self._device_luts[key] = tuple(_lut(t[dataset_id], device) for t in (
-                self._single_onehot, self._multi_only_hot, self._is_multi))
-        return self._device_luts[key]
+        """The dataset's single one-hot, multi-only and is-multi tables on
+        `device`."""
+        return tuple(self._on(n, dataset_id, device)
+                     for n in ("_single_onehot", "_multi_only_hot", "_is_multi"))
+
+    def SingleSegRemappingOneHot(self, labels: torch.Tensor, dataset_id: int) -> torch.Tensor:
+        """(…, U) bool one-hot of the single-mapped classes (:183)."""
+        return self._on("_single_onehot", dataset_id, labels.device)[labels.long()]
+
+    def SegRemappingOneHot(self, labels: torch.Tensor, dataset_id: int) -> torch.Tensor:
+        """(…, U) bool multi-hot over every admissible unified class (:188)."""
+        return self._on("_multi_hot", dataset_id, labels.device)[labels.long()]
 
     @torch.no_grad()
     def ContrastRemapping(self, labels: torch.Tensor, sim: torch.Tensor, dataset_id: int,

@@ -11,15 +11,18 @@ inverse of `resnet18_torchvision_to_resnet` (:499-528) and
 `swiftnet_backbone_from_torch` (:283) and `semseg_from_torch` (:343), and
 the graph nets' parameters in JAX's own names; for BiSeNetV2Contrast the
 inverse of `bisenetv2_contrast_from_torch` (:184), and that importer
-itself (`load_contrast_reference`). BatchNorm2d's `num_batches_tracked` may
-be absent: a state_dict without torch's version metadata loads strictly
-without it.
+itself (`load_contrast_reference`); for HRNet `hrnet_backbone_from_torch`
+(:408; the multi-dataset layout of :531 is the port's own names) and the
+inverse of JAX's tree (`hrnet_state_dict_from_jax`); for Swin
+`swin_from_torch` (:713) and `bisenetv1_swin_state_dict_from_jax`.
+BatchNorm2d's `num_batches_tracked` may be absent: a state_dict without
+torch's version metadata loads strictly without it.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -264,7 +267,31 @@ def detect_torch_layout(sd: Mapping) -> str:
 def load_reference_weights(model: nn.Module, state: Mapping) -> nn.Module:
     """Load a reference-layout mapping (numpy arrays or tensors) strictly.
     Aux-head entries (BiSeNetV2's aux2-aux5_4, BiSeNetV1's conv_out16 and
-    conv_out32) are dropped when the model has no aux heads (`aux` False)."""
+    conv_out32) are dropped when the model has no aux heads (`aux` False).
+    An HRNet backbone checkpoint (the reference's multi-dataset layout, or
+    the ImageNet one through `hrnet_backbone_from_torch`) goes into an
+    HRNet model's `backbone`, and a Swin one (through `swin_from_torch`)
+    into a Swin model's `swin`, as JAX's finetune grafts them
+    (mds_tpu/engine/trainer.py:187-270); every other entry stays."""
+    from mds_tpu_torch.models.hrnet import HRNetBackbone
+    from mds_tpu_torch.models.swin import SwinTransformer
+
+    layout = detect_torch_layout(state)
+    if layout in ("hrnet_ref", "hrnet_imagenet"):
+        trunk = getattr(model, "backbone", model)
+        if not isinstance(trunk, HRNetBackbone):
+            raise ValueError(f"a {layout!r} state_dict does not fit {type(model).__name__}")
+        n_bn = len(trunk.conv1.bn)
+        sd = (hrnet_backbone_from_torch(state, n_bn) if layout == "hrnet_imagenet"
+              else _hrnet_ref(trunk, state))
+        trunk.load_state_dict(_tensors(sd), strict=True)
+        return model
+    if layout == "swin":
+        trunk = getattr(model, "swin", model)
+        if not isinstance(trunk, SwinTransformer):
+            raise ValueError(f"a 'swin' state_dict does not fit {type(model).__name__}")
+        trunk.load_state_dict(_tensors(swin_from_torch(state)), strict=True)
+        return model
     has_aux = getattr(model, "aux", True)
     sd = {k: torch.as_tensor(np.array(v)) for k, v in state.items()
           if has_aux or not k.startswith(_AUX_HEADS)}
@@ -272,8 +299,14 @@ def load_reference_weights(model: nn.Module, state: Mapping) -> nn.Module:
     return model
 
 
+def _np(v) -> np.ndarray:
+    if hasattr(v, "detach"):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, np.float32)
+
+
 def _tensors(arrays: Mapping) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in arrays.items()}
+    return {k: torch.from_numpy(np.array(_np(v), np.float32)) for k, v in arrays.items()}
 
 
 def bisenetv2_contrast_state_dict_from_jax(params: Mapping,
@@ -515,3 +548,249 @@ def gnn_optimizer_state_from_jax(opt_state) -> Dict:
         mu.update(bgnn_state_dict_from_jax(a.mu))
         nu.update(bgnn_state_dict_from_jax(a.nu))
     return _adamw_state(mu, nu, adams[0].count)
+
+
+# ------------------------------------------------------------------- HRNet
+def _hrnet_ref(trunk: nn.Module, state: Mapping) -> Dict[str, np.ndarray]:
+    """The reference's multi-dataset HRNet layout (`X.conv.weight`,
+    `X.affine_weight/bias`, `X.bn.{i}.running_*`; mds_tpu/deploy/
+    torch_import.py `hrnet_ref_from_torch` :531) is the port's own: the
+    entries of every tensor the backbone holds, the first n_bn stat sets
+    (num_batches_tracked may be absent); any other key is not read."""
+    out, missing = {}, []
+    for k in trunk.state_dict():
+        if k in state:
+            out[k] = state[k]
+        elif not k.endswith("num_batches_tracked"):
+            missing.append(k)
+    if missing:
+        raise KeyError(f"HRNet state_dict lacks {missing[:5]} ({len(missing)} keys)")
+    return out
+
+
+def hrnet_backbone_from_torch(state: Mapping, n_bn: int = 1) -> Dict[str, np.ndarray]:
+    """The reference's HRNet ImageNet-classification state_dict
+    (hrnetv2_w48_imagenet_pretrained.pth's layout) → the port's
+    HRNetBackbone keys: the port's copy of mds_tpu/deploy/torch_import.py
+    `hrnet_backbone_from_torch` (:408). Torch keys `conv1`/`bn1`,
+    `conv2`/`bn2`, `layer1.{b}` Bottlenecks, `transition{t}.{i}.{0,1}` (a
+    channel adapt) or `.{i}.0.{0,1}` (a new branch), `stage{s}.{m}.branches.
+    {i}.{b}`, `stage{s}.{m}.fuse_layers.{i}.{j}.{0,1}` (j > i) and
+    `.{i}.{j}.{k}.{0,1}` (j < i); the classifier heads are dropped and each
+    single BN's statistics go into all n_bn per-dataset slots (its affine
+    is the shared one)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def cbr(ours: str, conv_key: str, bn_key: str):
+        out[f"{ours}.conv.weight"] = _np(state[conv_key])
+        out[f"{ours}.affine_weight"] = _np(state[f"{bn_key}.weight"])
+        out[f"{ours}.affine_bias"] = _np(state[f"{bn_key}.bias"])
+        for i in range(n_bn):
+            out[f"{ours}.bn.{i}.running_mean"] = _np(state[f"{bn_key}.running_mean"])
+            out[f"{ours}.bn.{i}.running_var"] = _np(state[f"{bn_key}.running_var"])
+
+    cbr("conv1", "conv1.weight", "bn1")
+    if "conv2.weight" in state:
+        cbr("conv2", "conv2.weight", "bn2")
+    b = 0
+    while f"layer1.{b}.conv1.weight" in state:
+        t = f"layer1.{b}"
+        for c in ("conv1", "conv2", "conv3"):
+            cbr(f"{t}.{c}", f"{t}.{c}.weight", f"{t}.bn{c[-1]}")
+        if f"{t}.downsample.0.weight" in state:
+            cbr(f"{t}.downsample", f"{t}.downsample.0.weight", f"{t}.downsample.1")
+        b += 1
+    for t in (1, 2, 3):
+        idxs = sorted({int(m.group(1)) for k in state
+                       if (m := re.match(rf"transition{t}\.(\d+)\.", k))})
+        for i in idxs:  # identity transitions leave no keys
+            if f"transition{t}.{i}.0.weight" in state:
+                cbr(f"transition{t}.{i}", f"transition{t}.{i}.0.weight",
+                    f"transition{t}.{i}.1")
+            elif f"transition{t}.{i}.0.0.weight" in state:
+                cbr(f"transition{t}.{i}.0", f"transition{t}.{i}.0.0.weight",
+                    f"transition{t}.{i}.0.1")
+    for st in (2, 3, 4):
+        m = 0
+        while f"stage{st}.{m}.branches.0.0.conv1.weight" in state:
+            mod = f"stage{st}.{m}"
+            n_br = 0
+            while f"{mod}.branches.{n_br}.0.conv1.weight" in state:
+                b = 0
+                while f"{mod}.branches.{n_br}.{b}.conv1.weight" in state:
+                    t = f"{mod}.branches.{n_br}.{b}"
+                    cbr(f"{t}.conv1", f"{t}.conv1.weight", f"{t}.bn1")
+                    cbr(f"{t}.conv2", f"{t}.conv2.weight", f"{t}.bn2")
+                    if f"{t}.downsample.0.weight" in state:
+                        cbr(f"{t}.downsample", f"{t}.downsample.0.weight", f"{t}.downsample.1")
+                    b += 1
+                n_br += 1
+            for i in range(n_br):
+                for j in range(n_br):
+                    t = f"{mod}.fuse_layers.{i}.{j}"
+                    if j > i and f"{t}.0.weight" in state:
+                        cbr(t, f"{t}.0.weight", f"{t}.1")
+                    elif j < i:
+                        k = 0
+                        while f"{t}.{k}.0.weight" in state:
+                            cbr(f"{t}.{k}", f"{t}.{k}.0.weight", f"{t}.{k}.1")
+                            k += 1
+            m += 1
+    return out
+
+
+# JAX HRNet module path → the port's (reference) path
+_HRNET_NAMES = ((r"^layer1_(\d+)/", r"layer1.\1."),
+                (r"^stage(\d)_module(\d+)/branch(\d+)_block(\d+)/",
+                 r"stage\1.\2.branches.\3.\4."),
+                (r"^stage(\d)_module(\d+)/fuse(\d+)_(\d+)_(\d+)$",
+                 r"stage\1.\2.fuse_layers.\3.\4.\5"),
+                (r"^stage(\d)_module(\d+)/fuse(\d+)_(\d+)$", r"stage\1.\2.fuse_layers.\3.\4"))
+
+
+def _hrnet_block_name(path: str) -> str:
+    m = re.match(r"^transition(\d)_(\d+)$", path)
+    if m:  # transition t's branch i is new (a Sequential) from the t-th on
+        t, i = int(m.group(1)), int(m.group(2))
+        return f"transition{t}.{i}" + (".0" if i >= t else "")
+    for pat, rep in _HRNET_NAMES:
+        path = re.sub(pat, rep, path)
+    return path.replace("/", ".")
+
+
+def hrnet_backbone_to_torch(params: Mapping, stats: Mapping,
+                            prefix: str = "") -> Dict[str, np.ndarray]:
+    """JAX HRNetBackbone (params, batch_stats) subtrees → the port's keys
+    under `prefix`: every ConvBNReLU/ConvBN block of the tree."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        if "conv" in node and "bn" in node:
+            _dump_convbn(out, params, stats, path, prefix + _hrnet_block_name(path))
+            return
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{path}/{k}" if path else k)
+
+    walk(params, "")
+    return out
+
+
+def hrnet_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                              buffers: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX HRNetW48 variables (numpy arrays, nested dicts) → the port's
+    state_dict, for load_state_dict(strict=True): the backbone, the
+    projection head, the prototypes and the bipartite graphs."""
+    out = hrnet_backbone_to_torch(params["backbone"], batch_stats["backbone"], "backbone.")
+    _dump_convbn(out, params, batch_stats, "proj_head/conv1", "proj_head.conv1")
+    out["proj_head.conv_out.weight"] = _oihw(_get(params, "proj_head/conv_out/kernel"))
+    out["proj_head.conv_out.bias"] = _get(params, "proj_head/conv_out/bias")
+    out["unify_prototype"] = _get(params, "unify_prototype")
+    i = 0
+    while f"aux_prototype_{i}" in params:
+        out[f"aux_prototype.{i}"] = _get(params, f"aux_prototype_{i}")
+        i += 1
+    for i in range(len(buffers)):
+        out[f"bipartite_graphs.{i}"] = _get(buffers, f"bi_graph_{i}")
+    return _tensors(out)
+
+
+# -------------------------------------------------------------------- Swin
+def swin_from_torch(state: Mapping) -> Dict[str, np.ndarray]:
+    """The reference SwinTransformer state_dict → the port's
+    SwinTransformer keys: the port's copy of mds_tpu/deploy/torch_import.py
+    `swin_from_torch` (:713). The port keeps the reference's names and its
+    Linear (out, in) weights; its per-output norms `norm1..3` become
+    `out_norm1..3` and `norm0` (stage 0's, which the context path never
+    reads) is dropped, as are the buffers (relative_position_index,
+    attn_mask)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def take(key: str, ours: Optional[str] = None):
+        out[ours or key] = _np(state[key])
+
+    for k in ("patch_embed.proj.weight", "patch_embed.proj.bias",
+              "patch_embed.norm.weight", "patch_embed.norm.bias"):
+        take(k)
+    n_layers = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("layers."))
+    for si in range(n_layers):
+        n_blocks = 1 + max(int(k.split(".")[3]) for k in state
+                           if k.startswith(f"layers.{si}.blocks."))
+        for bi in range(n_blocks):
+            t = f"layers.{si}.blocks.{bi}"
+            for part in ("norm1", "norm2", "attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2"):
+                take(f"{t}.{part}.weight")
+                take(f"{t}.{part}.bias")
+            take(f"{t}.attn.relative_position_bias_table")
+        if f"layers.{si}.downsample.reduction.weight" in state:
+            for k in ("norm.weight", "norm.bias", "reduction.weight"):
+                take(f"layers.{si}.downsample.{k}")
+        if si > 0 and f"norm{si}.weight" in state:
+            take(f"norm{si}.weight", f"out_norm{si}.weight")
+            take(f"norm{si}.bias", f"out_norm{si}.bias")
+    return out
+
+
+def swin_to_torch(params: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """JAX SwinTransformer params → the port's keys under `prefix` (Dense
+    kernels (in, out) transposed to Linear weights)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def dense(ours: str, theirs: str, bias: bool = True):
+        out[f"{prefix}{theirs}.weight"] = _get(params, f"{ours}/kernel").T
+        if bias:
+            out[f"{prefix}{theirs}.bias"] = _get(params, f"{ours}/bias")
+
+    def ln(ours: str, theirs: str):
+        out[f"{prefix}{theirs}.weight"] = _get(params, f"{ours}/scale")
+        out[f"{prefix}{theirs}.bias"] = _get(params, f"{ours}/bias")
+
+    out[f"{prefix}patch_embed.proj.weight"] = _oihw(_get(params, "patch_embed/kernel"))
+    out[f"{prefix}patch_embed.proj.bias"] = _get(params, "patch_embed/bias")
+    ln("embed_norm", "patch_embed.norm")
+    for name in params:
+        m = re.match(r"^stage(\d+)_block(\d+)$", name)
+        if m:
+            t = f"layers.{m.group(1)}.blocks.{m.group(2)}"
+            ln(f"{name}/norm1", f"{t}.norm1")
+            ln(f"{name}/norm2", f"{t}.norm2")
+            dense(f"{name}/attn/qkv", f"{t}.attn.qkv")
+            dense(f"{name}/attn/proj", f"{t}.attn.proj")
+            dense(f"{name}/fc1", f"{t}.mlp.fc1")
+            dense(f"{name}/fc2", f"{t}.mlp.fc2")
+            out[f"{prefix}{t}.attn.relative_position_bias_table"] = _get(
+                params, f"{name}/attn/relative_position_bias_table")
+        m = re.match(r"^merge(\d+)$", name)
+        if m:
+            ln(f"{name}/norm", f"layers.{m.group(1)}.downsample.norm")
+            dense(f"{name}/reduction", f"layers.{m.group(1)}.downsample.reduction", False)
+        if re.match(r"^out_norm\d+$", name):
+            ln(name, name)
+    return out
+
+
+def bisenetv1_swin_state_dict_from_jax(params: Mapping,
+                                       batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX BiSeNetV1Swin variables (numpy arrays, nested dicts) → the
+    port's state_dict, for load_state_dict(strict=True): the Swin trunk
+    under `swin.`, the V1 modules at the root as BiSeNetV1's are under
+    `cp.` (the aux heads where the tree has them)."""
+    out = swin_to_torch(params["swin"], "swin.")
+    heads = ["conv_out"] + (["conv_out16", "conv_out32"] if "conv_out16" in params else [])
+    blocks = {k[3:] if k.startswith("cp/") else k: v[3:] if v.startswith("cp.") else v
+              for k, v in _V1_CONVBN.items()}
+    blocks.update({f"{h}/conv": f"{h}.conv" for h in heads[1:]})
+    for ours, theirs in blocks.items():
+        out[f"{theirs}.conv.weight"] = _oihw(_get(params, f"{ours}/conv/kernel"))
+        _dump_bn(out, params, batch_stats, f"{ours}/bn", f"{theirs}.bn")
+    for table in (_V1_RAW_BN, _V1_PLAIN_CONVS):
+        for ours, theirs in table.items():
+            ours, theirs = ours.removeprefix("cp/"), theirs.removeprefix("cp.")
+            if table is _V1_RAW_BN:
+                _dump_bn(out, params, batch_stats, ours, theirs)
+            else:
+                out[f"{theirs}.weight"] = _oihw(_get(params, f"{ours}/kernel"))
+    for h in heads:
+        out[f"{h}.conv_out.weight"] = _oihw(_get(params, f"{h}/conv_out/kernel"))
+        out[f"{h}.conv_out.bias"] = _get(params, f"{h}/conv_out/bias")
+    return _tensors(out)

@@ -61,13 +61,22 @@ TRAINABLE = ("bisenetv2", "bisenetv2_origin", "bisenetv1")
 # the models built from n_classes; the rest from the config (`configer=`)
 _BY_CLASSES = ("bisenetv2", "bisenetv2_origin", "bisenetv1")
 
+# why no trainer of either package trains HRNet or BiSeNetV1-Swin
+# (mds_tpu/engine/train_step.py:84, mds_tpu/engine/gnn_trainer.py:74)
+_HRNET_WHY = ("HRNet trains in neither package: JAX's seg step reads out['logits'], "
+              "which HRNetW48 does not return, and JAX's alternating trainer builds "
+              "snp_rn18 whatever the model_name; tools/evaluate_torch.py and "
+              "tools/serve_torch.py --weights take its weights")
+_SWIN_WHY = ("bisenetv1_swin trains in neither package: JAX's build_model cannot build "
+             "it from a config (BiSeNetV1Swin takes no configer); deploy/weights.py "
+             "load_reference_weights grafts a Swin state_dict into BiSeNetV1Swin.swin")
 # finetune_from: the layouts of models this trainer does not train
 _LAYOUT_ITEMS = {
     "semseg": "the alternating trainer takes it (tools/train_torch.py --gnn)",
     "bisenetv2_contrast": "the contrast trainer takes it (train.mode contrast)",
-    "hrnet_ref": "ROADMAP queue 1, item 8 (HRNet)",
-    "hrnet_imagenet": "ROADMAP queue 1, item 8 (HRNet)",
-    "swin": "ROADMAP queue 1, item 8 (Swin)",
+    "hrnet_ref": _HRNET_WHY,
+    "hrnet_imagenet": _HRNET_WHY,
+    "swin": _SWIN_WHY,
 }
 # the layouts each trainable model loads: its own, and BiSeNetV1's
 # torchvision ResNet18 trunk under cp.resnet (mds_tpu/engine/trainer.py:214-232)
@@ -132,7 +141,9 @@ class Trainer:
                 f"the supervised trainer trains {TRAINABLE}, not {name!r}: "
                 "snp_rn18 trains through the alternating trainer (--gnn, "
                 "train.mode alternate/seg/gnn), the contrast family through "
-                "train.mode contrast; HRNet and Swin are ROADMAP queue 1, item 8")
+                "train.mode contrast; " + (_SWIN_WHY if name == "bisenetv1_swin"
+                                           else _HRNET_WHY if name.startswith("hrnet")
+                                           else "the port has no such model"))
         self.seed = int(configer.get("seed", default=0) or 0)
         self.max_iter = int(configer.get("lr", "max_iter", default=1000))
         self.schedule = warmup_poly_lr(

@@ -5,5 +5,7 @@ from mds_tpu_torch.models import (  # noqa: F401
     bisenetv2,
     bisenetv2_contrast,
     gnn,
+    hrnet,
     semseg,
+    swin,
 )

@@ -162,7 +162,7 @@ class DatasetNorm(nn.ModuleList):
     `dtype` (mds_tpu/models/layers.py:139-143); `fold` returns the
     equivalent per-dataset (scale, bias) (:96-115).
     Train (:126-138): the f32 batch moments over N, H, W normalize with the
-    biased variance, and the gradient flows through them; the running stats
+    biased variance (f64 throughout in an f64 model, `wide`), and the gradient flows through them; the running stats
     move in place by momentum 0.1, the variance's with the unbiased factor
     cnt / max(cnt − 1, 1)."""
 
@@ -195,7 +195,7 @@ class DatasetNorm(nn.ModuleList):
         return (*self._affine(i, shared), self[i].running_mean, self[i].running_var)
 
     def _train_norm(self, bn: nn.BatchNorm2d, x: torch.Tensor, w, b):
-        xf = x.float()
+        xf = wide(x)
         m = xf.mean(dim=(0, 2, 3))
         d = xf - _c(m)
         v = d.square().mean(dim=(0, 2, 3))
@@ -207,7 +207,7 @@ class DatasetNorm(nn.ModuleList):
                                  + mom * (v * (cnt / max(cnt - 1, 1))))
         # the scale folds into one per-channel factor: autograd keeps one
         # f32 activation (d) per BN instead of two
-        return d * _c(torch.rsqrt(v + self.eps) * w.float()) + _c(b.float())
+        return d * _c(torch.rsqrt(v + self.eps) * wide(w)) + _c(wide(b))
 
     def forward(self, xs: MultiX, shared=None) -> List[Optional[torch.Tensor]]:
         if len(xs) != len(self):
@@ -222,9 +222,9 @@ class DatasetNorm(nn.ModuleList):
             if self.training:
                 y = self._train_norm(bn, x, w, b)
             else:
-                y = (x.float() - _c(bn.running_mean.float())) * _c(
-                    torch.rsqrt(bn.running_var.float() + self.eps))
-                y = y * _c(w.float()) + _c(b.float())
+                y = (wide(x) - _c(wide(bn.running_mean))) * _c(
+                    torch.rsqrt(wide(bn.running_var) + self.eps))
+                y = y * _c(wide(w)) + _c(wide(b))
             outs.append(y.to(self.dtype))
         return outs
 
@@ -315,8 +315,8 @@ class StemConv3x3S2(nn.Conv2d):
         if self.kernel_ok(x, dtype):
             from mds_tpu_torch.ops.stem import stem_conv_bn_relu_s2
 
-            return stem_conv_bn_relu_s2(x, self.weight.to(dtype), scale, bias,
-                                        relu=relu, packed=packed)
+            return stem_conv_bn_relu_s2(x, self.weight.to(dtype), scale, bias, relu,
+                                        packed=packed)
         y = conv2d(self, x, dtype).float() * _c(scale) + _c(bias)
         return (F.relu(y) if relu else y).to(dtype)
 

@@ -17,6 +17,8 @@ SwiftNet pyramid — counterpart of mds_tpu/models/semseg.py (`proto_logits`
 - `mulbn` (snp_rn18_mulbn, semseg.py:274-278): every BN of the backbone
   and the head's (`logits.norm.{dataset}`) keeps a stat set and an affine
   for each dataset (models/swiftnet.py `DatasetListBN`).
+- `PrototypeHeads` holds the classifier, its forwards and the injection
+  API; HRNet-W48 (models/hrnet.py) ends in the same heads.
 - Logits are NCHW. The prototype products take the features in the compute
   dtype and sum in f32 (JAX's preferred_element_type=f32): they run on f32
   copies of the bf16 values (f64 in an f64 model, layers.wide).
@@ -81,67 +83,26 @@ class _Graphs(nn.Module):
         return len(self._buffers)
 
 
-class SemsegModel(nn.Module):
-    """snp_rn18 (mds_tpu/models/semseg.py:54). `datasets_cats`: per-dataset
-    class counts; the backbone knobs (layers, planes, num_features,
-    pyramid_levels) default to the reference ResNet18 pyramid."""
+class PrototypeHeads:
+    """The unified-prototype classifier snp_rn18 and HRNet-W48 end in
+    (mds_tpu/models/semseg.py:158-246, mds_tpu/models/hrnet.py:280-331): a
+    (M, D) `unify_prototype`, with `with_datasets_aux` per-dataset
+    `aux_prototype`s, and the per-dataset bipartite graphs as buffers. The
+    model supplies `features(xs)` (per-dataset features in the compute
+    dtype) and `n_bn`; this mixin comes before nn.Module in its bases."""
 
-    def __init__(self, datasets_cats: Sequence[int], output_feat_dim: int = 512,
-                 unify_ratio: float = 1.0, with_datasets_aux: bool = False,
-                 dtype: torch.dtype = torch.float32, remat: bool = False,
-                 backbone_layers: Sequence[int] = (2, 2, 2, 2),
-                 backbone_planes: Sequence[int] = (64, 128, 256, 512),
-                 backbone_features: int = 128, pyramid_levels: int = 3,
-                 mulbn: bool = False):
-        super().__init__()
-        self.datasets_cats = tuple(int(c) for c in datasets_cats)
-        self.output_feat_dim = int(output_feat_dim)
-        self.with_datasets_aux = bool(with_datasets_aux)
-        self.dtype = dtype
-        self.mulbn = bool(mulbn)
-        nd = len(self.datasets_cats)
-        self.backbone = SwiftNetPyramid(backbone_layers, backbone_features,
-                                        pyramid_levels, backbone_planes, dtype, remat,
-                                        self.mulbn, nd)
-        self.logits = _BNReluConv(backbone_features, output_feat_dim, 1, True, dtype,
-                                  self.mulbn, nd)
-        M, D = int(unify_ratio * sum(self.datasets_cats)), self.output_feat_dim
+    def _init_heads(self, datasets_cats: Sequence[int], output_feat_dim: int,
+                    unify_ratio: float, with_datasets_aux: bool) -> None:
+        M, D = int(unify_ratio * sum(datasets_cats)), int(output_feat_dim)
         self.unify_prototype = nn.Parameter(torch.zeros(M, D))
-        if self.with_datasets_aux:
+        if with_datasets_aux:
             self.aux_prototype = nn.ParameterList(
-                nn.Parameter(torch.zeros(c, D)) for c in self.datasets_cats)
-        self.bipartite_graphs = _Graphs([(c, M) for c in self.datasets_cats])
-        self.n_bn = len(self.datasets_cats)
+                nn.Parameter(torch.zeros(c, D)) for c in datasets_cats)
+        self.bipartite_graphs = _Graphs([(c, M) for c in datasets_cats])
 
     @property
     def max_num_unify_class(self) -> int:
         return self.unify_prototype.shape[0]
-
-    @classmethod
-    def from_configer(cls, configer, dtype: torch.dtype = torch.float32, **kw):
-        """mds_tpu/models/semseg.py:82-108: the config's `backbone` block
-        for the knobs, `network.efficient` (default true) for remat."""
-        bk = {"remat": bool(configer.get("network", "efficient", default=True))}
-        for key, field in (("layers", "backbone_layers"), ("planes", "backbone_planes"),
-                           ("num_features", "backbone_features"),
-                           ("pyramid_levels", "pyramid_levels")):
-            v = configer.get("backbone", key, default=None)
-            if v is not None:
-                bk[field] = tuple(v) if isinstance(v, (list, tuple)) else int(v)
-        bk.update(kw)
-        return cls(
-            datasets_cats=tuple(configer.n_cats(i) for i in range(configer.n_datasets)),
-            output_feat_dim=int(configer.get("GNN", "output_feat_dim", default=512)),
-            unify_ratio=float(configer.get("GNN", "unify_ratio", default=1.0)),
-            with_datasets_aux=bool(configer.get("loss", "with_datasets_aux", default=False)),
-            dtype=dtype, **bk)
-
-    # ------------------------------------------------------------- forwards
-    def features(self, xs: MultiX) -> List[Optional[torch.Tensor]]:
-        """backbone + the `logits` head → per-dataset features at 1/4, in
-        the compute dtype."""
-        xs = lmap(lambda x: x.to(self.dtype).contiguous(memory_format=torch.channels_last), xs)
-        return self.logits(self.backbone(xs))
 
     def forward(self, xs: MultiX) -> Dict:
         """The train call (semseg.py:158-173): "seg" the unified logits, "feat"
@@ -189,7 +150,7 @@ class SemsegModel(nn.Module):
 
     # -------------------------------------------------------- graph injection
     @torch.no_grad()
-    def set_bipartite_graphs(self, bi_graphs: Sequence) -> "SemsegModel":
+    def set_bipartite_graphs(self, bi_graphs: Sequence):
         """semseg.py:228: n graphs, or 2n ([max0, soft0, max1, ...]) of
         which the even ones are taken."""
         n = len(self.bipartite_graphs)
@@ -201,7 +162,7 @@ class SemsegModel(nn.Module):
         return self
 
     @torch.no_grad()
-    def set_unify_prototype(self, proto) -> "SemsegModel":
+    def set_unify_prototype(self, proto):
         """semseg.py:246: with aux prototypes the first Σ n_cats rows feed
         them, the rest the unified prototype."""
         proto = _tensor(proto).float()
@@ -217,6 +178,70 @@ class SemsegModel(nn.Module):
         return self
 
     @torch.no_grad()
+    def _init_heads_weights(self, generator: torch.Generator) -> None:
+        """Truncated normal(0.02) prototypes, zero graphs."""
+        _trunc_normal(self.unify_prototype, 0.02, generator)
+        if self.with_datasets_aux:
+            for p in self.aux_prototype:
+                _trunc_normal(p, 0.02, generator)
+        for i in range(len(self.bipartite_graphs)):
+            self.bipartite_graphs[i].zero_()
+
+
+class SemsegModel(PrototypeHeads, nn.Module):
+    """snp_rn18 (mds_tpu/models/semseg.py:54). `datasets_cats`: per-dataset
+    class counts; the backbone knobs (layers, planes, num_features,
+    pyramid_levels) default to the reference ResNet18 pyramid."""
+
+    def __init__(self, datasets_cats: Sequence[int], output_feat_dim: int = 512,
+                 unify_ratio: float = 1.0, with_datasets_aux: bool = False,
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 backbone_layers: Sequence[int] = (2, 2, 2, 2),
+                 backbone_planes: Sequence[int] = (64, 128, 256, 512),
+                 backbone_features: int = 128, pyramid_levels: int = 3,
+                 mulbn: bool = False):
+        super().__init__()
+        self.datasets_cats = tuple(int(c) for c in datasets_cats)
+        self.output_feat_dim = int(output_feat_dim)
+        self.with_datasets_aux = bool(with_datasets_aux)
+        self.dtype = dtype
+        self.mulbn = bool(mulbn)
+        nd = len(self.datasets_cats)
+        self.backbone = SwiftNetPyramid(backbone_layers, backbone_features,
+                                        pyramid_levels, backbone_planes, dtype, remat,
+                                        self.mulbn, nd)
+        self.logits = _BNReluConv(backbone_features, output_feat_dim, 1, True, dtype,
+                                  self.mulbn, nd)
+        self._init_heads(self.datasets_cats, output_feat_dim, unify_ratio,
+                         self.with_datasets_aux)
+        self.n_bn = len(self.datasets_cats)
+
+    @classmethod
+    def from_configer(cls, configer, dtype: torch.dtype = torch.float32, **kw):
+        """mds_tpu/models/semseg.py:82-108: the config's `backbone` block
+        for the knobs, `network.efficient` (default true) for remat."""
+        bk = {"remat": bool(configer.get("network", "efficient", default=True))}
+        for key, field in (("layers", "backbone_layers"), ("planes", "backbone_planes"),
+                           ("num_features", "backbone_features"),
+                           ("pyramid_levels", "pyramid_levels")):
+            v = configer.get("backbone", key, default=None)
+            if v is not None:
+                bk[field] = tuple(v) if isinstance(v, (list, tuple)) else int(v)
+        bk.update(kw)
+        return cls(
+            datasets_cats=tuple(configer.n_cats(i) for i in range(configer.n_datasets)),
+            output_feat_dim=int(configer.get("GNN", "output_feat_dim", default=512)),
+            unify_ratio=float(configer.get("GNN", "unify_ratio", default=1.0)),
+            with_datasets_aux=bool(configer.get("loss", "with_datasets_aux", default=False)),
+            dtype=dtype, **bk)
+
+    def features(self, xs: MultiX) -> List[Optional[torch.Tensor]]:
+        """backbone + the `logits` head → per-dataset features at 1/4, in
+        the compute dtype."""
+        xs = lmap(lambda x: x.to(self.dtype).contiguous(memory_format=torch.channels_last), xs)
+        return self.logits(self.backbone(xs))
+
+    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "SemsegModel":
         """The backbone's kaiming fan-out, lecun normal for the 1×1 `logits`
         conv with a zero bias, truncated normal(0.02) prototypes, zero
@@ -225,12 +250,7 @@ class SemsegModel(nn.Module):
         self.logits.norm.reset_parameters()
         lecun_init(self.logits.conv.weight, generator)
         self.logits.conv.bias.zero_()
-        _trunc_normal(self.unify_prototype, 0.02, generator)
-        if self.with_datasets_aux:
-            for p in self.aux_prototype:
-                _trunc_normal(p, 0.02, generator)
-        for i in range(len(self.bipartite_graphs)):
-            self.bipartite_graphs[i].zero_()
+        self._init_heads_weights(generator)
         return self
 
 

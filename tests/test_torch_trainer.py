@@ -313,7 +313,7 @@ def test_trainer_refusals(tmp_path, monkeypatch):
     t = Trainer(cfg, work_dir=str(tmp_path), device="cpu")
     for sd, item in (({"backbone.conv1.weight": torch.zeros(1), "unify_prototype": torch.zeros(1)},
                       "--gnn"),
-                     ({"transition1.0.0.weight": torch.zeros(1)}, "item 8"),
+                     ({"transition1.0.0.weight": torch.zeros(1)}, "neither package"),
                      ({"projHead.conv_last.weight": torch.zeros(1)}, "contrast")):
         torch.save(sd, tmp_path / "w.pth")
         with pytest.raises(NotImplementedError, match=item):

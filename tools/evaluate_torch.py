@@ -9,7 +9,11 @@ The model is the config's, its weights the latest checkpoint the port's
 trainer wrote under DIR (else under `<work-dir>/ckpt`, `<work-dir>/
 ckpt_gnn` for the flagship snp_rn18 and the alternating trainer's modes,
 or `<work-dir>/ckpt_contrast` for train.mode contrast; with none, the
-seeded init). `--precise-bn N` first recomputes the BN running stats over
+seeded init). An HRNet config (configs/hrnet_w48_city.json, the
+hrnet_w48_gnn ones) takes the plain route: `build_model`, then `<DIR>`'s
+checkpoint (no trainer writes one: chip_smoke.py's hrnet phase saves
+`{"model": state_dict, "step": 0}` with engine/checkpoints.py).
+`--precise-bn N` first recomputes the BN running stats over
 N train batches. It prints one `dataset{i} mIoU ({mode}): x` line per
 dataset. It runs on the CUDA card; without one it exits non-zero unless
 `--device cpu` is given. It sets no route switch: a caller that wants the
@@ -17,7 +21,8 @@ deploy kernels sets `models/layers.py`'s switches around `main`, as
 bench.py does.
 
 Modes: ss, ssc, msf, mscf, aux, contrast, uni, label_link and unlabel;
-unseen and clip on the flagship (snp_rn18, snp_rn18_mulbn); emb on the
+unseen and clip on the prototype models (snp_rn18, snp_rn18_mulbn,
+HRNet); emb on the
 contrast family (configs/bisenetv2_contrast_3ds.json: the memory bank's
 class means as prototypes); dsg, the contrast protocol over each
 dataset's stage-2 train list (`train_im_anns` with `_2.txt`).

@@ -7,15 +7,20 @@ mds_tpu_torch/deploy/server.py for the protocol).
       [--name NAME] [--instances 2]
   python tools/serve_torch.py --config configs/bisenetv1_city.json
   python tools/serve_torch.py --config configs/ltbgnn_3_datasets_snp.json
+  python tools/serve_torch.py --config configs/hrnet_w48_city.json \
+      [--weights hrnetv2_w48_imagenet_pretrained.pth]
 
 The config's `model_name` picks the model (bisenetv2, bisenetv2_origin,
-bisenetv1, snp_rn18), built by the trainer's `build_model`; --name, the
-name in the URL, defaults to it. --weights takes an .npz of
-reference-layout keys (mds_tpu_torch/deploy/weights.py) or a torch.save'd
-state dict; without it the weights are a seeded random init, and
-snp_rn18's bipartite graphs the identity graphs the alternating trainer
-starts from (so that its labels are not all zero). snp_rn18 serves its
-first dataset's label space.
+bisenetv1, snp_rn18, hrnet_w48 and its _gnn/_clip/_contrast names), built
+by the trainer's `build_model`; --name, the name in the URL, defaults to
+it. --weights takes an .npz of reference-layout keys
+(mds_tpu_torch/deploy/weights.py) or a torch.save'd state dict; a
+reference HRNet backbone checkpoint (ImageNet or multi-dataset layout) is
+grafted into HRNet's backbone, the rest kept. Without it the weights are
+a seeded random init, and the prototype models' (snp_rn18, HRNet)
+bipartite graphs the identity graphs the alternating trainer starts from
+(so that their labels are not all zero). Those serve their first
+dataset's label space.
 --instances bounds how many requests run the model at once.
 The model runs in bf16 with the deploy kernels on, always on CUDA:
 set_stem_impl("kernel") (the RGB stems of either model),
@@ -23,9 +28,10 @@ set_detail_fuse(True) (BiSeNetV2's fused DetailBranch head and StemBlock),
 set_detail_tail(True) (the DetailBranch's last five convs as one more
 kernel), set_depthwise_impl("kernel") (BiSeNetV2's 16 depthwise 3×3 convs)
 and set_pred_impl("fused") (BiSeNetV2's ×8 upsample + argmax as one pass).
-BiSeNetV1 and snp_rn18 have no DetailBranch, no depthwise conv and no
-fused tail, so the last four leave them as they are; snp_rn18's 7×7 stem
-runs as kernel 6 at each of its 3 pyramid levels.
+BiSeNetV1, snp_rn18 and HRNet have no DetailBranch, no depthwise conv
+and no fused tail, so the last four leave them as they are; snp_rn18's
+7×7 stem runs as kernel 6 at each of its 3 pyramid levels, HRNet's 3×3
+RGB stem as kernel 1 once a frame.
 """
 
 import argparse
