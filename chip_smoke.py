@@ -63,7 +63,10 @@ before the last line:
               128) bf16 channels_last, rate 0.1: bit-identical to its plain
               version, keep fraction within 0.002 of 230/256, kept values
               scaled by bf16(256/230), masks fixed by the seed, and the
-              backward's mask the forward's; torch.native_dropout at the
+              backward's mask the forward's; at element offsets 1, 2, 3
+              and half the tensor, bit-identical to the plain version, the
+              second half at its offset equal to the whole draw's rows
+              (timed at offset 1 too); torch.native_dropout at the
               same rate as the library's time.
 5. slice    — BiSeNetV2 (configs/bisenetv2_city.json: 19 classes, bf16,
               seeded weights, random BN stats) behind the port's HTTP server
@@ -387,6 +390,32 @@ before the last line:
               rel < 1e-4; and PyTorch's avg_pool2d backward on a
               channels_last input, card against CPU, raw and through the
               port's pool (which must agree to 1e-5).
+24. parallel — the parallel layer (mds_tpu_torch/parallel/) in child
+              processes of this script that load the library built above
+              (a child's failure or timeout fails the phase):
+              NCCL at world 1: BiSeNetV2's train step (the config's bs16
+              512×1024, bf16, aux heads) with no group, then under a
+              world-1 NCCL group in SyncBN and in local BN, each against
+              the no-group step (loss and parameters rel < NCCL_GATE),
+              step ms (median of 5), collectives a step;
+              gloo, two ranks on the one card (NCCL refuses two ranks on
+              one device): the SyncBN f32 step on 2 + 2 crops of 512×1024,
+              dropout on, against this process's world-1 step on the 4
+              (loss rel < 1e-4, per-group gradient cosine > 0.9999,
+              parameters and running stats rel < 1e-4); each rank's
+              kernel-12 masks in a data-parallel step bit-equal to its rows
+              of the world-1 masks; the bf16 step at 8 + 8 (median of 5);
+              ss eval of 8 Synthetic 1024×2048 frames on the deploy routes
+              (kernels 4, 5, 7, 9), each rank its half, against world 1
+              (pixel count equal, mIoU within 1e-3, differing predictions
+              printed); BiSeNetV2's tiled inference of a 1024×2048 frame
+              on the deploy routes (2 tiles, margin 96: a tile a rank)
+              against world 1 with n_tiles=2 (logits rel < 1e-2, labels
+              agreeing >= 0.999; each tile kernel's calls against their
+              plain version, rel < 1e-2; agreement with the whole frame
+              printed); the
+              halo conv on a W-sharded (1, 64, 512, 1024) f32 tensor
+              against the unsharded conv (rel < 1e-5).
 
 Then a {"phase_seconds": {...}} line (each phase's wall seconds), a
 {"kernels": [...]} line, the nvidia-smi name/power-limit line, and as the
@@ -1317,6 +1346,20 @@ def phase_dropout(dev):
     grad_ok = torch.equal(xg.grad.view(torch.int16), torch.where(
         keep, (r.float() * scale).to(torch.bfloat16), 0.0).view(torch.int16))
     del ones, nz, xg, r
+    # element offsets (parallel/mesh.py: a rank's rows of the batch's mask):
+    # bit-equal to the plain version at offsets that are not multiples of 4,
+    # and the second half of the batch at its offset equal to those rows of
+    # the whole draw
+    half = x[DROPOUT_SHAPE[0] // 2:]
+    offsets = {}
+    for off in (1, 2, 3, half.numel()):
+        a = dropout_u8(x, k0, k1, drop, off)
+        offsets[off] = torch.equal(a.view(torch.int16),
+                                   dropout_u8_plain(x, k0, k1, drop, off).view(torch.int16))
+        del a
+    rows_ok = torch.equal(dropout_u8(half, k0, k1, drop, half.numel()).view(torch.int16),
+                          got[DROPOUT_SHAPE[0] // 2:].view(torch.int16))
+    offset1_ms = cuda_ms(lambda: dropout_u8(x, k0, k1, drop, 1))
     ms = cuda_ms(lambda: dropout_u8(x, k0, k1, drop))
     plain_ms = cuda_ms(lambda: dropout_u8_plain(x, k0, k1, drop), n=5)
     # the library's one call for the same function: drop with probability
@@ -1329,7 +1372,11 @@ def phase_dropout(dev):
            "library_ms": library_ms}
     emit(phase="dropout", shape=list(DROPOUT_SHAPE), keep_fraction=keep_frac,
          mean_kept_ratio=ratio, bf16_scale=scale, same_seed_same_mask=same,
-         other_seed_other_mask=not other, backward_mask_ok=grad_ok, **res)
+         other_seed_other_mask=not other, backward_mask_ok=grad_ok,
+         offsets_bit_equal={str(k): v for k, v in offsets.items()},
+         shard_rows_bit_equal=rows_ok, offset1_ms=offset1_ms, **res)
+    if not (all(offsets.values()) and rows_ok):
+        raise RuntimeError("dropout_u8: an element offset's mask is not the plain version's")
     if abs(keep_frac - 230 / 256) > 0.002:
         raise RuntimeError(f"dropout_u8: keep fraction {keep_frac}")
     if abs(ratio - scale) > 1e-3 * scale or not same or other or not grad_ok:
@@ -1337,10 +1384,11 @@ def phase_dropout(dev):
     return res
 
 
-def train_step_for(cfg, model, compute_dtype, fused_up_loss=False):
+def train_step_for(cfg, model, compute_dtype, fused_up_loss=False, local_bn=False):
     """The config's optimizer, schedule and normalization around `model`;
     `fused_up_loss` takes each head's OHEM CE through the phase
-    decomposition of its upsample."""
+    decomposition of its upsample; `local_bn` selects local BN under a
+    process group."""
     from mds_tpu_torch.data.labels import get_spec
     from mds_tpu_torch.engine.lr_schedule import warmup_poly_lr
     from mds_tpu_torch.engine.optim import build_optimizer
@@ -1357,7 +1405,7 @@ def train_step_for(cfg, model, compute_dtype, fused_up_loss=False):
     step = make_seg_train_step(
         model, opt, [spec.mean], [spec.std],
         ohem_thresh=float(cfg.get("loss", "ohem_thresh")),
-        compute_dtype=compute_dtype, fused_up_loss=fused_up_loss)
+        compute_dtype=compute_dtype, fused_up_loss=fused_up_loss, local_bn=local_bn)
     return step, opt
 
 
@@ -3935,9 +3983,9 @@ def phase_contrast_multiproto(dev):
             run.step(batch)
         n_drop = read_counts()["dropout_u8"]
         # the comparison's own launches are not counted
-        drop_ok = [torch.equal(dropout.dropout_u8(x, k0, k1, d).view(torch.int16),
-                               dropout.dropout_u8_plain(x, k0, k1, d).view(torch.int16))
-                   for x, k0, k1, d in calls]
+        drop_ok = [torch.equal(dropout.dropout_u8(*args).view(torch.int16),
+                               dropout.dropout_u8_plain(*args).view(torch.int16))
+                   for args in calls]
         del calls, batch, run
         torch.cuda.empty_cache()
         want = {k: 0 for k in train_launches}
@@ -4540,6 +4588,433 @@ def phase_loss_library(dev):
         raise RuntimeError(f"loss_library: {bad}")
 
 
+# ------------------------------------------------------------------ parallel
+
+NCCL_GATE = 1e-5       # loss and parameters: a world-1 NCCL group's step against no group
+HALO_GATE = 1e-5       # the halo conv against the unsharded conv (f32, TF32 off)
+MIOU_GATE = 1e-3       # world-2 eval against world 1
+TILE_AGREEMENT_GATE = 0.999
+TILE_MARGIN = 96
+PARALLEL_CROPS = 4     # the f32 SyncBN parity step: world 1's crops of 512×1024
+PARALLEL_EVAL_FRAMES = 8
+PARALLEL_TIMEOUT = 900  # seconds a child may take
+HALO_SHAPE = (1, 64, 512, 1024)
+# a child: python -c CHILD role work device (MDS_* in its environment)
+PARALLEL_CHILD = ("import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+                  "chip_smoke.parallel_child(*sys.argv[1:])")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(role, world, work, dev):
+    """`world` children of this script in one process group (MDS_COORDINATOR
+    on 127.0.0.1, MDS_NUM_PROCESSES, MDS_PROCESS_ID), each writing
+    work/<role><rank>.json; their records. A child that fails or outlasts
+    PARALLEL_TIMEOUT fails the phase, its log's end in the error; every
+    child is stopped before this returns."""
+    port, procs = str(_free_port()), []
+    code = PARALLEL_CHILD.format(root=ROOT)
+    try:
+        for r in range(world):
+            env = dict(os.environ, MDS_COORDINATOR=f"127.0.0.1:{port}",
+                       MDS_NUM_PROCESSES=str(world), MDS_PROCESS_ID=str(r))
+            log = open(os.path.join(work, f"{role}{r}.log"), "w")
+            procs.append((subprocess.Popen([sys.executable, "-c", code, role, work, dev], env=env,
+                                           stdout=log, stderr=subprocess.STDOUT), log))
+        deadline = time.time() + PARALLEL_TIMEOUT
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.time(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = []
+        for r in bad:
+            with open(os.path.join(work, f"{role}{r}.log")) as f:
+                tails.append(f"--- {role} rank {r} (exit {procs[r][0].returncode}):\n"
+                             + f.read()[-4000:])
+        raise RuntimeError("parallel: a child failed\n" + "\n".join(tails))
+    recs = []
+    for r in range(world):
+        with open(os.path.join(work, f"{role}{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def v2_train_init(cfg, dtype):
+    """BiSeNetV2 as the config trains it (aux heads), seeded (WEIGHT_SEED)."""
+    from mds_tpu_torch import MODELS
+
+    init = MODELS[cfg.get("model_name")](n_classes=(cfg.n_cats(0),), n_bn=1, aux=True,
+                                         dtype=dtype)
+    init.init_weights(torch.Generator().manual_seed(WEIGHT_SEED))
+    return init
+
+
+def parity_batch(cfg):
+    """The SyncBN parity step's uint8 batch: PARALLEL_CROPS crops of the
+    config's size, each image at its own gain (the CEBlock's pooled BN),
+    the two halves' pixel values shifted apart (local moments are not the
+    global ones)."""
+    h, w = cfg.get("train", "cropsize")
+    im, lb = seg_batch(np.random.default_rng(3), PARALLEL_CROPS, h, w, cfg.n_cats(0))
+    gain = np.random.default_rng(4).uniform(0.2, 0.5, (PARALLEL_CROPS, 1, 1, 1))
+    im = im * gain
+    im[PARALLEL_CROPS // 2:] += 127
+    return im.astype(np.uint8), lb
+
+
+def stats_of(model):
+    return {k: v.detach().cpu().double() for k, v in model.named_buffers() if "running" in k}
+
+
+def one_step_record(cfg, init, dtype, im, lb, dev, local_bn=False, seed=5):
+    """One step of a copy of `init` on (im, lb) on the card: step_record,
+    its running stats, the dropout launches, the collectives it made."""
+    from mds_tpu_torch.parallel import mesh
+
+    model = copy.deepcopy(init).to(dev)
+    step, opt = train_step_for(cfg, model, dtype, local_bn=local_bn)
+    reset_counts()
+    before = mesh.all_reduce.collectives
+    loss = step([torch.from_numpy(im).to(dev)], [torch.from_numpy(lb).to(dev)],
+                torch.Generator().manual_seed(seed))["loss"].item()
+    torch.cuda.synchronize()
+    rec = dict(step_record(model, opt, loss), stats=stats_of(model),
+               launches=read_counts(), collectives=mesh.all_reduce.collectives - before)
+    return rec, model, step
+
+
+def step_times(step, ims, lbs, n=5):
+    """n steps after one warm-up, CUDA events each: (ms list, launches)."""
+    step(ims, lbs, torch.Generator().manual_seed(0))
+    reset_counts()
+    times = []
+    for i in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(ims, lbs, torch.Generator().manual_seed(i + 1))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, read_counts()
+
+
+def tile_model(dev):
+    """The served BiSeNetV2 (v2_model's weights) and its eval logits
+    function, and the first of v2_model's frames as a (1, 3, H, W) f32
+    image on the card."""
+    from mds_tpu_torch.evaluation.evaluator import make_logits_fn
+
+    e2e, frames = v2_model(dev)
+    im = torch.from_numpy(frames[0]).to(dev).permute(0, 3, 1, 2).float()
+    return e2e.model, make_logits_fn(e2e.model, e2e.mean.cpu().numpy(),
+                                     e2e.std.cpu().numpy()), im
+
+
+def _nccl_child(dev, work):
+    """The config's bf16 step with no group, then under a world-1 NCCL
+    group in both BN modes, each from the same weights and batch."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.parallel import mesh
+
+    cfg = Configer(config_file=CONFIG)
+    init = v2_train_init(cfg, torch.bfloat16)
+    b = int(cfg.dataset_cfg(0)["ims_per_gpu"])
+    h, w = cfg.get("train", "cropsize")
+    im, lb = seg_batch(np.random.default_rng(0), b, h, w, cfg.n_cats(0))
+    ims, lbs = [torch.from_numpy(im).to(dev)], [torch.from_numpy(lb).to(dev)]
+    out = {"batch": [b, h, w]}
+    ref = None
+    for name, local_bn in (("no_group", False), ("sync", False), ("local", True)):
+        if name == "sync":
+            if not mesh.maybe_initialize_distributed(dev):
+                raise RuntimeError("parallel: no NCCL group")
+            out["backend"] = torch.distributed.get_backend()
+        rec, model, step = one_step_record(cfg, init, torch.bfloat16, im, lb, dev, local_bn)
+        before = mesh.all_reduce.collectives
+        times, launches = step_times(step, ims, lbs)
+        r = {"loss": rec["loss"], "median_step_ms": float(np.median(times)), "step_ms": times,
+             "collectives_per_step": rec["collectives"],
+             "collectives_timed": mesh.all_reduce.collectives - before,
+             "launches": launches}
+        if ref is None:
+            ref = rec
+        else:
+            cos, rels = group_agreement(rec, ref)
+            r.update(loss_rel=abs(rec["loss"] - ref["loss"]) / abs(ref["loss"]),
+                     param_rel=max(rels.values()), grad_cosine_bf16=cos)
+        out[name] = r
+        del model, step, rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gloo_child(dev, work):
+    """Rank r of two gloo ranks on the one card: the SyncBN f32 step, the
+    dropout masks, the bf16 step's time, the ss eval, tiled inference and
+    the halo conv, each against the parent's world-1 record in `work`."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.evaluation import evaluator
+    from mds_tpu_torch.models.layers import FastDropout
+    from mds_tpu_torch.ops import depthwise, stem
+    from mds_tpu_torch.ops.dropout import dropout_u8, seed_words
+    from mds_tpu_torch.parallel import mesh
+    from mds_tpu_torch.parallel.spatial import halo_conv3x3, tiled_inference
+
+    if not mesh.maybe_initialize_distributed(dev, backend="gloo"):
+        raise RuntimeError("parallel: no gloo group")
+    r, n = mesh.rank(), mesh.world()
+    cfg = Configer(config_file=CONFIG)
+    out = {"rank": r, "world": n, "launches": {}}
+
+    def count(launches):
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    # the SyncBN f32 step on this rank's rows
+    im, lb = parity_batch(cfg)
+    rows = slice(r * PARALLEL_CROPS // n, (r + 1) * PARALLEL_CROPS // n)
+    rec, model, _ = one_step_record(cfg, v2_train_init(cfg, torch.float32), torch.float32,
+                                    im[rows], lb[rows], dev)
+    count(rec["launches"])
+    ref = torch.load(os.path.join(work, "w1_parity.pt"), weights_only=False)
+    cos, rels = group_agreement(rec, ref)
+    _, stat_rels = group_agreement(rec, ref, "stats")
+    out["syncbn"] = {"loss": rec["loss"], "loss_world1": ref["loss"],
+                     "loss_rel": abs(rec["loss"] - ref["loss"]) / abs(ref["loss"]),
+                     "grad_cosine": cos, "param_rel": max(rels.values()),
+                     "stats_rel": max(stat_rels.values()),
+                     "collectives": rec["collectives"],
+                     "dropout_launches": rec["launches"]["dropout_u8"]}
+    del rec, model, ref
+    torch.cuda.empty_cache()
+
+    # kernel 12's masks in a data-parallel step: the rows of the world-1 draw
+    ones = torch.ones(DROPOUT_SHAPE, dtype=torch.bfloat16, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    b = DROPOUT_SHAPE[0] // n
+    with mesh.data_parallel(sync_bn=True):
+        mine = FastDropout(0.1).train()(ones[r * b:(r + 1) * b], torch.Generator().manual_seed(21))
+    whole = dropout_u8(ones, *seed_words(torch.Generator().manual_seed(21)), 26)
+    out["dropout_masks"] = {
+        "shape": list(mine.shape),
+        "bit_equal_rows": bool(torch.equal(mine.view(torch.int16),
+                                           whole[r * b:(r + 1) * b].view(torch.int16))),
+        "keep_fraction": (mine != 0).float().mean().item()}
+    del ones, mine, whole
+
+    # the bf16 step at the config's batch per rank, timed
+    bsz = int(cfg.dataset_cfg(0)["ims_per_gpu"]) // n
+    h, w = cfg.get("train", "cropsize")
+    bim, blb = seg_batch(np.random.default_rng(10 + r), bsz, h, w, cfg.n_cats(0))
+    model = copy.deepcopy(v2_train_init(cfg, torch.bfloat16)).to(dev)
+    step, _ = train_step_for(cfg, model, torch.bfloat16)
+    before = mesh.all_reduce.collectives
+    times, launches = step_times(step, [torch.from_numpy(bim).to(dev)],
+                                 [torch.from_numpy(blb).to(dev)])
+    count(launches)
+    out["bf16_step"] = {"batch": [bsz, h, w], "step_ms": times,
+                        "median_step_ms": float(np.median(times)),
+                        "collectives_per_step": (mesh.all_reduce.collectives - before) / 6,
+                        "launches": launches}
+    del model, step
+    torch.cuda.empty_cache()
+
+    # ss eval of this rank's half of the frames on the deploy routes
+    with returned(evaluator, "_psum_hist") as hists:
+        run = eval_run(CONFIG, os.path.join(work, "ckpt"), "ss", PARALLEL_EVAL_FRAMES,
+                       EVAL_ROUTES, ["--device", dev])
+    count(run["launches"])
+    w1 = np.load(os.path.join(work, "w1_eval.npz"))
+    mine = list(range(r, PARALLEL_EVAL_FRAMES, n))
+    differing = [int((p.cpu().numpy().astype(np.uint8) != w1["preds"][i]).sum())
+                 for i, p in zip(mine, run["preds"])]
+    out["eval"] = {"frames": mine, "mious": run["mious"], "mious_world1": w1["mious"].tolist(),
+                   "pixels": int(hists[0].sum()), "pixels_world1": int(w1["pixels"]),
+                   "differing_predictions": differing, "s_per_frame": run["s_per_frame"],
+                   "launches": run["launches"]}
+    del run
+
+    # tiled inference: a tile a rank, on the deploy routes
+    model, fn, frame = tile_model(dev)
+    with torch.inference_mode(), route(**EVAL_ROUTES):
+        reset_counts()
+        logits = tiled_inference(fn, frame, model.n_classes[0], margin=TILE_MARGIN)
+        torch.cuda.synchronize()
+        count(read_counts())
+        tile_launches = read_counts()
+        ms = cuda_ms(lambda: tiled_inference(fn, frame, model.n_classes[0],
+                                             margin=TILE_MARGIN), n=3)
+    w1t = torch.load(os.path.join(work, "w1_tiles.pt"))
+    labels = logits.argmax(1).cpu()
+    out["tiles"] = {"logits_rel": rel(logits.cpu(), w1t["logits"]),
+                    "label_agreement": share_equal(labels, w1t["logits"].argmax(1)),
+                    "whole_frame_agreement": share_equal(labels, w1t["whole"]),
+                    "frame_ms": ms, "launches": tile_launches}
+    del logits, w1t
+    # each of this rank's tile's kernel calls against its plain version
+    names = ("detail_s1s2_fused", "stemblock_fused", "detail_tail_fused", "depthwise3x3")
+    with torch.inference_mode(), route(**EVAL_ROUTES), contextlib.ExitStack() as stack:
+        seen = {k: stack.enter_context(captured(depthwise if k == "depthwise3x3" else stem, k))
+                for k in names}
+        tiled_inference(fn, frame, model.n_classes[0], margin=TILE_MARGIN)
+    kernel_rels = {}
+    for k, calls in seen.items():
+        mod = depthwise if k == "depthwise3x3" else stem
+        with torch.inference_mode():
+            kernel_rels[k] = max(rel(getattr(mod, k)(*a[:EVAL_KERNEL_ARGS[k]]),
+                                     getattr(mod, k + "_plain")(*a[:EVAL_KERNEL_ARGS[k]]))
+                                 for a in calls) if calls else None
+    out["tiles"]["kernel_rels"] = kernel_rels
+    del seen, model, fn, frame
+    torch.cuda.empty_cache()
+
+    # the halo conv on this rank's W-shard
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(HALO_SHAPE, device=dev, generator=gen)
+    c = HALO_SHAPE[1]
+    k = torch.randn((c, c, 3, 3), device=dev, generator=gen) * 0.05
+    wd = HALO_SHAPE[-1] // n
+    got = halo_conv3x3(x[..., r * wd:(r + 1) * wd].contiguous(), k)
+    want = F.conv2d(x, k, padding=1)[..., r * wd:(r + 1) * wd]
+    out["halo"] = {"shape": list(HALO_SHAPE), "rel": rel(got, want)}
+    out["collectives"] = mesh.all_reduce.collectives
+    return out
+
+
+def parallel_child(role, work, dev="cuda"):
+    """A child of the parallel phase: loads the kernel library the parent
+    built (build.load finds it by its sources' hash), TF32 off, runs its
+    role and writes work/<role><rank>.json."""
+    from mds_tpu_torch.ops import build
+    from mds_tpu_torch.parallel import mesh
+
+    if dev == "cuda":
+        build.load()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = (_nccl_child if role == "nccl" else _gloo_child)(dev, work)
+    if "jax" in sys.modules:
+        raise RuntimeError("parallel: a child imported jax")
+    with open(os.path.join(work, f"{role}{mesh.rank()}.json"), "w") as f:
+        json.dump(out, f)
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def phase_parallel(dev):
+    """The parallel layer: NCCL at world 1, then two gloo ranks on the one
+    card against this process's world-1 records (module docstring, 24).
+    Returns the children's kernel launches."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.evaluation import evaluator
+    from mds_tpu_torch.parallel.spatial import tiled_inference
+
+    t0 = time.perf_counter()
+    cfg = Configer(config_file=CONFIG)
+    bad, launches = [], {}
+
+    def count(d):
+        for k, v in d.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as work:
+        (nccl,) = run_ranks("nccl", 1, work, dev)
+        count(nccl["sync"]["launches"])
+        count(nccl["local"]["launches"])
+        for mode in ("sync", "local"):
+            m = nccl[mode]
+            if not (m["loss_rel"] < NCCL_GATE and m["param_rel"] < NCCL_GATE):
+                bad.append(f"NCCL world 1 {mode}: loss {m['loss_rel']}, params {m['param_rel']}")
+            if m["launches"].get("dropout_u8") != 50:
+                bad.append(f"NCCL world 1 {mode}: launches {m['launches']}")
+        if nccl["sync"]["collectives_per_step"] <= nccl["local"]["collectives_per_step"]:
+            bad.append("NCCL world 1: SyncBN made no more collectives than local BN")
+
+        # the world-1 records the ranks are held to
+        im, lb = parity_batch(cfg)
+        rec, _, _ = one_step_record(cfg, v2_train_init(cfg, torch.float32), torch.float32,
+                                    im, lb, dev)
+        torch.save({k: rec[k] for k in ("loss", "grads", "group", "params", "stats")},
+                   os.path.join(work, "w1_parity.pt"))
+        del rec
+        served, _ = v2_model(dev)
+        save_served_weights(CONFIG, served.model, WEIGHT_SEED, work)
+        del served
+        with returned(evaluator, "_psum_hist") as hists:
+            run = eval_run(CONFIG, os.path.join(work, "ckpt"), "ss", PARALLEL_EVAL_FRAMES,
+                           EVAL_ROUTES, ["--device", dev])
+        np.savez(os.path.join(work, "w1_eval.npz"), mious=np.asarray(run["mious"]),
+                 pixels=np.asarray(sum(int(h.sum()) for h in hists)),
+                 preds=np.stack([p.cpu().numpy() for p in run["preds"]]).astype(np.uint8))
+        w1_eval = {"mious": run["mious"], "s_per_frame": run["s_per_frame"]}
+        del run
+        model, fn, frame = tile_model(dev)
+        with torch.inference_mode(), route(**EVAL_ROUTES):
+            logits = tiled_inference(fn, frame, model.n_classes[0], n_tiles=2,
+                                     margin=TILE_MARGIN)
+            whole = fn(frame, 0).argmax(1)
+            w1_tile_ms = cuda_ms(lambda: tiled_inference(
+                fn, frame, model.n_classes[0], n_tiles=2, margin=TILE_MARGIN), n=3)
+            whole_ms = cuda_ms(lambda: fn(frame, 0), n=3)
+        torch.save({"logits": logits.cpu(), "whole": whole.cpu()},
+                   os.path.join(work, "w1_tiles.pt"))
+        w1_tiles = {"whole_frame_agreement": share_equal(logits.argmax(1), whole),
+                    "frame_ms": w1_tile_ms, "whole_frame_ms": whole_ms}
+        del model, fn, frame, logits, whole
+        torch.cuda.empty_cache()
+
+        ranks = run_ranks("gloo", 2, work, dev)
+    for g in ranks:
+        count(g["launches"])
+        s, e, t = g["syncbn"], g["eval"], g["tiles"]
+        where = f"gloo rank {g['rank']}"
+        if not (s["loss_rel"] < F32_GATE and min(s["grad_cosine"].values()) > GRAD_COSINE_GATE
+                and s["param_rel"] < F32_GATE and s["stats_rel"] < F32_GATE):
+            bad.append(f"{where} SyncBN step: {s}")
+        if s["dropout_launches"] != 10 or not g["dropout_masks"]["bit_equal_rows"]:
+            bad.append(f"{where} dropout: {s['dropout_launches']} launches, "
+                       f"{g['dropout_masks']}")
+        if (e["pixels"] != e["pixels_world1"]
+                or max(abs(a - b) for a, b in zip(e["mious"], e["mious_world1"])) >= MIOU_GATE):
+            bad.append(f"{where} eval: {e}")
+        want = {k: 0 for k in e["launches"]}
+        want.update({k: v * len(e["frames"]) for k, v in EVAL_PER_FORWARD.items()})
+        if e["launches"] != want:
+            bad.append(f"{where} eval launches {e['launches']}, expected {want}")
+        if not (t["logits_rel"] < KERNEL_GATE and t["label_agreement"] >= TILE_AGREEMENT_GATE):
+            bad.append(f"{where} tiles: {t}")
+        want = {k: 0 for k in t["launches"]}
+        want.update(EVAL_PER_FORWARD)  # one tile a rank
+        if t["launches"] != want:
+            bad.append(f"{where} tile launches {t['launches']}, expected {want}")
+        # each kernel at the tile's shapes against its plain version
+        far = {k: v for k, v in t["kernel_rels"].items() if v is None or not v < KERNEL_GATE}
+        if far:
+            bad.append(f"{where} tile kernels against their plain versions: {far}")
+        if not g["halo"]["rel"] < HALO_GATE:
+            bad.append(f"{where} halo: {g['halo']}")
+    emit(phase="parallel", nccl_world1=nccl, gloo_world2=ranks, world1_eval=w1_eval,
+         world1_tiles=w1_tiles, launches=launches, seconds=time.perf_counter() - t0)
+    if bad:
+        raise RuntimeError(f"parallel: {bad}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4614,6 +5089,8 @@ def main():
     results["stem_conv3x3_s2"] = timed(phase_train_stem, dev)
     launches["stem_conv3x3_s2"] = results["stem_conv3x3_s2"]["launches"]
     timed(phase_parity, dev)
+    for k, n in timed(phase_parallel, dev).items():
+        launches[k] = launches.get(k, 0) + n
     emit(phase_seconds=seconds)
     emit(kernels=[{
         "name": k, "route": "cuda", "source": src, "replaces": tpu,

@@ -4,9 +4,16 @@
 // public `dropout_u8_pallas` :84), which draws its bits from the TPU's
 // hardware generator. Here a counter-based Philox4x32-10 (Random123; the
 // same function as curand_Philox4x32_10) gives element i of the tensor's
-// dense storage the word (i % 4) of
+// dense storage, at e = offset + i, the word (e % 4) of
 //
-//   philox(key = (k0, k1), counter = (i / 4 as 64 bits in words 0-1, 0, 0)).
+//   philox(key = (k0, k1), counter = (e / 4 as 64 bits in words 0-1, 0, 0)).
+//
+// The element offset (any u64) lets a rank that holds rows of a batch draw
+// exactly those rows of the whole batch's mask. e % 4 is the same for every
+// vector (a vector starts at a multiple of 8 or 4 elements), so it is a
+// template parameter: at SH = offset % 4 = 0 a vector takes its words from
+// two (bf16) or one (f32) Philox calls as at offset 0, otherwise from one
+// call more, the words picked at compile-time indices.
 //
 // keep <=> (word >> 24) >= drop; y = keep ? T(float(x) * scale) : 0, with
 // `scale` already rounded to T by the caller (a bf16 x bf16 product is exact
@@ -79,62 +86,90 @@ __device__ __forceinline__ uint32_t word_of(uint4 r, int j) {
   return j == 0 ? r.x : j == 1 ? r.y : j == 2 ? r.z : r.w;
 }
 
-// bf16: 8 elements per 16-byte vector, two Philox calls.
+// bf16: 8 elements per 16-byte vector; its words are w[SH .. SH + 7] of
+// the Philox calls at counters c, c + 1 (and c + 2 when SH != 0).
+template <int SH>
 __global__ void __launch_bounds__(kThreads)
     dropout_bf16_kernel(const uint4* __restrict__ x, uint4* __restrict__ y,
                         long long n, uint32_t k0, uint32_t k1, uint32_t drop,
-                        float scale) {
+                        float scale, unsigned long long offset) {
   const long long n_vec = n / 8;
   const long long stride = (long long)gridDim.x * blockDim.x;
+  const uint64_t base = offset >> 2;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        t < n_vec; t += stride) {
     const uint4 v = x[t];
-    const uint4 r0 = philox4x32_10(k0, k1, (uint64_t)t * 2);
-    const uint4 r1 = philox4x32_10(k0, k1, (uint64_t)t * 2 + 1);
-    y[t] = make_uint4(drop_bf16x2(v.x, r0.x, r0.y, drop, scale),
-                      drop_bf16x2(v.y, r0.z, r0.w, drop, scale),
-                      drop_bf16x2(v.z, r1.x, r1.y, drop, scale),
-                      drop_bf16x2(v.w, r1.z, r1.w, drop, scale));
+    const uint64_t c = base + (uint64_t)t * 2;
+    const uint4 r0 = philox4x32_10(k0, k1, c);
+    const uint4 r1 = philox4x32_10(k0, k1, c + 1);
+    const uint4 r2 = SH ? philox4x32_10(k0, k1, c + 2) : r1;
+    const uint32_t w[12] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y,
+                            r1.z, r1.w, r2.x, r2.y, r2.z, r2.w};
+    y[t] = make_uint4(drop_bf16x2(v.x, w[SH], w[SH + 1], drop, scale),
+                      drop_bf16x2(v.y, w[SH + 2], w[SH + 3], drop, scale),
+                      drop_bf16x2(v.z, w[SH + 4], w[SH + 5], drop, scale),
+                      drop_bf16x2(v.w, w[SH + 6], w[SH + 7], drop, scale));
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {  // masked tail, < 8 elements
     const uint16_t* xs = reinterpret_cast<const uint16_t*>(x);
     uint16_t* ys = reinterpret_cast<uint16_t*>(y);
     for (long long i = n_vec * 8; i < n; ++i) {
-      const uint32_t r = word_of(philox4x32_10(k0, k1, (uint64_t)(i / 4)), (int)(i % 4));
+      const uint64_t e = offset + (uint64_t)i;
+      const uint32_t r = word_of(philox4x32_10(k0, k1, e >> 2), (int)(e & 3));
       ys[i] = (uint16_t)drop_bf16x2((uint32_t)xs[i], r, 0u, drop, scale);
     }
   }
 }
 
-// f32: 4 elements per 16-byte vector, one Philox call.
+// f32: 4 elements per 16-byte vector; its words are w[SH .. SH + 3] of the
+// Philox calls at counters c (and c + 1 when SH != 0).
+template <int SH>
 __global__ void __launch_bounds__(kThreads)
     dropout_f32_kernel(const uint4* __restrict__ x, uint4* __restrict__ y,
                        long long n, uint32_t k0, uint32_t k1, uint32_t drop,
-                       float scale) {
+                       float scale, unsigned long long offset) {
   const long long n_vec = n / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
+  const uint64_t base = offset >> 2;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        t < n_vec; t += stride) {
     const uint4 v = x[t];
-    const uint4 r = philox4x32_10(k0, k1, (uint64_t)t);
-    y[t] = make_uint4(drop_f32(v.x, r.x, drop, scale), drop_f32(v.y, r.y, drop, scale),
-                      drop_f32(v.z, r.z, drop, scale), drop_f32(v.w, r.w, drop, scale));
+    const uint4 r0 = philox4x32_10(k0, k1, base + (uint64_t)t);
+    const uint4 r1 = SH ? philox4x32_10(k0, k1, base + (uint64_t)t + 1) : r0;
+    const uint32_t w[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+    y[t] = make_uint4(drop_f32(v.x, w[SH], drop, scale),
+                      drop_f32(v.y, w[SH + 1], drop, scale),
+                      drop_f32(v.z, w[SH + 2], drop, scale),
+                      drop_f32(v.w, w[SH + 3], drop, scale));
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {  // masked tail, < 4 elements
     const uint32_t* xs = reinterpret_cast<const uint32_t*>(x);
     uint32_t* ys = reinterpret_cast<uint32_t*>(y);
     for (long long i = n_vec * 4; i < n; ++i) {
-      const uint32_t r = word_of(philox4x32_10(k0, k1, (uint64_t)(i / 4)), (int)(i % 4));
+      const uint64_t e = offset + (uint64_t)i;
+      const uint32_t r = word_of(philox4x32_10(k0, k1, e >> 2), (int)(e & 3));
       ys[i] = drop_f32(xs[i], r, drop, scale);
     }
   }
+}
+
+template <int SH>
+void launch(bool is_f32, unsigned blocks, cudaStream_t s, const uint4* x, uint4* y,
+            long long n, uint32_t k0, uint32_t k1, uint32_t drop, float scale,
+            unsigned long long offset) {
+  if (is_f32)
+    dropout_f32_kernel<SH><<<blocks, kThreads, 0, s>>>(x, y, n, k0, k1, drop, scale,
+                                                        offset);
+  else
+    dropout_bf16_kernel<SH><<<blocks, kThreads, 0, s>>>(x, y, n, k0, k1, drop, scale,
+                                                         offset);
 }
 
 }  // namespace
 
 extern "C" int mds_dropout_u8(const void* x, void* y, long long n, int is_f32,
                               long long k0, long long k1, int drop,
-                              float scale, void* stream) {
+                              float scale, long long offset, void* stream) {
   if (n <= 0) return 0;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -148,11 +183,14 @@ extern "C" int mds_dropout_u8(const void* x, void* y, long long n, int is_f32,
   const uint4* xv = static_cast<const uint4*>(x);
   uint4* yv = static_cast<uint4*>(y);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (is_f32)
-    dropout_f32_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-        xv, yv, n, (uint32_t)k0, (uint32_t)k1, (uint32_t)drop, scale);
-  else
-    dropout_bf16_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-        xv, yv, n, (uint32_t)k0, (uint32_t)k1, (uint32_t)drop, scale);
+  const unsigned long long off = (unsigned long long)offset;
+  const unsigned b = (unsigned)blocks;
+  const uint32_t a0 = (uint32_t)k0, a1 = (uint32_t)k1, d = (uint32_t)drop;
+  switch (off & 3) {
+    case 0: launch<0>(is_f32, b, s, xv, yv, n, a0, a1, d, scale, off); break;
+    case 1: launch<1>(is_f32, b, s, xv, yv, n, a0, a1, d, scale, off); break;
+    case 2: launch<2>(is_f32, b, s, xv, yv, n, a0, a1, d, scale, off); break;
+    default: launch<3>(is_f32, b, s, xv, yv, n, a0, a1, d, scale, off); break;
+  }
   return (int)cudaGetLastError();
 }

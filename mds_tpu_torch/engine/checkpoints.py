@@ -55,13 +55,16 @@ class CheckpointManager:
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step}.pt")
 
+    def due(self, step: int, force: bool = False) -> bool:
+        """Whether step `step` is a save point: a positive multiple of
+        `save_interval`, or `force`. It reads no file, so every rank of a
+        group decides alike."""
+        return force or (step > 0 and step % self.save_interval == 0)
+
     def should_save(self, step: int, force: bool = False) -> bool:
-        """Whether `maybe_save` would write checkpoint id `step`: a positive
-        multiple of `save_interval`, or `force`; and no checkpoint has that
-        id yet."""
-        if not force and (step == 0 or step % self.save_interval != 0):
-            return False
-        return step not in self.all_steps()
+        """Whether `maybe_save` would write checkpoint id `step`: `due`, and
+        no checkpoint has that id yet."""
+        return self.due(step, force) and step not in self.all_steps()
 
     def maybe_save(self, state: Dict, extras: Optional[Dict] = None,
                    force: bool = False, step: Optional[int] = None) -> bool:

@@ -78,6 +78,7 @@ from mds_tpu_torch.losses.ohem_ce import OhemCELoss
 from mds_tpu_torch.models.bisenetv2_contrast import BiSeNetV2Contrast
 from mds_tpu_torch.models.layers import wide
 from mds_tpu_torch.ops.prototype_learning import gumbel_noise, prototype_learning
+from mds_tpu_torch.parallel import mesh
 
 
 class _Clock:
@@ -121,6 +122,7 @@ class ContrastTrainer:
 
     def __init__(self, configer: Configer, work_dir: str = "./res",
                  compute_dtype: torch.dtype = torch.bfloat16, device="cuda"):
+        mesh.single_process("the contrast trainer")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ContrastTrainer: no CUDA device; pass device='cpu' to "

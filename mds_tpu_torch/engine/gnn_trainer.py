@@ -79,6 +79,7 @@ from mds_tpu_torch.ops.uot_match import (
     sep_bipartite_graphs_by_km,
     sep_bipartite_graphs_by_uot,
 )
+from mds_tpu_torch.parallel import mesh
 
 SEG, GNN = "SEG", "GNN"
 # the train.mode values this trainer runs (train_from_config and the eval
@@ -98,6 +99,7 @@ class AlternatingTrainer:
                  node_features: Optional[np.ndarray] = None, device="cuda"):
         from mds_tpu_torch.data.node_features import gen_graph_node_features
 
+        mesh.single_process("the alternating trainer")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("AlternatingTrainer: no CUDA device; pass device='cpu' "

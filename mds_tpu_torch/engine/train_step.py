@@ -14,6 +14,17 @@ own resolution, and each head's OHEM CE is taken through the phase
 decomposition of its bilinear upsample (`OhemCELoss.upsampled`,
 mds_tpu/engine/train_step.py:51-93): the same loss, without the full-size
 class volumes in the compute dtype.
+
+Under a process group (parallel/mesh.py) each rank steps on its rows of
+the global batch (mds_tpu/engine/train_step.py:108-180). SyncBN, the
+default: the train norms and the OHEM pool reduce over the ranks, each
+rank's loss is its share of the global loss, the gradients are summed and
+the metrics summed: the step of one process on the whole batch. `local_bn`
+(the reference's per-GPU BN, `use_sync_bn: false`): each rank normalizes
+with its own moments and runs its own OHEM; the gradients, the BN running
+stats after each rank's own update, and the metrics are averaged, as JAX's
+shard_mapped `local_bn` step pmeans them. Without a group the step is the
+one process's.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import torch
 from torch import nn
 
 from mds_tpu_torch.losses.ohem_ce import OhemCELoss
+from mds_tpu_torch.parallel import mesh
 
 Images = Sequence[Optional[torch.Tensor]]
 
@@ -82,9 +94,12 @@ def make_seg_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                         means: Sequence, stds: Sequence,
                         ohem_thresh: float = 0.7,
                         compute_dtype: torch.dtype = torch.bfloat16,
-                        fused_up_loss: bool = False) -> Callable:
+                        fused_up_loss: bool = False,
+                        local_bn: bool = False) -> Callable:
     """step(ims, lbs, generator) -> metrics. `optimizer` takes its learning
-    rate from its own schedule and step count (engine/optim.py)."""
+    rate from its own schedule and step count (engine/optim.py). Under a
+    process group `ims` and `lbs` are this rank's rows and `local_bn`
+    selects the BN mode (module docstring)."""
     loss_fn = make_seg_loss_fn(model, means, stds, ohem_thresh, compute_dtype,
                                fused_up_loss)
 
@@ -92,8 +107,15 @@ def make_seg_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
         model.train()
-        loss, metrics = loss_fn(ims, lbs, generator)
-        loss.backward()
+        with mesh.data_parallel(sync_bn=not local_bn):
+            loss, metrics = loss_fn(ims, lbs, generator)
+            loss.backward()
+        if mesh.initialized():
+            mesh.all_reduce_grads(model.parameters(), mean=local_bn)
+            if local_bn:
+                mesh.average_buffers([b for n, b in model.named_buffers()
+                                      if "running" in n])
+            metrics = mesh.reduce_metrics(metrics, mean=local_bn)
         optimizer.step()
         return metrics
 

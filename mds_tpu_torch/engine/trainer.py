@@ -17,10 +17,18 @@ and at the end → restore and resume from the latest checkpoint.
   PRNGKey(seed): a resumed run draws the masks an unbroken one draws. On
   the card each BiSeNetV2 step launches the dropout kernel 10 times;
   BiSeNetV1 has no dropout.
-- `use_sync_bn`: the port trains on one card in one process, where the
-  batch's own moments are both the local and the global ones, so either
-  value gives the same step. JAX's `local_bn` shard_map and SyncBN across
-  cards wait for DDP (ROADMAP queue 1, item 9).
+- Under a process group (parallel/mesh.py; tools/train_torch.py joins the
+  one a launcher sets up) each rank trains on `local_device()` with its
+  rank's share of the loader (`ims_per_gpu` images a dataset, as the
+  reference's per-GPU batch); the parameters and buffers are broadcast
+  from rank 0 after init and after `finetune_from`; a restore reads rank
+  0's latest checkpoint and broadcasts its whole train state; only rank 0
+  logs, writes metrics.jsonl and saves, with a barrier after each save.
+  `use_sync_bn` (default true, as JAX reads it,
+  mds_tpu/engine/trainer.py:118) selects SyncBN, the step of one process
+  on the global batch; false selects the reference's per-GPU BN, JAX's
+  `local_bn` (engine/train_step.py). Without a group either value gives
+  the one process's step.
 - The device feed copies each dataset's uint8 NHWC arrays into page-locked
   memory and from there to the card with `non_blocking=True`. Each step
   pins fresh memory: PyTorch's pinned-memory allocator hands a block out
@@ -53,6 +61,7 @@ from mds_tpu_torch.engine.checkpoints import (
 from mds_tpu_torch.engine.lr_schedule import warmup_poly_lr
 from mds_tpu_torch.engine.optim import build_optimizer
 from mds_tpu_torch.engine.train_step import make_seg_train_step
+from mds_tpu_torch.parallel import mesh
 from mds_tpu_torch.utils.logger import print_log_msg, setup_logger
 from mds_tpu_torch.utils.meters import AvgMeter, TimeMeter
 from mds_tpu_torch.utils.metrics_writer import MetricsWriter
@@ -128,13 +137,14 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 class Trainer:
     def __init__(self, configer: Configer, work_dir: str = "./res",
                  compute_dtype: torch.dtype = torch.bfloat16, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to "
                                "train on the CPU")
+        self.device = mesh.local_device(device)
+        self.rank = mesh.rank()
         self.configer = configer
         self.work_dir = work_dir
-        self.logger = setup_logger("mds_tpu_torch", work_dir)
+        self.logger = setup_logger("mds_tpu_torch", work_dir if self.rank == 0 else None)
         name = configer.get("model_name", default="bisenetv2")
         if name not in TRAINABLE:
             raise NotImplementedError(
@@ -156,13 +166,16 @@ class Trainer:
         self.model = build_model(configer, compute_dtype)
         self.model.init_weights(torch.Generator().manual_seed(self.seed))
         self.model.to(self.device)
+        mesh.replicate(self.model)
         self.optimizer = build_optimizer(configer, self.model, self.schedule)
         means, stds = dataset_stats(configer)
         self.fused_up_loss = bool(configer.get("train", "fused_up_loss", default=False))
+        self.sync_bn = bool(configer.get("use_sync_bn", default=True))
         self.step_fn = make_seg_train_step(
             self.model, self.optimizer, means, stds,
             ohem_thresh=float(configer.get("loss", "ohem_thresh", default=0.7)),
-            compute_dtype=compute_dtype, fused_up_loss=self.fused_up_loss)
+            compute_dtype=compute_dtype, fused_up_loss=self.fused_up_loss,
+            local_bn=not self.sync_bn)
         self.ckpt = CheckpointManager(
             f"{work_dir}/ckpt",
             save_interval=int(configer.get("train", "ckpt_interval", default=1000)))
@@ -175,9 +188,16 @@ class Trainer:
         return train_state(self.model, self.optimizer, self.step)
 
     def restore_if_available(self) -> None:
-        if self.ckpt.latest_step() is None:
+        """Resume from the latest checkpoint under work_dir. Under a group,
+        rank 0's checkpoint decides: its train state (parameters, buffers,
+        optimizer state, step) is broadcast, so every rank resumes at the
+        same step from the same state, whatever its own work_dir holds."""
+        state = None
+        if self.rank == 0 and self.ckpt.latest_step() is not None:
+            state, _ = self.ckpt.restore()
+        state = mesh.broadcast_state(state)
+        if state is None:
             return
-        state, _ = self.ckpt.restore()
         self.step = load_train_state(self.model, self.optimizer, state)
         self.logger.info(f"restored checkpoint at step {self.step}")
 
@@ -213,6 +233,7 @@ class Trainer:
         else:
             state, _ = CheckpointManager(path).restore()
             load_train_state(self.model, None, state)
+        mesh.replicate(self.model)
         self.logger.info(f"finetuning from {path}")
 
     def _to_device(self, arrays) -> List[torch.Tensor]:
@@ -225,21 +246,25 @@ class Trainer:
         return out
 
     def _save(self, force: bool = False) -> None:
-        if not self.ckpt.should_save(self.step, force):
+        """Rank 0 saves when the step is due (every rank decides alike, from
+        the step alone); the others wait at the barrier after it."""
+        if not self.ckpt.due(self.step, force):
             return
-        t0 = time.perf_counter()
-        self.ckpt.maybe_save(self.state(), force=force)
-        if self.timings:
-            self.timings[-1]["ckpt_ms"] = (time.perf_counter() - t0) * 1e3
+        if self.rank == 0 and self.ckpt.should_save(self.step, force):
+            t0 = time.perf_counter()
+            self.ckpt.maybe_save(self.state(), force=force)
+            if self.timings:
+                self.timings[-1]["ckpt_ms"] = (time.perf_counter() - t0) * 1e3
+        mesh.barrier()
 
     def train(self, loader=None, log_interval: Optional[int] = None) -> "Trainer":
         configer = self.configer
         if log_interval is None:
             log_interval = int(configer.get("train", "log_interval", default=100))
         if loader is None:
-            loader = get_data_loader(configer, "train")
+            loader = get_data_loader(configer, "train", rank=self.rank, world=mesh.world())
         self.pipeline = getattr(loader, "pipeline", None)
-        metrics_writer = MetricsWriter(f"{self.work_dir}/runs")
+        metrics_writer = MetricsWriter(f"{self.work_dir}/runs") if self.rank == 0 else None
         time_meter = TimeMeter(self.max_iter)
         loss_meters = {"loss": AvgMeter()}
         cuda = self.device.type == "cuda"
@@ -266,7 +291,7 @@ class Trainer:
                 self.timings.append(rec)
                 time_meter.update()
                 loss_meters["loss"].update(metrics["loss"])
-                if self.step % log_interval == 0:
+                if self.step % log_interval == 0 and self.rank == 0:
                     lr = float(self.schedule(it))
                     print_log_msg(self.logger, it, self.max_iter, lr, time_meter,
                                   loss_meters)
@@ -275,7 +300,8 @@ class Trainer:
                 self._save()
                 rec["loop_ms"] = (time.perf_counter() - t0) * 1e3
         finally:
-            metrics_writer.close()
+            if metrics_writer is not None:
+                metrics_writer.close()
             if hasattr(loader, "close"):
                 loader.close()
         self._save(force=True)

@@ -20,6 +20,12 @@ The audit asks which unified slots each dataset's classes use: the
 (n_cats, M) counts of label class × the argmax of the unified logits
 (`uni_eval_logits`, align-corners resized to the label), accumulated on
 the model's device and read back once a dataset.
+
+Under a process group (parallel/mesh.py) every loader here reads this
+rank's share (mds_tpu/evaluation/drivers.py:101-103, 149-152): the eval
+hist and the audit's counts are summed over the ranks (JAX's audit keeps
+each process's own counts); precise BN reads this rank's train shard and,
+as in JAX, is not averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -32,12 +38,14 @@ import torch
 from torch import nn
 
 from mds_tpu_torch.evaluation.evaluator import (
+    _psum_hist,
     _to_device,
     confusion_hist,
     eval_model,
     make_logits_fn,
 )
 from mds_tpu_torch.models.layers import resize_bilinear_ac
+from mds_tpu_torch.parallel import mesh
 
 
 def is_alternating(configer) -> bool:
@@ -120,7 +128,7 @@ def recompute_bn_stats(configer, model: nn.Module, n_batches: int,
         for _ in range(n_batches):
             yield next(loader)
 
-    loader = get_data_loader(configer, "train")
+    loader = get_data_loader(configer, "train", rank=mesh.rank(), world=mesh.world())
     try:
         return update_bn_stats(model, batches(), forward)
     finally:
@@ -138,7 +146,8 @@ def run_evaluation(configer, mode: str = "ss", ckpt: Optional[str] = None,
     model = build_eval_bundle(configer, ckpt=ckpt, work_dir=work_dir, device=device)
     if precise_bn > 0:
         recompute_bn_stats(configer, model, precise_bn, compute_dtype=model.dtype)
-    loaders = get_data_loader(configer, "eval", stage=2 if mode == "dsg" else None)
+    loaders = get_data_loader(configer, "eval", rank=mesh.rank(), world=mesh.world(),
+                              stage=2 if mode == "dsg" else None)
     return eval_model(configer, model, loaders, mode=mode)
 
 
@@ -158,7 +167,7 @@ def _unified_hist(model, loader, n_cats: int, M: int, dataset_id: int, mean, std
         im, lb = _to_device(batch, device)
         logits = resize_bilinear_ac(logits_fn(im, dataset_id), tuple(lb.shape[-2:]))
         hist += confusion_hist(lb, logits.argmax(dim=1), n_cats, ignore, n_pred=M)
-    return hist.cpu().numpy()
+    return _psum_hist(hist.cpu().numpy())
 
 
 def _slot_buckets(bi_graph) -> Dict[int, List[int]]:

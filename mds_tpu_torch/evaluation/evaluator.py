@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from mds_tpu_torch.models.layers import resize_bilinear_ac
+from mds_tpu_torch.parallel import mesh
 
 
 def get_round_size(size: Sequence[int], divisor: int = 32) -> Tuple[int, int]:
@@ -267,14 +268,12 @@ class MscEvalCrop(_Evaluator):
 
 
 def _psum_hist(hist: np.ndarray) -> np.ndarray:
-    """The hist summed over processes: at world size 1, the hist. The
-    multi-process reduction comes with DDP (ROADMAP queue 1, item 9)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process evaluation: ROADMAP queue 1, item 9 (the parallel layer)")
-    return hist
+    """The hist summed over the processes of the group (an int64
+    all_reduce, parallel/mesh.py), each having scored its rank's share of
+    the loader; without a group, the hist."""
+    if not mesh.initialized():
+        return hist
+    return mesh.all_reduce(torch.from_numpy(np.ascontiguousarray(hist, np.int64))).numpy()
 
 
 def make_logits_fn(model, mean, std, method=None):

@@ -11,7 +11,9 @@ loss > −log(thresh); if fewer than n_min = n_valid // n_min_ratio do, keep
 every pixel at or above the n_min-th largest loss instead; mean over the
 kept. The selection runs under no_grad and without a host sync (the top-k is
 taken at the static bound n // n_min_ratio and indexed on the device); the
-mean over the kept pixels carries the gradient.
+mean over the kept pixels carries the gradient. In a SyncBN step
+(parallel/mesh.py) the pool is every rank's pixels, as in JAX's sharded
+step: each rank returns its kept sum over the global kept count.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mds_tpu_torch.parallel import mesh
 
 
 def cross_entropy_per_pixel(logits: torch.Tensor, labels: torch.Tensor,
@@ -99,12 +103,57 @@ def cross_entropy_upsampled(logits: torch.Tensor, labels: torch.Tensor,
     return torch.cat(ces), torch.cat(vals)
 
 
+def _order_keys(x: torch.Tensor) -> torch.Tensor:
+    """Integers in the order of the floats `x` (f32 → int32, f64 → int64):
+    a non-negative float's bits as they are, a negative one's with the
+    magnitude bits flipped. −0.0 sorts just below +0.0."""
+    bits = x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+    mag = torch.iinfo(bits.dtype).max
+    return torch.where(bits < 0, bits ^ mag, bits)
+
+
+def _global_kth(masked: torch.Tensor, n_min: torch.Tensor) -> torch.Tensor:
+    """The n_min-th largest of every rank's `masked` (n_min ≥ 1), exactly,
+    with no gather and no host sync: the largest key t with at least n_min
+    keys ≥ t over all ranks, built from the top bit down (32 steps for f32,
+    64 for f64), each a count on the device and a one-number all_reduce.
+    Neither the memory nor the traffic grows with the world size."""
+    keys = _order_keys(masked)
+    nbits = keys.element_size() * 8
+    low, mag = torch.iinfo(keys.dtype).min, torch.iinfo(keys.dtype).max
+    t = torch.full((), low, dtype=keys.dtype, device=keys.device)
+    for b in range(nbits - 1, -1, -1):
+        # the key space read unsigned: setting bit 63/31 clears the sign bit
+        cand = t ^ low if b == nbits - 1 else t | (1 << b)
+        count = mesh.all_reduce((keys >= cand).sum())
+        t = torch.where(count >= n_min, cand, t)
+    return torch.where(t < 0, t ^ mag, t).view(masked.dtype)
+
+
+def _ohem_mean_global(losses, valid, thresh, n_min_ratio):
+    """ohem_mean over every rank's pixels (SyncBN): n_valid, n_above and the
+    kept count from all_reduces, the fallback's cutoff from `_global_kth`;
+    this rank's kept sum over the global kept count."""
+    with torch.no_grad():
+        masked = torch.where(valid, losses, -math.inf)
+        n_valid, n_above = mesh.all_reduce(
+            torch.stack([valid.sum(), (masked > thresh).sum()]))
+        n_min = n_valid // n_min_ratio
+        cutoff = torch.where(n_above >= n_min, torch.full_like(losses[0], thresh),
+                             _global_kth(masked, n_min))
+        kept = valid & ((losses > thresh) | (losses >= cutoff))
+        n_keep = mesh.all_reduce(kept.sum()).clamp_min(1).to(losses.dtype)
+    return (losses * kept.to(losses.dtype)).sum() / n_keep
+
+
 def ohem_mean(losses: torch.Tensor, valid: torch.Tensor, thresh: float,
               n_min_ratio: int = 16) -> torch.Tensor:
     """Mean over the OHEM-kept pixels; `thresh` is the −log(p) loss floor."""
     losses = losses.reshape(-1)
     losses = losses if losses.dtype == torch.float64 else losses.float()
     valid = valid.reshape(-1)
+    if mesh.sync_active():
+        return _ohem_mean_global(losses, valid, thresh, n_min_ratio)
     n = losses.numel()
     k = max(n // n_min_ratio, 1)  # n_min never exceeds it
     with torch.no_grad():

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mds_tpu_torch.ops.dropout import dropout
+from mds_tpu_torch.parallel import mesh
 
 MultiX = Sequence[Optional[torch.Tensor]]
 Coeffs = List[Optional[Tuple[torch.Tensor, torch.Tensor]]]
@@ -150,6 +151,15 @@ def _c(v: torch.Tensor) -> torch.Tensor:
     return v.reshape(1, -1, 1, 1)
 
 
+def _global_sums(xf: torch.Tensor, *sums: torch.Tensor) -> List[torch.Tensor]:
+    """SyncBN: each per-channel sum, and the element count a channel, summed
+    over every rank's batch in one all_reduce (parallel/mesh.py
+    global_sum: the gradient flows through the other ranks' shares)."""
+    cnt = torch.full((1,), xf.numel() // xf.shape[1], dtype=xf.dtype, device=xf.device)
+    out = mesh.global_sum(torch.cat([*sums, cnt]))
+    return [*out[:-1].split([t.numel() for t in sums]), out[-1]]
+
+
 class DatasetNorm(nn.ModuleList):
     """Per-dataset BatchNorm: entry i holds dataset i's running stats (and
     its own affine when `affine`), as the reference's
@@ -164,7 +174,9 @@ class DatasetNorm(nn.ModuleList):
     Train (:126-138): the f32 batch moments over N, H, W normalize with the
     biased variance (f64 throughout in an f64 model, `wide`), and the gradient flows through them; the running stats
     move in place by momentum 0.1, the variance's with the unbiased factor
-    cnt / max(cnt − 1, 1)."""
+    cnt / max(cnt − 1, 1). In a SyncBN step (parallel/mesh.py) the batch is
+    every rank's: the sum and the count, then the centered sum of squares,
+    each summed over the ranks, and cnt is the global count."""
 
     momentum = 0.1
 
@@ -196,15 +208,23 @@ class DatasetNorm(nn.ModuleList):
 
     def _train_norm(self, bn: nn.BatchNorm2d, x: torch.Tensor, w, b):
         xf = wide(x)
-        m = xf.mean(dim=(0, 2, 3))
-        d = xf - _c(m)
-        v = d.square().mean(dim=(0, 2, 3))
-        cnt = x.numel() // x.shape[1]
+        if mesh.sync_active():
+            s, cnt = _global_sums(xf, xf.sum(dim=(0, 2, 3)))
+            m = s / cnt
+            d = xf - _c(m)
+            v = mesh.global_sum(d.square().sum(dim=(0, 2, 3))) / cnt
+            unbiased = cnt / (cnt - 1).clamp_min(1)
+        else:
+            m = xf.mean(dim=(0, 2, 3))
+            d = xf - _c(m)
+            v = d.square().mean(dim=(0, 2, 3))
+            cnt = x.numel() // x.shape[1]
+            unbiased = cnt / max(cnt - 1, 1)
         mom = self.momentum
         with torch.no_grad():
             bn.running_mean.copy_((1 - mom) * bn.running_mean + mom * m)
             bn.running_var.copy_((1 - mom) * bn.running_var
-                                 + mom * (v * (cnt / max(cnt - 1, 1))))
+                                 + mom * (v * unbiased))
         # the scale folds into one per-channel factor: autograd keeps one
         # f32 activation (d) per BN instead of two
         return d * _c(torch.rsqrt(v + self.eps) * wide(w)) + _c(wide(b))
@@ -338,11 +358,19 @@ def bn_eval(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Te
     mean m and the fast biased variance v = max(E[x²] − m², 0) over N, H, W
     normalize, the gradient flowing through both; the running stats move in
     place to 0.9·running + 0.1·batch, the variance's with the biased v.
-    BatchNorm2d's own train mode (unbiased running variance) never runs."""
+    BatchNorm2d's own train mode (unbiased running variance) never runs. In
+    a SyncBN step (parallel/mesh.py) the sum, the sum of squares and the
+    count are summed over the ranks in one all_reduce."""
     if bn.training:
         xf = x.float()
-        m = xf.mean(dim=(0, 2, 3))
-        v = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - m.square(), min=0.0)
+        if mesh.sync_active():
+            s1, s2, cnt = _global_sums(xf, xf.sum(dim=(0, 2, 3)),
+                                       xf.square().sum(dim=(0, 2, 3)))
+            m = s1 / cnt
+            v = torch.clamp(s2 / cnt - m.square(), min=0.0)
+        else:
+            m = xf.mean(dim=(0, 2, 3))
+            v = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - m.square(), min=0.0)
         with torch.no_grad():
             bn.running_mean.copy_(0.9 * bn.running_mean + 0.1 * m)
             bn.running_var.copy_(0.9 * bn.running_var + 0.1 * v)
@@ -598,7 +626,10 @@ class FastDropout(nn.Module):
     scaled by 256/(256 − drop). The mask comes from the dropout op
     (ops/dropout.py: the CUDA kernel on the card), its seed from the
     `generator` passed in; identity in eval or at rate 0. `rate` is a plain
-    attribute, so a test can set it to 0."""
+    attribute, so a test can set it to 0. In a data-parallel step
+    (parallel/mesh.py) rank r's x is rows r of the global batch and draws
+    from element r · x.numel() of the mask: the ranks' masks are the rows of
+    the one-process mask of the whole batch."""
 
     def __init__(self, rate: float = 0.1):
         super().__init__()
@@ -611,7 +642,7 @@ class FastDropout(nn.Module):
         # the mask follows storage order: pin it to channels_last so the
         # same seed drops the same elements on every device
         return dropout(x.contiguous(memory_format=torch.channels_last),
-                       self.rate, generator)
+                       self.rate, generator, offset=mesh.shard_index() * x.numel())
 
 
 class SegmentHead(nn.Module):

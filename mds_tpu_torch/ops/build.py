@@ -37,7 +37,7 @@ _SIGNATURES = {
     "mds_conv3x3_bn_relu": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mds_stemblock_fused": [_P, _P, _P, _P, _I, _I, _I, _P],
     "mds_stem7_conv_bn_relu_s2": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "mds_dropout_u8": [_P, _P, _L, _I, _L, _L, _I, _F, _P],
+    "mds_dropout_u8": [_P, _P, _L, _I, _L, _L, _I, _F, _L, _P],
     "mds_dw3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mds_dw3x3_window": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mds_upsample_argmax": [_P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -1,8 +1,9 @@
 """File and stream logger, and the iteration log line — counterparts of
 mds_tpu/utils/logger.py (`setup_logger` :18, `print_log_msg` :44).
 
-The port trains on one card in one process, which is rank 0: the logger
-logs at INFO unless the caller gives a level. The iteration line has the
+The logger logs at INFO unless the caller gives a level; under a process
+group the trainer gives ranks other than 0 no log file
+(engine/trainer.py). The iteration line has the
 JAX package's format, which log scrapers read:
 `iter: 6/6, lr: 0.004987, eta: 0:00:00, time: 0.41, loss: 3.1234`.
 """

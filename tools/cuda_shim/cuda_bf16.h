@@ -60,6 +60,7 @@ inline __nv_bfloat162 __hmax2(__nv_bfloat162 a, __nv_bfloat162 b) {
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline uint32_t __umulhi(uint32_t a, uint32_t b) { return uint32_t((uint64_t(a) * b) >> 32); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }

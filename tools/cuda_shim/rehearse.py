@@ -1,12 +1,11 @@
 #!/usr/bin/env python
-"""Run the port's CUDA kernels (all but the dropout) on the CPU, without a
-card or nvcc.
+"""Run the port's CUDA kernels on the CPU, without a card or nvcc.
 
   python tools/cuda_shim/rehearse.py [stem window pair detail stemblock stem7 conv3 tail
-                                      depthwise upsample_argmax]
+                                      depthwise upsample_argmax dropout]
 
 Compiles the csrc/ sources the named checks need (all: stem.cu, stem7.cu,
-conv3x3.cu, detail_tail.cu, depthwise.cu, upsample_argmax.cu) with g++
+conv3x3.cu, detail_tail.cu, depthwise.cu, upsample_argmax.cu, dropout.cu) with g++
 against the stand-in CUDA runtime beside this script (one std::thread per
 CUDA thread, std::barrier for __syncthreads, __syncwarp, named barriers and
 wgmma's fence/commit/wait; wgmma m64nNk16 computed per warpgroup, its B read
@@ -25,7 +24,8 @@ calls each kernel's wrapper on CPU tensors at small, ragged shapes, with the
 wrappers made to launch (through ctypes, as on the card), and holds every
 output to the kernel's plain version: rel max-diff < 1e-2 (1e-4 for the
 stem's f32 training form), the window stem bit-equal to the single stem,
-and the depthwise and upsample + argmax kernels bit for bit. It finds
+and the depthwise, upsample + argmax and dropout kernels bit for bit (the
+dropout at element offsets 0-3 and past 2^32 counters). It finds
 indexing, masking and tiling faults before a chip call; it says nothing of speed, of races between
 threads or of what nvcc accepts. Exits 1 on any mismatch.
 """
@@ -45,7 +45,7 @@ OUT = ROOT / "mds_tpu_torch" / "build" / "shim"
 SOURCES = {"stem": "stem.cu", "window": "stem.cu", "pair": "stem.cu", "detail": "stem.cu",
            "stemblock": "stem.cu", "stem7": "stem7.cu", "conv3": "conv3x3.cu",
            "tail": "detail_tail.cu", "depthwise": "depthwise.cu",
-           "upsample_argmax": "upsample_argmax.cu"}
+           "upsample_argmax": "upsample_argmax.cu", "dropout": "dropout.cu"}
 
 sys.path.insert(0, str(ROOT))
 
@@ -97,6 +97,7 @@ def main(which):
 
     from mds_tpu_torch.ops import build as kbuild
     from mds_tpu_torch.ops import conv3x3, depthwise, stem
+    from mds_tpu_torch.ops import dropout as dr
     from mds_tpu_torch.ops import upsample_argmax as ua
 
     lib = ctypes.CDLL(str(build({SOURCES[n] for n in which})))
@@ -109,6 +110,7 @@ def main(which):
     stem._is_cpu = conv3x3._is_cpu = depthwise._is_cpu = ua._is_cpu = lambda x: False
     stem._stream = conv3x3._stream = depthwise._stream = ua._stream = \
         lambda: ctypes.c_void_p(0)
+    dr._is_cpu, dr._stream = (lambda x: False), (lambda x: ctypes.c_void_p(0))
 
     rng = np.random.default_rng(0)
 
@@ -253,6 +255,28 @@ def main(which):
                   f"differing {int((got != want).sum())}", flush=True)
             if not ok:
                 failures.append(f"upsample_argmax {b, c, h, w, s}")
+    if "dropout" in which:
+        # bf16 (8 a vector) and f32 (4), at offsets 0-3 (each SH variant),
+        # a rank's shard, and past 2^32 counters; a masked tail of 1-7
+        # elements; each against the plain version bit for bit, and the
+        # shard of a whole draw equal to that draw's rows
+        for n, dt in ((1037, torch.bfloat16), (523, torch.float32), (64, torch.bfloat16),
+                      (9, torch.float32)):
+            x = torch.tensor(rng.normal(0, 1, n), dtype=torch.float32).to(dt)
+            for off in (0, 1, 2, 3, 4 * 1037 + 2, (1 << 34) + 5):
+                got = dr.dropout_u8(x, 12345, 678, 26, off)
+                want = dr.dropout_u8_plain(x, 12345, 678, 26, off)
+                ok = torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+                print(f"{'ok ' if ok else 'BAD'} dropout n={n} {dt} offset={off}: differing "
+                      f"{int((got != want).sum())}", flush=True)
+                if not ok:
+                    failures.append(f"dropout {n, dt, off}")
+            whole = dr.dropout_u8(torch.cat([x, x]), 7, 9, 26)
+            ok = torch.equal(dr.dropout_u8(x, 7, 9, 26, n).view(torch.uint8),
+                             whole[n:].view(torch.uint8))
+            print(f"{'ok ' if ok else 'BAD'} dropout n={n} {dt}: second half = rows", flush=True)
+            if not ok:
+                failures.append(f"dropout rows {n, dt}")
     print(f"{time.time() - t0:.0f} s; " + (f"FAILED: {failures}" if failures else "all ok"))
     return 1 if failures else 0
 

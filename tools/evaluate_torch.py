@@ -18,7 +18,11 @@ N train batches. It prints one `dataset{i} mIoU ({mode}): x` line per
 dataset. It runs on the CUDA card; without one it exits non-zero unless
 `--device cpu` is given. It sets no route switch: a caller that wants the
 deploy kernels sets `models/layers.py`'s switches around `main`, as
-bench.py does.
+bench.py does. Launched as several processes (`torchrun --nproc_per_node N`,
+or the MDS_COORDINATOR, MDS_NUM_PROCESSES and MDS_PROCESS_ID variables),
+each scores its rank's share of the eval lists (and precise BN reads its
+rank's train shard), the hists are summed over the ranks and rank 0
+prints.
 
 Modes: ss, ssc, msf, mscf, aux, contrast, uni, label_link and unlabel;
 unseen and clip on the prototype models (snp_rn18, snp_rn18_mulbn,
@@ -58,16 +62,19 @@ def main(argv=None):
 
     from mds_tpu_torch.config import Configer
     from mds_tpu_torch.evaluation.drivers import run_evaluation
+    from mds_tpu_torch.parallel import mesh
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("evaluate_torch needs a CUDA device; pass --device cpu "
                            "to evaluate on the CPU")
+    mesh.maybe_initialize_distributed(args.device)
     configer = Configer(config_file=args.config, args_parser=args.overrides)
     mious = run_evaluation(configer, mode=args.mode, ckpt=args.ckpt,
                            work_dir=args.work_dir, precise_bn=args.precise_bn,
-                           device=args.device)
-    for i, miou in enumerate(mious):
-        print(f"dataset{i + 1} mIoU ({args.mode}): {miou:.4f}", flush=True)
+                           device=mesh.local_device(args.device))
+    if mesh.rank() == 0:
+        for i, miou in enumerate(mious):
+            print(f"dataset{i + 1} mIoU ({args.mode}): {miou:.4f}", flush=True)
     return mious
 
 

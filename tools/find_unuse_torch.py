@@ -14,7 +14,11 @@ and uses (more than a tenth of the class's predictions over them), then
 the audit's seconds; `--out` writes each dataset's use/unuse target graph
 `target_bipart_{i}` (n_cats_i, M) into an .npz. Both passes run over the
 eval lists, as the JAX tool's do. It runs on the CUDA card; without one it
-exits non-zero unless `--device cpu` is given.
+exits non-zero unless `--device cpu` is given. Launched as several
+processes (`torchrun --nproc_per_node N`, or the MDS_COORDINATOR,
+MDS_NUM_PROCESSES and MDS_PROCESS_ID variables), each reads its rank's
+share of the eval lists, the counts are summed over the ranks, and rank 0
+writes `--out`.
 """
 
 import argparse
@@ -53,17 +57,20 @@ def main(argv=None):
         eval_find_use_and_unuse_label,
         find_unuse_label,
     )
+    from mds_tpu_torch.parallel import mesh
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("find_unuse_torch needs a CUDA device; pass --device cpu "
                            "to run on the CPU")
+    mesh.maybe_initialize_distributed(args.device)
+    rank, world = mesh.rank(), mesh.world()
     configer = Configer(config_file=args.config, args_parser=args.overrides)
     model = build_eval_bundle(configer, ckpt=args.ckpt, work_dir=args.work_dir,
-                              device=args.device)
+                              device=mesh.local_device(args.device))
     means, stds = dataset_stats(configer)
     t0 = time.perf_counter()
     used = []
-    for i, loader in enumerate(get_data_loader(configer, "eval")):
+    for i, loader in enumerate(get_data_loader(configer, "eval", rank=rank, world=world)):
         buckets = find_unuse_label(configer, model, loader, configer.n_cats(i), i,
                                    mean=means[i], std=stds[i])
         used.append(buckets)
@@ -71,11 +78,12 @@ def main(argv=None):
         print(json.dumps({str(k): v for k, v in sorted(buckets.items())}), flush=True)
     t1 = time.perf_counter()
     _, _, target_bipart = eval_find_use_and_unuse_label(
-        configer, model, get_data_loader(configer, "eval"), means=means, stds=stds)
+        configer, model, get_data_loader(configer, "eval", rank=rank, world=world),
+        means=means, stds=stds)
     t2 = time.perf_counter()
     seconds = {"find_unuse_s": t1 - t0, "use_and_unuse_s": t2 - t1}
     print(json.dumps({"audit_seconds": seconds}), flush=True)
-    if args.out:
+    if args.out and rank == 0:
         np.savez(args.out, **{f"target_bipart_{i}": t for i, t in enumerate(target_bipart)})
         print(f"wrote {args.out}", flush=True)
     return used, target_bipart, seconds

@@ -22,6 +22,15 @@ supervised trainer (BiSeNetV2, BiSeNetV1), which resumes from
 `<work-dir>/ckpt`. The compute dtype is each trainer's own, as in JAX: f32
 for the alternating trainer, bf16 for the others. It runs on the CUDA
 card; without one it exits non-zero unless `--device cpu` is given.
+
+On N cards: `torchrun --nproc_per_node N tools/train_torch.py --config
+...`, or N processes with MDS_COORDINATOR=host:port, MDS_NUM_PROCESSES=N
+and MDS_PROCESS_ID=r (the JAX tool's variables). Each process joins the
+group (NCCL on the card, gloo with `--device cpu`) before touching the
+device and trains the supervised model on its rank's `ims_per_gpu`
+images a dataset, SyncBN or local BN as the config's `use_sync_bn` says
+(engine/trainer.py); rank 0 logs and saves. The alternating and contrast
+trainers run in one process only (ROADMAP queue 1, item 9b).
 """
 
 import argparse
@@ -49,10 +58,12 @@ def main(argv=None):
     import torch
 
     from mds_tpu_torch.engine.trainer import train_from_config
+    from mds_tpu_torch.parallel import mesh
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_torch needs a CUDA device; pass --device cpu "
                            "to train on the CPU")
+    mesh.maybe_initialize_distributed(args.device)
     return train_from_config(args.config, args.overrides, work_dir=args.work_dir,
                              max_iter=args.max_iter, device=args.device,
                              finetune_from=args.finetune_from, gnn=args.gnn)
