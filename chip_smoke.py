@@ -416,6 +416,36 @@ before the last line:
               printed); the
               halo conv on a W-sharded (1, 64, 512, 1024) f32 tensor
               against the unsharded conv (rel < 1e-5).
+25. parallel_trainers — the alternating and contrast trainers at world
+              size > 1, in child processes as in 24:
+              NCCL at world 1: the flagship (configs/ltbgnn_3_datasets_snp
+              .json at full width, bf16, 4 crops of 768×768 a dataset,
+              kernel 6 on) through one GNN step, the UOT switch and one SEG
+              step, and the contrast config (full width, f32, 1 + 1 + 2
+              crops of 512×1024; the bf16 backward is not deterministic on
+              the card) through two steps, with no group and under the
+              group, from the same seeded init and batch, each step from
+              the same state (loss, parameters, teacher and bank under the
+              group within NCCL_GATE of no group); kernel 6 9 times a GNN
+              step, each call against its plain version (rel < 1e-2),
+              kernel 12 30 times a contrast step; step ms (3 timed alone;
+              the contrast step's in bf16 after one untimed), collectives
+              a step;
+              gloo, two ranks on the one card, f32: snp_rn18_mulbn at test
+              width (GNN step, switch, SEG step; 2 + 2 crops of 64×64 a
+              dataset, the halves apart) and the contrast config at P = 1
+              (a step each side of the warmup) and 4 (the step after it;
+              2 + 2 crops of 64×128, teacher momentum 0.9), each against
+              this process's world-1 run on the 4, each step from world
+              1's state before it (loss rel < 1e-4, per-group gradient
+              cosine > 0.9999, parameters, running stats, teacher, bank
+              and prototypes rel < 1e-4, the AdamW step's parameters where
+              its gradients agree (PT_ADAM_*), the others within 2·lr;
+              UOT graphs and bank pointers
+              equal); each rank's kernel-12 masks, call by call, bit-equal
+              to its rows of the world-1 call's; a bf16 GNN step at test
+              width with kernel 6 on, each of its 6 calls against the
+              plain version (rel < 1e-2).
 
 Then a {"phase_seconds": {...}} line (each phase's wall seconds), a
 {"kernels": [...]} line, the nvidia-smi name/power-limit line, and as the
@@ -4907,7 +4937,8 @@ def parallel_child(role, work, dev="cuda"):
         build.load()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = (_nccl_child if role == "nccl" else _gloo_child)(dev, work)
+    out = {"nccl": _nccl_child, "gloo": _gloo_child, "nccl_trainers": _nccl_trainers_child,
+           "gloo_trainers": _gloo_trainers_child}[role](dev, work)
     if "jax" in sys.modules:
         raise RuntimeError("parallel: a child imported jax")
     with open(os.path.join(work, f"{role}{mesh.rank()}.json"), "w") as f:
@@ -5015,6 +5046,518 @@ def phase_parallel(dev):
     return launches
 
 
+# ------------------------------------------------------ the parallel trainers
+
+PT_FLAGSHIP_OVERRIDES = ["train.gnn_iters", "1", "train.seg_iters", "2"]
+PT_STEPS = ["GNN", "SEG"]  # one GNN step, then the UOT switch and one SEG step
+PT_KERNEL6_PER_GNN_STEP = 9  # kernel 6 at 3 pyramid levels × 3 datasets
+PT_DROPOUT_PER_STEP = 30     # kernel 12: 5 heads × 3 datasets, forward and backward
+PT_CONTRAST_P = (1, 4)
+PT_TIMED = 3                 # steps timed alone after the stage's steps
+# the biases of snp_rn18's last layer4 block whose exact SEG-step gradient
+# is zero (tests/torch_flagship_parity.py ZERO_GRAD): they add a per-channel
+# constant that only a train-mode BN, the decoder's blend, reads. Their
+# gradient is rounding noise, and AdamW's first update moves them by ±lr on
+# its sign: printed, not gated
+PT_ZERO_GRAD = re.compile(r"^seg\.backbone\.layer4\.0\.(bn2\.\d+|downsample\.1)(\.\d+)?\.bias$")
+# AdamW's first update is lr·g/(|g| + ε): ±lr wherever |g| ≫ ε, whatever
+# |g|, and as sensitive to g as ε/(|g| + ε) near zero. On the card the f32
+# world-2 and world-1 SEG steps' gradients agree to a group cosine of
+# 0.99999995 but part at single elements by up to 1.5e-3 of their tensor's
+# largest (an element of layer1's conv at −3.9e-6 on world 1, +3.4e-6 on
+# world 2 against 5.0e-3: a max-pool or OHEM-cutoff tie taken the other
+# way), and such an element moves 2·lr apart. So the AdamW record's
+# gradients are gated by cosine and by max-diff at PT_ADAM_GRAD_GATE (a
+# missing reduction halves them), and its parameters where the two
+# gradients agree to PT_ADAM_AGREE of their own size: there the updates
+# differ by at most lr·PT_ADAM_AGREE/4. The other elements are counted;
+# their share must stay below PT_ADAM_UNDECIDED, and their parameters
+# within PT_ADAM_STEP·lr: a first update is at most lr either way, 1e-3 of
+# it the f32 rounding of the two updated values
+PT_ADAM_GRAD_GATE = 1e-2
+PT_ADAM_AGREE = 1e-2
+PT_ADAM_UNDECIDED = 1e-2
+PT_ADAM_STEP = 2 * (1 + 1e-3)
+
+
+def _dropout_keep(a):
+    """A dropout_u8 argument as _Spy keeps it: a tensor's shape and whether
+    it is channels_last; a number as it is."""
+    if torch.is_tensor(a):
+        return tuple(a.shape), a.is_contiguous(memory_format=torch.channels_last)
+    return a
+
+
+def dropout_mask(call, dev, rows=None):
+    """The keep mask a recorded dropout_u8 call draws (f32 ones through the
+    kernel at the call's shape, layout, seed words, drop and offset), or its
+    batch rows `rows`."""
+    from mds_tpu_torch.ops import dropout
+
+    (shape, cl), k0, k1, drop, offset = call
+    ones = torch.ones(shape, device=dev)
+    if cl:
+        ones = ones.contiguous(memory_format=torch.channels_last)
+    mask = dropout.dropout_u8(ones, k0, k1, drop, offset) != 0
+    return mask if rows is None else mask[rows]
+
+
+def pt_alternating_batch():
+    """The gloo parity steps' batch at TEST_WIDTH: 4 crops of 64×64 a dataset
+    (2 a rank), the halves' pixel values apart, so that a rank's own
+    moments are not the global ones."""
+    rng = np.random.default_rng(33)
+    out = {"ims": [], "lbs": []}
+    for n in (3, 4):
+        im, lb = seg_batch(rng, 4, 64, 64, n)
+        im = im // 2
+        im[2:] += 128
+        out["ims"].append(im)
+        out["lbs"].append(lb)
+    return out
+
+
+def pt_rows(batch, r, n):
+    from mds_tpu_torch.parallel import mesh
+
+    return {k: mesh.shard_batch(v, r, n) for k, v in batch.items()}
+
+
+def pt_alternating_record(dev, batch, mid):
+    """snp_rn18_mulbn at TEST_WIDTH, f32, one GNN step then the switch and
+    one SEG step on `batch` (this rank's rows under a group): each step's
+    loss and the gradients it left (GNN, then seg), both nets' parameters,
+    the running stats, the UOT graphs. Between the steps the trainer saves
+    to the directory `mid` where it holds no checkpoint yet, and restores
+    from it otherwise: the SEG step starts from the world-1 state (a f32
+    trajectory parts by rounding, and the steps are held one at a time)."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.gnn_trainer import AlternatingTrainer
+    from mds_tpu_torch.parallel import mesh
+
+    cfg = copy.deepcopy(TEST_WIDTH)
+    cfg["model_name"] = "snp_rn18_mulbn"
+    cfg["train"]["gnn_iters"] = 1
+    t = AlternatingTrainer(Configer(configs=cfg), device=dev)
+    rec = {"losses": [], "stages": [], "grads": {}, "group": {}}
+    for k, (name, model) in enumerate((("gnn", t.gnn_model), ("seg", t.seg_model))):
+        if k == 1:
+            if t.latest_step(mid) is None and mesh.world() == 1:
+                t.save(mid)
+            else:
+                t.restore(mid)
+        m = t.step(batch, generator=torch.Generator().manual_seed(50 + k))
+        rec["losses"].append(float(m["loss"].detach()))
+        rec["stages"].append(t.timings[-1]["stage"])
+        for pk, p in model.named_parameters():
+            if p.grad is not None:
+                rec["grads"][f"{name}.{pk}"] = p.grad.cpu().double()
+                rec["group"][f"{name}.{pk}"] = f"{name}.{pk.split('.')[0]}"
+    rec["params"] = {f"{n}.{k}": p.detach().cpu() for n, mod in
+                     (("gnn", t.gnn_model), ("seg", t.seg_model))
+                     for k, p in mod.named_parameters()}
+    rec["group"].update({k: f"{k.split('.')[0]}.{k.split('.')[1]}" for k in rec["params"]
+                         if k not in rec["group"]})
+    rec["stats"] = {k: v.detach().cpu() for k, v in t.seg_model.state_dict().items()
+                    if k.endswith(("running_mean", "running_var"))}
+    rec["uot_bi"] = [np.asarray(g) for g in t.uot_bi]
+    rec["adam"] = True
+    rec["lr"] = max(g["lr"] * o.update_scale for o in (t.seg_opt, t.gnn_opt)
+                    for g in o.param_groups)
+    return rec
+
+
+def pt_contrast_record(dev, batch, P, work, mid=None, first=0):
+    """The contrast config at full width, f32, teacher momentum
+    CARD_VS_CPU_EMA, warmup 1, contrast.num_prototype P: steps `first` to 1
+    on `batch` (step 0 inside the warmup, step 1 after it), the generator
+    seeded 60 + step; step 1 from `mid` where given (the world-1 state
+    after step 0: its train state and extras). Each step's loss and
+    gradients (a parameter without one as zeros), the state after step 0,
+    the parameters, teacher, bank and prototypes after step 1, every
+    dropout_u8 call."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.contrast_trainer import ContrastTrainer
+    from mds_tpu_torch.ops import dropout
+
+    cfg = Configer(config_file=CONTRAST_CONFIG, args_parser=[
+        "contrast.ema_momentum", str(CARD_VS_CPU_EMA), "lr.warmup_iters", "1",
+        "contrast.num_prototype", str(P)])
+    t = ContrastTrainer(cfg, work_dir=work, compute_dtype=torch.float32, device=dev)
+    losses, grads0, after0 = [], None, None
+    if first == 1:
+        t.load(*mid)
+    with captured(dropout, "dropout_u8", keep=_dropout_keep) as calls:
+        for k in range(first, 2):
+            m = t.step(batch, generator=torch.Generator().manual_seed(60 + k))
+            losses.append(float(m["loss"]))
+            if k == 0:
+                grads0 = {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu().double()
+                          for n, p in t.model.named_parameters()}
+                after0 = (t.state(), t.extras())
+                if mid is not None:
+                    t.load(*mid)
+    for p in t.model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    rec = dict(step_record(t.model, t.optimizer, losses[-1]), losses=losses, grads0=grads0,
+               after0=after0,
+               teacher={k: v.detach().cpu() for k, v in t.teacher.state_dict().items()
+                        if v.is_floating_point()},
+               bank=t.bank.feats.cpu(), bank_ptr=t.bank.ptr.cpu(), bank_count=t.bank.count.cpu(),
+               prototypes=None if t.prototypes is None else t.prototypes.cpu(),
+               dropout_calls=list(calls))
+    return rec
+
+
+def pt_compare(got, want):
+    """A world-2 record against world 1's: loss rel (each step), per-group
+    gradient cosine, and the worst group's rel of each state (as
+    group_agreement: no tensor stands alone). The parameters leave out
+    PT_ZERO_GRAD's and, in an AdamW record, the elements whose update the
+    gradients leave undecided (PT_ADAM_UNDECIDED); both are printed."""
+    zero = [k for k in want["params"] if PT_ZERO_GRAD.match(k)]
+    params, undecided = dict(got["params"]), {"elements": 0, "of": 0, "max_diff": 0.0}
+    if want.get("adam"):
+        for k, g in want["grads"].items():
+            if k in zero:
+                continue
+            keep = (got["grads"][k] - g).abs() <= PT_ADAM_AGREE * g.abs()
+            d = (got["params"][k] - want["params"][k]).abs()[~keep]
+            undecided["elements"] += int(d.numel())
+            undecided["of"] += g.numel()
+            if d.numel():
+                undecided["max_diff"] = max(undecided["max_diff"], d.max().item())
+            params[k] = torch.where(keep, got["params"][k], want["params"][k])
+    cos, rels = group_agreement({**got, "params": params},
+                                {**want, "params": {k: v for k, v in want["params"].items()
+                                                    if k not in zero}})
+    # a record that took the last steps only against want's last ones
+    pairs = zip(got["losses"], want["losses"][len(want["losses"]) - len(got["losses"]):])
+    out = {"loss_rel": max(abs(a - b) / abs(b) for a, b in pairs),
+           "grad_cosine": min(cos.values()), "param_rel": max(rels.values()),
+           "param_worst_group": max(rels, key=rels.get), "grad_cosines": cos}
+    if zero:
+        out["zero_grad_params"] = {"count": len(zero), "max_diff": max(
+            (got["params"][k] - want["params"][k]).abs().max().item() for k in zero)}
+    if want.get("adam"):
+        _, grad_rels = group_agreement(got, want, "grads")
+        out["adam_grad_maxdiff"] = max(grad_rels.values())
+        out["adam_undecided"] = undecided
+        out["adam_undecided_share"] = undecided["elements"] / max(undecided["of"], 1)
+        out["adam_undecided_limit"] = PT_ADAM_STEP * max(got["lr"], want["lr"])
+    if got.get("grads0") is not None:
+        cos0, _ = group_agreement({**got, "grads": got["grads0"]}, {**want, "grads": want["grads0"]})
+        out["grad_cosines_step0"] = cos0
+    for part in ("stats", "teacher"):
+        if part in want:
+            groups = {}
+            for k in want[part]:
+                groups.setdefault(k.rsplit(".", 1)[-1] if part == "stats"
+                                  else got["group"].get(k, k.rsplit(".", 1)[-1]), []).append(k)
+            out[part + "_rel"] = max(
+                max((got[part][k].double() - want[part][k].double()).abs().max().item()
+                    for k in ks) / max(max(want[part][k].abs().max().item() for k in ks), 1e-30)
+                for ks in groups.values())
+    for part in ("bank", "prototypes"):
+        if want.get(part) is not None:
+            out[part + "_rel"] = rel(got[part], want[part])
+    return out
+
+
+def pt_gate(where, cmp, bad):
+    if not (cmp["loss_rel"] < F32_GATE and cmp["grad_cosine"] > GRAD_COSINE_GATE
+            and all(v < F32_GATE for k, v in cmp.items()
+                    if k.endswith("_rel") and k != "loss_rel")
+            and cmp.get("adam_undecided_share", 0.0) < PT_ADAM_UNDECIDED
+            and (cmp.get("adam_undecided", {}).get("max_diff", 0.0)
+                 <= cmp.get("adam_undecided_limit", 0.0))
+            and cmp.get("adam_grad_maxdiff", 0.0) < PT_ADAM_GRAD_GATE):
+        bad.append(f"{where}: {cmp}")
+
+
+def _pt_nccl_alternating(dev, cfg, ims, lbs, out_key, out, mid):
+    """The flagship's GNN step, the switch and its SEG step (bf16, kernel 6
+    on) from the seeded init, then PT_TIMED GNN and SEG steps alone: each
+    step's loss, ms, kernel launches and collectives; the parameters. The
+    trainer saves to `mid` after the GNN step where it holds no checkpoint,
+    and restores from it otherwise (each step held from the same state)."""
+    from mds_tpu_torch.engine.gnn_trainer import AlternatingTrainer
+    from mds_tpu_torch.ops import stem
+    from mds_tpu_torch.parallel import mesh
+
+    t = AlternatingTrainer(cfg, compute_dtype=torch.bfloat16, device=dev)
+    rec = {"steps": []}
+    host = {"ims": [x.cpu().numpy() for x in ims], "lbs": [x.cpu().numpy() for x in lbs]}
+    with route(stem_impl="kernel"):
+        for k in range(len(PT_STEPS)):
+            if k == 1:
+                if t.latest_step(mid) is None:
+                    t.save(mid)
+                else:
+                    t.restore(mid)
+            reset_counts()
+            before = mesh.all_reduce.collectives
+            with captured(stem, "stem7_conv_bn_relu_s2") as calls:
+                m = t.step(host, generator=torch.Generator().manual_seed(40 + k))
+            torch.cuda.synchronize()
+            rec["steps"].append({"stage": t.timings[-1]["stage"], "loss": float(m["loss"].detach()),
+                                 "launches": read_counts(),
+                                 "collectives": mesh.all_reduce.collectives - before,
+                                 "kernel6_calls": stem7_calls_rels(calls)})
+            del calls
+        t.read_timings()
+        rec["step_ms"] = [r["step_ms"] for r in t.timings]
+        rec["switch_ms"] = [r["switch_ms"] for r in t.timings if "switch_ms" in r]
+        rec["params"] = {f"{n}.{k}": p.detach().float().cpu() for n, mod in
+                         (("gnn", t.gnn_model), ("seg", t.seg_model))
+                         for k, p in mod.named_parameters()}
+        reset_counts()
+        before = mesh.all_reduce.collectives
+        gnn_ms, _ = alone_ms(lambda: t.gnn_step(ims, lbs, torch.Generator().manual_seed(3)),
+                             n=PT_TIMED)
+        seg_ms, peak = alone_ms(lambda: t.seg_step(ims, lbs), n=PT_TIMED)
+        rec.update(gnn_step_ms=gnn_ms, seg_step_ms=seg_ms, max_memory_allocated=peak)
+        rec["timed_launches"] = read_counts()
+        rec["timed_collectives"] = mesh.all_reduce.collectives - before
+    out[out_key] = rec
+    del t
+    torch.cuda.empty_cache()
+
+
+def _pt_nccl_contrast(dev, out_key, out, work, mid):
+    """The contrast config at full width, 1 + 1 + 2 crops of 512×1024: two
+    f32 steps from the seeded init on one batch, step 1 from `mid[0]` where
+    it is set (else the state after step 0 goes there): each step's loss,
+    launches and collectives; the parameters, teacher and bank. The
+    compared steps are f32 because the bf16 backward is not deterministic
+    on the card (two bf16 runs with no group part by 3.1-5.7e-5 on an H100).
+    Then the bf16 trainer from the seeded init: one step, then PT_TIMED
+    timed, their ms and launches."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.contrast_trainer import ContrastTrainer
+    from mds_tpu_torch.parallel import mesh
+
+    cfg = Configer(config_file=CONTRAST_CONFIG)
+    rng = np.random.default_rng(34)
+    h, w = cfg.get("train", "cropsize")
+    batch = {"ims": [], "lbs": []}
+    for i, n in enumerate(CONTRAST_CATS):
+        im, lb = seg_batch(rng, int(cfg.dataset_cfg(i)["ims_per_gpu"]), h, w, n)
+        batch["ims"].append(torch.from_numpy(im).to(dev))
+        batch["lbs"].append(torch.from_numpy(lb).to(dev))
+    t = ContrastTrainer(cfg, work_dir=work, compute_dtype=torch.float32, device=dev)
+    rec = {"steps": []}
+    for k in range(2):
+        if k == 1:
+            if mid[0] is None:
+                mid[0] = (t.state(), t.extras())
+            else:
+                t.load(*mid[0])
+        reset_counts()
+        before = mesh.all_reduce.collectives
+        m = t.step(batch, generator=torch.Generator().manual_seed(70 + k))
+        torch.cuda.synchronize()
+        rec["steps"].append({"loss": float(m["loss"]), "launches": read_counts(),
+                             "collectives": mesh.all_reduce.collectives - before})
+    rec["params"] = {k: p.detach().float().cpu() for k, p in t.model.named_parameters()}
+    rec["teacher"] = {k: v.detach().float().cpu() for k, v in t.teacher.state_dict().items()
+                      if v.is_floating_point()}
+    rec["bank"] = t.bank.feats.cpu()
+    del t
+    torch.cuda.empty_cache()
+    t = ContrastTrainer(cfg, work_dir=work, compute_dtype=torch.bfloat16, device=dev)
+    t.step(batch, generator=torch.Generator().manual_seed(79))
+    reset_counts()
+    t.timings.clear()
+    for k in range(PT_TIMED):
+        t.step(batch, generator=torch.Generator().manual_seed(80 + k))
+    rec["step_ms"] = [r["step_ms"] for r in t.read_timings()]
+    rec["timed_launches"] = read_counts()
+    out[out_key] = rec
+    del t
+    torch.cuda.empty_cache()
+
+
+def _pt_state_rels(a, b):
+    """Each named tensor of `b` against `a`'s: the worst max-diff over the
+    whole dict's largest magnitude."""
+    mag = max(v.abs().max().item() for v in b.values())
+    return max((a[k].double() - v.double()).abs().max().item() for k, v in b.items()) / mag
+
+
+def _nccl_trainers_child(dev, work):
+    """The two multi-dataset trainers at full width with no group, then under
+    a world-1 NCCL group, each from the same seeded init and batch, each
+    step from the same state."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.parallel import mesh
+
+    cfg = Configer(config_file=FLAGSHIP_CONFIG, args_parser=PT_FLAGSHIP_OVERRIDES)
+    ims, lbs = flagship_batch(np.random.default_rng(31), dev)
+    out, mid = {}, [None]
+    for name in ("no_group", "nccl"):
+        if name == "nccl":
+            if not mesh.maybe_initialize_distributed(dev):
+                raise RuntimeError("parallel_trainers: no NCCL group")
+            out["backend"] = torch.distributed.get_backend()
+        _pt_nccl_alternating(dev, cfg, ims, lbs, f"alternating_{name}", out,
+                             os.path.join(work, "nccl_mid"))
+        _pt_nccl_contrast(dev, f"contrast_{name}", out, work, mid)
+    for kind in ("alternating", "contrast"):
+        a, b = out[f"{kind}_nccl"], out[f"{kind}_no_group"]
+        cmp = {"loss_rel": max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                               for x, y in zip(a["steps"], b["steps"])),
+               "params_rel": _pt_state_rels(a.pop("params"), b.pop("params"))}
+        if kind == "contrast":
+            cmp["teacher_rel"] = _pt_state_rels(a.pop("teacher"), b.pop("teacher"))
+            cmp["bank_rel"] = rel(a.pop("bank"), b.pop("bank"))
+        out[f"{kind}_nccl_cmp"] = cmp
+    return out
+
+
+def _gloo_trainers_child(dev, work):
+    """Rank r of two gloo ranks on the one card: the mulbn alternating steps
+    and the contrast steps at P = 1 and 4 on this rank's rows, each against
+    the parent's world-1 record; each dropout_u8 call's mask against the
+    world-1 call's rows; one bf16 GNN step at TEST_WIDTH with kernel 6 on,
+    each of its calls against the plain version."""
+    from mds_tpu_torch.config import Configer
+    from mds_tpu_torch.engine.gnn_trainer import AlternatingTrainer
+    from mds_tpu_torch.ops import stem
+    from mds_tpu_torch.parallel import mesh
+
+    if not mesh.maybe_initialize_distributed(dev, backend="gloo"):
+        raise RuntimeError("parallel_trainers: no gloo group")
+    r, n = mesh.rank(), mesh.world()
+    w1 = torch.load(os.path.join(work, "w1_trainers.pt"), weights_only=False)
+    out = {"rank": r, "world": n, "launches": {}}
+
+    def count(launches):
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    reset_counts()
+    before = mesh.all_reduce.collectives
+    rec = pt_alternating_record(dev, pt_rows(pt_alternating_batch(), r, n),
+                                os.path.join(work, "w1_mid"))
+    out["alternating"] = dict(pt_compare(rec, w1["alternating"]),
+                              stages=rec["stages"], collectives=mesh.all_reduce.collectives - before,
+                              uot_equal=all(np.array_equal(a, b) for a, b in zip(
+                                  rec["uot_bi"], w1["alternating"]["uot_bi"])))
+    count(read_counts())
+    cbatch = pt_rows(contrast_parity_batch(), r, n)
+    b = len(cbatch["ims"][0])
+    for P in PT_CONTRAST_P:
+        reset_counts()
+        before = mesh.all_reduce.collectives
+        # P = 1 from the seeded init; P = 4 its step after the warmup alone,
+        # from world 1's state after step 0
+        rec = pt_contrast_record(dev, cbatch, P, os.path.join(work, f"rank{r}_{P}"),
+                                 w1[f"contrast{P}"]["after0"], first=0 if P == 1 else 1)
+        launches = read_counts()
+        count(launches)
+        want = w1[f"contrast{P}"]
+        calls, wcalls = rec["dropout_calls"], want["dropout_calls"]
+        wcalls = wcalls[len(wcalls) - len(calls):]
+        masks_equal = bool(calls) and all(
+            c[1:4] == wc[1:4] and torch.equal(dropout_mask(c, dev),
+                                              dropout_mask(wc, dev, slice(r * b, (r + 1) * b)))
+            for c, wc in zip(calls, wcalls))
+        out[f"contrast{P}"] = dict(pt_compare(rec, want), masks_equal=masks_equal,
+                                   dropout_calls=len(calls),
+                                   dropout_launches=launches["dropout_u8"],
+                                   collectives=mesh.all_reduce.collectives - before,
+                                   bank_ptr_equal=torch.equal(rec["bank_ptr"], want["bank_ptr"]))
+    # kernel 6 in a data-parallel GNN step: each call against its plain version
+    cfg = copy.deepcopy(TEST_WIDTH)
+    t = AlternatingTrainer(Configer(configs=cfg), compute_dtype=torch.bfloat16, device=dev)
+    ab = pt_rows(pt_alternating_batch(), r, n)
+    reset_counts()
+    with route(stem_impl="kernel"), captured(stem, "stem7_conv_bn_relu_s2") as calls:
+        t.step(ab, generator=torch.Generator().manual_seed(52))
+    launches = read_counts()
+    count(launches)
+    out["kernel6"] = {"launches": launches["stem7_conv_bn_relu_s2"],
+                      "calls": stem7_calls_rels(calls)}
+    out["collectives"] = mesh.all_reduce.collectives
+    return out
+
+
+def phase_parallel_trainers(dev):
+    """The two multi-dataset trainers at world size > 1 (module docstring,
+    25). Returns the children's kernel launches on the trainers' paths."""
+    t0 = time.perf_counter()
+    bad, launches = [], {}
+
+    def count(d):
+        for k, v in d.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as work:
+        (nccl,) = run_ranks("nccl_trainers", 1, work, dev)
+        for name in ("no_group", "nccl"):
+            a, c = nccl[f"alternating_{name}"], nccl[f"contrast_{name}"]
+            for st in a["steps"]:
+                count(st["launches"])
+                want = PT_KERNEL6_PER_GNN_STEP if st["stage"] == "GNN" else 0
+                k6 = st["launches"]["stem7_conv_bn_relu_s2"]
+                far = [x for x in st["kernel6_calls"] if not x["rel"] < KERNEL_GATE]
+                if k6 != want or len(st["kernel6_calls"]) != want or far:
+                    bad.append(f"{name} {st['stage']} step: kernel 6 {k6}, calls far {far}")
+            if [st["stage"] for st in a["steps"]] != PT_STEPS:
+                bad.append(f"{name}: stages {[st['stage'] for st in a['steps']]}")
+            count(a["timed_launches"])
+            for st in c["steps"]:
+                count(st["launches"])
+                if st["launches"]["dropout_u8"] != PT_DROPOUT_PER_STEP:
+                    bad.append(f"{name} contrast step: launches {st['launches']}")
+            count(c["timed_launches"])
+            if c["timed_launches"]["dropout_u8"] != PT_DROPOUT_PER_STEP * PT_TIMED:
+                bad.append(f"{name} bf16 contrast steps: launches {c['timed_launches']}")
+        for kind in ("alternating", "contrast"):
+            far = {k: v for k, v in nccl[f"{kind}_nccl_cmp"].items() if not v < NCCL_GATE}
+            if far:
+                bad.append(f"NCCL world 1 {kind} against no group: {far}")
+        if nccl["alternating_nccl"]["steps"][1]["collectives"] == 0:
+            bad.append("NCCL world 1: the SEG step made no collective")
+
+        # the world-1 records the gloo ranks are held to
+        w1 = {"alternating": pt_alternating_record(dev, pt_alternating_batch(),
+                                                   os.path.join(work, "w1_mid"))}
+        for P in PT_CONTRAST_P:
+            w1[f"contrast{P}"] = pt_contrast_record(dev, contrast_parity_batch(), P,
+                                                     os.path.join(work, f"w1_{P}"))
+        torch.save(w1, os.path.join(work, "w1_trainers.pt"))
+        w1_losses = {k: v["losses"] for k, v in w1.items()}
+        del w1
+        torch.cuda.empty_cache()
+        ranks = run_ranks("gloo_trainers", 2, work, dev)
+    for g in ranks:
+        count(g["launches"])
+        where = f"gloo rank {g['rank']}"
+        a = g["alternating"]
+        pt_gate(f"{where} alternating", a, bad)
+        if a["stages"] != PT_STEPS or not a["uot_equal"]:
+            bad.append(f"{where} alternating: stages {a['stages']}, graphs {a['uot_equal']}")
+        for P in PT_CONTRAST_P:
+            c = g[f"contrast{P}"]
+            pt_gate(f"{where} contrast P={P}", c, bad)
+            want = 2 * PT_DROPOUT_PER_STEP if P == 1 else DROPOUT_MUL
+            if not (c["masks_equal"] and c["dropout_launches"] == want and c["bank_ptr_equal"]):
+                bad.append(f"{where} contrast P={P}: masks {c['masks_equal']}, launches "
+                           f"{c['dropout_launches']} (expected {want}), ptr {c['bank_ptr_equal']}")
+        k6 = g["kernel6"]
+        far = [x for x in k6["calls"] if not x["rel"] < KERNEL_GATE]
+        if k6["launches"] != 3 * 2 or len(k6["calls"]) != 3 * 2 or far:
+            bad.append(f"{where} kernel 6: {k6['launches']} launches, far {far}")
+    emit(phase="parallel_trainers", nccl_world1=nccl, gloo_world2=ranks,
+         world1_losses=w1_losses, launches=launches, seconds=time.perf_counter() - t0)
+    if bad:
+        raise RuntimeError(f"parallel_trainers: {bad}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5089,8 +5632,9 @@ def main():
     results["stem_conv3x3_s2"] = timed(phase_train_stem, dev)
     launches["stem_conv3x3_s2"] = results["stem_conv3x3_s2"]["launches"]
     timed(phase_parity, dev)
-    for k, n in timed(phase_parallel, dev).items():
-        launches[k] = launches.get(k, 0) + n
+    for phase in (phase_parallel, phase_parallel_trainers):
+        for k, n in timed(phase, dev).items():
+            launches[k] = launches.get(k, 0) + n
     emit(phase_seconds=seconds)
     emit(kernels=[{
         "name": k, "route": "cuda", "source": src, "replaces": tpu,

@@ -25,6 +25,9 @@ from typing import Dict, List, Union
 import numpy as np
 import torch
 
+from mds_tpu_torch.losses.ohem_ce import _global_kth
+from mds_tpu_torch.parallel import mesh
+
 
 class ClassRemap:
     def __init__(self, configer):
@@ -130,7 +133,12 @@ class ClassRemapOneHotLabel(ClassRemap):
         slots of each unified class. The seg mask is the contrast mask's
         classes at full size (nearest), single-mapped pixels their class,
         multi-mapped pixels left empty their admissible set, ignored pixels
-        none."""
+        none.
+
+        In a data-parallel step (parallel/mesh.py) `labels` and `sim` are
+        this rank's rows of the global batch, and each slot's count and its
+        ⌈count·ratio⌉-th largest similarity are taken over every rank, the
+        order statistic exactly by losses/ohem_ce.py's bisection."""
         U, P, stride = self.num_unify_classes, self.num_prototype, self.network_stride
         single, multi_only, is_multi_t = self._tables(dataset_id, labels.device)
         labels = labels.long()
@@ -147,12 +155,15 @@ class ClassRemapOneHotLabel(ClassRemap):
         flat_sim, flat_assign = max_sim.reshape(-1), assign.reshape(-1)
         valid = (confident & is_multi).reshape(-1)
         slot_mask = torch.nn.functional.one_hot(flat_assign, U * P).bool() & valid[:, None]
-        counts = slot_mask.sum(dim=0).float()
-        keep_n = torch.clamp(torch.ceil(counts * ratio), min=1.0)
+        counts = mesh.step_sum(slot_mask.sum(dim=0))
+        keep_n = torch.clamp(torch.ceil(counts.float() * ratio), min=1.0)
         scores = torch.where(slot_mask.T, flat_sim[None, :], -torch.inf)
-        order = scores.sort(dim=1, descending=True).values
-        idx = (keep_n.long() - 1).clamp(0, order.shape[1] - 1)
-        thr = order.gather(1, idx[:, None])[:, 0]
+        if mesh.sync_active():
+            thr = _global_kth(scores, keep_n.long())
+        else:
+            order = scores.sort(dim=1, descending=True).values
+            idx = (keep_n.long() - 1).clamp(0, order.shape[1] - 1)
+            thr = order.gather(1, idx[:, None])[:, 0]
         keep = (valid & (flat_sim >= thr[flat_assign])).reshape(B, h, w)
         onehot = torch.nn.functional.one_hot(assign, U * P).bool()
         single_p = single[clb].repeat_interleave(P, dim=-1)

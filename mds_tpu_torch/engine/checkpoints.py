@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from mds_tpu_torch.engine.optim import load_optimizer_state, optimizer_state
+from mds_tpu_torch.parallel import mesh
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 
@@ -102,3 +103,16 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         payload = torch.load(self.path(step), map_location="cpu", weights_only=True)
         return payload["state"], payload.get("extras")
+
+
+def read_latest(directory: str) -> Optional[Tuple[Dict, Optional[Dict]]]:
+    """(state, extras) of the latest checkpoint in `directory`, or None
+    where there is none. Under a process group rank 0 reads it and
+    broadcasts it (parallel/mesh.py `broadcast_state`): every rank gets rank
+    0's answer, whatever its own directory holds."""
+    got = None
+    if mesh.rank() == 0 and os.path.isdir(directory):
+        manager = CheckpointManager(directory)
+        if manager.latest_step() is not None:
+            got = manager.restore()
+    return mesh.broadcast_state(got)

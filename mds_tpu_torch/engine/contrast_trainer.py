@@ -48,11 +48,36 @@ JAX draws the initial slots from PRNGKey(42), which no torch generator
 reproduces: these come from a generator seeded 42 by the same recipe
 (truncated normal × 0.02, rows normalized), and `deploy/weights.py
 contrast_state_from_jax` carries JAX's across.
+
+Under a process group (parallel/mesh.py; tools/train_torch.py joins the
+one torchrun or the JAX tool's MDS_* variables set up) each rank trains on
+`local_device()` with its rank's share of the loader, `ims_per_gpu` images
+a dataset, and each step is the one-process step on the global batch (each
+dataset's rows rank-major, as JAX's ContrastTrainer shards them on its data
+mesh, mds_tpu/engine/contrast_trainer.py:96-105,301-316):
+- the step runs inside `mesh.data_parallel(sync_bn=True)`: the train norms
+  and the OHEM pools reduce over every rank; each rank's dropout masks are
+  its rows of the global masks (kernel 12 at offset rank·numel of each
+  dataset's tensor); the anchor noise and the prototype Gumbel noise are
+  this rank's columns and rows of the global draws; anchors, the bank's
+  pushes, the remap's slot thresholds, the Sinkhorn and the prototypes'
+  momentum update take every rank's pixels (losses/contrast.py,
+  data/class_remap.py, ops/prototype_learning.py, losses/helpers.py); the
+  gradients and the metrics are summed over the ranks. SyncBN always, as
+  JAX's trainer has no local-BN path: `use_sync_bn: false` is ignored here,
+  as JAX ignores it;
+- the EMA teacher stays replicated (the same update from the same student
+  on every rank); its forward is eval-mode and local;
+- the model is broadcast from rank 0 after init and after a finetune; rank
+  0 alone saves (a barrier after), and a restore broadcasts rank 0's
+  checkpoint: the train state, the bank, the teacher and the prototypes;
+- `train` logs on rank 0.
 """
 
 from __future__ import annotations
 
 import copy
+import logging
 import os
 import time
 from typing import Dict, List, Optional, Sequence
@@ -61,7 +86,12 @@ import torch
 
 from mds_tpu_torch.config import Configer
 from mds_tpu_torch.data.class_remap import ClassRemap, ClassRemapOneHotLabel
-from mds_tpu_torch.engine.checkpoints import CheckpointManager, load_train_state, train_state
+from mds_tpu_torch.engine.checkpoints import (
+    CheckpointManager,
+    load_train_state,
+    read_latest,
+    train_state,
+)
 from mds_tpu_torch.engine.ema import ema_update
 from mds_tpu_torch.engine.lr_schedule import warmup_poly_lr
 from mds_tpu_torch.engine.optim import build_optimizer
@@ -122,11 +152,11 @@ class ContrastTrainer:
 
     def __init__(self, configer: Configer, work_dir: str = "./res",
                  compute_dtype: torch.dtype = torch.bfloat16, device="cuda"):
-        mesh.single_process("the contrast trainer")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ContrastTrainer: no CUDA device; pass device='cpu' to "
                                "train on the CPU")
+        self.device = mesh.local_device(device)
+        self.rank = mesh.rank()
 
         def g(*k, d=None):
             return configer.get(*k, default=d)
@@ -145,6 +175,7 @@ class ContrastTrainer:
         self.model = BiSeNetV2Contrast.from_configer(configer, dtype=compute_dtype)
         self.model.init_weights(torch.Generator().manual_seed(self.seed))
         self.model.to(self.device)
+        mesh.replicate(self.model)
         self.teacher = self._copy_teacher() if self.use_ema else None
         remap = ClassRemap(configer)
         self.luts = [remap.single_lut(i, self.device) for i in range(self.n)]
@@ -205,6 +236,13 @@ class ContrastTrainer:
         ims, lbs = self._to_device(batch["ims"]), self._to_device(batch["lbs"])
         clock = _Clock(self.device.type == "cuda")
         clock.mark()
+        with mesh.data_parallel(sync_bn=True):
+            metrics = self._step(ims, lbs, it, gen, cw, clock, noise, proto_noise)
+        self.step_count += 1
+        self.timings.append({"step": self.step_count, "_clock": clock})
+        return metrics
+
+    def _step(self, ims, lbs, it, gen, cw, clock, noise, proto_noise):
         model = self.model.train()
         xs = normalize_images(ims, self.means, self.stds, self.compute_dtype)
         out = model(xs, generator=gen)
@@ -237,6 +275,10 @@ class ContrastTrainer:
         loss = seg_total + cw * c_total
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        metrics = {"loss": loss.detach(), "seg_loss": torch.as_tensor(seg_total).detach(),
+                   "contrast_loss": torch.as_tensor(c_total, device=loss.device).detach(),
+                   **metrics}
+        metrics = mesh.sum_step(model.parameters(), metrics)
         self.optimizer.step()
         clock.mark()
         with torch.no_grad():
@@ -251,10 +293,7 @@ class ContrastTrainer:
                 bank = memory_bank_push(bank, flat, lb_small.reshape(-1))
         clock.mark()
         self.bank = bank
-        self.step_count += 1
-        self.timings.append({"step": self.step_count, "_clock": clock})
-        return {"loss": loss.detach(), "seg_loss": seg_total.detach(),
-                "contrast_loss": torch.as_tensor(c_total).detach(), **metrics}
+        return metrics
 
     def _multi_prototype(self, out, lbs, lb_smalls, preds, it, gen, proto_noise):
         """The P > 1 terms (mds_tpu/engine/contrast_trainer.py:179-240): the
@@ -269,7 +308,11 @@ class ContrastTrainer:
         gt_all = torch.cat([lb.reshape(-1) for lb in lb_smalls])
         correct = torch.cat([(p == lb).reshape(-1) for p, lb in zip(preds, lb_smalls)])
         if proto_noise is None:
-            proto_noise = gumbel_noise((emb_all.shape[0], P), gen, self.device)
+            # this rank's rows of the global draw: dataset i's at Σ_{j<i} N_j
+            # + rank·n_i (mesh.global_rows), the whole draw without a group
+            rows, total = mesh.global_rows([e.shape[0] * e.shape[2] * e.shape[3]
+                                            for e in embeds])
+            proto_noise = gumbel_noise((total, P), gen)[rows].to(self.device)
         res = prototype_learning(self.prototypes, emb_all, gt_all, correct,
                                  coefficient=self.coefficient, noise=proto_noise)
         self.prototypes = res.prototypes
@@ -326,8 +369,11 @@ class ContrastTrainer:
                 self.prototypes = torch.as_tensor(protos, dtype=torch.float32,
                                                   device=self.device)
         else:
-            state, _ = CheckpointManager(path).restore()
-            load_train_state(self.model, None, state)
+            got = read_latest(path)
+            if got is None:
+                raise FileNotFoundError(f"no checkpoint in {os.path.abspath(path)}")
+            load_train_state(self.model, None, got[0])
+        mesh.replicate(self.model)
         if self.teacher is not None:
             self.teacher = self._copy_teacher()
 
@@ -357,16 +403,33 @@ class ContrastTrainer:
             self.prototypes = extras["prototypes"].to(self.device, self.prototypes.dtype)
 
     def maybe_save(self, force: bool = False) -> bool:
-        """A checkpoint at every train.ckpt_interval steps, or `force`."""
-        if not self.ckpt.should_save(self.step_count, force):
+        """A checkpoint at every train.ckpt_interval steps, or `force`.
+        Under a group rank 0 writes and every rank waits at a barrier after
+        it; True where a checkpoint was written (on rank 0)."""
+        if not self.ckpt.due(self.step_count, force):
             return False
-        return self.ckpt.maybe_save(self.state(), extras=self.extras(), force=force)
+        saved = False
+        if self.rank == 0 and self.ckpt.should_save(self.step_count, force):
+            saved = self.ckpt.maybe_save(self.state(), extras=self.extras(), force=force)
+        mesh.barrier()
+        return saved
+
+    def restore_if_available(self, directory: Optional[str] = None) -> bool:
+        """Load rank 0's latest checkpoint of `directory` (default: this
+        trainer's) on every rank, if rank 0 has one; whether it did."""
+        got = read_latest(self.ckpt.directory if directory is None else directory)
+        if got is None:
+            return False
+        self.load(*got)
+        return True
 
     def restore(self, directory: Optional[str] = None) -> None:
-        """The latest checkpoint of `directory` (default: this trainer's)."""
-        manager = self.ckpt if directory is None else CheckpointManager(directory)
-        state, extras = manager.restore()
-        self.load(state, extras)
+        """The latest checkpoint of `directory` (default: this trainer's);
+        under a group rank 0's, broadcast. FileNotFoundError on every rank
+        where rank 0 has none."""
+        if not self.restore_if_available(directory):
+            raise FileNotFoundError(
+                f"no checkpoint in {self.ckpt.directory if directory is None else directory}")
 
     def train(self, loader=None, log_interval: Optional[int] = None) -> "ContrastTrainer":
         """Step to lr.max_iter (tools/train.py:39-76): the log line with the
@@ -377,13 +440,17 @@ class ContrastTrainer:
         from mds_tpu_torch.utils.meters import AvgMeter, TimeMeter
         from mds_tpu_torch.utils.metrics_writer import MetricsWriter
 
-        logger = setup_logger("mds_tpu_torch_contrast", self.work_dir)
+        rank0 = self.rank == 0
+        # rank 0 logs and writes the metrics; the others warn only
+        logger = setup_logger("mds_tpu_torch_contrast", self.work_dir if rank0 else None,
+                              level=logging.INFO if rank0 else logging.WARNING)
         if log_interval is None:
             log_interval = int(self.configer.get("train", "log_interval", default=100))
         if loader is None:
-            loader = get_data_loader(self.configer, "train")
+            loader = get_data_loader(self.configer, "train", rank=self.rank,
+                                     world=mesh.world())
         self.pipeline = getattr(loader, "pipeline", None)
-        writer = MetricsWriter(os.path.join(self.work_dir, "runs"))
+        writer = MetricsWriter(os.path.join(self.work_dir, "runs")) if rank0 else None
         tm, lm = TimeMeter(self.max_iter), AvgMeter()
         try:
             for it in range(self.step_count, self.max_iter):
@@ -400,13 +467,15 @@ class ContrastTrainer:
                     lr = float(self.schedule(it))
                     logger.info(f"iter {it + 1}/{self.max_iter} loss={lm.get()[0]:.4f} "
                                 f"contrast={contrast:.4f} lr={lr:.6f} time={t:.2f} eta={eta}")
-                    writer.write(it + 1, {"loss": float(metrics["loss"]),
-                                          "seg": float(metrics["seg_loss"]),
-                                          "contrast": contrast, "lr": lr}, group="loss")
+                    if writer is not None:
+                        writer.write(it + 1, {"loss": float(metrics["loss"]),
+                                              "seg": float(metrics["seg_loss"]),
+                                              "contrast": contrast, "lr": lr}, group="loss")
                     self.read_timings()
                 self.maybe_save()
         finally:
-            writer.close()
+            if writer is not None:
+                writer.close()
             if hasattr(loader, "close"):
                 loader.close()
         self.maybe_save(force=True)
@@ -425,6 +494,5 @@ def train_contrast(configer: Configer, work_dir: str = "./res", device="cuda",
                               device=device)
     if finetune_from:
         trainer.finetune_from(finetune_from)
-    if trainer.ckpt.latest_step() is not None:
-        trainer.restore()
+    trainer.restore_if_available()
     return trainer.train()

@@ -49,10 +49,36 @@ snp_rn18 whatever the name.
 - Checkpoints (`save`, `restore`) hold the seg train state and, as extras,
   the GNN's, the βs, the UOT graphs and the stage machine, under the global
   iteration.
+
+Under a process group (parallel/mesh.py; tools/train_torch.py joins the
+one torchrun or the JAX tool's MDS_* variables set up) each rank trains on
+`local_device()` with its rank's share of the loader, `ims_per_gpu` images
+a dataset, and each step is the one-process step on the global batch (each
+dataset's rows rank-major, JAX's shard_batch layout on its data mesh,
+mds_tpu/engine/gnn_trainer.py:62-69,607-615):
+- the GNN, SEG and init steps run inside `mesh.data_parallel(sync_bn=True)`:
+  the seg net's train norms (SharedListBN, DatasetListBN) and the OHEM
+  pools reduce over every rank, the replicated loss terms are weighted
+  1/world (losses/cross_datasets.py), the gradients of the seg net, the
+  graph net and its netD group and the metrics are summed over the ranks;
+  SyncBN always, as JAX's trainer has no local-BN path: a config's
+  `use_sync_bn: false` is ignored here, as JAX ignores it;
+- the graph net's forward is replicated: its dropout masks and the Gumbel
+  noise come from the step's generator, the same on every rank;
+- the GNN→SEG switch (UOT or KM, host numpy) runs on rank 0, which
+  broadcasts the prototypes, the graphs and the βs;
+- both nets are broadcast from rank 0 after init and after a `.pth`
+  finetune; rank 0 alone saves (a barrier after), and a restore broadcasts
+  rank 0's checkpoint, whatever the other ranks' work dirs hold;
+- `train_alternating` logs on rank 0, and its stage-switch evals read each
+  rank's share of the eval lists (the hists summed over the ranks); the
+  ranks skip such an eval together where a rank cannot build its loader,
+  and a failure inside it raises (`switch_eval`).
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Dict, List, Optional
@@ -60,7 +86,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from mds_tpu_torch.engine.checkpoints import CheckpointManager, load_train_state, train_state
+from mds_tpu_torch.engine.checkpoints import (
+    CheckpointManager,
+    load_train_state,
+    read_latest,
+    train_state,
+)
 from mds_tpu_torch.engine.lr_schedule import warmup_poly_lr
 from mds_tpu_torch.engine.optim import AdamW, load_optimizer_state
 from mds_tpu_torch.engine.train_step import normalize_images
@@ -99,11 +130,10 @@ class AlternatingTrainer:
                  node_features: Optional[np.ndarray] = None, device="cuda"):
         from mds_tpu_torch.data.node_features import gen_graph_node_features
 
-        mesh.single_process("the alternating trainer")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("AlternatingTrainer: no CUDA device; pass device='cpu' "
                                "to train on the CPU")
+        self.device = mesh.local_device(device)
         g = lambda *k, d=None: configer.get(*k, default=d)
         self.mode = g("train", "mode", d="alternate") or "alternate"
         if self.mode not in MODES:
@@ -141,6 +171,8 @@ class AlternatingTrainer:
             self.device, wide)
         self.gnn_model.init_weights(torch.Generator().manual_seed(self.seed + 1)).to(
             self.device, wide)
+        mesh.replicate(self.seg_model)
+        mesh.replicate(self.gnn_model)
         self.criterion = CrossDatasetsCELossAdvGNN(configer)
         self.M = self.seg_model.max_num_unify_class
         self.node_features = torch.tensor(np.asarray(node_features, np.float32),
@@ -232,26 +264,29 @@ class AlternatingTrainer:
         discriminators' loss, one backward, AdamW with the update scaled by
         gnn_lr_scale. `tau` defaults to the schedule's at alter_iter."""
         self.gnn_model.train()
-        out = self.gnn_model(self.node_features, generator)
-        if self.gumbel:
-            if tau is None:
-                tau = gumbel_softmax_decay(self.alter_iter, 2e-5, self.gumbel_tau0, 0.01)
-            if noise is None:
-                noise = gumbel_noise(self.dataset_cats, self.M, generator)
-            maxg = gumbel_max_graphs(out["adj_block"], self.dataset_cats, tau, noise)
-        else:
-            maxg = [m.detach() for m in max_mask_graphs(out["adj_block"], self.dataset_cats)]
-        graphs = [g for pair in zip(maxg, out["bi_graphs"]) for g in pair]
-        preds = {"seg": feats, "unify_prototype": out["unify_prototype"],
-                 "bi_graphs": graphs, "adv_pairs": out["adv_pairs"],
-                 "adj_block": out["adj_block"]}
-        if "adv_out" in out:
-            preds["adv_out"] = out["adv_out"]
-        loss, metrics = self.criterion(preds, lbs, is_adv=True, max_rate=max_rate)
-        if "adv_out" in out:  # one backward steps both groups (gnn_trainer.py:240-250)
-            loss = loss + metrics["adv_loss"]
-        self.gnn_opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with mesh.data_parallel(sync_bn=True):
+            out = self.gnn_model(self.node_features, generator)
+            if self.gumbel:
+                if tau is None:
+                    tau = gumbel_softmax_decay(self.alter_iter, 2e-5, self.gumbel_tau0, 0.01)
+                if noise is None:
+                    noise = gumbel_noise(self.dataset_cats, self.M, generator)
+                maxg = gumbel_max_graphs(out["adj_block"], self.dataset_cats, tau, noise)
+            else:
+                maxg = [m.detach() for m in max_mask_graphs(out["adj_block"],
+                                                            self.dataset_cats)]
+            graphs = [g for pair in zip(maxg, out["bi_graphs"]) for g in pair]
+            preds = {"seg": feats, "unify_prototype": out["unify_prototype"],
+                     "bi_graphs": graphs, "adv_pairs": out["adv_pairs"],
+                     "adj_block": out["adj_block"]}
+            if "adv_out" in out:
+                preds["adv_out"] = out["adv_out"]
+            loss, metrics = self.criterion(preds, lbs, is_adv=True, max_rate=max_rate)
+            if "adv_out" in out:  # one backward steps both groups (gnn_trainer.py:240-250)
+                loss = loss + metrics["adv_loss"]
+            self.gnn_opt.zero_grad(set_to_none=True)
+            loss.backward()
+        metrics = mesh.sum_step(self.gnn_model.parameters(), metrics)
         self.gnn_opt.update_scale = self.gnn_lr_scale
         self.gnn_opt.step()
         self.gnn_steps += 1
@@ -264,14 +299,16 @@ class AlternatingTrainer:
         prototypes' gradients are zeroed first (JAX's stop_gradient)."""
         model = self.seg_model
         model.train()
-        feats = self._features(ims)
-        aux = ([None if f is None else proto_logits(f, model.aux_prototype[i])
-                for i, f in enumerate(feats)] if model.with_datasets_aux else None)
-        preds = {"seg": feats, "aux": aux, "unify_prototype": model.unify_prototype,
-                 "bi_graphs": [model.bipartite_graphs[i] for i in range(self.n)]}
-        loss, metrics = self.criterion(preds, lbs, is_adv=False)
-        self.seg_opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with mesh.data_parallel(sync_bn=True):
+            feats = self._features(ims)
+            aux = ([None if f is None else proto_logits(f, model.aux_prototype[i])
+                    for i, f in enumerate(feats)] if model.with_datasets_aux else None)
+            preds = {"seg": feats, "aux": aux, "unify_prototype": model.unify_prototype,
+                     "bi_graphs": [model.bipartite_graphs[i] for i in range(self.n)]}
+            loss, metrics = self.criterion(preds, lbs, is_adv=False)
+            self.seg_opt.zero_grad(set_to_none=True)
+            loss.backward()
+        metrics = mesh.sum_step(model.parameters(), metrics)
         if self.mode == "clip":
             for name, p in model.named_parameters():
                 if "prototype" in name and p.grad is not None:
@@ -284,18 +321,20 @@ class AlternatingTrainer:
         """The init phase (gnn_trainer.py:320-358): graph MSE to the identity
         graphs and prototype MSE to the seg model's prototype."""
         self.gnn_model.train()
-        out = self.gnn_model(self.node_features, generator)
-        proto = out["unify_prototype"]
-        if self.gnn_model.with_datasets_aux:
-            proto = proto[self.total_cats:]
-        preds = {"seg": [None] * self.n, "unify_prototype": proto,
-                 "bi_graphs": out["bi_graphs"], "adj_block": out["adj_block"],
-                 "pretrain_bipart_graph": self._pretrain_graphs,
-                 "seg_prototype": self.seg_model.unify_prototype.detach()}
-        loss, metrics = self.criterion(preds, [None] * self.n, is_adv=False,
-                                       init_gnn_stage=True)
-        self.gnn_opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with mesh.data_parallel(sync_bn=True):
+            out = self.gnn_model(self.node_features, generator)
+            proto = out["unify_prototype"]
+            if self.gnn_model.with_datasets_aux:
+                proto = proto[self.total_cats:]
+            preds = {"seg": [None] * self.n, "unify_prototype": proto,
+                     "bi_graphs": out["bi_graphs"], "adj_block": out["adj_block"],
+                     "pretrain_bipart_graph": self._pretrain_graphs,
+                     "seg_prototype": self.seg_model.unify_prototype.detach()}
+            loss, metrics = self.criterion(preds, [None] * self.n, is_adv=False,
+                                           init_gnn_stage=True)
+            self.gnn_opt.zero_grad(set_to_none=True)
+            loss.backward()
+        metrics = mesh.sum_step(self.gnn_model.parameters(), metrics)
         self.gnn_opt.update_scale = 1.0
         self.gnn_opt.step()
         self.gnn_steps += 1
@@ -304,17 +343,29 @@ class AlternatingTrainer:
     # ------------------------------------------------------------ transitions
     def optimal_matching(self):
         """→ (the GNN's prototypes, the UOT graphs of its block, or its KM
-        graphs with GNN.use_km); UOT moves the βs (gnn_trainer.py:392-409)."""
+        graphs with GNN.use_km); UOT moves the βs (gnn_trainer.py:392-409).
+        Under a group rank 0 matches and broadcasts the three, so that no
+        rank's host arithmetic drifts from another's."""
         with torch.no_grad():
             proto, block = self.gnn_model.infer_prototypes(self.node_features)
-        block = block.float().cpu().numpy()
-        if self.use_km:
-            graphs = sep_bipartite_graphs_by_km(block, self.dataset_cats)
-        else:
-            graphs, self.betas = sep_bipartite_graphs_by_uot(
-                block, self.dataset_cats, self.betas, uot_ratio=self.uot_ratio)
-        self.uot_bi = graphs
-        return proto.detach(), graphs
+        proto, graphs, betas = proto.detach(), None, self.betas
+        if mesh.rank() == 0:
+            block = block.float().cpu().numpy()
+            if self.use_km:
+                graphs = sep_bipartite_graphs_by_km(block, self.dataset_cats)
+            else:
+                graphs, betas = sep_bipartite_graphs_by_uot(
+                    block, self.dataset_cats, self.betas, uot_ratio=self.uot_ratio)
+        if mesh.world() > 1:
+            arrays = lambda xs: [torch.from_numpy(np.asarray(x)) for x in xs]
+            got = mesh.broadcast_state(
+                {"proto": proto.cpu(), "graphs": arrays(graphs), "betas": arrays(betas)}
+                if mesh.rank() == 0 else None)
+            proto = got["proto"].to(proto.device, proto.dtype)
+            graphs = [g.numpy() for g in got["graphs"]]
+            betas = [b.numpy() for b in got["betas"]]
+        self.betas, self.uot_bi = betas, graphs
+        return proto, graphs
 
     def switch_to_seg(self) -> None:
         proto, graphs = self.optimal_matching()
@@ -341,6 +392,7 @@ class AlternatingTrainer:
             if detect_torch_layout(sd) != "semseg":
                 raise ValueError(f"{path}: not a snp_rn18 (semseg) state_dict")
             load_reference_weights(self.seg_model, sd)
+            mesh.replicate(self.seg_model)
         else:
             self.restore(path)
             self.seg_opt = self._adamw(self.seg_model, self.seg_schedule)
@@ -349,7 +401,13 @@ class AlternatingTrainer:
     # ------------------------------------------------------------ persistence
     def save(self, directory: str, step: Optional[int] = None) -> None:
         """Both train states and the stage machine under `step` (the global
-        iteration by default)."""
+        iteration by default). Under a group rank 0 writes and every rank
+        waits at a barrier after it."""
+        if mesh.rank() == 0:
+            self._write(directory, step)
+        mesh.barrier()
+
+    def _write(self, directory: str, step: Optional[int]) -> None:
         extras = {
             "gnn_state": train_state(self.gnn_model, self.gnn_opt, self.gnn_steps),
             "betas": {str(i): torch.from_numpy(np.asarray(b)) for i, b in enumerate(self.betas)},
@@ -363,7 +421,21 @@ class AlternatingTrainer:
             force=True, step=self.total_iter if step is None else step)
 
     def restore(self, directory: str) -> None:
-        state, extras = CheckpointManager(directory).restore()
+        """The latest checkpoint of `directory`; under a group rank 0's,
+        broadcast. FileNotFoundError on every rank where rank 0 has none."""
+        if not self.restore_if_available(directory):
+            raise FileNotFoundError(f"no checkpoint in {os.path.abspath(directory)}")
+
+    def restore_if_available(self, directory: str) -> bool:
+        """Restore rank 0's latest checkpoint of `directory` on every rank,
+        if rank 0 has one; whether it did."""
+        got = read_latest(directory)
+        if got is None:
+            return False
+        self._load_checkpoint(*got)
+        return True
+
+    def _load_checkpoint(self, state: Dict, extras: Dict) -> None:
         self.seg_steps = load_train_state(self.seg_model, self.seg_opt, state)
         self.gnn_steps = load_train_state(self.gnn_model, self.gnn_opt, extras["gnn_state"])
         self.betas = [extras["betas"][str(i)].numpy() for i in range(self.n)]
@@ -385,6 +457,7 @@ class AlternatingTrainer:
         load_optimizer_state(self.gnn_model, self.gnn_opt, states["gnn_optimizer"])
 
     def latest_step(self, directory: str) -> Optional[int]:
+        """The latest checkpoint step in `directory` (this rank's files)."""
         if not os.path.isdir(directory):
             return None
         return CheckpointManager(directory).latest_step()
@@ -467,6 +540,39 @@ class AlternatingTrainer:
         return self.timings
 
 
+def switch_eval(configer, seg_model, logger, tag: str) -> bool:
+    """The `contrast` eval of the live seg net after a stage switch
+    (train.eval_at_switch); whether it ran. Its failure is logged and the
+    run goes on, as JAX's. Under a group the ranks first agree that each
+    built its eval loader, so that a missing dataset on any rank skips the
+    eval on every rank; a failure inside the eval, whose collectives the
+    other ranks wait on, raises."""
+    from mds_tpu_torch.data.loader import get_data_loader
+    from mds_tpu_torch.evaluation.evaluator import eval_model
+
+    rank, world = mesh.rank(), mesh.world()
+    try:
+        loaders, err = get_data_loader(configer, "eval", rank=rank, world=world), None
+    except Exception as e:  # missing datasets etc.
+        loaders, err = None, e
+    if world > 1:
+        failed = int(mesh.all_reduce(torch.tensor([int(err is not None)])))
+        if failed and err is None:
+            err = RuntimeError(f"the eval loader failed on {failed} of {world} ranks")
+    if err is None:
+        try:
+            mious = eval_model(configer, seg_model, loaders, mode="contrast")
+        except Exception as e:
+            if world > 1:  # the other ranks wait in its collectives
+                raise
+            err = e
+        else:
+            logger.info(f"[eval @{tag}] mIoUs: " + " ".join(f"{m:.4f}" for m in mious))
+            return True
+    logger.warning(f"stage-switch eval failed: {err}")
+    return False
+
+
 def train_alternating(configer, work_dir: str = "./res", device="cuda",
                       finetune_from: Optional[str] = None,
                       compute_dtype: torch.dtype = torch.float32) -> AlternatingTrainer:
@@ -474,13 +580,16 @@ def train_alternating(configer, work_dir: str = "./res", device="cuda",
     finetune, resume from `<work_dir>/ckpt_gnn`, step to lr.max_iter with
     the log line every train.log_interval steps, a checkpoint every
     train.ckpt_interval and at the end, and with train.eval_at_switch the
-    `contrast` eval of the live model after each stage switch (its failure
-    logged, not raised, as JAX's)."""
+    `contrast` eval of the live model after each stage switch
+    (`switch_eval`)."""
     from mds_tpu_torch.data.loader import get_data_loader
     from mds_tpu_torch.utils.logger import setup_logger
     from mds_tpu_torch.utils.meters import AvgMeter, TimeMeter
 
-    logger = setup_logger("mds_tpu_torch_gnn", work_dir)
+    rank, world = mesh.rank(), mesh.world()
+    # rank 0 logs; the others warn only
+    logger = setup_logger("mds_tpu_torch_gnn", work_dir if rank == 0 else None,
+                          level=logging.INFO if rank == 0 else logging.WARNING)
     trainer = AlternatingTrainer(configer, compute_dtype=compute_dtype, device=device)
     ckpt_dir = os.path.join(work_dir, "ckpt_gnn")
     g = lambda *k, d=None: configer.get(*k, default=d)
@@ -490,22 +599,11 @@ def train_alternating(configer, work_dir: str = "./res", device="cuda",
     if finetune_from:
         trainer.finetune_from(finetune_from)
         logger.info(f"finetuning from {finetune_from}")
-    if trainer.latest_step(ckpt_dir) is not None:
-        trainer.restore(ckpt_dir)
+    if trainer.restore_if_available(ckpt_dir):
         logger.info(f"restored alternating ckpt at iter {trainer.total_iter} "
                     f"(stage={trainer.stage}, alter_iter={trainer.alter_iter})")
-    loader = get_data_loader(configer, "train")
+    loader = get_data_loader(configer, "train", rank=rank, world=world)
     tm, lm = TimeMeter(trainer.max_iter), AvgMeter()
-
-    def eval_now(tag):
-        try:
-            from mds_tpu_torch.evaluation.evaluator import eval_model
-
-            mious = eval_model(configer, trainer.seg_model,
-                               get_data_loader(configer, "eval"), mode="contrast")
-            logger.info(f"[eval @{tag}] mIoUs: " + " ".join(f"{m:.4f}" for m in mious))
-        except Exception as e:  # missing datasets etc.: the run goes on
-            logger.warning(f"stage-switch eval failed: {e}")
 
     try:
         for it in range(trainer.total_iter, trainer.max_iter):
@@ -521,7 +619,8 @@ def train_alternating(configer, work_dir: str = "./res", device="cuda",
             if (it + 1) % ckpt_interval == 0:
                 trainer.save(ckpt_dir)
             if eval_at_switch and trainer.stage != prev:
-                eval_now(f"iter{it + 1}:{prev}->{trainer.stage}")
+                switch_eval(configer, trainer.seg_model, logger,
+                            f"iter{it + 1}:{prev}->{trainer.stage}")
     finally:
         if hasattr(loader, "close"):
             loader.close()

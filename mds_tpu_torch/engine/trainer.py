@@ -56,6 +56,7 @@ from mds_tpu_torch.data.loader import get_data_loader
 from mds_tpu_torch.engine.checkpoints import (
     CheckpointManager,
     load_train_state,
+    read_latest,
     train_state,
 )
 from mds_tpu_torch.engine.lr_schedule import warmup_poly_lr
@@ -192,13 +193,10 @@ class Trainer:
         rank 0's checkpoint decides: its train state (parameters, buffers,
         optimizer state, step) is broadcast, so every rank resumes at the
         same step from the same state, whatever its own work_dir holds."""
-        state = None
-        if self.rank == 0 and self.ckpt.latest_step() is not None:
-            state, _ = self.ckpt.restore()
-        state = mesh.broadcast_state(state)
-        if state is None:
+        got = read_latest(self.ckpt.directory)
+        if got is None:
             return
-        self.step = load_train_state(self.model, self.optimizer, state)
+        self.step = load_train_state(self.model, self.optimizer, got[0])
         self.logger.info(f"restored checkpoint at step {self.step}")
 
     def finetune_from(self, path: str) -> None:

@@ -12,6 +12,24 @@ The ranking noise is an argument, (U, P) uniform [0, 1) values: the
 trainer draws it from the step's CPU `torch.Generator` (`anchor_noise`),
 so a run on the card draws what one on the CPU draws, and a test can feed
 in JAX's own draws.
+
+In a data-parallel step (parallel/mesh.py `data_parallel`, the contrast
+trainer at world size > 1) each rank holds its rows of the global batch;
+rank r's P pixels are the dataset's global columns [r·P, (r + 1)·P) in
+NHWC order, and what the one-process step computes on the global batch is
+computed here over every rank (mds_tpu/engine/contrast_trainer.py:301-316
+runs it on JAX's data mesh):
+- `anchor_noise` draws the global (C, world·P) noise and keeps this rank's
+  columns;
+- `hard_anchor_sample` ranks each class's pixels over every rank: each
+  rank's n_view best candidates with their scores and global indices are
+  gathered (`mesh.gather_rows`), the global best n_view taken, the class
+  count summed; the fill of a class with few pixels scores by the global
+  index;
+- `contrastive_loss`, computed whole on every rank from the gathered
+  anchors and the replicated bank, is weighted 1/world;
+- `memory_bank_push` sums the class sums and counts over the ranks, so
+  every rank writes the same bank.
 """
 
 from __future__ import annotations
@@ -21,6 +39,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from mds_tpu_torch.parallel import mesh
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -33,32 +53,77 @@ def anchor_noise(n_classes: int, n_pixels: int, generator: torch.Generator,
                  device="cpu") -> torch.Tensor:
     """(n_classes, n_pixels) uniform [0, 1) f32 ranking noise drawn from a
     CPU generator, on `device` (a CUDA copy from page-locked memory, not
-    waited for)."""
-    t = torch.rand((n_classes, n_pixels), generator=generator)
+    waited for). In a data-parallel step `n_pixels` is this rank's count:
+    the draw is the global (n_classes, world·n_pixels) one, and this rank
+    keeps its columns."""
+    if mesh.sync_active():
+        cols, total = mesh.global_rows([n_pixels])
+        t = torch.rand((n_classes, total), generator=generator)[:, cols]
+    else:
+        t = torch.rand((n_classes, n_pixels), generator=generator)
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+def _top(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's k largest of `score` in descending order, ties to the
+    lower index (XLA's top_k rule): (values, indices)."""
+    values, idx = torch.sort(score, dim=1, descending=True, stable=True)
+    return values[:, :k], idx[:, :k]
+
+
+def anchor_picks(labels: torch.Tensor, preds: torch.Tensor, noise: torch.Tensor,
+                 n_view: int, max_views: int = 2):
+    """The anchors' choice of `hard_anchor_sample` (labels and preds (P,),
+    noise (C, P)) → (this rank's candidates (C, k) as local indices, the
+    picks as positions among every rank's gathered candidates (C, n_view),
+    rank r's k candidates at [r·k, (r + 1)·k), valid (C,) bool). Class c
+    ranks its pixels by noise + hard (hard: predicted other than c); the
+    pixels outside it score −1 − (global index)/(global count), distinct,
+    below every real score and falling with the index, so that a class
+    with fewer than n_view pixels fills up with other classes' pixels,
+    lowest global index first, as XLA's top_k breaks the ties of JAX's
+    −inf scores. Outside a data-parallel step the candidates are the
+    picks."""
+    C, P = noise.shape
+    labels = labels.long()
+    sync = mesh.sync_active()
+    off, total = (mesh.rank() * P, mesh.world() * P) if sync else (0, P)
+    classes = torch.arange(C, device=labels.device)[:, None]
+    mask = labels[None, :] == classes
+    hard = mask & (preds.long()[None, :] != classes)
+    gidx = torch.arange(off, off + P, device=noise.device)
+    outside = -1.0 - gidx.to(noise.dtype) / total
+    score = torch.where(mask, noise + hard.to(noise.dtype), outside[None, :])
+    count = mask.sum(dim=1)
+    top, cand = _top(score, min(n_view, P))
+    if not sync:
+        pos = torch.arange(cand.shape[1], device=cand.device).expand_as(cand)
+        return cand, pos, count > max_views
+    # every rank's candidates, rank-major: (world·k, C), ordered by global
+    # index before the stable ranking so that equal scores go to the lower
+    all_scores = mesh.gather_rows(top.T.contiguous()).T
+    all_gidx = mesh.gather_rows(gidx[cand].T.contiguous()).T
+    by_index = all_gidx.argsort(dim=1)
+    _, pos = _top(all_scores.gather(1, by_index), n_view)
+    return cand, by_index.gather(1, pos), mesh.all_reduce(count) > max_views
 
 
 def hard_anchor_sample(feats: torch.Tensor, labels: torch.Tensor, preds: torch.Tensor,
                        noise: torch.Tensor, n_view: int, max_views: int = 2
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """feats (P, D), labels and preds (P,), noise (C, P) → anchors
-    (C, n_view, D) and valid (C,) bool. Class c's anchors are its n_view
-    pixels of highest noise + hard (hard: predicted other than c); a class
-    with fewer pixels fills up with pixels of other classes, lowest index
-    first, as XLA's top_k breaks the ties of its -inf scores."""
-    C, P = noise.shape
-    labels = labels.long()
-    classes = torch.arange(C, device=labels.device)[:, None]
-    mask = labels[None, :] == classes
-    hard = mask & (preds.long()[None, :] != classes)
-    # outside the class: distinct scores below every real one, falling with
-    # the index, so that topk's picks are those of a stable ranking
-    outside = -1.0 - torch.arange(P, device=noise.device, dtype=noise.dtype) / P
-    score = torch.where(mask, noise + hard.to(noise.dtype), outside[None, :])
-    idx = torch.topk(score, n_view, dim=1).indices
-    return feats[idx], mask.sum(dim=1) > max_views
+    (C, n_view, D) and valid (C,) bool: each class's n_view pixels of
+    highest noise + hard (`anchor_picks`). In a data-parallel step over
+    every rank's pixels: the anchors are the same on every rank, and their
+    gradient (`mesh.gather_rows`) reaches the rank that holds each pixel."""
+    cand, pos, valid = anchor_picks(labels, preds, noise, n_view, max_views)
+    if not mesh.sync_active():
+        return feats[cand], valid
+    # (k, C, D) → every rank's, (world·k, C, D) → (C, world·k, D)
+    gathered = mesh.gather_rows(feats[cand].transpose(0, 1).contiguous()).transpose(0, 1)
+    return gathered.gather(1, pos[..., None].expand(-1, -1, feats.shape[1])), valid
 
 
 def contrastive_loss(anchors: torch.Tensor, valid: torch.Tensor, memory: torch.Tensor,
@@ -107,14 +172,16 @@ def memory_bank_push(bank: MemoryBank, feats: torch.Tensor, labels: torch.Tensor
     """Write the L2-normalized mean of each class present among `labels`
     (P,) over feats (P, D) (f32, as the bank) into its queue at `ptr`, advance `ptr` and
     `count`; the others stay. A new bank (the tensors are not changed in
-    place)."""
+    place). In a data-parallel step the class sums and counts are every
+    rank's."""
     C, M, _ = bank.feats.shape
     labels = labels.long()
     # the ignore label, or any other id outside [0, C), counts nowhere
     onehot = F.one_hot(torch.where((labels >= 0) & (labels < C), labels, C),
                        C + 1)[:, :C].to(feats.dtype)
-    counts = onehot.sum(dim=0)
-    means = l2_normalize((onehot.T @ feats) / torch.clamp(counts[:, None], min=1.0))
+    # in a data-parallel step every rank's pixels (module docstring)
+    counts, sums = mesh.step_sum(onehot.sum(dim=0)), mesh.step_sum(onehot.T @ feats)
+    means = l2_normalize(sums / torch.clamp(counts[:, None], min=1.0))
     present = counts > 0
     rows = torch.arange(C, device=labels.device)
     slot = bank.ptr.long()
@@ -158,5 +225,7 @@ class PixelContrastLoss:
         anchors, valid = hard_anchor_sample(
             flat, labels.reshape(-1), preds.reshape(-1), noise, self.n_view,
             self.max_views)
-        return contrastive_loss(anchors, valid, bank.feats, self.temperature,
+        loss = contrastive_loss(anchors, valid, bank.feats, self.temperature,
                                 self.base_temperature)
+        # every rank computes the loss whole: its share (module docstring)
+        return loss * mesh.replicated_share()

@@ -21,6 +21,16 @@ Terms, as JAX reproduces the reference's CrossDatasetsCELoss_AdvGNN:
   discriminators' BCE (real → 0, detached fake → 1) as metrics["adv_loss"],
   which the trainer adds before its one backward.
 
+In a SyncBN step (parallel/mesh.py, the alternating trainer at world
+size > 1) each rank holds its rows of the global batch: the OHEM terms
+pool every rank's pixels (`ohem_mean`) and return this rank's share; the
+terms computed from replicated tensors (orth, spa, max_enc, the adjacency
+target, the init stage's graph and prototype MSE, mse, the adv BCEs and
+the discriminators' loss) are the same on every rank and are weighted
+1/world, so that the gradients summed over the ranks (`all_reduce_grads`)
+and the metrics summed over them are the one-process step's on the global
+batch.
+
 Per-dataset tensors arrive as lists (None for an absent dataset): features
 (B, D, h, w) in the compute dtype, labels (B, H, W) at the crop's
 resolution. JAX recomputes the remap → upsample → OHEM region in the
@@ -38,6 +48,7 @@ import torch
 from mds_tpu_torch.losses.ohem_ce import MdsOhemCELoss, OhemCELoss
 from mds_tpu_torch.models.layers import resize_bilinear_ac, wide
 from mds_tpu_torch.models.semseg import proto_logits, remap_logits
+from mds_tpu_torch.parallel import mesh
 
 
 def similarity_dsb(proto_vecs: torch.Tensor, temperature: float = 0.07,
@@ -120,6 +131,8 @@ class CrossDatasetsCELossAdvGNN:
         bi_graphs = preds.get("bi_graphs", [])
         metrics: Dict[str, torch.Tensor] = {}
         loss = 0.0
+        # a replicated term's share on this rank (module docstring)
+        rep = mesh.replicated_share()
 
         aux_logits = preds.get("aux")
         fold_proto = None
@@ -137,7 +150,7 @@ class CrossDatasetsCELossAdvGNN:
 
         if is_adv and self.with_orth and proto is not None:
             up = proto[self.total_cats:] if self._split_aux(proto, bi_graphs) else proto
-            orth = self.orth_weight * similarity_dsb(up, self.temperature)
+            orth = rep * self.orth_weight * similarity_dsb(up, self.temperature)
             loss = loss + orth
             metrics["orth_loss"] = orth
 
@@ -147,14 +160,15 @@ class CrossDatasetsCELossAdvGNN:
             if targets[i] is None:
                 continue
             if is_adv and self.with_spa and not second_stage and two_n:
-                loss = loss + self.spa_loss_weight * bi_graphs[2 * i + 1].square().sum()
+                loss = loss + rep * self.spa_loss_weight * bi_graphs[2 * i + 1].square().sum()
             if is_adv and self.with_max_enc:
                 g = bi_graphs[2 * i] if two_n else bi_graphs[i]
-                loss = loss + self.max_enc_weight * (g.max(dim=1).values - 1.0).square().mean()
+                loss = loss + rep * self.max_enc_weight * (
+                    g.max(dim=1).values - 1.0).square().mean()
             if is_adv and tbg is not None and not second_stage:
                 g = bi_graphs[2 * i + 1] if two_n else bi_graphs[i]
                 mask = (tbg[i] != 255).float()
-                adj_l = ((g - tbg[i]) * mask).square().sum() / g.shape[1]
+                adj_l = rep * ((g - tbg[i]) * mask).square().sum() / g.shape[1]
                 loss = loss + self.adj_loss_weight * adj_l
                 metrics["adj_loss"] = metrics.get("adj_loss", 0.0) + adj_l
 
@@ -184,24 +198,25 @@ class CrossDatasetsCELossAdvGNN:
                 graph_l, cur = 0.0, 0
                 for j in range(n):
                     blk = preds["adj_block"][cur:cur + self.n_cats[j]]
-                    graph_l = graph_l + 10.0 * (blk - pbg[j]).square().mean()
+                    graph_l = graph_l + rep * 10.0 * (blk - pbg[j]).square().mean()
                     cur += self.n_cats[j]
                 loss = loss + graph_l
                 metrics["graph_loss"] = graph_l
             if proto is not None and preds.get("seg_prototype") is not None:
-                mse = n * 10.0 * (proto - preds["seg_prototype"]).square().mean()
+                mse = rep * n * 10.0 * (proto - preds["seg_prototype"]).square().mean()
                 loss = loss + mse
                 metrics["init_proto_mse"] = mse
 
         if is_adv and self.mse_or_adv == "mse" and "adv_pairs" in preds:
-            adv = sum((fake - real).square().mean() for real, fake in preds["adv_pairs"][:3])
+            adv = rep * sum((fake - real).square().mean()
+                            for real, fake in preds["adv_pairs"][:3])
             loss = loss + self.adv_loss_weight * adv
             metrics["adv_loss"] = adv
         elif is_adv and self.mse_or_adv == "adv" and "adv_out" in preds:
             d = preds["adv_out"]
-            g_fake = sum(_bce(d[f"ADV{k}"][2], 0.0) for k in (1, 2, 3))
-            d_loss = sum(_bce(d[f"ADV{k}"][0], 0.0) + _bce(d[f"ADV{k}"][1], 1.0)
-                         for k in (1, 2, 3))
+            g_fake = rep * sum(_bce(d[f"ADV{k}"][2], 0.0) for k in (1, 2, 3))
+            d_loss = rep * sum(_bce(d[f"ADV{k}"][0], 0.0) + _bce(d[f"ADV{k}"][1], 1.0)
+                               for k in (1, 2, 3))
             loss = loss + self.adv_loss_weight * g_fake
             metrics["adv_loss"] = d_loss  # the discriminators' loss
 

@@ -8,6 +8,14 @@ models return them); label maps are (B, H, W) with ignore = 255.
 `multi_label_cross_entropy` and `circle_loss` take rows with the class on
 the last axis, (N, C), as JAX's. The per-pixel math is f32 whatever the
 logits' dtype, f64 where they are f64.
+
+In a data-parallel step (parallel/mesh.py; the multi-prototype contrast
+trainer at world size > 1) the two losses that trainer takes reduce over
+the global batch: `multi_label_cross_entropy` returns this rank's rows'
+sum over the global row count (its share of the global mean), and
+`weighted_nll_plus_loss` takes −log of the global mean (the sum and the
+count through `global_sum`), which every rank then holds whole, weighted
+1/world.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import torch.nn.functional as F
 
 from mds_tpu_torch.losses.ohem_ce import cross_entropy_per_pixel
 from mds_tpu_torch.models.layers import resize_bilinear_ac, wide
+from mds_tpu_torch.parallel import mesh
 
 
 def _pick(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -80,11 +89,13 @@ def nll_plus_loss(logits: torch.Tensor, labels_k: Sequence[torch.Tensor],
 
 def weighted_nll_plus_loss(logits: torch.Tensor, weighted_mask: torch.Tensor) -> torch.Tensor:
     """−log of the mean over pixels of Σ_c softmax(x)_c · mask_c; the mask
-    (B, C, H, W) as the logits."""
+    (B, C, H, W) as the logits. In a data-parallel step the mean is over
+    every rank's pixels, and this rank's share is 1/world of the loss."""
     b, _, h, w = logits.shape
     p = torch.softmax(wide(logits), dim=1)
-    prob = (p * weighted_mask.to(p.dtype)).sum() / (b * h * w)
-    return -torch.log(prob.clamp_min(1e-12))
+    total = (p * weighted_mask.to(p.dtype)).sum()
+    total, count = mesh.step_sum(torch.stack([total, total.new_tensor(b * h * w)]))
+    return -torch.log((total / count).clamp_min(1e-12)) * mesh.replicated_share()
 
 
 def adj_nll_plus_loss(logits: torch.Tensor, adj: torch.Tensor, lb: torch.Tensor,
@@ -115,11 +126,13 @@ def multi_label_cross_entropy(logits: torch.Tensor, multi_hot: torch.Tensor,
                               m: float = 0.0, gamma: float = 1.0) -> torch.Tensor:
     """Circle-style multi-label CE over rows (…, C) with multi-hot targets:
     softplus(logsumexp over the negatives of (x + m)·γ + logsumexp over the
-    positives of −x·γ), masked entries at −1e12; the mean over rows."""
+    positives of −x·γ), masked entries at −1e12; the mean over rows (in a
+    data-parallel step, every rank's rows)."""
     c = logits.shape[-1]
     x = wide(logits).reshape(-1, c)
     pos = multi_hot.reshape(-1, c) > 0
     logit_p = torch.where(pos, -x * gamma, -1e12)
     logit_n = torch.where(~pos, (x + m) * gamma, -1e12)
-    return F.softplus(torch.logsumexp(logit_n, dim=-1)
-                      + torch.logsumexp(logit_p, dim=-1)).mean()
+    rows = F.softplus(torch.logsumexp(logit_n, dim=-1) + torch.logsumexp(logit_p, dim=-1))
+    # in a data-parallel step, this rank's share of the mean over every rank's rows
+    return rows.sum() / mesh.step_sum(rows.new_tensor(rows.shape[0]))

@@ -113,19 +113,20 @@ def _order_keys(x: torch.Tensor) -> torch.Tensor:
 
 
 def _global_kth(masked: torch.Tensor, n_min: torch.Tensor) -> torch.Tensor:
-    """The n_min-th largest of every rank's `masked` (n_min ≥ 1), exactly,
-    with no gather and no host sync: the largest key t with at least n_min
-    keys ≥ t over all ranks, built from the top bit down (32 steps for f32,
-    64 for f64), each a count on the device and a one-number all_reduce.
-    Neither the memory nor the traffic grows with the world size."""
+    """The n_min-th largest of every rank's `masked` along its last axis
+    (n_min ≥ 1, one for each leading index), exactly, with no gather and
+    no host sync: the largest key t with at least n_min keys ≥ t over all
+    ranks, built from the top bit down (32 steps for f32, 64 for f64), each
+    a count on the device and an all_reduce of one number a row. Neither
+    the memory nor the traffic grows with the world size."""
     keys = _order_keys(masked)
     nbits = keys.element_size() * 8
     low, mag = torch.iinfo(keys.dtype).min, torch.iinfo(keys.dtype).max
-    t = torch.full((), low, dtype=keys.dtype, device=keys.device)
+    t = torch.full(keys.shape[:-1], low, dtype=keys.dtype, device=keys.device)
     for b in range(nbits - 1, -1, -1):
         # the key space read unsigned: setting bit 63/31 clears the sign bit
         cand = t ^ low if b == nbits - 1 else t | (1 << b)
-        count = mesh.all_reduce((keys >= cand).sum())
+        count = mesh.all_reduce((keys >= cand[..., None]).sum(-1))
         t = torch.where(count >= n_min, cand, t)
     return torch.where(t < 0, t ^ mag, t).view(masked.dtype)
 

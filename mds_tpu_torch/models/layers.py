@@ -151,11 +151,12 @@ def _c(v: torch.Tensor) -> torch.Tensor:
     return v.reshape(1, -1, 1, 1)
 
 
-def _global_sums(xf: torch.Tensor, *sums: torch.Tensor) -> List[torch.Tensor]:
-    """SyncBN: each per-channel sum, and the element count a channel, summed
-    over every rank's batch in one all_reduce (parallel/mesh.py
-    global_sum: the gradient flows through the other ranks' shares)."""
-    cnt = torch.full((1,), xf.numel() // xf.shape[1], dtype=xf.dtype, device=xf.device)
+def _global_sums(count: int, *sums: torch.Tensor) -> List[torch.Tensor]:
+    """SyncBN: each per-channel sum, and this rank's element count a
+    channel, summed over every rank's batch in one all_reduce
+    (parallel/mesh.py global_sum: the gradient flows through the other
+    ranks' shares)."""
+    cnt = sums[0].new_full((1,), count)
     out = mesh.global_sum(torch.cat([*sums, cnt]))
     return [*out[:-1].split([t.numel() for t in sums]), out[-1]]
 
@@ -209,7 +210,7 @@ class DatasetNorm(nn.ModuleList):
     def _train_norm(self, bn: nn.BatchNorm2d, x: torch.Tensor, w, b):
         xf = wide(x)
         if mesh.sync_active():
-            s, cnt = _global_sums(xf, xf.sum(dim=(0, 2, 3)))
+            s, cnt = _global_sums(xf.numel() // xf.shape[1], xf.sum(dim=(0, 2, 3)))
             m = s / cnt
             d = xf - _c(m)
             v = mesh.global_sum(d.square().sum(dim=(0, 2, 3))) / cnt
@@ -364,7 +365,7 @@ def bn_eval(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Te
     if bn.training:
         xf = x.float()
         if mesh.sync_active():
-            s1, s2, cnt = _global_sums(xf, xf.sum(dim=(0, 2, 3)),
+            s1, s2, cnt = _global_sums(xf.numel() // xf.shape[1], xf.sum(dim=(0, 2, 3)),
                                        xf.square().sum(dim=(0, 2, 3)))
             m = s1 / cnt
             v = torch.clamp(s2 / cnt - m.square(), min=0.0)

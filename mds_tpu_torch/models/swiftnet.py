@@ -50,6 +50,7 @@ from mds_tpu_torch.models.layers import (
     MultiX,
     PackCache,
     _c,
+    _global_sums,
     bn_fold,
     conv2d,
     conv_init,
@@ -60,6 +61,7 @@ from mds_tpu_torch.models.layers import (
     resize_bilinear,
     wide,
 )
+from mds_tpu_torch.parallel import mesh
 
 # True while a remat block recomputes its forward for the backward: the BN
 # running stats were moved by the forward already
@@ -84,7 +86,10 @@ class SharedListBN(nn.BatchNorm2d):
     Train: the joint moments of every non-None entry, s1 and s2 summed in
     f32 over the list, m = s1/N, v = max(s2/N − m², 0); the gradient flows
     through them; the running mean and variance move by momentum 0.1, the
-    variance with the unbiased v·N/max(N − 1, 1). Eval: the running stats.
+    variance with the unbiased v·N/max(N − 1, 1). In a SyncBN step
+    (parallel/mesh.py) s1, s2 and N are every rank's, summed in one
+    all_reduce: the moments of the global batch, as JAX's sharded step
+    takes them. Eval: the running stats.
     Both: y = ((x − m)·rsqrt(v + eps))·scale + bias in f32, cast to
     `dtype`."""
 
@@ -101,6 +106,11 @@ class SharedListBN(nn.BatchNorm2d):
             total = sum(x.numel() // x.shape[1] for x in live)
             s1 = sum(wide(x).sum(dim=(0, 2, 3)) for x in live)
             s2 = sum(wide(x).square().sum(dim=(0, 2, 3)) for x in live)
+            if mesh.sync_active():
+                s1, s2, total = _global_sums(total, s1, s2)
+                unbiased = total / (total - 1).clamp_min(1)
+            else:
+                unbiased = total / max(total - 1, 1)
             m = s1 / total
             v = torch.clamp(s2 / total - m.square(), min=0.0)
             if not _STATS_FROZEN:
@@ -108,7 +118,7 @@ class SharedListBN(nn.BatchNorm2d):
                 with torch.no_grad():
                     self.running_mean.copy_((1 - mom) * self.running_mean + mom * m)
                     self.running_var.copy_((1 - mom) * self.running_var
-                                           + mom * (v * (total / max(total - 1, 1))))
+                                           + mom * (v * unbiased))
         else:
             m, v = self.running_mean, self.running_var
         inv = torch.rsqrt(v + self.eps)
@@ -128,7 +138,10 @@ class DatasetListBN(nn.ModuleList):
     Train: each dataset's own moments, two-pass as JAX's, m = mean(x),
     v = mean((x − m)²) in f32; its running mean and variance move by
     momentum 0.1, the variance with the unbiased v·N/max(N − 1, 1), N its
-    own pixel count. Eval: its running stats. Both: y = ((x − m)·rsqrt(v +
+    own pixel count. In a SyncBN step (parallel/mesh.py) each pass sums
+    over every rank, as models/layers.py DatasetNorm's: the sum and the
+    count, then the centered squares; N is the global count. Eval: its
+    running stats. Both: y = ((x − m)·rsqrt(v +
     eps))·scale + bias in f32, cast to `dtype`."""
 
     def __init__(self, features: int, n_datasets: int,
@@ -151,15 +164,22 @@ class DatasetListBN(nn.ModuleList):
                 continue
             xf = wide(x)
             if self.training:
-                m = xf.mean(dim=(0, 2, 3))
-                v = (xf - _c(m)).square().mean(dim=(0, 2, 3))
+                cnt = x.numel() // x.shape[1]
+                if mesh.sync_active():
+                    s, cnt = _global_sums(cnt, xf.sum(dim=(0, 2, 3)))
+                    m = s / cnt
+                    v = mesh.global_sum((xf - _c(m)).square().sum(dim=(0, 2, 3))) / cnt
+                    unbiased = cnt / (cnt - 1).clamp_min(1)
+                else:
+                    m = xf.mean(dim=(0, 2, 3))
+                    v = (xf - _c(m)).square().mean(dim=(0, 2, 3))
+                    unbiased = cnt / max(cnt - 1, 1)
                 if not _STATS_FROZEN:
-                    cnt = x.numel() // x.shape[1]
                     mom = bn.momentum
                     with torch.no_grad():
                         bn.running_mean.copy_((1 - mom) * bn.running_mean + mom * m)
                         bn.running_var.copy_((1 - mom) * bn.running_var
-                                             + mom * (v * (cnt / max(cnt - 1, 1))))
+                                             + mom * (v * unbiased))
             else:
                 m, v = bn.running_mean, bn.running_var
             y = (xf - _c(m)) * _c(torch.rsqrt(v + bn.eps))

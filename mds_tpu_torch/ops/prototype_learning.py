@@ -12,6 +12,14 @@ matrix: its sums per (class, slot) are `index_add_` over the class id.
 The Gumbel noise of the hard assignment is an argument: a tensor the
 caller draws (`gumbel_noise`, on the CPU from an explicit generator);
 `noise=None` is the deterministic argmax, as JAX's `rng=None`.
+
+In a data-parallel step (parallel/mesh.py) the rows are this rank's share
+of the global batch and every per-class quantity is taken over every rank,
+as JAX's step takes it on its data mesh: the Sinkhorn's class max
+(an all_reduce max), its counts, totals and per-(class, slot) sums in each
+round, and the momentum update's per-slot masses and sums. The row
+normalization stays local; the prototypes come out the same on every
+rank. The caller passes this rank's rows of the global noise.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from mds_tpu_torch.models.layers import wide
+from mds_tpu_torch.parallel import mesh
 
 SINKHORN_ITERS = 3
 EPSILON = 0.05  # the Sinkhorn's entropic temperature
@@ -35,20 +44,22 @@ def grouped_sinkhorn(scores: torch.Tensor, seg_ids: torch.Tensor, num_classes: i
     SINKHORN_ITERS rounds of slot rows to 1/P and pixel columns to 1/n_k; L·n_k.
     → (plan (N, P), argmax slot (N,)); invalid rows give 0 and slot 0."""
     P = scores.shape[1]
+    # in a data-parallel step each per-class reduction is every rank's
+    red = mesh.step_sum
     seg = torch.where(valid, seg_ids, num_classes).long()
     K1 = num_classes + 1  # a spare class takes the invalid rows
     s = wide(scores) / EPSILON
     vf = valid[:, None].to(s.dtype)
     row_max = torch.where(valid[:, None], s, -torch.inf).max(dim=1).values
-    smax = s.new_full((K1,), -torch.inf).scatter_reduce(
-        0, seg, row_max, reduce="amax")
+    smax = red(s.new_full((K1,), -torch.inf).scatter_reduce(
+        0, seg, row_max, reduce="amax"), op="max")
     s = s - torch.where(torch.isfinite(smax), smax, 0.0)[seg][:, None]
     L = torch.exp(s) * vf
 
     def per_class_sum(mat):
-        return mat.new_zeros(K1, P).index_add_(0, seg, mat)
+        return red(mat.new_zeros(K1, P).index_add_(0, seg, mat))
 
-    cnt = s.new_zeros(K1).index_add_(0, seg, valid.to(s.dtype))
+    cnt = red(s.new_zeros(K1).index_add_(0, seg, valid.to(s.dtype)))
     tot = per_class_sum(L).sum(dim=1)
     L = L / tot.clamp_min(1e-30)[seg][:, None]
     for _ in range(SINKHORN_ITERS):
@@ -109,6 +120,7 @@ def prototype_learning(prototypes: torch.Tensor, emb: torch.Tensor, gt_seg: torc
         n = w.new_zeros(K, P).index_add_(0, gt, w)
         f = torch.stack([emb.new_zeros(K, D).index_add_(0, gt, emb * w[:, p:p + 1])
                          for p in range(P)], dim=1)
+        n, f = mesh.step_sum(n), mesh.step_sum(f)  # every rank's correct pixels
         f_norm = f / torch.linalg.norm(f, dim=-1, keepdim=True).clamp_min(1e-12)
         mixed = coefficient * protos + (1.0 - coefficient) * f_norm
         protos = torch.where((n > 0)[..., None], mixed, protos)

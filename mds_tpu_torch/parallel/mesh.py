@@ -19,9 +19,16 @@ what is global:
   model reduces; `all_reduce_grads` averages (JAX's pmean). Under either,
   the dropout draws this rank's rows of the global mask (`shard_index`).
 - Outside it, nothing reduces: evaluation and precise BN are per rank.
+- The two multi-dataset trainers (engine/gnn_trainer.py,
+  engine/contrast_trainer.py) take SyncBN's step alone and end it with
+  `sum_step`; their global pieces gather rows (`gather_rows`, whose
+  backward returns this rank's block of the summed gradient), locate a
+  rank's rows in a multi-dataset layout (`global_rows`), reduce per class
+  by sum or max (`step_sum`) and weight a term every rank computes whole
+  by `replicated_share`.
 
-The collectives are `all_reduce` and `broadcast` alone, in f32, f64 or
-int64: NCCL runs them, and so does gloo on CUDA tensors (two ranks sharing
+The collectives are `all_reduce` (sum or max) and `broadcast` alone, in
+f32, f64 or int64: NCCL runs them, and so does gloo on CUDA tensors (two ranks sharing
 one card, which NCCL refuses) and on CPU tensors. Without a process group
 every function here is the identity or a no-op, and the step is the one
 process's step. `collectives` counts the reductions and broadcasts made.
@@ -33,7 +40,7 @@ import contextlib
 import io
 import os
 from datetime import timedelta
-from typing import Iterable, Iterator, Optional, Sequence
+from typing import Iterable, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -103,17 +110,6 @@ def maybe_initialize_distributed(device="cuda", backend: Optional[str] = None) -
     return True
 
 
-def single_process(trainer: str) -> None:
-    """Raise NotImplementedError at a world size above 1: `trainer` runs in
-    one process only."""
-    if world() > 1:
-        raise NotImplementedError(
-            f"{trainer} at world size {world()}: ROADMAP queue 1, item 9b (the "
-            "alternating and contrast trainers across processes: global anchor "
-            "sampling, memory-bank pushes, prototype learning, the GNN step, "
-            "DatasetListBN and SharedListBN)")
-
-
 def _comm(t: torch.Tensor):
     """(tensor to hand the backend, device to bring the result back to):
     NCCL takes CUDA tensors only."""
@@ -122,13 +118,14 @@ def _comm(t: torch.Tensor):
     return t, t.device
 
 
-def all_reduce(t: torch.Tensor, mean: bool = False) -> torch.Tensor:
-    """The sum (or, floating, the mean) of `t` over the ranks, as a new
-    tensor; `t` itself without a group."""
+def all_reduce(t: torch.Tensor, mean: bool = False, op: str = "sum") -> torch.Tensor:
+    """The sum (or, floating, the mean), or with op "max" the elementwise
+    max, of `t` over the ranks, as a new tensor; `t` itself without a
+    group."""
     if not initialized():
         return t
     out, home = _comm(t.clone())
-    dist.all_reduce(out)
+    dist.all_reduce(out, dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM)
     all_reduce.collectives += 1
     if mean:
         out = out / dist.get_world_size()
@@ -198,6 +195,48 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
     return GlobalSum.apply(x)
 
 
+class GatherRows(torch.autograd.Function):
+    """Every rank's x (one shape on all) stacked rank-major on dim 0: the
+    all_reduce of a zero buffer in which this rank fills its own block. Its
+    backward is this rank's block of the output gradients' sum over the
+    ranks: a term every rank computes whole from the gathered rows, weighted
+    1/world, gives each rank's rows the gradient of the term."""
+
+    @staticmethod
+    def forward(ctx, x):
+        n, r = x.shape[0], rank()
+        ctx.n = n
+        buf = x.new_zeros((world() * n,) + tuple(x.shape[1:]))
+        buf[r * n:(r + 1) * n] = x
+        return all_reduce(buf)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = rank(), ctx.n
+        return all_reduce(g.contiguous())[r * n:(r + 1) * n]
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """(world·n, ...) of every rank's (n, ...) `x`, rank r's at rows
+    [r·n, (r + 1)·n); `x` itself without a group."""
+    return x if world() == 1 else GatherRows.apply(x)
+
+
+def global_rows(sizes: Sequence[int]) -> Tuple[torch.Tensor, int]:
+    """Where this rank's rows sit in a tensor that concatenates datasets'
+    global rows, each dataset's rank-major (JAX's shard_batch layout):
+    `sizes` are this rank's row counts a dataset (every rank holds as
+    many); dataset i's block starts at Σ_{j<i} world·sizes[j] and rank r's
+    rows of it at r·sizes[i] within. → (this rank's row indices in that
+    order, int64; the global row count)."""
+    n, r = world(), rank()
+    idx, start = [], 0
+    for k in sizes:
+        idx.append(torch.arange(start + r * k, start + (r + 1) * k))
+        start += n * k
+    return (torch.cat(idx) if idx else torch.zeros(0, dtype=torch.long)), start
+
+
 @contextlib.contextmanager
 def data_parallel(sync_bn: bool = True) -> Iterator[None]:
     """Mark a train step (module docstring); with no group it marks nothing."""
@@ -212,6 +251,22 @@ def data_parallel(sync_bn: bool = True) -> Iterator[None]:
 def sync_active() -> bool:
     """Whether the train norms and the OHEM pool reduce over the ranks."""
     return _STEP is True
+
+
+def step_sum(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """Inside a SyncBN step, `t` summed over the ranks (`global_sum`: the
+    gradient flows through the other ranks' shares) or, with op "max", its
+    elementwise max; `t` itself elsewhere."""
+    if not sync_active():
+        return t
+    return global_sum(t) if op == "sum" else all_reduce(t, op=op)
+
+
+def replicated_share() -> float:
+    """The weight of a term that every rank computes whole from replicated
+    tensors: 1/world inside a SyncBN step, so that the summed gradients
+    count it once; 1 elsewhere."""
+    return 1.0 / world() if sync_active() else 1.0
 
 
 def shard_index() -> int:
@@ -290,6 +345,19 @@ def average_buffers(tensors: Sequence[torch.Tensor]) -> None:
     with torch.no_grad():
         for t, m in zip(tensors, _all_reduce_flat(tensors, mean=True)):
             t.copy_(m)
+
+
+def sum_step(params: Iterable[torch.nn.Parameter], metrics: dict) -> dict:
+    """The end of a SyncBN step under a group, each rank's loss its share of
+    the global one: the gradients summed over the ranks, and the metrics
+    (tensors or numbers) summed as detached tensors of the loss's dtype.
+    `metrics` as they are without a group."""
+    if not initialized():
+        return metrics
+    all_reduce_grads(params, mean=False)
+    ref = metrics["loss"]
+    return reduce_metrics({k: torch.as_tensor(v, device=ref.device).detach().to(ref.dtype)
+                           for k, v in metrics.items()}, mean=False)
 
 
 def reduce_metrics(metrics: dict, mean: bool) -> dict:

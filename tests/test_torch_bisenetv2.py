@@ -19,6 +19,7 @@ from mds_tpu_torch.deploy.e2e import E2EModel
 from mds_tpu_torch.deploy.weights import bisenetv2_state_dict_from_jax
 from mds_tpu_torch.models import layers as tl
 from mds_tpu_torch.ops import stem as tstem
+from torch_eval_parity import one_torch_thread  # noqa: F401 — autouse: one thread
 from torch_parity import ARGMAX_GATE, LOGITS_GATE, bisenetv2_pair, nchw, rel_err
 
 H, W = 64, 128

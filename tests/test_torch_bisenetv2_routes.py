@@ -42,6 +42,7 @@ from mds_tpu_torch.ops import conv3x3 as tc3
 from mds_tpu_torch.ops import depthwise as tdw
 from mds_tpu_torch.ops import stem as tstem
 from mds_tpu_torch.ops import upsample_argmax as tua
+from torch_eval_parity import one_torch_thread  # noqa: F401 — autouse: one thread
 from torch_parity import (
     ARGMAX_GATE,
     LOGITS_GATE,

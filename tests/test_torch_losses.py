@@ -38,6 +38,7 @@ from mds_tpu_torch import MODELS
 from mds_tpu_torch.engine import lr_schedule as tsched
 from mds_tpu_torch.engine.optim import AdamW, param_groups, sgd_param_groups
 from mds_tpu_torch.losses.ohem_ce import MdsOhemCELoss, OhemCELoss, cross_entropy_upsampled
+from torch_eval_parity import one_torch_thread  # noqa: F401 — autouse: one thread
 from torch_parity import as_port, make_variables, rel_err
 
 

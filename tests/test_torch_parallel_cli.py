@@ -12,8 +12,16 @@ Then both resume the SyncBN run to step 3 from rank 0's checkpoint alone
 (rank 1's work dir holds none), and end alike.
 Then both evaluate rank 0's checkpoint (`ss`) on their halves of the eval
 lists: rank 0 prints the mIoU of the world-1 evaluation of that checkpoint.
-The alternating and contrast trainers refuse world 2, naming ROADMAP
-queue 1, item 9b.
+Then the two multi-dataset trainers, 2 steps each: `--gnn` on
+configs/test_synthetic_gnn.json shrunk as tests/test_torch_gnn_trainer_cli.py
+shrinks it, one GNN step a stage (a GNN step, the UOT switch with its
+eval, a SEG step), and `train.mode contrast` on
+tests/torch_contrast_parity.py's tiny contrast config: both ranks end with
+equal parameters, buffers, graphs, bank and teacher, and only rank 0's
+work dir holds a checkpoint; then each resumes to step 3 from rank 0's
+checkpoint alone and ends alike on both ranks. (Their world-2 steps
+against world 1: tests/test_torch_parallel_gnn.py and
+test_torch_parallel_contrast.py.)
 """
 
 import os
@@ -27,6 +35,12 @@ import torch_parallel_worker as w
 from torch_eval_parity import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = os.path.join(w.REPO, "configs", "test_synthetic.json")
+GNN_CFG = os.path.join(w.REPO, "configs", "test_synthetic_gnn.json")
+GNN_SMALL = ["--gnn", "backbone.layers", "[1, 1, 1, 1]", "backbone.planes", "[64, 16, 24, 32]",
+             "backbone.num_features", "16", "train.num_workers", "1", "train.gnn_iters", "1"]
+# the two trainers' runs: (name, config, extra arguments, checkpoint dir)
+MULTI = (("gnn", GNN_CFG, GNN_SMALL, "ckpt_gnn"), ("contrast", "contrast.json", [],
+                                                   "ckpt_contrast"))
 
 WORKER = f"""
 import os, shutil, sys
@@ -67,23 +81,53 @@ mesh.barrier()
 res["mious"] = np.asarray(evaluate_torch.main([
     "--config", {CFG!r}, "--ckpt", os.path.join(out, "sync", "rank0", "ckpt"),
     "--device", "cpu"]))
-from mds_tpu_torch.engine.contrast_trainer import ContrastTrainer
-from mds_tpu_torch.engine.gnn_trainer import AlternatingTrainer
-for cls in (AlternatingTrainer, ContrastTrainer):
-    try:
-        cls(Configer(config_file={CFG!r}), device="cpu")
-    except NotImplementedError as e:
-        assert "item 9b" in str(e), str(e)
-        print(f"REFUSED {{cls.__name__}}: {{e}}", flush=True)
+
+
+def multi_state(tag, t):
+    # the trainer's tensors: both nets, the UOT graphs and βs; or the
+    # model, teacher and bank
+    if tag.startswith("gnn"):
+        mods = {{"seg": t.seg_model, "gnn": t.gnn_model}}
+        res.update({{f"{{tag}}/uot{{i}}": g for i, g in enumerate(t.uot_bi)}})
+        res.update({{f"{{tag}}/beta{{i}}": b for i, b in enumerate(t.betas)}})
     else:
-        raise AssertionError(f"{{cls.__name__}} ran at world 2")
+        mods = {{"model": t.model, "teacher": t.teacher}}
+        res.update({{f"{{tag}}/bank_{{k}}": getattr(t.bank, k).double().numpy()
+                    for k in ("feats", "ptr", "count")}})
+    for m, mod in mods.items():
+        res.update({{f"{{tag}}/{{m}}/{{k}}": v.double().numpy() for k, v in mod.state_dict().items()}})
+
+
+for name, cfg, extra, ck in {MULTI!r}:
+    cfg = os.path.join(out, cfg) if not os.path.isabs(cfg) else cfg
+    args = ["--config", cfg, "--device", "cpu"] + extra
+    t = train_torch.main(args + ["--work-dir", os.path.join(out, name, f"rank{{rank}}"),
+                                 "--max-iter", "2"])
+    steps = t.total_iter if name == "gnn" else t.step_count
+    assert steps == 2 and len(t.timings) == 2, (name, steps)
+    if name == "gnn":
+        assert [r["stage"] for r in t.timings] == ["GNN", "SEG"], t.timings
+    multi_state(name, t)
+    mesh.barrier()
+    if rank == 0:
+        shutil.copytree(os.path.join(out, name, "rank0", ck),
+                        os.path.join(out, name + "_resume", "rank0", ck))
+    mesh.barrier()
+    t = train_torch.main(args + ["--work-dir", os.path.join(out, name + "_resume", f"rank{{rank}}"),
+                                 "--max-iter", "3"])
+    steps = t.total_iter if name == "gnn" else t.step_count
+    assert steps == 3 and len(t.timings) == 1, (name, steps, len(t.timings))
+    multi_state(name + "_resume", t)
 w.finish(rank, out, res)
 """
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    from torch_contrast_parity import tiny_contrast_config, write_config
+
     d = tmp_path_factory.mktemp("cli")
+    write_config(tiny_contrast_config(log_interval=1), d / "contrast.json")
     outs = w.launch(2, str(d), [], timeout=240, code=WORKER)
     r0, r1 = (dict(np.load(d / f"rank{r}.npz")) for r in range(2))
     return d, outs, r0, r1
@@ -136,7 +180,43 @@ def test_evaluate_cli_two_ranks_equals_one(runs, capsys):
     assert len(printed[0]) == 2 and printed[1] == []
 
 
-def test_alternating_and_contrast_trainers_refuse_world2(runs):
-    _, outs, _, _ = runs
-    for o in outs:
-        assert "REFUSED AlternatingTrainer" in o and "REFUSED ContrastTrainer" in o
+def _checkpoints(path):
+    return sorted(f for f in os.listdir(path) if f.endswith(".pt")) if os.path.isdir(path) else []
+
+
+@pytest.mark.parametrize("name", ["gnn", "contrast"])
+def test_multi_dataset_trainers_two_ranks(runs, name):
+    """`--gnn` and `train.mode contrast` at world 2: both ranks end with
+    the same tensors (nets, graphs and βs; model, teacher and bank); only
+    rank 0 saves."""
+    d, _, r0, r1 = runs
+    keys = [k for k in r0 if k.startswith(name + "/")]
+    assert len(keys) > 100
+    for k in keys:
+        assert np.array_equal(r0[k], r1[k]), k
+        assert np.isfinite(r0[k]).all(), k
+    ck = dict((n, c) for n, _, _, c in MULTI)[name]
+    assert _checkpoints(d / name / "rank0" / ck) == ["2.pt"]
+    assert _checkpoints(d / name / "rank1" / ck) == []
+    if name == "contrast":
+        assert os.path.isfile(d / name / "rank0" / "runs" / "metrics.jsonl")
+        assert not os.path.exists(d / name / "rank1" / "runs")
+        assert r0["contrast/bank_count"].sum() > 0
+
+
+@pytest.mark.parametrize("name", ["gnn", "contrast"])
+def test_multi_dataset_trainers_two_ranks_resume(runs, name):
+    """Each resumes to step 3 from rank 0's step-2 checkpoint, rank 1's work
+    dir empty: one step on both ranks (the worker asserts it), the same
+    tensors on both, moved from step 2's; only rank 0 saves."""
+    d, _, r0, r1 = runs
+    keys = [k for k in r0 if k.startswith(name + "_resume/")]
+    assert len(keys) > 100
+    for k in keys:
+        assert np.array_equal(r0[k], r1[k]), k
+        assert np.isfinite(r0[k]).all(), k
+    moved = [k for k in keys if not np.array_equal(r0[k], r0[name + k[len(name) + 7:]])]
+    assert len(moved) > 20
+    ck = dict((n, c) for n, _, _, c in MULTI)[name]
+    assert _checkpoints(d / (name + "_resume") / "rank0" / ck) == ["2.pt", "3.pt"]
+    assert _checkpoints(d / (name + "_resume") / "rank1" / ck) == []

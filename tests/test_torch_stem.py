@@ -26,6 +26,7 @@ from mds_tpu_torch.models import bisenetv2 as tb
 from mds_tpu_torch.models import layers as tl
 from mds_tpu_torch.ops import build
 from mds_tpu_torch.ops import stem as tstem
+from torch_eval_parity import one_torch_thread  # noqa: F401 — autouse: one thread
 from torch_parity import (
     convbn_state,
     folded_bn,

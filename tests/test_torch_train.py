@@ -88,6 +88,18 @@ B, H, W = 4, 64, 128
 WARM = dict(power=0.9, max_iter=100, warmup_iter=2, warmup_ratio=0.1)
 
 
+@pytest.fixture
+def one_thread():
+    """The test's own PyTorch work in one thread: the tier-1 run's xdist
+    workers share the cores, and PyTorch's thread pools in several
+    processes at once wait on each other far longer than one thread
+    computes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def batch():
     params, stats = make_variables((19,), 1, 0)
@@ -116,7 +128,7 @@ def test_one_step_f32(f32_runs):
     compare_step(tm, opt, rec[0], j_one[0])
 
 
-def test_one_step_f32_near_exact(batch, f32_runs):
+def test_one_step_f32_near_exact(batch, f32_runs, one_thread):
     """The port's f32 step against the same step in f64."""
     params, stats, im, lb = batch
     _, _, (x,) = port_steps("bisenetv2", (19,), 1, torch.float64, [im], [lb], params,
@@ -291,7 +303,7 @@ def test_fused_routes_off_in_train(monkeypatch):
         tl.set_detail_fuse(False)
 
 
-def test_train_step_runs_with_dropout():
+def test_train_step_runs_with_dropout(one_thread):
     """The step with dropout on (plain version on the CPU): finite loss,
     parameters and BN stats move, and the generator decides the masks: the
     same seed gives the same losses (to the CPU's run-to-run rounding),

@@ -10,6 +10,7 @@ import torch
 
 from mds_tpu.models import bisenetv2 as jb
 from mds_tpu_torch.deploy.weights import bisenetv2_state_dict_from_jax
+from torch_eval_parity import one_torch_thread  # noqa: F401 — autouse: one thread
 from torch_parity import (
     LR,
     compare_step,

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from mds_tpu.models import bisenetv2 as jb
+from torch_eval_parity import one_torch_thread  # noqa: F401 — autouse: one thread
 from torch_parity import (
     LR,
     compare_step,

@@ -35,6 +35,7 @@ from mds_tpu.models import layers as jl
 from mds_tpu.ops.pallas import stem as jstem
 from mds_tpu_torch.models import layers as tl
 from mds_tpu_torch.ops import stem as tstem
+from torch_eval_parity import one_torch_thread  # noqa: F401 — autouse: one thread
 from torch_parity import (
     convbn_state,
     interpret_pallas,

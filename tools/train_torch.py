@@ -24,13 +24,17 @@ for the alternating trainer, bf16 for the others. It runs on the CUDA
 card; without one it exits non-zero unless `--device cpu` is given.
 
 On N cards: `torchrun --nproc_per_node N tools/train_torch.py --config
-...`, or N processes with MDS_COORDINATOR=host:port, MDS_NUM_PROCESSES=N
-and MDS_PROCESS_ID=r (the JAX tool's variables). Each process joins the
-group (NCCL on the card, gloo with `--device cpu`) before touching the
-device and trains the supervised model on its rank's `ims_per_gpu`
-images a dataset, SyncBN or local BN as the config's `use_sync_bn` says
-(engine/trainer.py); rank 0 logs and saves. The alternating and contrast
-trainers run in one process only (ROADMAP queue 1, item 9b).
+...` (with `--gnn` or `train.mode contrast` too), or N processes with
+MDS_COORDINATOR=host:port, MDS_NUM_PROCESSES=N and MDS_PROCESS_ID=r (the
+JAX tool's variables). Each process joins the group (NCCL on the card,
+gloo with `--device cpu`) before touching the device and trains on its
+rank's `ims_per_gpu` images a dataset; rank 0 logs and saves, and a
+resume broadcasts rank 0's checkpoint. The supervised trainer takes
+SyncBN or local BN as the config's `use_sync_bn` says
+(engine/trainer.py); the alternating and contrast trainers always take
+the one-process step on the global batch (SyncBN, global anchors, bank
+pushes and prototype Sinkhorn; engine/gnn_trainer.py,
+engine/contrast_trainer.py), as JAX's do on their data mesh.
 """
 
 import argparse
