@@ -446,6 +446,33 @@ before the last line:
               to its rows of the world-1 call's; a bf16 GNN step at test
               width with kernel 6 on, each of its 6 calls against the
               plain version (rel < 1e-2).
+26. export  — the deploy artifact (mds_tpu_torch/deploy/export.py), run
+              after v1_slice: three torch.export artifacts on the card at
+              1024×2048 in bf16 — BiSeNetV2 as the slice phase builds it
+              with every deploy route on, the same model on the stem route
+              alone, BiSeNetV1 as v1_slice builds it on the stem route —
+              each saved, loaded back and held to the eager E2EModel on
+              the slice phase's frames: label agreement >= 0.999 (the
+              bit-equal share printed); the graph's mds_tpu_torch:: nodes,
+              and each kernel's launches a frame of the artifact and of the
+              eager frame, exactly: V2 16 depthwise3x3 and 1 each of
+              detail_s1s2_fused, stemblock_fused, detail_tail_fused and
+              upsample_argmax, the stem route 2 stem_conv_bn_relu_s2, V1 2
+              stem7_conv_bn_relu_s2, no other kernel's; every weight, fold
+              and packed table the ops read an input of the artifact, none
+              computed per call; the artifact's and the eager frame's ms in
+              turns (CUDA events, median of 10: eager, artifact, artifact,
+              eager), and one profiled frame of each (device launches, idle
+              share); on V2's served artifact the ops of most host time in
+              a frame of each (torch.profiler) and the host µs of a call
+              through a custom op against one through its wrapper (the
+              depthwise and fused-tail kernels at a small shape, in turns).
+              Then each artifact runs in a fresh process without jax or
+              mds_tpu, `python tools/segment_torch.py test <artifact>
+              --iters 20` (its FPS and kernel launches a frame; the three
+              processes at once), and `tools/serve_torch.py --engine` on
+              the V2 artifact, a process of its own started beside them,
+              answers 3 requests with the artifact's labels.
 
 Then a {"phase_seconds": {...}} line (each phase's wall seconds), a
 {"kernels": [...]} line, the nvidia-smi name/power-limit line, and as the
@@ -2998,6 +3025,16 @@ def normalized(e2e, frame):
     return ((x - e2e.mean) / e2e.std).to(torch.bfloat16).permute(0, 3, 1, 2)
 
 
+def post_frame(url, frame):
+    """One raw-tensor request: (labels, ms)."""
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(urllib.request.Request(url, data=frame.tobytes()),
+                                timeout=300) as r:
+        shape = json.loads(r.headers["X-Shape"])
+        out = np.frombuffer(r.read(), np.int32).reshape(shape)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def serve_and_check(e2e, name, frames, n_classes, **route_kw):
     """`frames` as requests to InferenceServer on 127.0.0.1 under the route,
     after one frame that warms up cuDNN's algorithm choice (not counted):
@@ -3014,14 +3051,7 @@ def serve_and_check(e2e, name, frames, n_classes, **route_kw):
         with route(**route_kw):
             e2e.infer(frames[0])
             reset_counts()
-            replies, latency_ms = [], []
-            for fr in frames:
-                t0 = time.perf_counter()
-                with urllib.request.urlopen(
-                        urllib.request.Request(url, data=fr.tobytes()), timeout=300) as r:
-                    shape = json.loads(r.headers["X-Shape"])
-                    replies.append(np.frombuffer(r.read(), np.int32).reshape(shape))
-                latency_ms.append((time.perf_counter() - t0) * 1e3)
+            replies, latency_ms = zip(*(post_frame(url, fr) for fr in frames))
             launches = read_counts()
     finally:
         httpd.shutdown()
@@ -3206,6 +3236,243 @@ def phase_v1_slice(dev):
         raise RuntimeError(f"v1 argmax agreement {agree}")
     if logits_rel >= LOGITS_GATE:
         raise RuntimeError(f"v1 logits rel {logits_rel}")
+    return launches
+
+
+# the deploy artifacts (export phase): label agreement with the eager frame
+EXPORT_AGREE = 0.999
+EXPORT_CASES = (  # name, route switches, each kernel's launches a frame
+    ("v2_served", ALL_ROUTES, {"depthwise3x3": 16, "detail_s1s2_fused": 1,
+                               "stemblock_fused": 1, "detail_tail_fused": 1,
+                               "upsample_argmax": 1}),
+    ("v2_stem", {"stem_impl": "kernel"}, {"stem_conv_bn_relu_s2": 2}),
+    ("v1_stem", {"stem_impl": "kernel"}, {"stem7_conv_bn_relu_s2": 2}),
+)
+# a fresh process that runs an artifact and must not import jax or mds_tpu
+ARTIFACT_CHILD = ("import runpy, sys; sys.argv = sys.argv[1:]; "
+                  "runpy.run_path(sys.argv[0], run_name='__main__'); "
+                  "assert not {'jax', 'flax', 'mds_tpu'} & set(sys.modules), 'jax imported'")
+EXPORT_TIMEOUT = 300  # seconds a child may take
+
+
+def wait_ready(url, proc, timeout=EXPORT_TIMEOUT):
+    """Poll url until it answers; fail if proc exits first or time runs out."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        try:
+            with urllib.request.urlopen(url, timeout=5):
+                return
+        except OSError:
+            if proc.poll() is not None:
+                raise RuntimeError(f"{url}: the server exited: {proc.communicate()[0][-4000:]}")
+            time.sleep(0.25)
+    raise RuntimeError(f"{url}: no answer in {timeout} s")
+
+
+def stop(proc):
+    """Terminate a child (kill it if it lingers); its output."""
+    if proc.poll() is None:
+        proc.terminate()
+    try:
+        return proc.communicate(timeout=60)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        return proc.communicate()[0]
+
+
+def artifact_child(*argv):
+    """A tool of tools/ in a fresh process that must not import jax."""
+    return subprocess.Popen([sys.executable, "-c", ARTIFACT_CHILD,
+                             os.path.join(ROOT, "tools", argv[0]), *argv[1:]],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def artifact_test_record(proc):
+    """A `segment_torch.py test --iters 20` child's FPS line and JSON record."""
+    try:
+        log = proc.communicate(timeout=EXPORT_TIMEOUT)[0]
+    except subprocess.TimeoutExpired:
+        stop(proc)
+        raise RuntimeError(f"segment_torch test: no end in {EXPORT_TIMEOUT} s")
+    lines = [ln for ln in log.strip().splitlines() if "FPS" in ln or ln.startswith("{")]
+    if proc.returncode or len(lines) < 2:
+        raise RuntimeError(f"segment_torch test: exit {proc.returncode}: {log[-4000:]}")
+    return {"fps_line": lines[0], **json.loads(lines[-1])}
+
+
+def served_requests(proc, port, frames, art):
+    """3 requests to the `serve_torch.py --engine` child on `port` after one
+    warm-up request, each reply against the artifact's labels."""
+    url = f"http://127.0.0.1:{port}/v2"
+    wait_ready(f"{url}/health/ready", proc)
+    with urllib.request.urlopen(f"{url}/models/bisenetv2", timeout=30) as r:
+        shape = json.loads(r.read())["inputs"][0]["shape"]
+    post_frame(f"{url}/models/bisenetv2/infer", frames[0])
+    replies = [post_frame(f"{url}/models/bisenetv2/infer", fr) for fr in frames]
+    equal = [bool(np.array_equal(out, art.infer(fr))) for (out, _), fr in zip(replies, frames)]
+    return {"metadata_shape": shape, "latency_ms": [ms for _, ms in replies],
+            "equal_to_artifact": equal}
+
+
+def host_top(fn, k=12):
+    """One call of fn under torch.profiler (after one unprofiled): the k
+    ops of most self CPU time, [name, calls, self CPU ms, CPU ms], and the
+    count of aten op calls (nested ones included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = prof.key_averages()
+    rows = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:k]
+    return {"top": [[e.key[:60], e.count, e.self_cpu_time_total / 1e3,
+                     e.cpu_time_total / 1e3] for e in rows],
+            "aten_calls": sum(e.count for e in ops if e.key.startswith("aten::"))}
+
+
+def op_dispatch_us(dev, n=200):
+    """Host µs a call of two served kernels at a small shape (device time a
+    few µs) through the wrapper and through its custom op, in turns
+    (wrapper, op, op, wrapper), under inference_mode as an artifact runs:
+    each n calls and one synchronize on the host clock."""
+    from mds_tpu_torch.ops import custom_ops  # noqa: F401 — registers the ops
+    from mds_tpu_torch.ops import depthwise, upsample_argmax
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 32, 64, 128), generator=g).to(dev, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn((192, 1, 3, 3), generator=g).to(dev, torch.bfloat16)
+    lg = torch.randn((1, 19, 16, 32), generator=g).to(dev, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    calls = {"depthwise3x3": (lambda: depthwise.depthwise3x3(x, w, 1),
+                              lambda: torch.ops.mds_tpu_torch.depthwise3x3(x, w, 1)),
+             "upsample_argmax": (lambda: upsample_argmax.upsample_argmax(lg, 8),
+                                 lambda: torch.ops.mds_tpu_torch.upsample_argmax(lg, 8))}
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    out = {}
+    with torch.inference_mode():
+        for name, (wrapper, op) in calls.items():
+            times = {"wrapper": [], "op": []}
+            for k in ("wrapper", "op", "op", "wrapper"):
+                times[k].append(per_call(wrapper if k == "wrapper" else op))
+            out[name] = times
+    return out
+
+
+def phase_export(dev):
+    """The three deploy artifacts (module docstring, 26). Returns their
+    kernel launches."""
+    from mds_tpu_torch.deploy import export as ex
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from serve_torch import build_e2e
+
+    v2, frames = v2_model(dev)
+    v1 = build_e2e(V1_CONFIG, seed=V1_WEIGHT_SEED, device=dev)
+    randomize_bn(v1.model, V1_WEIGHT_SEED + 1)
+    models = {"v2_served": v2, "v2_stem": v2, "v1_stem": v1}
+    out, bad, launches = {}, [], {}
+    with tempfile.TemporaryDirectory() as work:
+        for name, routes, per_frame in EXPORT_CASES:
+            e2e = models[name]
+            want = {k: per_frame.get(k, 0) for k in read_counts()}
+            rec = {}
+            with route(**routes):
+                t0 = time.perf_counter()
+                ep = ex.export_model(e2e.model, (H, W), e2e.mean.cpu().numpy(),
+                                     e2e.std.cpu().numpy(), device=dev)
+                rec["export_s"] = time.perf_counter() - t0
+                path = os.path.join(work, f"{name}.pt2")
+                t0 = time.perf_counter()
+                ex.save_exported(ep, path)
+                art = ex.load_exported_obj(path)
+                rec.update(save_load_s=time.perf_counter() - t0,
+                           mb=os.path.getsize(path) / 1e6, graph_ops=ex.graph_ops(ep),
+                           graph_nodes=len(ep.graph.nodes), constants=len(ep.constants),
+                           computed_weights=ex.computed_weights(ep),
+                           input_shape=list(art.input_shape))
+                del ep
+                if rec["graph_ops"] != per_frame or rec["computed_weights"]:
+                    bad.append(f"{name}: graph ops {rec['graph_ops']}, computed weights "
+                               f"{rec['computed_weights']}")
+                art.infer(frames[0])  # warm-up, not counted
+                agree, equal, art_launches, eager_launches = [], [], [], []
+                for fr in frames:
+                    reset_counts()
+                    got = art.infer(fr)
+                    art_launches.append(read_counts())
+                    reset_counts()
+                    ref = e2e.infer(fr)
+                    eager_launches.append(read_counts())
+                    agree.append(float((got == ref).mean()))
+                    equal.append(bool(np.array_equal(got, ref)))
+                    if np.unique(ref).size < 2:
+                        bad.append(f"{name}: a degenerate label map")
+                for k, n in art_launches[0].items():
+                    launches[k] = launches.get(k, 0) + sum(a[k] for a in art_launches)
+                if any(a != want for a in art_launches + eager_launches):
+                    bad.append(f"{name}: launches a frame {art_launches} (artifact), "
+                               f"{eager_launches} (eager), expected {per_frame}")
+                if min(agree) < EXPORT_AGREE:
+                    bad.append(f"{name}: label agreement {agree}")
+                frame_t = torch.from_numpy(frames[1])
+                ms = {"eager": [], "artifact": []}
+                for k in ("eager", "artifact", "artifact", "eager"):
+                    fn = (lambda: e2e(frame_t)) if k == "eager" else (lambda: art.call(frame_t))
+                    ms[k].append(cuda_ms(fn, n=10))
+                profiles = {"eager": profile_idle_share(lambda: e2e(frame_t)),
+                            "artifact": profile_idle_share(lambda: art.call(frame_t))}
+            rec.update(label_agreement=agree, bit_equal=equal, launches_per_frame=per_frame,
+                       e2e_ms=ms, profile={k: {f: p.get(f) for f in (
+                           "profiled_wall_ms", "device_busy_ms", "device_launches",
+                           "idle_share")} for k, p in profiles.items()})
+            if name == "v2_served":
+                # where the artifact's host time goes: the ops of most CPU
+                # time in a frame of each, and a call through a custom op
+                # against one through its wrapper
+                rec["host_top"] = {"eager": host_top(lambda: e2e(frame_t)),
+                                   "artifact": host_top(lambda: art.call(frame_t))}
+                rec["op_dispatch_us"] = op_dispatch_us(dev)
+                served = art
+            out[name] = rec
+            del art
+            torch.cuda.empty_cache()
+        # each artifact in a fresh process, the three at once, and V2's behind
+        # serve_torch.py --engine, started beside them
+        t0 = time.perf_counter()
+        tests = {name: artifact_child("segment_torch.py", "test",
+                                      os.path.join(work, f"{name}.pt2"), "--iters", "20")
+                 for name, _, _ in EXPORT_CASES}
+        port = _free_port()
+        server = artifact_child("serve_torch.py", "--engine",
+                                os.path.join(work, "v2_served.pt2"), "--port", str(port))
+        try:
+            for name, routes, per_frame in EXPORT_CASES:
+                rec = out[name]["child"] = artifact_test_record(tests[name])
+                if rec["launches_per_frame"] != per_frame or rec["graph_ops"] != per_frame:
+                    bad.append(f"{name}: fresh process {rec}")
+            out["children_s"] = time.perf_counter() - t0
+            http = out["v2_served"]["http"] = served_requests(server, port, frames, served)
+            if http["metadata_shape"] != [1, H, W, 3] or not all(http["equal_to_artifact"]):
+                bad.append(f"served over HTTP: {http}")
+        finally:
+            for p in (*tests.values(), server):
+                stop(p)
+    emit(phase="export", **out)
+    if bad:
+        raise RuntimeError(f"export: {bad}")
     return launches
 
 
@@ -5612,6 +5879,8 @@ def main():
     launches = timed(phase_slice, dev, e2e, frames)
     del e2e
     launches["stem7_conv_bn_relu_s2"] = timed(phase_v1_slice, dev)["stem7_conv_bn_relu_s2"]
+    for k, n in timed(phase_export, dev).items():
+        launches[k] += n
     launches["dropout_u8"] = timed(phase_train, dev)["dropout_u8"]
     launches["dropout_u8"] += timed(phase_trainer, dev)
     for phase in (phase_eval, phase_flagship, phase_flagship7, phase_graph_forks,

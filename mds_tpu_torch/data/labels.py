@@ -1,7 +1,8 @@
 """Per-dataset label specs — the port's own copy of mds_tpu/data/labels.py
-`get_spec` (:31-98): class count, normalization mean/std, the id→trainId
-lookup tables and the class names by trainId, read from this package's `label_specs.json` (a copy of the
-JAX package's table)."""
+(:31-98): class count, normalization mean/std, the id→trainId lookup
+tables, the class names by trainId and the palette the demos render with,
+read from this package's `label_specs.json` (a copy of the JAX package's
+table); `load_specs` gives every spec, `apply_lut` remaps a label map."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import dataclasses
 import functools
 import json
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -32,6 +33,7 @@ class DatasetSpec:
     lut_eval: np.ndarray   # (256,) uint8 id → trainId
     lut_train: np.ndarray  # (256,) uint8, trainId 255/-1 → n_cats
     class_names: Tuple[str, ...] = ()  # by trainId: the first name of each
+    palette: Optional[np.ndarray] = None  # (256, 3) uint8 color by trainId
 
     @property
     def ignore_label(self) -> int:
@@ -47,15 +49,32 @@ def get_spec(name: str) -> DatasetSpec:
     lut_eval = np.arange(256, dtype=np.uint8)
     lut_train = np.arange(256, dtype=np.uint8)
     names = [""] * n_cats
+    # a color per trainId: a seeded draw, each labelled trainId's own color
+    # over it (the JAX package's draw, so both render alike)
+    palette = np.random.default_rng(123).integers(0, 256, size=(256, 3), dtype=np.uint8)
     for el in spec["labels_info"]:
         # id -1 and trainId -1 wrap to 255, as a uint8 index does in torch
         tid = el["trainId"]
         lut_eval[el["id"]] = np.uint8(tid & 0xFF)
         lut_train[el["id"]] = np.uint8(n_cats if tid in (255, -1) else tid & 0xFF)
-        if 0 <= tid < n_cats and not names[tid]:
-            names[tid] = el["name"]
+        if 0 <= tid < n_cats:
+            if not names[tid]:
+                names[tid] = el["name"]
+            if el.get("color") is not None:
+                palette[tid] = np.asarray(el["color"], np.uint8)
     return DatasetSpec(name=name, n_cats=n_cats,
                        mean=np.asarray(spec["mean"], np.float32),
                        std=np.asarray(spec["std"], np.float32),
                        lut_eval=lut_eval, lut_train=lut_train,
-                       class_names=tuple(names))
+                       class_names=tuple(names), palette=palette)
+
+
+def load_specs() -> Dict[str, DatasetSpec]:
+    """Every dataset's spec, by name."""
+    return {name: get_spec(name) for name in _raw_specs()}
+
+
+def apply_lut(label: np.ndarray, lut: np.ndarray) -> np.ndarray:
+    """id → trainId remap of a uint8 label map (reference:
+    lib/base_dataset.py:81-83)."""
+    return lut[label]

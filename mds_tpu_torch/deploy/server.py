@@ -7,32 +7,49 @@ mds_tpu/deploy/server.py, with the same raw-tensor protocol:
   GET /v2/health/ready → 200
   GET /v2/models/<name> → JSON metadata
 
-It wraps an E2EModel instead of an exported graph. A semaphore of
-`instances` (default 2, the reference's Triton instance group) bounds how
-many requests run the model at once, as JAX's server does
-(mds_tpu/deploy/server.py:29-39); any exception from `infer` answers 400
-with its message (:83-88).
+It wraps an E2EModel at the frame size it is given, or an artifact of
+deploy/export.py (a path, as JAX's server takes its exported graph,
+mds_tpu/deploy/server.py:30-45) at the artifact's own input shape, run on
+the device the artifact was exported for. A semaphore of `instances`
+(default 2, the reference's Triton instance group) bounds how many
+requests run the model at once, as JAX's server does (:29-39); any
+exception from `infer` answers 400 with its message (:83-88).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
 from mds_tpu_torch.deploy.e2e import E2EModel
+from mds_tpu_torch.deploy.export import Exported, load_exported_obj
 
 
 class InferenceServer:
-    def __init__(self, model: E2EModel, input_hw: Tuple[int, int],
+    def __init__(self, model: Union[E2EModel, Exported, str],
+                 input_hw: Optional[Tuple[int, int]] = None,
                  name: str = "bisenetv2", instances: int = 2):
+        """`model`: an E2EModel serving (1, *input_hw, 3) frames, or an
+        artifact (loaded, or its path) serving its own input shape."""
         if instances < 1:
             raise ValueError(f"instances must be >= 1, got {instances}")
+        if isinstance(model, (str, os.PathLike)):
+            model = load_exported_obj(os.fspath(model))
+        if isinstance(model, Exported):
+            if input_hw is not None and tuple(input_hw) != model.input_shape[1:3]:
+                raise ValueError(f"the artifact serves {model.input_shape}, not "
+                                 f"{tuple(input_hw)}")
+            self.in_shape = model.input_shape
+        elif input_hw is None:
+            raise ValueError("input_hw is needed to serve a model")
+        else:
+            self.in_shape = (1, int(input_hw[0]), int(input_hw[1]), 3)
         self.model = model
-        self.in_shape = (1, int(input_hw[0]), int(input_hw[1]), 3)
         self.name = name
         self.sem = threading.Semaphore(instances)
 

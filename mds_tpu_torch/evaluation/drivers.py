@@ -57,16 +57,17 @@ def is_alternating(configer) -> bool:
 
 
 def build_eval_bundle(configer, ckpt: Optional[str] = None, work_dir: str = "./res",
-                      device="cuda") -> nn.Module:
+                      device="cuda", dtype: torch.dtype = torch.bfloat16) -> nn.Module:
     """The model for `eval_model`, in eval mode on `device`: the config's
-    model (bf16 compute) at its seeded init, then the latest checkpoint of
-    `ckpt` (else of `<work_dir>/ckpt`) when there is one. The flagship: the
-    alternating trainer's seg model (bf16, JAX's identity graphs at init,
+    model (compute in `dtype`; tools/segment_torch.py compiles f32 too) at
+    its seeded init, then the latest checkpoint of `ckpt` (else of
+    `<work_dir>/ckpt`) when there is one. The flagship: the
+    alternating trainer's seg model (in `dtype`, JAX's identity graphs at init,
     and in clip mode the node features' text prototypes) restored from
     the latest checkpoint of `ckpt` (else of
     `<work_dir>/ckpt_gnn`), its graphs included (mds_tpu/evaluation/
     drivers.py:46-58). `train.mode` contrast: the contrast trainer's
-    model (bf16) restored from the latest checkpoint of `ckpt` (else of
+    model (in `dtype`) restored from the latest checkpoint of `ckpt` (else of
     `<work_dir>/ckpt_contrast`), its `prototypes` the (U, 1, D) class means
     of the memory bank, `feats.mean(axis=1, keepdims=True)` (:58-76)."""
     from mds_tpu_torch.engine.checkpoints import CheckpointManager, load_train_state
@@ -76,7 +77,7 @@ def build_eval_bundle(configer, ckpt: Optional[str] = None, work_dir: str = "./r
     if is_alternating(configer):
         from mds_tpu_torch.engine.gnn_trainer import AlternatingTrainer
 
-        tr = AlternatingTrainer(configer, compute_dtype=torch.bfloat16, device=device)
+        tr = AlternatingTrainer(configer, compute_dtype=dtype, device=device)
         directory = os.path.abspath(ckpt) if ckpt else os.path.join(work_dir, "ckpt_gnn")
         if tr.latest_step(directory) is not None:
             tr.restore(directory)
@@ -84,13 +85,13 @@ def build_eval_bundle(configer, ckpt: Optional[str] = None, work_dir: str = "./r
     if mode == "contrast":
         from mds_tpu_torch.engine.contrast_trainer import ContrastTrainer
 
-        tr = ContrastTrainer(configer, work_dir=work_dir, device=device)
+        tr = ContrastTrainer(configer, work_dir=work_dir, compute_dtype=dtype, device=device)
         directory = os.path.abspath(ckpt) if ckpt else tr.ckpt.directory
         if os.path.isdir(directory) and CheckpointManager(directory).latest_step() is not None:
             tr.restore(directory)
         tr.model.prototypes = tr.bank.feats.mean(dim=1, keepdim=True)
         return tr.model.eval()
-    model = build_model(configer)
+    model = build_model(configer, dtype)
     seed = int(configer.get("seed", default=0) or 0)
     model.init_weights(torch.Generator().manual_seed(seed))
     directory = os.path.abspath(ckpt) if ckpt else os.path.join(work_dir, "ckpt")

@@ -257,13 +257,23 @@ class PackCache:
     step, a BN running-stat update and load_state_dict change tensors in
     place (their _version moves), .to() makes new storage; any of them
     rebuilds the entry at its next use. `builds` counts builds. A plain
-    attribute of its module: not in the state dict."""
+    attribute of its module: not in the state dict.
+
+    While torch.export traces (deploy/export.py, after one real call has
+    filled every entry), `get` returns the entry as it stands, without its
+    key: a fake tensor has no storage, and the entry becomes a constant of
+    the artifact, made once and not per call."""
 
     def __init__(self):
         self._entries = {}
         self.builds = 0
 
     def get(self, name, tensors: Sequence[torch.Tensor], build: Callable):
+        if torch.compiler.is_compiling():
+            if name not in self._entries:
+                raise RuntimeError(f"PackCache entry {name!r} was not built before the "
+                                   "trace: run the model once before exporting it")
+            return self._entries[name][1]
         key = tuple((t.device, t.data_ptr(), t._version) for t in tensors)
         hit = self._entries.get(name)
         if hit is None or hit[0] != key:
@@ -329,15 +339,17 @@ class StemConv3x3S2(nn.Conv2d):
         return conv2d(self, x, dtype)
 
     def fused(self, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-              relu: bool, dtype: torch.dtype, packed=None) -> torch.Tensor:
+              relu: bool, dtype: torch.dtype, packed=None, k=None) -> torch.Tensor:
         """`packed`: ops/stem.py pack_stem(weight in dtype, scale, bias) for
-        the kernel, made once by the caller; packed in the call when None."""
+        the kernel, made once by the caller; packed in the call when None.
+        `k`: the weight in `dtype`, cast by the caller with the table; cast
+        in the call when None."""
         x = x.to(dtype)
         if self.kernel_ok(x, dtype):
             from mds_tpu_torch.ops.stem import stem_conv_bn_relu_s2
 
-            return stem_conv_bn_relu_s2(x, self.weight.to(dtype), scale, bias, relu,
-                                        packed=packed)
+            k = self.weight.to(dtype) if k is None else k
+            return stem_conv_bn_relu_s2(x, k, scale, bias, relu, packed=packed)
         y = conv2d(self, x, dtype).float() * _c(scale) + _c(bias)
         return (F.relu(y) if relu else y).to(dtype)
 
@@ -508,19 +520,24 @@ class ConvBNReLU(nn.Module):
 
     def _stem(self, x: torch.Tensor, i: int) -> torch.Tensor:
         """The eval stem route for dataset i: the fused stem, its folded BN
-        and (for an input the kernel takes) its packed table cached per
-        parameter version. A CPU tensor runs the plain version, which reads
-        no table; it is packed all the same, once per version."""
+        and (for an input the kernel takes) its weight in the compute dtype
+        with its packed table cached per parameter version. A CPU tensor
+        runs the plain version, which reads no table; it is packed all the
+        same, once per version."""
         scale, bias = self.fold_cached(i)
-        packed = None
+        k = packed = None
         if self.conv.kernel_ok(x, self.dtype):
             from mds_tpu_torch.ops.stem import pack_stem
 
-            k = self.conv.weight
-            srcs = (k, *self.bn.tensors_at(i, self._shared()))
-            packed = self._packs.get(("stem", i), srcs,
-                                     lambda: pack_stem(k.to(self.dtype), scale, bias))
-        return self.conv.fused(x, scale, bias, self.relu, self.dtype, packed)
+            w = self.conv.weight
+            srcs = (w, *self.bn.tensors_at(i, self._shared()))
+
+            def build():
+                k = w.to(self.dtype)
+                return k, pack_stem(k, scale, bias)
+
+            k, packed = self._packs.get(("stem", i), srcs, build)
+        return self.conv.fused(x, scale, bias, self.relu, self.dtype, packed, k)
 
     def _conv3_fusable(self) -> bool:
         """The conv3 route's module condition: eval, a plain 3×3 s1 conv,

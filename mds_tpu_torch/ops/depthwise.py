@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from mds_tpu_torch.ops import build as _build
-from mds_tpu_torch.ops.stem import _is_cpu, _ptr, _raise_on, _stream
+from mds_tpu_torch.ops.stem import _custom_ops, _is_cpu, _ptr, _raise_on, _stream
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -97,7 +97,11 @@ def _launch(fn_name: str, x, w, stride: int) -> torch.Tensor:
 def depthwise3x3(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """Depthwise / channel-multiplier 3×3 conv, pad 1, stride 1 or 2 (TPU
     kernel 9): x (B, C, H, W) channels_last, w (C·m, 1, 3, 3) →
-    (B, C·m, ⌈H/s⌉, ⌈W/s⌉) channels_last, in x's dtype."""
+    (B, C·m, ⌈H/s⌉, ⌈W/s⌉) channels_last, in x's dtype. While torch.export
+    traces, it calls its custom op (ops/custom_ops.py), whose body is this
+    wrapper."""
+    if torch.compiler.is_compiling():
+        return _custom_ops().depthwise3x3(x, w, stride)
     _check(x, w, stride, "depthwise3x3")
     if _is_cpu(x):
         return depthwise3x3_plain(x, w, stride)

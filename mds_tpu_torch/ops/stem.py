@@ -33,7 +33,9 @@ memory), torch OIHW conv weights and the folded eval-BN (scale, bias) of each
 conv. On a CPU tensor it runs its `*_plain` version, which has the same
 folding and rounding points built from F.conv2d / F.max_pool2d in f32 with
 explicit bf16 casts. On a CUDA tensor it launches the CUDA kernel or raises.
-`<wrapper>.launches` counts kernel launches.
+`<wrapper>.launches` counts kernel launches. While torch.export traces, the
+wrappers of kernels 1 and 4-7 call their custom op (ops/custom_ops.py),
+whose body is the wrapper itself.
 """
 
 from __future__ import annotations
@@ -110,6 +112,15 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _custom_ops():
+    """ops/custom_ops.py, which imports this module: the op a wrapper of a
+    kernel an artifact reaches calls while torch.export (or torch.compile)
+    traces, a node the graph keeps."""
+    from mds_tpu_torch.ops import custom_ops
+
+    return custom_ops
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -235,6 +246,8 @@ def stem_conv_bn_relu_s2(x, k, scale, bias, relu=False, packed=None):
     pack_stem(k, scale, bias), made once; a CUDA launch packs itself when it
     is None. Under set_stem_variant("dma") a CUDA tensor goes to the window
     kernel (stem_conv_bn_relu_s2_window), which counts its own launches."""
+    if torch.compiler.is_compiling():
+        return _custom_ops().stem_conv_bn_relu_s2(x, k, scale, bias, relu, packed)
     if _is_cpu(x):
         return stem_conv_bn_relu_s2_plain(x, k, scale, bias, relu)
     if _STEM_VARIANT == "dma":
@@ -393,6 +406,8 @@ def detail_s1s2_fused(x, k1, s1, b1, k2, s2, b2, k3, s3, b3, packed=None):
     same parameters through pack_detail_head, made once; a CUDA launch
     packs them itself when it is None."""
     params = (k1, s1, b1, k2, s2, b2, k3, s3, b3)
+    if torch.compiler.is_compiling():
+        return _custom_ops().detail_s1s2_fused(x, list(params), list(packed or ()))
     if _is_cpu(x):
         return detail_s1s2_fused_plain(x, *params)
     name = "detail_s1s2_fused"
@@ -465,6 +480,8 @@ def stemblock_fused(x, k_s, s_s, b_s, k_l1, s_l1, b_l1,
     `packed`: the same parameters through pack_stemblock, made once; a CUDA
     launch packs them itself when it is None."""
     args = (k_s, s_s, b_s, k_l1, s_l1, b_l1, k_l2, s_l2, b_l2, k_f, s_f, b_f)
+    if torch.compiler.is_compiling():
+        return _custom_ops().stemblock_fused(x, list(args), list(packed or ()))
     if _is_cpu(x):
         return stemblock_fused_plain(x, *args)
     name = "stemblock_fused"
@@ -525,6 +542,8 @@ def stem7_conv_bn_relu_s2(x, k, scale, bias, relu=True, packed=None):
     O % 8 == 0 and O <= 128; the folded eval BN (scale, bias) →
     (B,O,H/2,W/2) bf16 channels_last. `packed`: pack_stem7(k, scale, bias),
     made once; a CUDA launch packs itself when it is None."""
+    if torch.compiler.is_compiling():
+        return _custom_ops().stem7_conv_bn_relu_s2(x, k, scale, bias, relu, packed)
     if _is_cpu(x):
         return stem7_conv_bn_relu_s2_plain(x, k, scale, bias, relu)
     name = "stem7_conv_bn_relu_s2"
@@ -591,6 +610,8 @@ def detail_tail_fused(y, k4, s4, b4, k5, s5, b5, k6, s6, b6, k7, s7, b7,
     same parameters through pack_detail_tail, made once; a CUDA launch
     packs them itself when it is None."""
     params = (k4, s4, b4, k5, s5, b5, k6, s6, b6, k7, s7, b7, k8, s8, b8)
+    if torch.compiler.is_compiling():
+        return _custom_ops().detail_tail_fused(y, list(params), list(packed or ()))
     if _is_cpu(y):
         return detail_tail_fused_plain(y, *params)
     name = "detail_tail_fused"

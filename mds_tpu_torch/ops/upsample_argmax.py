@@ -28,7 +28,14 @@ from typing import Tuple
 
 import torch
 
-from mds_tpu_torch.ops.stem import _check_aligned, _is_cpu, _ptr, _raise_on, _stream
+from mds_tpu_torch.ops.stem import (
+    _check_aligned,
+    _custom_ops,
+    _is_cpu,
+    _ptr,
+    _raise_on,
+    _stream,
+)
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -86,7 +93,9 @@ def upsample_argmax_plain(logits: torch.Tensor, scale: int) -> torch.Tensor:
 
 def upsample_argmax(logits: torch.Tensor, scale: int) -> torch.Tensor:
     """Fused ×`scale` bilinear upsample + argmax (TPU kernel 11): logits
-    (B, C, h, w) channels_last, bf16 or f32 → (B, h·scale, w·scale) int32."""
+    (B, C, h, w) channels_last, bf16 or f32 → (B, h·scale, w·scale) int32.
+    While torch.export traces, it calls its custom op (ops/custom_ops.py),
+    whose body is this wrapper."""
     name = "upsample_argmax"
     if logits.dim() != 4 or logits.dtype not in _DTYPES:
         raise ValueError(f"{name}: logits must be 4-d bf16 or f32, got "
@@ -94,6 +103,8 @@ def upsample_argmax(logits: torch.Tensor, scale: int) -> torch.Tensor:
     if int(scale) != scale or scale < 1:
         raise ValueError(f"{name}: scale must be an integer >= 1, got {scale}")
     scale = int(scale)
+    if torch.compiler.is_compiling():
+        return _custom_ops().upsample_argmax(logits, scale)
     if _is_cpu(logits):
         return upsample_argmax_plain(logits, scale)
     if not logits.is_contiguous(memory_format=torch.channels_last):

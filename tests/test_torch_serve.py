@@ -292,16 +292,19 @@ def test_static_scan_finds_no_mds_tpu():
 
 
 def test_port_copies_equal_the_jax_tables():
-    """Configer, get_spec and bisenetv2_to_torch of the port give what the
-    JAX package's give."""
+    """Configer, get_spec (the palettes and class names too), load_specs,
+    apply_lut and bisenetv2_to_torch of the port give what the JAX
+    package's give."""
     import jax
 
     from mds_tpu.config import Configer as JConfiger
+    from mds_tpu.data.labels import apply_lut as j_apply_lut
     from mds_tpu.data.labels import get_spec as j_get_spec
+    from mds_tpu.data.labels import load_specs as j_load_specs
     from mds_tpu.deploy.torch_import import bisenetv2_to_torch as j_to_torch
     from mds_tpu.models.bisenetv2 import bisenetv2_origin
     from mds_tpu_torch.config import Configer
-    from mds_tpu_torch.data.labels import _raw_specs, get_spec
+    from mds_tpu_torch.data.labels import _raw_specs, apply_lut, get_spec, load_specs
     from mds_tpu_torch.deploy.weights import bisenetv2_to_torch
 
     for path in glob.glob(os.path.join(ROOT, "configs", "*.json")):
@@ -314,8 +317,16 @@ def test_port_copies_equal_the_jax_tables():
     for name in _raw_specs():
         a, b = get_spec(name), j_get_spec(name)
         assert a.n_cats == b.n_cats
-        for f in ("mean", "std", "lut_eval", "lut_train"):
+        for f in ("mean", "std", "lut_eval", "lut_train", "palette"):
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        assert list(a.class_names) == list(b.class_names)
+    specs, j_specs = load_specs(), j_load_specs()
+    assert sorted(specs) == sorted(j_specs) == sorted(_raw_specs())
+    lb = np.random.default_rng(0).integers(0, 256, (8, 9)).astype(np.uint8)
+    for name, spec in specs.items():
+        np.testing.assert_array_equal(spec.palette, j_specs[name].palette)
+        np.testing.assert_array_equal(apply_lut(lb, spec.lut_eval),
+                                      j_apply_lut(lb, j_specs[name].lut_eval))
     jm = bisenetv2_origin(n_classes=(5, 7), n_bn=2)
     x = np.zeros((1, 32, 32, 3), np.float32)
     v = jax.jit(lambda k: jm.init({"params": k, "dropout": k}, [x, x], train=True))(

@@ -127,6 +127,19 @@ def randomize_variables(v, rng):
     return walk({k: v[k] for k in v}, ())
 
 
+def randomize_bn(model, seed):
+    """Non-trivial running stats in every BatchNorm2d of a port model, from
+    torch seed `seed`; the model in eval mode."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(n, generator=gen) + 0.5)
+    return model.eval()
+
+
 def oihw(k):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(k).transpose(3, 2, 0, 1)))
 

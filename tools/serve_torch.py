@@ -5,6 +5,13 @@ mds_tpu_torch/deploy/server.py for the protocol).
   python tools/serve_torch.py --config configs/bisenetv2_city.json \
       [--weights W.npz|W.pt] [--seed 0] [--size 1024 2048] [--port 8000] \
       [--name NAME] [--instances 2]
+  python tools/serve_torch.py --engine model.pt2 [--port 8000] [--name NAME] \
+      [--instances 2]
+
+--engine serves an artifact of tools/segment_torch.py compile (the
+counterpart of tools/serve.py): at its own input shape, on the device it
+was exported for (a CUDA artifact needs a card), through the kernels and
+routes it was exported with; --name defaults to bisenetv2.
   python tools/serve_torch.py --config configs/bisenetv1_city.json
   python tools/serve_torch.py --config configs/ltbgnn_3_datasets_snp.json
   python tools/serve_torch.py --config configs/hrnet_w48_city.json \
@@ -41,6 +48,24 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
+def serve_routes() -> None:
+    """Switch on every deploy route of models/layers.py: the routes this
+    tool serves a --config model on, and segment_torch.py --fp16 exports."""
+    from mds_tpu_torch.models.layers import (
+        set_depthwise_impl,
+        set_detail_fuse,
+        set_detail_tail,
+        set_pred_impl,
+        set_stem_impl,
+    )
+
+    set_stem_impl("kernel")
+    set_detail_fuse(True)
+    set_detail_tail(True)
+    set_depthwise_impl("kernel")
+    set_pred_impl("fused")
+
+
 def build_e2e(config: str, weights=None, seed: int = 0, device: str = "cuda"):
     """Config (+ weights) → E2EModel in bf16 on `device`."""
     import numpy as np
@@ -75,7 +100,9 @@ def build_e2e(config: str, weights=None, seed: int = 0, device: str = "cuda"):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", required=True)
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--config")
+    src.add_argument("--engine", help="an artifact of segment_torch.py compile")
     ap.add_argument("--weights", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--size", type=int, nargs=2, default=[1024, 2048])
@@ -90,27 +117,23 @@ def main():
 
     from mds_tpu_torch.config import Configer
     from mds_tpu_torch.deploy.server import InferenceServer
-    from mds_tpu_torch.models.layers import (
-        set_depthwise_impl,
-        set_detail_fuse,
-        set_detail_tail,
-        set_pred_impl,
-        set_stem_impl,
-    )
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("serve_torch needs a CUDA device")
-    name = args.name or Configer(config_file=args.config).get(
-        "model_name", default="bisenetv2")
-    set_stem_impl("kernel")
-    set_detail_fuse(True)
-    set_detail_tail(True)
-    set_depthwise_impl("kernel")
-    set_pred_impl("fused")
-    srv = InferenceServer(build_e2e(args.config, args.weights, args.seed),
-                          tuple(args.size), name=name, instances=args.instances)
-    print(f"serving {name} {srv.in_shape} on :{args.port} "
-          f"({torch.cuda.get_device_name(0)})")
+    if args.engine:
+        srv = InferenceServer(args.engine, name=args.name or "bisenetv2",
+                              instances=args.instances)
+        where = srv.model.device
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError("serve_torch needs a CUDA device")
+        name = args.name or Configer(config_file=args.config).get(
+            "model_name", default="bisenetv2")
+        serve_routes()
+        srv = InferenceServer(build_e2e(args.config, args.weights, args.seed),
+                              tuple(args.size), name=name, instances=args.instances)
+        where = torch.device("cuda")
+    if where.type == "cuda":
+        where = torch.cuda.get_device_name(where)
+    print(f"serving {srv.name} {srv.in_shape} on :{args.port} ({where})", flush=True)
     srv.serve(args.port)
 
 
